@@ -86,36 +86,41 @@ def _layout(leaf: str, arr: np.ndarray) -> np.ndarray:
     return arr
 
 
+def port_key(path: Tuple[str, ...]) -> str:
+    """The port ``state_dict`` key of a JAX leaf path (without its collection);
+    the ``q_proj``/``k_proj``/``v_proj`` leaves of an attention land in its packed
+    ``in_proj_weight`` / ``in_proj_bias``."""
+    joined = "/".join(path)
+    if joined in _LEAF_RULES:
+        return _LEAF_RULES[joined]
+    *mod, leaf = path
+    if leaf not in _LEAF_NAMES:
+        raise KeyError(f"unexpected leaf {leaf!r} at {joined!r}")
+    if mod and mod[-1] in _QKV:
+        name = "in_proj_weight" if leaf == "kernel" else "in_proj_bias"
+        return f"{_module('/'.join(mod[:-1]))}.{name}"
+    if mod and mod[-1] == "out_proj":
+        return f"{_module('/'.join(mod[:-1]))}.out_proj.{_LEAF_NAMES[leaf]}"
+    return f"{_module('/'.join(mod))}.{_LEAF_NAMES[leaf]}"
+
+
 def maskformer_from_jax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
     """JAX ``MaskFormer`` variables -> ``state_dict`` for the port's ``MaskFormer``."""
     flat = {}
     for col in ("params", "batch_stats"):
         flat.update(_flatten(variables.get(col, {})))
     sd: Dict[str, np.ndarray] = {}
-    packed: Dict[str, Dict[str, Dict[str, np.ndarray]]] = {}
+    packed: Dict[str, Dict[str, np.ndarray]] = {}
     for path, arr in flat.items():
-        joined = "/".join(path)
-        if joined in _LEAF_RULES:
-            sd[_LEAF_RULES[joined]] = arr
-            continue
-        *mod, leaf = path
-        if leaf not in _LEAF_NAMES:
-            raise KeyError(f"unexpected leaf {leaf!r} at {joined!r}")
-        if mod and mod[-1] in _QKV:
-            mha = _module("/".join(mod[:-1]))
-            packed.setdefault(mha, {}).setdefault(leaf, {})[mod[-1]] = _layout(leaf, arr)
-            continue
-        if mod and mod[-1] == "out_proj":
-            module = _module("/".join(mod[:-1])) + ".out_proj"
+        key = port_key(path)
+        if len(path) > 1 and path[-2] in _QKV:
+            packed.setdefault(key, {})[path[-2]] = _layout(path[-1], arr)
         else:
-            module = _module("/".join(mod))
-        sd[f"{module}.{_LEAF_NAMES[leaf]}"] = _layout(leaf, arr)
-    for mha, parts in packed.items():
-        for leaf, by_proj in parts.items():
-            if set(by_proj) != set(_QKV):
-                raise KeyError(f"{mha}: incomplete q/k/v {leaf} ({sorted(by_proj)})")
-            name = "in_proj_weight" if leaf == "kernel" else "in_proj_bias"
-            sd[f"{mha}.{name}"] = np.concatenate([by_proj[p] for p in _QKV], axis=0)
+            sd[key] = _layout(path[-1], arr)
+    for key, by_proj in packed.items():
+        if set(by_proj) != set(_QKV):
+            raise KeyError(f"{key}: incomplete q/k/v ({sorted(by_proj)})")
+        sd[key] = np.concatenate([by_proj[p] for p in _QKV], axis=0)
     return OrderedDict(
         (k, torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)))
         for k, v in sorted(sd.items()))

@@ -1,0 +1,161 @@
+"""Hungarian matching for mask classification: costs in PyTorch, the assignment
+on the card.
+
+Counterpart of ``multishiftseg_tpu/losses/matcher.py``: the per-image cost
+(class + point-sampled sigmoid-CE + dice, :112-156) is computed batched in f32,
+and the minimum-cost assignment (``linear_sum_assignment``, :28-109) is the CUDA
+kernel ``csrc/assignment.cu`` for CUDA tensors and the same algorithm in numpy
+on the host for CPU tensors. Target slots are the K train ids; a slot whose
+class is absent from the image costs ``BIG`` against every query. Rows of the
+assignment problem are targets, columns are queries.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+BIG = 1e9
+
+# Kernel launches (see ``ops.launch_counts``).
+LAUNCHES = {"linear_sum_assignment": 0}
+
+
+def linear_sum_assignment(cost: torch.Tensor) -> torch.Tensor:
+    """Min-cost assignment of each of R rows to one of C columns (R <= C) for a
+    batch of problems: cost [B, R, C] -> col4row [B, R] int64.
+
+    Jonker-Volgenant shortest augmenting paths with dual potentials, row by row,
+    ties to the lowest column: the JAX solver's algorithm and arithmetic, so the
+    same assignment. The kernel for a CUDA tensor, the plain version on the host
+    for a CPU tensor.
+    """
+    if cost.dim() != 3 or cost.shape[1] > cost.shape[2]:
+        raise ValueError(f"expected cost [B, R, C] with R <= C, got {tuple(cost.shape)}")
+    if cost.device.type == "cpu":
+        return linear_sum_assignment_plain(cost)
+    return _lsa_cuda(cost)
+
+
+def linear_sum_assignment_plain(cost: torch.Tensor, steps: Optional[list] = None
+                                ) -> torch.Tensor:
+    """Plain version: the solver in numpy float32, one problem after another.
+    ``steps``, when given, receives each problem's count of Dijkstra steps (the
+    work this data needs: each step touches every column)."""
+    c = cost.detach().float().cpu().numpy()
+    out = (np.stack([_lsa_one(m, steps) for m in c]) if len(c)
+           else np.zeros((0, c.shape[1]), np.int64))
+    return torch.from_numpy(out.astype(np.int64)).to(cost.device)
+
+
+def _lsa_one(cost: np.ndarray, steps: Optional[list] = None) -> np.ndarray:
+    """``matcher.py:42-108`` for one [R, C] float32 problem, operation for operation."""
+    r, c = cost.shape
+    f32 = np.float32
+    u = np.zeros(r, f32)
+    v = np.zeros(c, f32)
+    col4row = np.full(r, -1, np.int64)
+    row4col = np.full(c, -1, np.int64)
+    n_steps = 0
+    for cur in range(r):
+        shortest = np.full(c, np.inf, f32)
+        parent = np.full(c, cur, np.int64)
+        visited = np.zeros(c, bool)
+        i, sink, minval = cur, -1, f32(0.0)
+        while sink < 0:
+            n_steps += 1
+            reduced = ((cost[i] - u[i]) - v) + minval
+            better = (reduced < shortest) & ~visited
+            shortest = np.where(better, reduced, shortest)
+            parent = np.where(better, i, parent)
+            masked = np.where(visited, np.inf, shortest).astype(f32)
+            j = int(np.argmin(masked))  # first occurrence, as jnp.argmin
+            minval = masked[j]
+            visited[j] = True
+            if row4col[j] < 0:
+                sink = j
+            else:
+                i = int(row4col[j])
+        u[cur] = u[cur] + minval
+        delta = (minval - shortest).astype(f32)
+        for j in np.nonzero(visited & (row4col >= 0))[0]:
+            u[row4col[j]] = u[row4col[j]] + delta[j]
+        v = np.where(visited, v + (-delta), v).astype(f32)
+        j = sink
+        while True:
+            i = int(parent[j])
+            prev = int(col4row[i])
+            row4col[j] = i
+            col4row[i] = j
+            j = prev
+            if i == cur:
+                break
+    if steps is not None:
+        steps.append(n_steps)
+    return col4row
+
+
+def _lsa_cuda(cost: torch.Tensor) -> torch.Tensor:
+    if cost.dtype != torch.float32:
+        raise TypeError(f"cost must be float32, got {cost.dtype}")
+    cost = cost.contiguous()
+    b, r, c = cost.shape
+    from .._build import load
+
+    lib = load("assignment")
+    fn = lib.lsa_solve
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = torch.empty((b, r), dtype=torch.int32, device=cost.device)
+    with torch.cuda.device(cost.device):
+        stream = torch.cuda.current_stream(cost.device).cuda_stream
+        rc = fn(cost.data_ptr(), out.data_ptr(), b, r, c, stream)
+    if rc != 0:
+        raise RuntimeError(f"lsa_solve failed: cudaError {rc}")
+    LAUNCHES["linear_sum_assignment"] += 1
+    return out.long()
+
+
+def batch_sigmoid_ce_cost(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """[B, Q, P] logits x [B, T, P] targets -> [B, Q, T] mean BCE cost."""
+    p = inputs.shape[-1]
+    pos = F.softplus(-inputs)
+    neg = F.softplus(inputs)
+    return (pos @ targets.transpose(1, 2) + neg @ (1.0 - targets).transpose(1, 2)) / p
+
+
+def batch_dice_cost(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """[B, Q, P] logits x [B, T, P] targets -> [B, Q, T] dice cost."""
+    probs = torch.sigmoid(inputs)
+    numerator = 2.0 * (probs @ targets.transpose(1, 2))
+    denominator = probs.sum(-1)[:, :, None] + targets.sum(-1)[:, None, :]
+    return 1.0 - (numerator + 1.0) / (denominator + 1.0)
+
+
+def compute_match_cost(pred_logits: torch.Tensor, out_points: torch.Tensor,
+                       tgt_points: torch.Tensor, valid: torch.Tensor,
+                       cost_class_w: float, cost_mask_w: float,
+                       cost_dice_w: float) -> torch.Tensor:
+    """[B, Q, T] total matching cost for semantic targets (slot t is class t);
+    invalid slots cost ``BIG``."""
+    probs = torch.softmax(pred_logits.float(), dim=-1)
+    t = tgt_points.shape[1]
+    out_points = out_points.float()
+    cost = (cost_class_w * -probs[..., :t]
+            + cost_mask_w * batch_sigmoid_ce_cost(out_points, tgt_points)
+            + cost_dice_w * batch_dice_cost(out_points, tgt_points))
+    return torch.where(valid[:, None, :], cost, torch.full_like(cost, BIG))
+
+
+@torch.no_grad()
+def match(pred_logits: torch.Tensor, out_points: torch.Tensor, tgt_points: torch.Tensor,
+          valid: torch.Tensor, cost_class_w: float = 2.0, cost_mask_w: float = 5.0,
+          cost_dice_w: float = 5.0) -> torch.Tensor:
+    """Batched matching -> the query of each target slot, [B, T] int64."""
+    cost = compute_match_cost(pred_logits, out_points, tgt_points, valid,
+                              cost_class_w, cost_mask_w, cost_dice_w)
+    return linear_sum_assignment(cost.transpose(1, 2))  # rows = targets

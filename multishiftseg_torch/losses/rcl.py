@@ -1,0 +1,161 @@
+"""Relative Contrastive Loss (RCL), the paper's anomaly-aware loss.
+
+Counterpart of ``multishiftseg_tpu/losses/rcl.py`` (all of it). The batch's
+leading axis is [clean half ‖ augmented half]. The random numbers are an input:
+``noise`` [3, B * H * W] holds the uniform draws that pick the contrastive pixel
+pairs (clean in-distribution, augmented in-distribution, OOD), which the JAX
+version draws from three keys split off ``rng`` (``rcl.py:171-174``). The
+caller makes them (``losses.criterion.criterion_draws``), so the port and the
+JAX package can be fed the very same numbers.
+
+Pairs are formed by position: the i-th sampled clean pixel meets the i-th sampled
+OOD pixel. Sampling keeps the pixels with the largest noise, ties broken towards
+the lower index as ``jax.lax.top_k`` does, by a stable descending sort.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class RCLParams:
+    """The ``loss.params`` dict of the experiment YAMLs."""
+
+    ce_weights: Tuple[float, float] = (1.0, 1.0)
+    inoutaug_contras_margins_tri: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    contras_weight: float = 1.0
+    sample_ratio: float = 1.0
+    conduct_pixel_selection: bool = False
+    selection_ratio: float = 1.0
+    in_id: int = 99
+    void_id: int = 255
+    num_pair_samples: int = 65536  # cap on contrastive pixel pairs
+
+
+def make_rcl_params(cfg_params: Optional[dict]) -> RCLParams:
+    """RCLParams from a reference-style ``loss.params`` dict."""
+    d = dict(cfg_params or {})
+    kw = {}
+    for name in ("ce_weights", "inoutaug_contras_margins_tri", "contras_weight",
+                 "sample_ratio", "conduct_pixel_selection", "selection_ratio",
+                 "num_pair_samples"):
+        if name in d and d[name] is not None:
+            v = d[name]
+            kw[name] = tuple(v) if isinstance(v, list) else v
+    return RCLParams(**kw)
+
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    cnt = mask.sum()
+    return torch.where(cnt > 0, (x * mask).sum() / cnt.clamp_min(1), x.new_zeros(()))
+
+
+def _pixel_ce(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per-pixel cross entropy, zero where invalid. logits [..., C], targets [...]."""
+    logp = F.log_softmax(logits.float(), dim=-1)
+    t = targets.clamp(0, logits.shape[-1] - 1).long()
+    return -logp.gather(-1, t[..., None])[..., 0] * valid
+
+
+def _bottom_k_sum(values: torch.Tensor, keyed: torch.Tensor,
+                  select_num: torch.Tensor) -> torch.Tensor:
+    """Sum of the ``select_num`` smallest-keyed elements of ``values`` by an exact
+    k-th-smallest threshold found by a 32-step binary search over the float32 bit
+    pattern (``rcl.py:65-97``); ties at the threshold share the remaining weight.
+    ``keyed`` is a detached copy of ``values`` (>= 0, +inf where invalid). The
+    plain version only: its kernel comes with DeepLab training, the one recipe
+    that selects pixels."""
+    bits = keyed.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    lo = torch.zeros((), dtype=torch.int64, device=values.device)
+    hi = torch.full((), 0xFFFFFFFF, dtype=torch.int64, device=values.device)
+    for _ in range(32):
+        mid = lo + (hi - lo) // 2
+        found = (bits <= mid).sum() >= select_num
+        lo, hi = torch.where(found, lo, mid + 1), torch.where(found, mid, hi)
+    less = bits < lo
+    eq = bits == lo
+    n_less = less.sum()
+    n_eq = eq.sum().clamp_min(1)
+    need = (select_num - n_less).clamp_min(0).float()
+    zero = values.new_zeros(())
+    return (torch.where(less, values, zero).sum()
+            + torch.where(eq, values, zero).sum() * (need / n_eq.float()))
+
+
+def _sample_masked(noise: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,
+                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Up to ``k`` distinct elements of ``values`` where ``mask``, uniformly: the
+    ``k`` largest of ``noise`` (masked to -1), ties to the lower index. Returns
+    (samples [k], count); positions past the count hold arbitrary values."""
+    scored = torch.where(mask, noise, torch.full_like(noise, -1.0))
+    order = torch.sort(scored, descending=True, stable=True).indices
+    return values[order[:min(k, mask.numel())]], mask.sum()
+
+
+def rel_contrastive_loss(logits: torch.Tensor, anomaly_score: torch.Tensor,
+                         targets: torch.Tensor, noise: torch.Tensor,
+                         params: RCLParams) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """RCL loss and its components.
+
+    logits [B, H, W, C]; anomaly_score [B, H, W]; targets [B, H, W] int (< 99
+    in-distribution train ids, > 99 and != 255 OOD, 255 void); noise [3, B*H*W]
+    uniform draws in [0, 1).
+    """
+    p = params
+    b = logits.shape[0]
+    half = b // 2
+    targets = targets.long()
+    ood_mask = (targets > p.in_id) & (targets != p.void_id)
+    in_mask = targets < p.in_id
+
+    # (a) CE on the clean half; NLLLoss(reduction='none').mean() divides by all pixels
+    ce_map = _pixel_ce(logits, torch.where(in_mask, targets, torch.full_like(targets, p.void_id)),
+                       in_mask)
+    ce_original = ce_map[:half].mean()
+
+    # (b) CE on the augmented half, optionally over the easiest pixels only
+    aug_ce = ce_map[half:].reshape(-1)
+    aug_in = in_mask[half:].reshape(-1)
+    if p.conduct_pixel_selection and 0.0 < p.selection_ratio < 1.0:
+        keyed = torch.where(aug_in, aug_ce.detach(), torch.full_like(aug_ce, float("inf")))
+        select_num = (p.selection_ratio * aug_in.sum()).to(torch.int32)
+        ssum = _bottom_k_sum(aug_ce, keyed, select_num)
+        ce_aug = torch.where(select_num > 0, ssum / select_num.clamp_min(1), ssum.new_zeros(()))
+    else:
+        ce_aug = torch.where(aug_in.sum() > 0, aug_ce.sum() / aug_ce.numel(),
+                             aug_ce.new_zeros(()))
+    ce_loss = p.ce_weights[0] * ce_original + p.ce_weights[1] * ce_aug
+
+    # (c) contrastive terms over pixel pairs
+    score = anomaly_score.float()
+    in_orig = in_mask.clone()
+    in_orig[half:] = False
+    in_aug = in_mask.clone()
+    in_aug[:half] = False
+    flat_score = score.reshape(-1)
+    if tuple(noise.shape) != (3, flat_score.numel()):
+        raise ValueError(f"noise {tuple(noise.shape)}, expected (3, {flat_score.numel()})")
+    k = min(p.num_pair_samples, flat_score.numel())
+    s_orig, n_orig = _sample_masked(noise[0], flat_score, in_orig.reshape(-1), k)
+    s_aug, n_aug = _sample_masked(noise[1], flat_score, in_aug.reshape(-1), k)
+    s_ood, n_ood = _sample_masked(noise[2], flat_score, ood_mask.reshape(-1), k)
+    total_budget = int(p.sample_ratio * targets.numel())
+    n_pairs = torch.stack([n_orig, n_aug, n_ood]).min().clamp_max(min(k, total_budget))
+    pair_w = (torch.arange(k, device=score.device) < n_pairs).float()
+
+    m0, m1, m2 = p.inoutaug_contras_margins_tri
+    contras_original = _masked_mean(F.relu(s_orig + m0 - s_ood), pair_w)
+    contras_aug = _masked_mean(F.relu(s_aug + m1 - s_ood), pair_w)
+    same_in = (in_mask[:half] & in_mask[half:]).float()
+    contras_in = _masked_mean(F.relu(score[half:] - score[:half] - m2), same_in)
+
+    loss = ce_loss + p.contras_weight * (contras_original + contras_aug + contras_in)
+    aux = {"ce_original": ce_original, "ce_aug": ce_aug,
+           "contras_original": contras_original, "contras_aug": contras_aug,
+           "contras_in": contras_in, "n_pairs": n_pairs.float()}
+    return loss, aux

@@ -19,13 +19,18 @@ from .layers import Conv2d, he_normal_
 
 
 class FrozenBN(nn.Module):
-    """BatchNorm with frozen statistics (detectron2 ``FrozenBatchNorm2d``)."""
+    """BatchNorm with frozen running statistics (detectron2 ``FrozenBatchNorm2d``).
+
+    The statistics are buffers; the affine ``weight`` and ``bias`` are parameters,
+    as the JAX package's ``FrozenBN`` keeps them in ``params``, so stage-2
+    fine-tuning trains them (at the backbone's rate, without weight decay).
+    """
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(num_features))
-        self.register_buffer("bias", torch.zeros(num_features))
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 

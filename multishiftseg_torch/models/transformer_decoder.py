@@ -105,8 +105,10 @@ class MultiScaleMaskedTransformerDecoderGMA(nn.Module):
         product serves both heads."""
         x = self.decoder_norm(output)
         mask_embed = self.mask_embed(x)
-        outputs_mask = torch.einsum("nqc,nchw->nqhw", mask_embed.float(),
-                                    mask_features.float())
+        # an f32 island, as in the JAX decoder: autocast would run it in bf16
+        with torch.autocast(mask_features.device.type, enabled=False):
+            outputs_mask = torch.einsum("nqc,nchw->nqhw", mask_embed.float(),
+                                        mask_features.float())
         return self.class_embed(x), self.class_embed2(x), outputs_mask
 
     def forward(self, x: Sequence[torch.Tensor],

@@ -3,16 +3,19 @@
 from typing import Dict
 
 
-def launch_counts() -> Dict[str, int]:
-    """Kernel launches per entry point since the last :func:`reset_launch_counts`."""
+def _counters():
+    from ..losses import criterion, matcher
     from . import ms_deform_attn, scores
 
-    return {**ms_deform_attn.LAUNCHES, **scores.LAUNCHES}
+    return (ms_deform_attn.LAUNCHES, scores.LAUNCHES, matcher.LAUNCHES, criterion.LAUNCHES)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches per entry point since the last :func:`reset_launch_counts`."""
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    from . import ms_deform_attn, scores
-
-    for counts in (ms_deform_attn.LAUNCHES, scores.LAUNCHES):
+    for counts in _counters():
         for k in counts:
             counts[k] = 0

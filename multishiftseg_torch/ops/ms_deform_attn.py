@@ -1,9 +1,14 @@
-"""Multi-scale deformable attention: the CUDA kernel, its plain version, the module.
+"""Multi-scale deformable attention: the CUDA kernels, their plain versions, the module.
 
 Counterpart of ``multishiftseg_tpu/ops/ms_deform_attn.py`` (``ms_deform_attn_core``
-:36-90 and ``MSDeformAttn`` :795-870) for the ``bilinear`` and ``nearest`` sample
-modes. The kernel is ``csrc/ms_deform_attn.cu``; the plain version is the
-reference's per-level ``grid_sample`` formula (``ms_deform_attn_core_pytorch``).
+:36-90, its custom VJP ``_core_vjp_fwd`` / ``_core_vjp_bwd`` :565-716 and
+``MSDeformAttn`` :795-870) for the ``bilinear`` and ``nearest`` sample modes. The
+kernels are in ``csrc/ms_deform_attn.cu``: the forward of both modes and the
+backward of ``bilinear``, joined by a ``torch.autograd.Function`` that saves
+(value, loc, attn) as the JAX VJP does. The plain version is the reference's
+per-level ``grid_sample`` formula (``ms_deform_attn_core_pytorch``), and its
+autograd is the plain version of the backward. ``nearest`` has no backward
+kernel: on the card it raises when an input requires grad.
 
 Layouts as in the JAX package:
   value:               [N, S, M, D]  (S = sum_l H_l * W_l)
@@ -22,11 +27,13 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 SAMPLE_MODES = ("bilinear", "nearest")
 
 # Kernel launches per sample mode (see ``ops.launch_counts``).
-LAUNCHES = {"ms_deform_attn_bilinear": 0, "ms_deform_attn_nearest": 0}
+LAUNCHES = {"ms_deform_attn_bilinear": 0, "ms_deform_attn_nearest": 0,
+            "ms_deform_attn_bilinear_backward": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,12 +52,67 @@ def ms_deform_attn_core(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
     """
     if sample_mode not in SAMPLE_MODES:
         raise NotImplementedError(f"sample_mode {sample_mode!r} is not ported")
-    spatial_shapes = [tuple(int(v) for v in hw) for hw in spatial_shapes]
+    spatial_shapes = tuple(tuple(int(v) for v in hw) for hw in spatial_shapes)
     if value.device.type == "cpu":
         return ms_deform_attn_core_plain(value, spatial_shapes, sampling_locations,
                                          attention_weights, sample_mode)
-    return _ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
-                                attention_weights, sample_mode)
+    if sample_mode == "nearest":
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (value, sampling_locations, attention_weights)):
+            raise RuntimeError("ms_deform_attn_core: 'nearest' has no backward kernel; "
+                               "train with 'bilinear' or run under torch.no_grad()")
+        return _ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
+                                    attention_weights, sample_mode)
+    return _MSDeformAttnCore.apply(value, sampling_locations, attention_weights,
+                                   spatial_shapes)
+
+
+class _MSDeformAttnCore(torch.autograd.Function):
+    """The bilinear core on the card: forward and backward kernels. Saves the
+    residuals of the JAX VJP (value, loc, attn) and nothing else."""
+
+    @staticmethod
+    def forward(ctx, value, loc, attn, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, attn)
+        return _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, "bilinear")
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        value, loc, attn = ctx.saved_tensors
+        dvalue, dloc, dattn = ms_deform_attn_backward(value, ctx.spatial_shapes, loc,
+                                                      attn, grad_out)
+        return dvalue, dloc, dattn, None
+
+
+def ms_deform_attn_backward(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                            sampling_locations: torch.Tensor,
+                            attention_weights: torch.Tensor, grad_out: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of the bilinear core for ``grad_out`` [N, Lq, M * D] ->
+    (d value [N, S, M, D] in value's type, d loc f32, d attn in attn's type):
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    spatial_shapes = tuple(tuple(int(v) for v in hw) for hw in spatial_shapes)
+    if value.device.type == "cpu":
+        return ms_deform_attn_backward_plain(value, spatial_shapes, sampling_locations,
+                                             attention_weights, grad_out)
+    return _ms_deform_attn_backward_cuda(value, spatial_shapes, sampling_locations,
+                                         attention_weights, grad_out)
+
+
+def ms_deform_attn_backward_plain(value, spatial_shapes, sampling_locations,
+                                  attention_weights, grad_out):
+    """Plain version of :func:`ms_deform_attn_backward`: autograd of the f32
+    ``grid_sample`` formula."""
+    with torch.enable_grad():
+        v = value.detach().float().requires_grad_()
+        loc = sampling_locations.detach().float().requires_grad_()
+        a = attention_weights.detach().float().requires_grad_()
+        out = ms_deform_attn_core_plain(v, spatial_shapes, loc, a, "bilinear")
+        dv, dl, da = torch.autograd.grad(out, (v, loc, a), grad_out.float())
+    return (dv.to(value.dtype), dl.to(sampling_locations.dtype),
+            da.to(attention_weights.dtype))
 
 
 def ms_deform_attn_core_plain(value: torch.Tensor,
@@ -83,7 +145,7 @@ def ms_deform_attn_core_plain(value: torch.Tensor,
     return out.view(n, m * d, lq).transpose(1, 2).contiguous().to(value.dtype)
 
 
-def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode):
+def _check_core_args(value, spatial_shapes, loc, attn):
     if value.dtype not in _DTYPE_CODE:
         raise TypeError(f"value dtype {value.dtype} not in {list(_DTYPE_CODE)}")
     if attn.dtype != value.dtype:
@@ -109,6 +171,15 @@ def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode):
             raise ValueError(f"{name} must be contiguous")
     if loc.data_ptr() % 8:
         raise ValueError("sampling locations must be 8-byte aligned (read as float2)")
+    return n, s, m, d, lq, L, P
+
+
+def _levels(spatial_shapes):
+    return (ctypes.c_int * (2 * len(spatial_shapes)))(*[v for hw in spatial_shapes for v in hw])
+
+
+def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode):
+    n, s, m, d, lq, L, P = _check_core_args(value, spatial_shapes, loc, attn)
     from .._build import load
 
     lib = load("ms_deform_attn")
@@ -117,17 +188,47 @@ def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode):
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     out = torch.empty((n, lq, m * d), dtype=value.dtype, device=value.device)
-    shapes = (ctypes.c_int * (2 * L))(*[v for hw in spatial_shapes for v in hw])
     nearest = sample_mode == "nearest"
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
         rc = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
-                n, s, m, d, lq, L, P, shapes, _DTYPE_CODE[value.dtype],
+                n, s, m, d, lq, L, P, _levels(spatial_shapes), _DTYPE_CODE[value.dtype],
                 int(nearest), stream)
     if rc != 0:
         raise RuntimeError(f"msda_forward failed: cudaError {rc}")
     LAUNCHES["ms_deform_attn_nearest" if nearest else "ms_deform_attn_bilinear"] += 1
     return out
+
+
+def _ms_deform_attn_backward_cuda(value, spatial_shapes, loc, attn, grad_out):
+    n, s, m, d, lq, L, P = _check_core_args(value, spatial_shapes, loc, attn)
+    if d > 128:
+        raise ValueError(f"the backward kernel takes at most 128 channels a head, got {d}")
+    grad_out = grad_out.to(value.dtype).contiguous()
+    if tuple(grad_out.shape) != (n, lq, m * d) or grad_out.device != value.device:
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} on {grad_out.device}, "
+                         f"expected {(n, lq, m * d)} on {value.device}")
+    from .._build import load
+
+    lib = load("ms_deform_attn")
+    fn = lib.msda_backward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    # d value accumulates by atomics in f32 and is cast once to value's type
+    dvalue = torch.zeros((n, s, m, d), dtype=torch.float32, device=value.device)
+    dloc = torch.empty(loc.shape, dtype=torch.float32, device=value.device)
+    dattn = torch.empty(attn.shape, dtype=attn.dtype, device=value.device)
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        rc = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(), grad_out.data_ptr(),
+                dvalue.data_ptr(), dloc.data_ptr(), dattn.data_ptr(),
+                n, s, m, d, lq, L, P, _levels(spatial_shapes), _DTYPE_CODE[value.dtype],
+                stream)
+    if rc != 0:
+        raise RuntimeError(f"msda_backward failed: cudaError {rc}")
+    LAUNCHES["ms_deform_attn_bilinear_backward"] += 1
+    return dvalue.to(value.dtype), dloc, dattn
 
 
 def _sampling_offsets_bias_init(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:

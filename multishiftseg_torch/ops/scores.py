@@ -5,7 +5,9 @@ Counterpart of ``multishiftseg_tpu/ops/scores.py:25-51`` and
 upsamples the ``[N, Q, h, w]`` mask logits to image size and then contracts them;
 :func:`anomaly_score_upsampled` and :func:`semantic_inference_upsampled` compute
 the same per output pixel in one kernel (``csrc/mask_scores.cu``) for CUDA
-tensors, and through the plain path for CPU tensors.
+tensors, and through the plain path for CPU tensors. The kernel has no backward
+yet: on the card both entries raise when an input requires grad, rather than
+return a result cut off from the graph.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ def anomaly_score_upsampled(class_logits_ood: torch.Tensor,
     """Anomaly score at ``out_hw`` from low-resolution mask logits -> [N, H, W]."""
     if mask_logits_ood.device.type == "cpu":
         return anomaly_score_upsampled_plain(class_logits_ood, mask_logits_ood, out_hw)
+    _refuse_grad("anomaly_score_upsampled", class_logits_ood, mask_logits_ood)
     probs = torch.softmax(class_logits_ood.float(), dim=-1)[..., :-1].contiguous()
     return _mask_scores_cuda(mask_logits_ood, probs, None, out_hw)
 
@@ -86,6 +89,7 @@ def semantic_inference_upsampled(class_logits: torch.Tensor, mask_logits: torch.
     if mask_logits.device.type == "cpu":
         return semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
                                                   num_classes)
+    _refuse_grad("semantic_inference_upsampled", class_logits, mask_logits)
     probs = torch.softmax(class_logits.float(), dim=-1)[..., :-1].contiguous()
     keep = keep_weights(class_logits, num_classes).contiguous()
     return _mask_scores_cuda(mask_logits, probs, keep, out_hw)
@@ -96,6 +100,12 @@ def semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
     """Plain version of :func:`semantic_inference_upsampled`: resize, then score."""
     up = resize_bilinear_nchw(mask_logits.float(), out_hw, align_corners=False)
     return semantic_inference(class_logits, up, num_classes)
+
+
+def _refuse_grad(name, *tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the score-tail kernel has no backward yet; "
+                           "run it under torch.no_grad()")
 
 
 def _mask_scores_cuda(masks, probs, keep, out_hw):

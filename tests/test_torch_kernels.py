@@ -1,20 +1,25 @@
-"""PyTorch port: the CUDA kernels against their plain PyTorch versions on the card.
+"""PyTorch port: the CUDA kernels against their plain PyTorch versions on the card,
+and the port's card-only guards.
 
-These tests carry the ``cuda`` marker: they need a CUDA device and skip without
-one (``-m cuda`` selects them). They import neither JAX nor
-the JAX package, so they also run where JAX is not installed:
+The kernel tests carry the ``cuda`` marker: they need a CUDA device and skip
+without one (``-m cuda`` selects them). The rest run on the CPU. The file imports
+neither JAX nor the JAX package, so it also runs where JAX is not installed:
 ``python -m pytest --noconftest tests/test_torch_kernels.py`` (the suite's
 ``conftest.py`` imports JAX).
 """
+
+import ast
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from multishiftseg_torch.losses import criterion, matcher
 from multishiftseg_torch.ops import ms_deform_attn as msda
 from multishiftseg_torch.ops import scores
 
-pytestmark = pytest.mark.cuda
+REPO = Path(__file__).resolve().parents[1]
 
 N, M, LQ, P = 2, 4, 7, 3
 # (1, 5) and (4, 1) are the degenerate h == 1 / w == 1 levels a 32-px input side
@@ -46,6 +51,7 @@ def _msda_inputs(rng, shapes, d):
     return value, loc, attn
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 6])  # 16-byte channel groups, single channels
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
@@ -65,6 +71,7 @@ def test_ms_deform_attn_kernel_matches_plain(cuda, dtype, mode, levels, d):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.cuda
 @pytest.mark.parametrize("classes", [19, 25])  # sums in 20 or 32 registers
 @pytest.mark.parametrize("out_hw", [(64, 80), (16, 20), (37, 45)])
 def test_mask_scores_kernel_matches_plain(cuda, out_hw, classes):
@@ -81,3 +88,147 @@ def test_mask_scores_kernel_matches_plain(cuda, out_hw, classes):
     # f32 throughout; sums over Q taken in another order
     torch.testing.assert_close(sem, sem_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(anomaly, anomaly_ref, rtol=1e-5, atol=1e-5)
+
+
+def _off_kinks(loc, shapes, margin=1e-3):
+    """Move points ``margin`` px away from integer pixel positions, where the
+    backward's location slope is one-sided and the two versions may take other
+    sides after rounding."""
+    size = np.array([[w, h] for h, w in shapes], np.float32)[None, None, None, :, None, :]
+    px = loc * size - 0.5
+    near = np.abs(px - np.round(px)) < margin
+    return np.where(near, (px + 2 * margin + 0.5) / size, loc).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 6, 40])  # one channel a lane; partial lanes; 2 chunks
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("levels", sorted(LEVEL_SETS))
+def test_ms_deform_attn_backward_kernel_matches_plain(cuda, dtype, levels, d):
+    rng = np.random.RandomState(2)
+    shapes = LEVEL_SETS[levels]
+    value, loc, attn = _msda_inputs(rng, shapes, d)
+    loc = _off_kinks(loc, shapes)
+    g = rng.randn(N, LQ, M * d).astype(np.float32)
+    v = torch.from_numpy(value).to(cuda, dtype)
+    lo = torch.from_numpy(loc).to(cuda)
+    a = torch.from_numpy(attn).to(cuda, dtype)
+    gt = torch.from_numpy(g).to(cuda, dtype)
+    got = msda.ms_deform_attn_backward(v, shapes, lo, a, gt)
+    want = msda.ms_deform_attn_backward_plain(v, shapes, lo, a, gt)
+    torch.cuda.synchronize()
+    assert [t.dtype for t in got] == [dtype, torch.float32, dtype]
+    # f32: sums (atomics in d value) in another order; bf16: both round the f32
+    # result once, one bf16 step (2^-8) of the largest entry
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for x, y in zip(got, want):
+        scale = float(y.float().abs().max())
+        torch.testing.assert_close(x.float(), y.float(), rtol=tol, atol=tol * scale)
+
+
+@pytest.mark.cuda
+def test_ms_deform_attn_autograd_on_the_card(cuda):
+    """A loss through the module on the card reaches every projection (the
+    kernel pair under the autograd Function), as the CPU's plain version does."""
+    rng = np.random.RandomState(3)
+    shapes = [(4, 6), (2, 3)]
+    s = sum(h * w for h, w in shapes)
+    torch.manual_seed(0)
+    cpu = msda.MSDeformAttn(d_model=32, n_levels=2, n_heads=4, n_points=3)
+    with torch.no_grad():
+        for p in cpu.parameters():
+            p.add_(0.1 * torch.from_numpy(rng.randn(*p.shape).astype(np.float32)))
+    gpu = msda.MSDeformAttn(d_model=32, n_levels=2, n_heads=4, n_points=3).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    q = rng.randn(1, s, 32).astype(np.float32)
+    ref = rng.rand(1, s, 2, 2).astype(np.float32)
+    before = msda.LAUNCHES["ms_deform_attn_bilinear_backward"]
+    for mod, dev in ((cpu, "cpu"), (gpu, cuda)):
+        x = torch.from_numpy(q).to(dev)
+        mod(x, torch.from_numpy(ref).to(dev), x, shapes).square().sum().backward()
+    torch.cuda.synchronize()
+    assert msda.LAUNCHES["ms_deform_attn_bilinear_backward"] == before + 1
+    # f32 on both sides (TF32 off for the projections), sums in another order
+    for (name, pc), (_, pg) in zip(cpu.named_parameters(), gpu.named_parameters()):
+        assert float(pg.grad.abs().max()) > 0, name
+        torch.testing.assert_close(pg.grad.cpu(), pc.grad, rtol=1e-4, atol=1e-4 * float(
+            pc.grad.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 19, 100), (3, 5, 8), (2, 1, 1), (2, 7, 300)])
+def test_assignment_kernel_matches_plain(cuda, shape):
+    """Rows at BIG (ties everywhere) included; the same assignment exactly."""
+    rng = np.random.RandomState(4)
+    cost = rng.rand(*shape).astype(np.float32)
+    cost[rng.rand(*shape[:2]) > 0.5] = matcher.BIG
+    c = torch.from_numpy(cost).to(cuda)
+    got = matcher.linear_sum_assignment(c)
+    want = matcher.linear_sum_assignment_plain(c)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+def test_label_points_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(5)
+    k = 19
+    labels = rng.randint(0, 22, (4, 37, 45)).astype(np.int32)
+    labels[:, :3] = 255
+    lab = torch.from_numpy(labels).to(cuda)
+    coords = torch.from_numpy((rng.rand(4, 300, 2) * 1.2 - 0.1).astype(np.float32)).to(cuda)
+    got = criterion.sample_target_points(lab, coords, k)
+    want = criterion.sample_target_points_plain(lab, coords, k)
+    rows = torch.from_numpy((rng.rand(2 * k, 300, 2) * 1.2 - 0.1).astype(np.float32)).to(cuda)
+    ids = torch.arange(k, device=cuda).repeat(2)
+    got_r = criterion.sample_class_points(lab, rows, ids, rows_per_map=k, map_offset=2)
+    want_r = criterion.sample_class_points_plain(lab, rows, ids, rows_per_map=k, map_offset=2)
+    torch.cuda.synchronize()
+    # a sum of at most four corner weights in f32, in another order
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# on the CPU: guards that stop a card run from silently losing gradients
+
+
+def _meta_requiring_grad(*shapes, dtype=torch.float32):
+    """Tensors that are not on the CPU, so the wrappers take their card route,
+    without needing a card."""
+    return [torch.zeros(s, device="meta", dtype=dtype).requires_grad_() for s in shapes]
+
+
+def test_score_tail_refuses_grad_off_the_cpu():
+    cls, masks = _meta_requiring_grad((1, 4, 6), (1, 4, 3, 5))
+    with pytest.raises(RuntimeError, match="no backward"):
+        scores.anomaly_score_upsampled(cls, masks, (6, 10))
+    with pytest.raises(RuntimeError, match="no backward"):
+        scores.semantic_inference_upsampled(cls, masks, (6, 10), num_classes=5)
+
+
+def test_nearest_refuses_grad_off_the_cpu():
+    value, loc, attn = _meta_requiring_grad((1, 8, 2, 4), (1, 3, 2, 1, 2, 2), (1, 3, 2, 1, 2))
+    with pytest.raises(RuntimeError, match="no backward"):
+        msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, "nearest")
+
+
+def _imported_modules(path):
+    names = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names.add(node.module)
+    return names
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    pkg = REPO / "multishiftseg_torch"
+    files = sorted(f for f in pkg.rglob("*.py") if "build" not in f.relative_to(pkg).parts)
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    for f in files:
+        for name in _imported_modules(f):
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "flax", "optax", "multishiftseg_tpu"), (f, name)

@@ -15,18 +15,23 @@ import jax
 import jax.numpy as jnp
 
 from multishiftseg_tpu.evals import ood_metrics as jax_metrics
+from multishiftseg_tpu.losses import criterion as jax_criterion
+from multishiftseg_tpu.losses import matcher as jax_matcher
+from multishiftseg_tpu.losses import rcl as jax_rcl
 from multishiftseg_tpu.models import maskformer as jax_maskformer
 from multishiftseg_tpu.models.position_encoding import position_embedding_sine as jax_pos
 from multishiftseg_tpu.ops import ms_deform_attn as jax_msda
 from multishiftseg_tpu.ops import resize as jax_resize
+from multishiftseg_tpu.ops import sampling as jax_sampling
 from multishiftseg_tpu.ops import scores as jax_scores
 
 from multishiftseg_torch.convert.from_jax import maskformer_from_jax
 from multishiftseg_torch.evals import ood_metrics
+from multishiftseg_torch.losses import criterion, matcher, rcl
 from multishiftseg_torch.models.position_encoding import position_embedding_sine
 from multishiftseg_torch.ops import launch_counts
 from multishiftseg_torch.ops import ms_deform_attn as msda
-from multishiftseg_torch.ops import resize, scores
+from multishiftseg_torch.ops import resize, sampling, scores
 from multishiftseg_torch.utils import resolve_device
 
 N, M, D, LQ, P = 2, 4, 8, 7, 3
@@ -198,3 +203,157 @@ def test_cpu_tensors_do_not_launch_kernels(rng):
     scores.anomaly_score_upsampled(torch.from_numpy(_class_logits(rng)),
                                    torch.randn(2, 6, 4, 5), (8, 10))
     assert launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the training slice's ops
+
+
+@pytest.mark.parametrize("levels", sorted(LEVEL_SETS))
+def test_ms_deform_attn_backward_matches_jax_vjp(rng, levels):
+    """The backward's plain version against ``jax.vjp`` of the JAX op (its
+    hand-written ``_core_vjp_bwd``). Random points lie off the integer pixel
+    positions, where the two differ by design (one-sided slope there, 0 in JAX);
+    some lie outside the map; ``degenerate`` has h == 1 and w == 1 levels."""
+    shapes = LEVEL_SETS[levels]
+    value, loc, attn = _msda_inputs(rng, shapes)
+    g = rng.randn(N, LQ, M * D).astype(np.float32)
+    _, vjp = jax.vjp(lambda v, lo, a: jax_msda.ms_deform_attn_core(v, shapes, lo, a),
+                     jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn))
+    refs = vjp(jnp.asarray(g))
+    ours = msda.ms_deform_attn_backward(torch.from_numpy(value), shapes, torch.from_numpy(loc),
+                                        torch.from_numpy(attn), torch.from_numpy(g))
+    for got, ref in zip(ours, refs):
+        ref = np.asarray(ref)
+        # f32 sums of a few corner products in another order
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    assert (loc < 0).any() and (loc > 1).any()
+
+
+def test_ms_deform_attn_module_gradients_reach_the_projections(rng):
+    """On the CPU the core is the differentiable plain version; every projection
+    of the module gets a gradient."""
+    shapes = [(4, 6), (2, 3)]
+    s = sum(h * w for h, w in shapes)
+    tm = msda.MSDeformAttn(d_model=32, n_levels=2, n_heads=4, n_points=3)
+    with torch.no_grad():
+        for p in tm.parameters():
+            p.add_(0.1 * torch.from_numpy(rng.randn(*p.shape).astype(np.float32)))
+    q = torch.from_numpy(rng.randn(1, s, 32).astype(np.float32))
+    ref = torch.from_numpy(rng.rand(1, s, 2, 2).astype(np.float32))
+    tm(q, ref, q, shapes).square().sum().backward()
+    for name, p in tm.named_parameters():
+        assert float(p.grad.abs().max()) > 0, name
+
+
+def test_point_sample_matches_jax(rng):
+    img = rng.randn(2, 9, 13, 3).astype(np.float32)
+    pts = (rng.rand(2, 40, 2) * 1.2 - 0.1).astype(np.float32)  # some points off the map
+    ours = sampling.point_sample(torch.from_numpy(img), torch.from_numpy(pts)).numpy()
+    ref = np.asarray(jax_sampling.point_sample(jnp.asarray(img), jnp.asarray(pts)))
+    np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-6)
+    nchw = sampling.point_sample_nchw(torch.from_numpy(np.ascontiguousarray(
+        img.transpose(0, 3, 1, 2))), torch.from_numpy(pts)).numpy()
+    np.testing.assert_allclose(nchw, ref.transpose(0, 2, 1), rtol=1e-5, atol=1e-6)
+
+
+def test_label_points_match_jax(rng):
+    """Both entries on label maps with ignored ids, void and points off the map;
+    the row entry indexes maps by row // K from an offset instead of repeating
+    them."""
+    k = 5
+    labels = rng.randint(0, 7, (4, 9, 13)).astype(np.int32)
+    labels[:, 0] = 255
+    coords = (rng.rand(4, 30, 2) * 1.2 - 0.1).astype(np.float32)
+    ours = criterion.sample_target_points(torch.from_numpy(labels), torch.from_numpy(coords), k)
+    ref = jax_criterion.sample_target_points(jnp.asarray(labels), jnp.asarray(coords), k)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+    half = 2
+    rows = (rng.rand(half * k, 30, 2) * 1.2 - 0.1).astype(np.float32)
+    ids = np.tile(np.arange(k), half).astype(np.int32)
+    ours = criterion.sample_class_points(torch.from_numpy(labels), torch.from_numpy(rows),
+                                         torch.from_numpy(ids), rows_per_map=k, map_offset=2)
+    ref = jax_criterion.sample_class_points(jnp.repeat(jnp.asarray(labels[2:]), k, axis=0),
+                                            jnp.asarray(rows), jnp.asarray(ids))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
+    assert np.asarray(ref).max() > 0.5
+
+
+def _costs(rng, b, t=19, q=100, p=64):
+    logits = rng.randn(b, q, t + 1).astype(np.float32)
+    out_pts = (3 * rng.randn(b, q, p)).astype(np.float32)
+    tgt_pts = (rng.rand(b, t, p) > 0.6).astype(np.float32)
+    valid = rng.rand(b, t) > 0.5
+    valid[:, 0] = True
+    return logits, out_pts, tgt_pts, valid
+
+
+def test_match_costs_and_assignment_match_jax_and_scipy(rng):
+    """Costs in f32 against the JAX costs; the assignment (rows = targets, about
+    half at BIG) equals the JAX solver's, and on the valid rows it is an optimum
+    by scipy."""
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+
+    logits, out_pts, tgt_pts, valid = _costs(rng, 6)
+    w = dict(cost_class_w=5.0, cost_mask_w=10.0, cost_dice_w=10.0)
+    ours = matcher.compute_match_cost(torch.from_numpy(logits), torch.from_numpy(out_pts),
+                                      torch.from_numpy(tgt_pts), torch.from_numpy(valid), **w)
+    ref = jax.vmap(lambda a, b, c, d: jax_matcher.compute_match_cost(
+        a, b, c, d, w["cost_class_w"], w["cost_mask_w"], w["cost_dice_w"]))(
+        jnp.asarray(logits), jnp.asarray(out_pts), jnp.asarray(tgt_pts), jnp.asarray(valid))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    got = matcher.match(torch.from_numpy(logits), torch.from_numpy(out_pts),
+                        torch.from_numpy(tgt_pts), torch.from_numpy(valid), **w).numpy()
+    want = np.asarray(jax_matcher.match(jnp.asarray(logits), jnp.asarray(out_pts),
+                                        jnp.asarray(tgt_pts), jnp.asarray(valid), **w))
+    np.testing.assert_array_equal(got, want)
+    cost = np.asarray(ref)
+    for i in range(len(cost)):
+        rows = np.nonzero(valid[i])[0]
+        sub = cost[i][:, rows].T  # valid targets x queries
+        r, c = scipy_lsa(sub)
+        assert sub[np.arange(len(rows)), got[i][rows]].sum() == pytest.approx(
+            sub[r, c].sum(), rel=1e-6)
+
+
+def test_linear_sum_assignment_plain_matches_jax_on_masked_problems(rng):
+    """The solver alone on 19 x 100 problems with about half the rows at BIG
+    (ties everywhere), the matcher's shape: the same assignment as the JAX
+    solver, exactly."""
+    cost = rng.rand(40, 19, 100).astype(np.float32)
+    cost[rng.rand(40, 19) > 0.5] = jax_matcher.BIG
+    ours = matcher.linear_sum_assignment(torch.from_numpy(cost)).numpy()
+    ref = np.asarray(jax.vmap(jax_matcher.linear_sum_assignment)(jnp.asarray(cost)))
+    np.testing.assert_array_equal(ours, ref)
+    assert all(len(set(r)) == 19 for r in ours)
+
+
+def test_bottom_k_sum_matches_jax(rng):
+    vals = np.round(rng.rand(500).astype(np.float32) * 20) / 20  # ties at the threshold
+    keyed = np.where(rng.rand(500) > 0.2, vals, np.inf).astype(np.float32)
+    for k in (0, 1, 37, 200, 399):
+        ours = rcl._bottom_k_sum(torch.from_numpy(vals), torch.from_numpy(keyed),
+                                 torch.tensor(k))
+        ref = jax_rcl._bottom_k_sum(jnp.asarray(vals), jnp.asarray(keyed), jnp.asarray(k))
+        np.testing.assert_allclose(float(ours), float(ref), rtol=1e-6, atol=1e-6)
+
+
+def test_loss_score_tail_carries_gradients_like_jax(rng):
+    """The differentiable score tail of the OOD loss (``criterion.py:455-463``):
+    semantic logits at mask resolution, resized to the label map, max over
+    classes. Gradients against ``jax.grad``."""
+    cls = rng.randn(2, 6, 6).astype(np.float32)
+    masks = (3 * rng.randn(2, 6, 8, 10)).astype(np.float32)
+    w = rng.randn(2, 24, 30).astype(np.float32)
+
+    def jax_loss(c, m):
+        px = jax_resize.resize_bilinear(jax_scores.mask2former_semantic_logits(c, m), (24, 30))
+        return jnp.sum(-jnp.max(px, axis=-1) * w)
+
+    gc, gm = jax.grad(jax_loss, argnums=(0, 1))(jnp.asarray(cls), jnp.asarray(masks))
+    c = torch.from_numpy(cls).requires_grad_()
+    m = torch.from_numpy(masks).requires_grad_()
+    px = resize.resize_bilinear(scores.mask2former_semantic_logits(c, m), (24, 30))
+    (-px.max(dim=-1).values * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_allclose(c.grad.numpy(), np.asarray(gc), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(m.grad.numpy(), np.asarray(gm), rtol=1e-4, atol=1e-5)
