@@ -32,14 +32,38 @@ exits non-zero and prints no result. Phases, one JSON line each:
    timed steps, with the launch counts of the timed steps, the losses, the
    gradient norm, peak memory and one profiled step.
 
+7. ``deeplab_parity``: the port's DeepLab v3+ WRN-38 at full widths and a
+   256x512 image, in f32 with TF32 off, on the card (kernels) against the same
+   weights on the CPU (plain versions): trunk output, score and logits.
+8. ``deeplab_serve``: ``build_deeplab_forward`` at 1024x2048, batch 1, bf16
+   autocast over f32 weights, 3 requests after 2 warm-up, with their launch
+   counts (3 dilated convs a request, no other kernel) and one profiled request.
+9. ``deeplab_train_parity``, once per seed of ``DL_TRAIN_PARITY_SEEDS``: one
+   stage-0 and then one stage-1 step of ``TrainDeepLabOOD`` (exps/deeplab.yaml)
+   at full widths on 2 pairs of 200x200 crops, f32 with TF32 off, card against
+   CPU from the same weights, batch and CPU-made draws (RCL noise and dropout
+   masks): losses, running statistics, updates, the frozen parameters, and the
+   card's trainable gradients against a float64 CPU step (in stage 1 one that
+   follows the card's ReLU branches), with the ReLU and pixel-selection flips
+   between the f32 and float64 steps counted.
+10. ``deeplab_train``: stage 0 and then stage 1 at exps/deeplab.yaml's settings
+   (8 pairs of 700x700 crops, bf16 autocast, f32 master weights), each with 2
+   warm-up and 3 timed steps, their launch counts and one profiled step.
+
 ``slice_parity`` and ``train_parity`` run the CPU's decoder on the card's
 attention masks, and hold every bit that differs to a logit within rounding of 0.
 
 The ``kernels`` phase also holds the training slice's kernels at its shapes
 (16 images at 704x704): the deformable-attention backward, the batched
-assignment (and scipy's optimum on the valid rows) and the label points. A
-kernel's ``launches`` are those of the main paths: ``serve`` for the eval
-kernels and ``train``'s timed steps for the training kernels, each path run with
+assignment (and scipy's optimum on the valid rows) and the label points; and
+DeepLab's: the ASPP's dilated conv at the eval shapes (its three rates timed
+together, beside cuDNN's dilated ``conv2d`` in benchmark mode, channels-last
+and NCHW) and checked at the training shapes too, its weight gradient at the
+training shapes (beside cuDNN's) and the pixel selection, forward and
+backward, over 8 x 700 x 700 values, their bounds at the bf16 tensor-core peak (989 TFLOP/s) where the
+tensor cores do the work. A kernel's ``launches`` are those of the main paths:
+``serve`` and ``deeplab_serve`` for the eval kernels, ``train``'s and
+``deeplab_train``'s timed steps for the training kernels, each path run with
 the counts set to 0 just before it and read just after.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -77,6 +101,15 @@ TRAIN_PARITY_SEEDS = tuple(SEED + 10 * k for k in range(1, 7))
 LOGIT_RTOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM data sheet, f32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor cores
+# DeepLab v3+ WRN-38: the ASPP's dilated convs over the output-stride-8 map
+# (4096 -> 256 channels); eval at 1024x2048 (a 128x256 map), training at
+# exps/deeplab.yaml (8 pairs of 700x700 crops: 88x88 maps, 16 images)
+DL_RATES, DL_CIN, DL_COUT = (12, 24, 36), 4096, 256
+DL_EVAL_MAP, DL_TRAIN_MAP = (H // 8, W // 8), (88, 88)
+DL_TRAIN_PAIRS, DL_CROP = 8, (700, 700)
+# deeplab_train_parity's seeds: each costs seven full-width steps on the CPU
+DL_TRAIN_PARITY_SEEDS = (SEED + 27, SEED + 37)
 
 
 def emit(obj):
@@ -109,9 +142,11 @@ def median_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
+    """The least time for ``nbytes`` at HBM rate and ``ops`` at ``ops_per_s``
+    (default f32 outside the tensor cores), ms, and which of the two binds."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -281,6 +316,7 @@ def phase_kernels(torch):
             "library_ms": None}
         del out
     train_kernel_rows(torch, dev, rows, check, checks)
+    deeplab_kernel_rows(torch, dev, rows, check, checks)
     ok = all(c["ok"] for c in checks)
     return rows, {"phase": "kernels", "ok": ok, "checks": checks}
 
@@ -387,6 +423,218 @@ def train_kernel_rows(torch, dev, rows, check, checks):
         # the one-call equivalent, grid_sample of [B, K, H, W] one-hot masks,
         # takes other inputs (the masks, not the label map)
         "library_ms": None}
+
+
+def in_map_taps(n, hw, rate):
+    """Pixel-taps of a dilated 3x3 conv over n maps of ``hw`` whose shifted
+    source lies in the map: the work the function needs."""
+    from multishiftseg_torch.ops.dilated_conv import tap_windows
+
+    return n * sum((sy.stop - sy.start) * (sx.stop - sx.start)
+                   for _, _, sy, sx, _, _ in tap_windows(*hw, rate))
+
+
+def deeplab_kernel_rows(torch, dev, rows, check, checks):
+    """DeepLab's kernels at its main-path shapes: the ASPP's dilated conv at the
+    eval shapes (its three rates timed together), its weight gradient at the
+    training shapes, and the pixel selection over 8 x 700 x 700 CE values;
+    then small and odd shapes. The conv bounds count in-map taps only, at the
+    bf16 tensor-core peak."""
+    import torch.nn.functional as F
+
+    from multishiftseg_torch.losses import rcl
+    from multishiftseg_torch.ops import dilated_conv as dconv
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions sum in f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    # forward, eval shapes, bf16 as served; the f32 master weights, which the
+    # wrapper casts. Tolerance: both sides sum the same products in f32 and
+    # round once to bf16, one bf16 step (2^-8) apart, plus f32 order noise
+    x = torch.randn((1, *DL_EVAL_MAP, DL_CIN), generator=gen, device=dev).to(torch.bfloat16)
+    ks = [torch.randn((3, 3, DL_CIN, DL_COUT), generator=gen, device=dev) / 96 for _ in DL_RATES]
+    with torch.no_grad():
+        run = lambda: [dconv.dilated_conv3x3(x, k, r) for k, r in zip(ks, DL_RATES)]
+        plain = lambda: [dconv.dilated_conv3x3_plain(x, k, r) for k, r in zip(ks, DL_RATES)]
+        outs, refs = run(), plain()
+        torch.cuda.synchronize()
+        err = max(check(f"dilated_conv3x3_rate{r}_eval_shapes", o, ref,
+                        1e-3 * float(ref.float().abs().max()), 2 ** -7)
+                  for r, o, ref in zip(DL_RATES, outs, refs))
+        del refs
+        times = (median_ms(torch, run, 10), median_ms(torch, plain, 2))
+        # the library: cuDNN's dilated conv2d in bf16, in benchmark mode (its
+        # first call per rate tries every algorithm), channels-last as served
+        # and NCHW-contiguous; the faster layout is the row's yardstick
+        cudnn = {}
+        torch.backends.cudnn.benchmark = True
+        for layout, fmt in (("channels_last", torch.channels_last),
+                            ("nchw", torch.contiguous_format)):
+            xc = x.permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+            wc = [k.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=fmt)
+                  for k in ks]
+            lib = lambda: [F.conv2d(xc, w, padding=r, dilation=r) for w, r in zip(wc, DL_RATES)]
+            t0 = time.perf_counter()
+            lib()
+            torch.cuda.synchronize()
+            cudnn[layout] = {
+                "first_call_s": time.perf_counter() - t0, "ms": median_ms(torch, lib, 2),
+                "backend": str(torch._C._select_conv_backend(
+                    xc, wc[0], None, [1, 1], [12, 12], [12, 12], False, [0, 0], 1))}
+        torch.backends.cudnn.benchmark = False
+        del xc, wc
+    best = min(cudnn, key=lambda k: cudnn[k]["ms"])
+    taps = sum(in_map_taps(1, DL_EVAL_MAP, r) for r in DL_RATES)
+    b_ms, b_by = bound(nbytes(x, *outs) + sum(k.numel() * 2 for k in ks),
+                       2 * taps * DL_CIN * DL_COUT, BF16_TC_OPS_PER_S)
+    rows["dilated_conv3x3"] = {
+        "name": "dilated_conv3x3", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/dilated_conv.cu",
+        "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
+        "max_abs_err": err, "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
+        "bound_by": b_by,
+        # cuDNN's dilated conv2d, bf16, the faster layout: the same function
+        "library_ms": cudnn[best]["ms"]}
+    checks.append({"check": "dilated_conv3x3_eval_work", "in_map_pixel_taps": taps,
+                   "tflop": 2 * taps * DL_CIN * DL_COUT / 1e12,
+                   "peak": "bf16 tensor cores, 989 TFLOP/s", "library": cudnn,
+                   "library_layout": best, "ok": True})
+    del x, outs
+
+    # weight gradient, training shapes (16 x 88 x 88), bf16 inputs, f32 result
+    # by atomics; tolerance: the same exact products summed in f32 in another order
+    b = 2 * DL_TRAIN_PAIRS
+    xt = torch.randn((b, *DL_TRAIN_MAP, DL_CIN), generator=gen, device=dev).to(torch.bfloat16)
+    gt = (torch.randn((b, *DL_TRAIN_MAP, DL_COUT), generator=gen, device=dev) / 64).to(
+        torch.bfloat16)
+    run = lambda: [dconv.dilated_conv3x3_wgrad(xt, gt, r) for r in DL_RATES]
+    plain = lambda: [dconv.dilated_conv3x3_wgrad_plain(xt, gt, r) for r in DL_RATES]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = max(check(f"dilated_conv3x3_wgrad_rate{r}_train_shapes", a, c,
+                    1e-4 * float(c.abs().max()), 0.0) for r, a, c in zip(DL_RATES, got, want))
+    del got, want
+    xc, gc = xt.permute(0, 3, 1, 2), gt.permute(0, 3, 1, 2)
+    library = lambda: [torch.nn.grad.conv2d_weight(xc, (DL_COUT, DL_CIN, 3, 3), gc, padding=r,
+                                                   dilation=r) for r in DL_RATES]
+    torch.backends.cudnn.benchmark = True  # the library at its best
+    times = (median_ms(torch, run, 5), median_ms(torch, plain, 1), median_ms(torch, library, 3))
+    torch.backends.cudnn.benchmark = False
+    taps = sum(in_map_taps(b, DL_TRAIN_MAP, r) for r in DL_RATES)
+    b_ms, b_by = bound(nbytes(xt, gt) + len(DL_RATES) * 9 * DL_COUT * DL_CIN * 4,
+                       2 * taps * DL_CIN * DL_COUT, BF16_TC_OPS_PER_S)
+    rows["dilated_conv3x3_wgrad"] = {
+        "name": "dilated_conv3x3_wgrad", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/dilated_conv.cu",
+        "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
+        "max_abs_err": err, "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
+        "bound_by": b_by,
+        # cuDNN's weight gradient of the dilated conv2d, bf16 channels-last
+        "library_ms": times[2]}
+    checks.append({"check": "dilated_conv3x3_wgrad_train_work", "in_map_pixel_taps": taps,
+                   "tflop": 2 * taps * DL_CIN * DL_COUT / 1e12, "ok": True})
+    del xc, gc
+    # the forward at the training shapes too, where a 128-pixel tile spans
+    # rows and images; the eval check's tolerance
+    with torch.no_grad():
+        for k, r in zip(ks, DL_RATES):
+            out, ref = dconv.dilated_conv3x3(xt, k, r), dconv.dilated_conv3x3_plain(xt, k, r)
+            torch.cuda.synchronize()
+            check(f"dilated_conv3x3_rate{r}_train_shapes", out, ref,
+                  1e-3 * float(ref.float().abs().max()), 2 ** -7)
+            del out, ref
+    del xt, gt, ks
+
+    # pixel selection over the augmented half's CE values (8 x 700 x 700),
+    # a fifth of them invalid (+inf keys); the threshold must equal the k-th
+    # smallest key pattern, the sum agree within f32 rounding
+    n = DL_TRAIN_PAIRS * DL_CROP[0] * DL_CROP[1]
+    vals = -torch.rand(n, generator=gen, device=dev).log() * 2
+    valid = torch.rand(n, generator=gen, device=dev) > 0.2
+    keyed = torch.where(valid, vals, torch.full_like(vals, float("inf")))
+    sn = (0.8 * valid.sum()).to(torch.int32)
+    run = lambda: rcl._bottom_k_sum(vals, keyed, sn)
+    plain = lambda: rcl.bottom_k_sum_plain(vals, keyed, sn)
+    got, want = run(), plain()
+    _, _, work, _ = rcl.bottom_k_sum_cuda(vals, keyed, sn)
+    kth = torch.sort(keyed.view(torch.int32).long() & 0xFFFFFFFF).values[int(sn) - 1]
+    torch.cuda.synchronize()
+    err = check("bottom_k_sum_main_shapes", got, want, 0.0, 1e-6)
+    same_t = (int(work[257]) & 0xFFFFFFFF) == int(kth)
+    checks[-1].update(threshold_equal_kth_key=same_t, ok=checks[-1]["ok"] and same_t)
+    # its backward, which every training step launches: the weights exactly
+    grads = []
+    for fn in (rcl._bottom_k_sum, rcl.bottom_k_sum_plain):
+        v = vals.clone().requires_grad_()
+        fn(v, keyed, sn).backward()
+        grads.append(v.grad)
+    torch.cuda.synchronize()
+    check("bottom_k_sum_main_shapes_grad", grads[0], grads[1], 0.0, 0.0)
+    checks[-1]["elements"] = n
+    del grads
+    b_ms, b_by = bound(nbytes(vals, keyed, sn, got), 2 * n)  # a compare and an add each
+    rows["bottom_k_sum"] = {
+        "name": "bottom_k_sum", "route": "cuda", "source": "multishiftseg_torch/csrc/bottom_k.cu",
+        "replaces": "multishiftseg_tpu/losses/rcl.py:65",
+        "max_abs_err": err, "ms": median_ms(torch, run, 20), "plain_ms": median_ms(torch, plain, 5),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no single PyTorch call computes it: topk / kthvalue find the k
+        # smallest but neither shares the threshold's ties, and both take k
+        # on the host
+        "library_ms": None}
+
+    # small and odd shapes: taps wholly outside the map, channels off the
+    # tiles, f32 and bf16, the gradients through the autograd Function
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_, h_, w_, cin, cout, r in ((1, 5, 7, 16, 8, 12), (2, 13, 29, 20, 5, 24),
+                                         (3, 20, 20, 8, 16, 36)):
+            xs = torch.randn((n_, h_, w_, cin), generator=gen, device=dev).to(dtype)
+            kk = torch.randn((3, 3, cin, cout), generator=gen, device=dev) / 8
+            gs = torch.randn((n_, h_, w_, cout), generator=gen, device=dev).to(dtype)
+            res = []
+            for fn in (dconv.dilated_conv3x3, dconv.dilated_conv3x3_plain):
+                xi, ki = xs.clone().requires_grad_(), kk.clone().requires_grad_()
+                o = fn(xi, ki, r)
+                o.backward(gs)
+                res.append((o.detach(), xi.grad, ki.grad))
+            torch.cuda.synchronize()
+            for part, a, c in zip(("out", "dx", "dw"), *res):
+                ref = float(c.float().abs().max())
+                # f32: order only; bf16: one rounding of an f32 sum apart
+                atol, rtol = (1e-5 * ref, 0.0) if dtype == torch.float32 else (1e-4 * ref, 2 ** -7)
+                check(f"dilated_conv3x3_{str(dtype)[6:]}_{n_}x{h_}x{w_}x{cin}to{cout}_rate{r}_{part}",
+                      a, c, atol, rtol)
+    for case in ("ties", "select_num_0"):
+        q = torch.floor(torch.rand(5003, generator=gen, device=dev) * 40) / 16
+        ok_ = torch.rand(5003, generator=gen, device=dev) > 0.25
+        kq = torch.where(ok_, q, torch.full_like(q, float("inf")))
+        sq = (0.8 * ok_.sum()).to(torch.int32) if case == "ties" else torch.zeros(
+            (), dtype=torch.int32, device=dev)
+        res = []
+        for fn in (rcl._bottom_k_sum, rcl.bottom_k_sum_plain):
+            v = q.clone().requires_grad_()
+            out = fn(v, kq, sq)
+            out.backward()
+            res.append((out.detach(), v.grad))
+        torch.cuda.synchronize()
+        check(f"bottom_k_sum_{case}_sum", res[0][0], res[1][0], 1e-6, 1e-6)
+        check(f"bottom_k_sum_{case}_grad", res[0][1], res[1][1], 0.0, 0.0)
+
+
+def seeded_deeplab(torch, seed):
+    """Port DeepWV3Plus (WRN-38, full widths) with seeded weights: the modules'
+    own init from ``seed``, and numpy-seeded running statistics (mean 0.1 x
+    noise, variance 1 + 0.1 x |noise|), so that no eval BatchNorm is the identity."""
+    from multishiftseg_torch.models.deeplab import DeepWV3Plus
+
+    torch.manual_seed(seed)
+    model = DeepWV3Plus()
+    g = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, t in sorted(model.named_buffers()):
+            noise = torch.from_numpy((0.1 * g.randn(*t.shape)).astype(np.float32))
+            t.add_(noise.abs() if name.endswith("running_var") else noise)
+    return model.eval()
 
 
 def seeded_model(torch, seed, **cfg):
@@ -807,6 +1055,311 @@ def phase_train(torch, pairs=TRAIN_PAIRS, warmup=2, timed=3):
     return res, counts
 
 
+def phase_deeplab_parity(torch, hw=(256, 512), card="cuda"):
+    """Full-width WRN-38 DeepLab in f32 (TF32 off): the card (kernels) against
+    the CPU (plain versions) from the same weights: trunk output, score, logits.
+    (``card="cpu"`` rehearses the phase's control flow without a card.)"""
+    from multishiftseg_torch.train.test_runner import build_deeplab_forward
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cpu_model = seeded_deeplab(torch, SEED + 21)
+    gpu_model = copy.deepcopy(cpu_model)
+    image = np.random.RandomState(SEED + 22).randn(1, *hw, 3).astype(np.float32)
+    res = {"phase": "deeplab_parity", "model": "DeepLab v3+ WRN-38, full widths",
+           "image_hw": list(hw), "dtype": "float32", "tf32": False}
+    runs = {}
+    for side, model, dev in (("card", gpu_model, card), ("cpu", cpu_model, "cpu")):
+        trunk = []
+        last = list(model.mod7.children())[-1]  # the trunk's last block
+        hook = last.register_forward_hook(lambda m, i, o, t=trunk: t.append(o.float().cpu()))
+        score, logit = build_deeplab_forward(model, device=dev, bf16=False)(image)
+        hook.remove()
+        runs[side] = {"trunk": trunk[0], "score": score.cpu(), "logit": logit.cpu()}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
+
+    g, c = runs["card"], runs["cpu"]
+    for k in ("trunk", "score", "logit"):
+        res[f"{k}_rel_err"] = rel(g[k], c[k])
+    res["score_abs_max"] = float(c["score"].abs().max())
+    res["logit_abs_max"] = float(c["logit"].abs().max())
+    # f32 on both sides; conv algorithms and sums in another order over 38
+    # layers (the M2F slice's pixel decoder held 1e-3)
+    res["checks"] = {f"{k}_rel_err<=1e-4": res[f"{k}_rel_err"] <= 1e-4
+                     for k in ("trunk", "score", "logit")}
+    res["checks"]["shapes"] = (tuple(g["score"].shape) == (1, *hw)
+                               and tuple(g["logit"].shape) == (1, CLASSES, *hw))
+    res["ok"] = bool(all(res["checks"].values()))
+    return res
+
+
+def phase_deeplab_serve(torch, requests=3):
+    """``build_deeplab_forward`` at 1024x2048, batch 1, bf16 autocast over the
+    f32 weights: 3 requests after 2 warm-up, with their launch counts."""
+    from multishiftseg_torch.evals.ood_metrics import eval_ood_measure
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.train.test_runner import build_deeplab_forward
+
+    torch.backends.cudnn.allow_tf32 = True
+    fwd = build_deeplab_forward(seeded_deeplab(torch, SEED + 23), device="cuda", bf16=True)
+    g = np.random.RandomState(SEED + 24)
+    images = [g.randn(1, H, W, 3).astype(np.float32) for _ in range(requests)]
+    label = np.zeros((H, W), np.int64)
+    label[H // 3:H // 2, W // 3:W // 2] = 1  # an anomaly rectangle
+    for im in images[:2]:
+        fwd(im)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    latencies, outs = [], []
+    for im in images:
+        t0 = time.perf_counter()
+        score, logit = fwd(im)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        outs.append((score, logit))
+    counts = launch_counts()
+    score, logit = outs[-1]
+    finite = all(bool(torch.isfinite(a).all() and torch.isfinite(b).all()) for a, b in outs)
+    shapes_ok = tuple(score.shape) == (1, H, W) and tuple(logit.shape) == (1, CLASSES, H, W)
+    counts_ok = (counts["dilated_conv3x3"] == 3 * requests
+                 and all(v == 0 for k, v in counts.items() if k != "dilated_conv3x3"))
+    metrics = eval_ood_measure(score[0].float().cpu().numpy(), label)
+    res = {"phase": "deeplab_serve", "model": "DeepLab v3+ WRN-38, full widths",
+           "dtype": "bfloat16 autocast, f32 weights", "image_hw": [H, W], "batch": 1,
+           "latency_ms": latencies, "images_per_s": requests / (sum(latencies) / 1e3),
+           "launches": counts, "launches_per_image_ok": counts_ok, "finite": finite,
+           "shapes_ok": shapes_ok, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "auroc_auprc_fpr95_random_weights": metrics,
+           "profiled_request": profile_request(torch, fwd, images[0])}
+    res["ok"] = bool(finite and shapes_ok and counts_ok and metrics is not None)
+    return res, counts
+
+
+def deeplab_config(pairs, crop, bf16):
+    from multishiftseg_torch.core.config import load_config
+
+    cfg = load_config(str(Path(__file__).resolve().parent / "exps" / "deeplab.yaml"))
+    cfg.train.train_batch = pairs
+    cfg.data.crop_size = tuple(crop)
+    cfg.train.bf16 = bf16
+    return cfg
+
+
+def relu_sign_flips(a, b):
+    """ReLU units whose input lies on other sides of 0 in two runs (records of
+    ``relu_sign_hooks``): the frozen trunk's, which move values by rounding
+    only, and the head's, on the gradient path, by module."""
+    per = {n: int((a[n] != b[n]).sum()) for n in a}
+    head = {n: v for n, v in per.items() if v and not n.startswith("mod")}
+    return {"trunk": sum(v for n, v in per.items() if n.startswith("mod")),
+            "head": sum(head.values()), "head_modules": head}
+
+
+def selected_pixels(torch, logit, tgt_aug, params):
+    """The augmented half's pixel selection as ``rel_contrastive_loss`` makes
+    it (keys below and at the k-th smallest) from a step's logits [2B, C, H, W]."""
+    from multishiftseg_torch.losses import rcl
+
+    t = torch.as_tensor(tgt_aug).long()
+    valid = t < params.in_id
+    ce = rcl._pixel_ce(logit[logit.shape[0] // 2:].permute(0, 2, 3, 1),
+                       torch.where(valid, t, torch.full_like(t, params.void_id)), valid)
+    keys = torch.where(valid, ce, torch.full_like(ce, float("inf"))).reshape(-1)
+    bits = keys.view(torch.int32).long() & 0xFFFFFFFF
+    k = int((params.selection_ratio * valid.sum()).to(torch.int32))
+    return bits <= torch.sort(bits).values[k - 1]
+
+
+def phase_deeplab_train_parity(torch, seed, pairs=2, crop=(200, 200), card="cuda"):
+    """One stage-0 and then one stage-1 step of ``TrainDeepLabOOD`` at full
+    widths in f32 (TF32 off): the card (kernels) against the CPU (plain
+    versions), same weights, batch and CPU-made draws; and the CPU's step in
+    float64. Stage 0's gradient (``ood_head``) crosses no ReLU and is held
+    against float64 directly. Stage 1's crosses the head's ReLUs, where an
+    input within f32 rounding of 0 moves a whole gradient path: the phase
+    counts those flips (and the pixel selection's) between the steps, and
+    holds the card's gradients against a float64 step on the card's ReLU
+    branches (``relu_sign_hooks``). ``card="cpu"`` rehearses the control flow."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD, synthetic_batch
+    from multishiftseg_torch.utils import relu_sign_hooks
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = deeplab_config(pairs, crop, bf16=False)
+    base = seeded_deeplab(torch, seed)
+    batch = synthetic_batch(pairs, crop, CLASSES, seed + 1)
+    trainers = {"card": TrainDeepLabOOD(cfg, model=copy.deepcopy(base), device=card),
+                "cpu": TrainDeepLabOOD(cfg, model=copy.deepcopy(base), device="cpu"),
+                "cpu_f64": TrainDeepLabOOD(cfg, model=copy.deepcopy(base), device="cpu")}
+    trainers["cpu_f64"].model.double()  # in place: the optimizer keeps the same parameters
+    res = {"phase": "deeplab_train_parity", "seed": seed, "pairs": pairs, "crop": list(crop),
+           "widths": "full", "dtype": "float32", "tf32": False, "stages": []}
+    ok = True
+    for stage in (0, 1):
+        draws = trainers["cpu"].draws(2 * pairs, tuple(crop))  # CPU-made, used by all
+        steps = list(trainers.items())
+        if stage == 1:
+            # the float64 step again from the same state, on the card's branches
+            twin = TrainDeepLabOOD(cfg, model=copy.deepcopy(base), device="cpu")
+            twin.model.double()
+            twin.model.load_state_dict(trainers["cpu_f64"].model.state_dict())
+            steps.append(("cpu_f64_card_branches", twin))
+        runs, signs = {}, {}
+        for side, tr in steps:
+            tr.set_stage(stage)
+            dev = tr.device
+            # copies: .double() of a float64 tensor is the tensor itself
+            snap = lambda t: t.detach().to("cpu", torch.float64, copy=True)
+            before = {n: snap(p) for n, p in tr.model.named_parameters()}
+            signs[side], out = {}, {}
+            hooks = relu_sign_hooks(tr.model, signs[side], replay=signs["card"] if (
+                side == "cpu_f64_card_branches") else None)
+            hooks.append(tr.model.register_forward_hook(
+                lambda m, a, o, out=out: out.update(logit=o[1].detach().float().cpu())))
+            reset_launch_counts()
+            loss, aux = tr.step(*batch, draws={"rcl_noise": draws["rcl_noise"].to(dev),
+                                               "dropout": {k: v.to(dev) for k, v in
+                                                           draws["dropout"].items()}})
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            for h in hooks:
+                h.remove()
+            runs[side] = {
+                "launches": launch_counts(), "loss": float(loss),
+                "aux": {k: float(v) for k, v in aux.items()},
+                "grads": {n: snap(p.grad) for n, p in tr.model.named_parameters()
+                          if p.grad is not None},
+                "params": {n: snap(p) for n, p in tr.model.named_parameters()},
+                "stats": {n: snap(b) for n, b in tr.model.named_buffers()},
+                "selected": selected_pixels(torch, out["logit"], batch[3], tr.rcl_params)}
+            runs[side]["delta"] = {n: runs[side]["params"][n] - before[n] for n in before}
+        g, c, f = runs["card"], runs["cpu"], runs["cpu_f64"]
+        ref = runs["cpu_f64_card_branches"] if stage == 1 else f
+
+        def rel_errs(run, want):
+            """Per trainable tensor, the error against ``want`` over its scale."""
+            return {n: float((run["grads"][n] - w).abs().max()) / (float(w.abs().max()) + 1e-30)
+                    for n, w in want["grads"].items()}
+
+        vs_f64, vs_f64_cpu, vs_ref = rel_errs(g, f), rel_errs(c, f), rel_errs(g, ref)
+        worst, worst_ref = max(vs_f64, key=vs_f64.get), max(vs_ref, key=vs_ref.get)
+        stat_err = max(float((g["stats"][n] - v).abs().max() / v.abs().max().clamp_min(1e-12))
+                       for n, v in c["stats"].items())
+        # this step's update against the float64 step's on the same branches
+        # (Adam's first step is about lr * sign(g)), where the gradient is far
+        # above eps and clear of sign noise: an earlier step's sign noise, and
+        # the card's and the CPU's other ReLU branches, stay out of it
+        lr = cfg.train.lr if stage == 0 else cfg.train.lr_update
+        upd = 0.0
+        for name, gr in ref["grads"].items():
+            # the gradient Adam sees, the L2 term added
+            gr = gr + cfg.train.weight_decay * (ref["params"][name] - ref["delta"][name])
+            sel = (gr.abs() > 1e-6) & (gr.abs() > 1e-2 * gr.abs().max())
+            if sel.any():
+                upd = max(upd, float((g["delta"][name][sel] - ref["delta"][name][sel]).abs().max()))
+        upd_atol = 1e-2 * lr + 2.0 ** -21 * max(float(v.abs().max()) for v in c["params"].values())
+        frozen_same = all(torch.equal(g["params"][n], c["params"][n]) and torch.equal(
+            c["params"][n], base.state_dict()[n].double()) for n in c["params"] if n not in c["grads"])
+        counts = g["launches"]
+        pairs_ = (("card", "cpu_f64"), ("cpu", "cpu_f64"), ("card", "cpu"))
+        st = {"stage": stage, "loss_card": g["loss"], "loss_cpu": c["loss"],
+              "loss_f64": f["loss"], "aux_card": g["aux"], "aux_cpu": c["aux"],
+              "trainable_tensors": len(vs_f64),
+              "grad_err_vs_f64_worst": {"tensor": worst, "card": vs_f64[worst],
+                                        "cpu": vs_f64_cpu[worst]},
+              "relu_units": sum(int(m.numel()) for m in signs["card"].values()),
+              "relu_sign_flips": {f"{a}_vs_{b}": relu_sign_flips(signs[a], signs[b])
+                                  for a, b in pairs_},
+              "selected_pixels": int(g["selected"].sum()),
+              "selection_flips": {f"{a}_vs_{b}": int((runs[a]["selected"] != runs[b]["selected"]
+                                                      ).sum()) for a, b in pairs_},
+              "running_stat_rel_err": stat_err, "param_update_max_abs_err": upd,
+              "param_update_atol": upd_atol, "launches": counts}
+        if stage == 1:
+            st["grad_err_vs_f64_on_card_branches_worst"] = {
+                "tensor": worst_ref, "card": vs_ref[worst_ref]}
+        st["checks"] = {
+            "loss_rel_err<=1e-5": all(abs(g["aux"][k] - v) <= 1e-5 * max(abs(v), 1e-6)
+                                      for k, v in c["aux"].items())
+            and abs(g["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]),
+            # stage 0: against the float64 step; stage 1: against the float64
+            # step on the card's ReLU branches
+            "grad_err_vs_f64<=1e-3": all(e <= 1e-3 for e in vs_ref.values()),
+            "running_stats_rel_err<=1e-4": stat_err <= 1e-4,
+            "param_update_err<=1e-2*lr+4ulp": upd <= upd_atol,
+            "frozen_unchanged": frozen_same,
+            "launches_ok": (card == "cpu" or (
+                counts["dilated_conv3x3"] == 3 and counts["bottom_k_sum"] == 1
+                and counts["dilated_conv3x3_wgrad"] == (3 if stage == 1 else 0))),
+            "finite": bool(np.isfinite(g["loss"]))}
+        st["ok"] = bool(all(st["checks"].values()))
+        ok &= st["ok"]
+        res["stages"].append(st)
+    res["ok"] = bool(ok)
+    return res
+
+
+def phase_deeplab_train(torch, pairs=DL_TRAIN_PAIRS, warmup=2, timed=3):
+    """Stage 0 and then stage 1 at exps/deeplab.yaml's settings (8 pairs of
+    700x700 crops, bf16 autocast, f32 master weights) on the card: each with
+    warm-up and timed steps, their launch counts and one profiled step."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD, synthetic_batch
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"phase": "deeplab_train", "model": "DeepLab v3+ WRN-38, full widths",
+           "config": "exps/deeplab.yaml", "dtype": "bfloat16 autocast, f32 master weights",
+           "pairs": pairs, "images_per_step": 2 * pairs, "crop": list(DL_CROP), "stages": []}
+    trainer = TrainDeepLabOOD(deeplab_config(pairs, DL_CROP, bf16=True),
+                              model=seeded_deeplab(torch, SEED + 25), device="cuda")
+    batch = [torch.from_numpy(x).cuda() for x in synthetic_batch(pairs, DL_CROP, CLASSES,
+                                                                 SEED + 26)]
+    totals, ok = {}, True
+    for stage in (0, 1):
+        trainer.set_stage(stage)
+        losses = [float(trainer.step(*batch)[0]) for _ in range(warmup)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        times, steps = [], []
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            loss, aux = trainer.step(*batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            steps.append({"loss": float(loss), **{k: float(v) for k, v in aux.items()}})
+        counts = launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        per_step = {k: v / timed for k, v in counts.items()}
+        losses += [x["loss"] for x in steps]
+        finite = all(np.isfinite(v) for x in steps for v in x.values())
+        launches_ok = (per_step["dilated_conv3x3"] == 3 and per_step["bottom_k_sum"] == 1
+                       and per_step["dilated_conv3x3_wgrad"] == (3 if stage == 1 else 0)
+                       and all(v == 0 for k, v in counts.items() if k not in (
+                           "dilated_conv3x3", "dilated_conv3x3_wgrad", "bottom_k_sum")))
+        st = {"stage": stage, "trainable": list(
+                  (trainer.cfg.model.trainable_params_name,
+                   trainer.cfg.model.trainable_params_name_update)[stage]),
+              "lr": trainer.optimizer.param_groups[0]["lr"], "step_ms": times,
+              "images_per_s": 2 * pairs * timed / (sum(times) / 1e3),
+              "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "steps": steps,
+              "losses_all_steps": losses, "losses_falling": losses[-1] < losses[0],
+              "launches": counts, "launches_per_step": per_step,
+              "profiled_step": profile_request(torch, lambda _: trainer.step(*batch), None)}
+        st["checks"] = {"finite": finite, "launches_ok": launches_ok}
+        st["ok"] = bool(all(st["checks"].values()))
+        ok &= st["ok"]
+        res["stages"].append(st)
+    res["ok"] = bool(ok)
+    return res, totals
+
+
 def main():
     try:
         import torch
@@ -844,9 +1397,24 @@ def main():
     train, train_launches = phase_train(torch)
     emit(train)
     phases.append(train)
+    dl_parity = phase_deeplab_parity(torch)
+    emit(dl_parity)
+    phases.append(dl_parity)
+    dl_serve, dl_launches = phase_deeplab_serve(torch)
+    emit(dl_serve)
+    phases.append(dl_serve)
+    for seed in DL_TRAIN_PARITY_SEEDS:
+        dl_train_parity = phase_deeplab_train_parity(torch, seed)
+        emit(dl_train_parity)
+        phases.append(dl_train_parity)
+    dl_train, dl_train_launches = phase_deeplab_train(torch)
+    emit(dl_train)
+    phases.append(dl_train)
 
+    # each main path was run with the counts set to 0 just before it
     for name, row in rows.items():
-        row["launches"] = launches.get(name, 0) + train_launches.get(name, 0)
+        row["launches"] = sum(path.get(name, 0) for path in (
+            launches, train_launches, dl_launches, dl_train_launches))
     ok = all(p["ok"] for p in phases) and all(r["launches"] > 0 for r in rows.values())
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")

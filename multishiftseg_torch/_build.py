@@ -110,3 +110,12 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[name] = lib
         return lib
+
+
+def function(name: str, symbol: str, argtypes):
+    """``symbol`` of kernel library ``name`` (built first if needed), returning
+    a C ``int`` and taking ``argtypes``."""
+    fn = getattr(load(name), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
+    return fn

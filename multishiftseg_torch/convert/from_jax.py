@@ -1,13 +1,15 @@
-"""JAX ``MaskFormer`` variables -> the port's ``state_dict``.
+"""JAX ``MaskFormer`` and ``DeepWV3Plus`` variables -> the port's ``state_dict``.
 
 The inverse of ``multishiftseg_tpu/convert/torch2jax.py::convert_maskformer``
-(R-50 + MSDeformAttn + GMA): conv HWIO -> OIHW, dense ``[in, out]`` ->
+(R-50 + MSDeformAttn + GMA) and of ``convert_deeplab`` (:84-137, WRN-38
+DeepLab v3+ with its OOD head): conv HWIO -> OIHW, dense ``[in, out]`` ->
 ``[out, in]``, BatchNorm/LayerNorm/GroupNorm ``scale`` -> ``weight``, running
 statistics from ``batch_stats``, and the ``q_proj``/``k_proj``/``v_proj`` of each
 attention packed into ``in_proj_weight``/``in_proj_bias``. The input is a nested
 dict of numpy arrays (``{"params": ..., "batch_stats": ...}``); a tree holding
 only some of ``backbone``, ``pixel_decoder`` and ``predictor`` converts those.
-Any path without a rule raises.
+Any path without a rule raises; a strict ``load_state_dict`` then also refuses
+a tree that misses a parameter or a running statistic.
 """
 
 from __future__ import annotations
@@ -48,6 +50,26 @@ _MODULE_RULES = [
     (r"predictor/(decoder_norm|class_embed2?)", PREDICTOR + r".\1"),
 ]
 
+# DeepLab: the reference's names (trunk modules at the top level, Sequential
+# indices in the ASPP branches and the final head), as convert_deeplab reads them
+_DEEPLAB_RULES = [
+    (r"trunk/mod1_conv1/conv", "mod1.conv1"),
+    (r"trunk/mod(\d)_block(\d+)/bn1/bn", r"mod\1.block\2.bn1.0"),
+    (r"trunk/mod(\d)_block(\d+)/convs_(conv\d)/conv", r"mod\1.block\2.convs.\3"),
+    (r"trunk/mod(\d)_block(\d+)/convs_(bn\d)/bn", r"mod\1.block\2.convs.\3.0"),
+    (r"trunk/mod(\d)_block(\d+)/proj_conv/conv", r"mod\1.block\2.proj_conv"),
+    (r"aspp/features_(\d)/conv/conv", r"aspp.features.\1.0"),
+    (r"aspp/features_(\d)/bn", r"aspp.features.\1.1"),
+    (r"aspp/img_conv/conv/conv", "aspp.img_conv.0"),
+    (r"aspp/img_conv/bn", "aspp.img_conv.1"),
+    (r"(bot_fine|bot_aspp|ood_head)/conv", r"\1"),
+    (r"final_0/conv/conv", "final.0"),
+    (r"final_0/bn", "final.1"),
+    (r"final_1/conv/conv", "final.3"),
+    (r"final_1/bn", "final.4"),
+    (r"final_cls/conv", "final.6"),
+]
+
 # whole-leaf rules: parameters held directly by a module
 _LEAF_RULES = {
     "pixel_decoder/level_embed": PIXEL_DECODER + ".transformer.level_embed",
@@ -71,8 +93,8 @@ def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...
     return out
 
 
-def _module(path: str) -> str:
-    for pattern, repl in _MODULE_RULES:
+def _module(path: str, rules=_MODULE_RULES) -> str:
+    for pattern, repl in rules:
         if re.fullmatch(pattern, path):
             return re.sub(pattern, repl, path)
     raise KeyError(f"no port module for JAX path {path!r}")
@@ -124,3 +146,24 @@ def maskformer_from_jax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
     return OrderedDict(
         (k, torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32)))
         for k, v in sorted(sd.items()))
+
+
+def deeplab_port_key(path: Tuple[str, ...]) -> str:
+    """The port ``state_dict`` key of a JAX ``DeepWV3Plus`` leaf path (without
+    its collection)."""
+    *mod, leaf = path
+    if leaf not in _LEAF_NAMES:
+        raise KeyError(f"unexpected leaf {leaf!r} at {'/'.join(path)!r}")
+    return f"{_module('/'.join(mod), _DEEPLAB_RULES)}.{_LEAF_NAMES[leaf]}"
+
+
+def deeplab_from_jax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``DeepWV3Plus`` variables (``params`` and ``batch_stats``) ->
+    ``state_dict`` for the port's ``DeepWV3Plus``."""
+    flat = {}
+    for col in ("params", "batch_stats"):
+        flat.update(_flatten(variables.get(col, {})))
+    return OrderedDict(
+        (deeplab_port_key(path), torch.from_numpy(np.array(_layout(path[-1], arr),
+                                                           dtype=np.float32)))
+        for path, arr in sorted(flat.items()))

@@ -11,15 +11,25 @@ JAX package can be fed the very same numbers.
 Pairs are formed by position: the i-th sampled clean pixel meets the i-th sampled
 OOD pixel. Sampling keeps the pixels with the largest noise, ties broken towards
 the lower index as ``jax.lax.top_k`` does, by a stable descending sort.
+
+The pixel selection of the augmented half's CE (``_bottom_k_sum``) runs as a CUDA
+kernel for CUDA tensors (``csrc/bottom_k.cu``), as its plain version on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+from .. import _build
+
+# Kernel launches (see ``ops.launch_counts``).
+LAUNCHES = {"bottom_k_sum": 0}
 
 
 @dataclass(frozen=True)
@@ -64,12 +74,22 @@ def _pixel_ce(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor) 
 
 def _bottom_k_sum(values: torch.Tensor, keyed: torch.Tensor,
                   select_num: torch.Tensor) -> torch.Tensor:
-    """Sum of the ``select_num`` smallest-keyed elements of ``values`` by an exact
-    k-th-smallest threshold found by a 32-step binary search over the float32 bit
-    pattern (``rcl.py:65-97``); ties at the threshold share the remaining weight.
-    ``keyed`` is a detached copy of ``values`` (>= 0, +inf where invalid). The
-    plain version only: its kernel comes with DeepLab training, the one recipe
-    that selects pixels."""
+    """Sum of the ``select_num`` smallest-keyed elements of ``values``, threshold
+    ties sharing the remaining weight (``rcl.py:65-97``): the CUDA kernel
+    (``csrc/bottom_k.cu``) for CUDA tensors, the plain version for CPU tensors.
+    ``keyed`` is a detached copy of ``values`` (>= 0, +inf where invalid);
+    ``select_num`` an int32 scalar tensor, which stays on the device."""
+    if values.device.type == "cpu":
+        return bottom_k_sum_plain(values, keyed, select_num)
+    return _BottomKSum.apply(values, keyed, select_num)
+
+
+def bottom_k_sum_plain(values: torch.Tensor, keyed: torch.Tensor,
+                       select_num: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`_bottom_k_sum`: the JAX package's exact
+    k-th-smallest threshold by a 32-step binary search over the float32 bit
+    pattern, then two masked sums. Its autograd gives weight 1 below the
+    threshold and ``need / n_eq`` at it."""
     bits = keyed.contiguous().view(torch.int32).long() & 0xFFFFFFFF
     lo = torch.zeros((), dtype=torch.int64, device=values.device)
     hi = torch.full((), 0xFFFFFFFF, dtype=torch.int64, device=values.device)
@@ -85,6 +105,69 @@ def _bottom_k_sum(values: torch.Tensor, keyed: torch.Tensor,
     zero = values.new_zeros(())
     return (torch.where(less, values, zero).sum()
             + torch.where(eq, values, zero).sum() * (need / n_eq.float()))
+
+
+class _BottomKSum(torch.autograd.Function):
+    """The selection on the card: a radix select and one reduction pass
+    forward; backward, the elementwise weight from the saved threshold."""
+
+    @staticmethod
+    def forward(ctx, values, keyed, select_num):
+        out, keys, work, result = bottom_k_sum_cuda(values, keyed, select_num)
+        ctx.shape = values.shape
+        ctx.save_for_backward(keys, work, result)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        keys, work, result = ctx.saved_tensors
+        dvalues = torch.empty(keys.shape, dtype=torch.float32, device=keys.device)
+        g = grad.float().contiguous()
+        fn = _build.function("bottom_k", "bottom_k_backward",
+                             [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5)
+        with torch.cuda.device(keys.device):
+            stream = torch.cuda.current_stream(keys.device).cuda_stream
+            rc = fn(keys.data_ptr(), keys.numel(), work.data_ptr(), result.data_ptr(),
+                    g.data_ptr(), dvalues.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"bottom_k_backward failed: cudaError {rc}")
+        return dvalues.view(ctx.shape), None, None
+
+
+def bottom_k_sum_cuda(values: torch.Tensor, keyed: torch.Tensor, select_num: torch.Tensor):
+    """The kernel: (sum [] f32, the keys [n] as int32, the work buffer that
+    holds the threshold, the result [sum, tie weight, n_less, n_eq]). f32
+    ``values`` and ``keyed`` of one shape, ``select_num`` int32 with one element,
+    all on one device."""
+    if values.dtype != torch.float32 or keyed.dtype != torch.float32:
+        raise TypeError(f"values and keys must be float32, got {values.dtype}, {keyed.dtype}")
+    if values.shape != keyed.shape:
+        raise ValueError(f"values {tuple(values.shape)} and keys {tuple(keyed.shape)} differ")
+    if select_num.numel() != 1 or select_num.dtype != torch.int32:
+        raise TypeError("select_num must be one int32")
+    if len({values.device, keyed.device, select_num.device}) != 1:
+        raise ValueError("values, keys and select_num must be on one device")
+    dev = values.device
+    keys = keyed.detach().contiguous().view(torch.int32).reshape(-1)
+    vals = values.detach().contiguous().reshape(-1)
+    k = select_num.detach().reshape(1).contiguous()
+    n = keys.numel()
+    blocks = _build.function("bottom_k", "bottom_k_blocks", [ctypes.c_longlong])(n)
+    work = torch.zeros(260, dtype=torch.int32, device=dev)
+    part_sum = torch.empty(2 * blocks, dtype=torch.float64, device=dev)
+    part_cnt = torch.empty(2 * blocks, dtype=torch.int64, device=dev)
+    result = torch.empty(4, dtype=torch.float32, device=dev)
+    fn = _build.function("bottom_k", "bottom_k_forward",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(keys.data_ptr(), vals.data_ptr(), n, k.data_ptr(), work.data_ptr(),
+                part_sum.data_ptr(), part_cnt.data_ptr(), result.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"bottom_k_forward failed: cudaError {rc}")
+    LAUNCHES["bottom_k_sum"] += 1
+    return result[0].clone(), keys, work, result
 
 
 def _sample_masked(noise: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,

@@ -4,10 +4,11 @@ from typing import Dict
 
 
 def _counters():
-    from ..losses import criterion, matcher
-    from . import ms_deform_attn, scores
+    from ..losses import criterion, matcher, rcl
+    from . import dilated_conv, ms_deform_attn, scores
 
-    return (ms_deform_attn.LAUNCHES, scores.LAUNCHES, matcher.LAUNCHES, criterion.LAUNCHES)
+    return (ms_deform_attn.LAUNCHES, scores.LAUNCHES, matcher.LAUNCHES, criterion.LAUNCHES,
+            dilated_conv.LAUNCHES, rcl.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,4 +1,5 @@
-"""Mask2Former score heads: plain versions and the fused CUDA score tail.
+"""Score heads: DeepLab's energy score, and Mask2Former's plain versions and
+fused CUDA score tail.
 
 Counterpart of ``multishiftseg_tpu/ops/scores.py:25-51`` and
 ``models/maskformer.py:155-173`` (``semantic_inference``). The JAX eval path
@@ -23,6 +24,12 @@ from .resize import resize_bilinear_nchw
 LAUNCHES = {"mask_scores_anomaly": 0, "mask_scores_semantic": 0}
 
 MAX_CLASSES = 32  # K accumulators per thread in the kernel
+
+
+def energy_score(ood_logits: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """DeepLab's anomaly score, the negative free energy ``-logsumexp`` over the
+    class axis, in f32 (``multishiftseg_tpu/ops/scores.py:20-22``)."""
+    return -torch.logsumexp(ood_logits.float(), dim=dim)
 
 
 def mask2former_semantic_logits(class_logits: torch.Tensor,

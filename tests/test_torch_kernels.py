@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from multishiftseg_torch.losses import criterion, matcher
+from multishiftseg_torch import _build
+from multishiftseg_torch.losses import criterion, matcher, rcl
+from multishiftseg_torch.ops import dilated_conv as dconv
 from multishiftseg_torch.ops import ms_deform_attn as msda
 from multishiftseg_torch.ops import scores
 
@@ -189,6 +191,132 @@ def test_label_points_kernel_matches_plain(cuda):
     torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-6)
 
 
+# (N, H, W, Cin, Cout, rate): maps smaller and larger than the rate, H < rate <
+# W, odd sizes, channel counts off the 8 / 32 / 128 tiles, taps wholly outside
+DCONV_CASES = [(2, 9, 30, 40, 24, 12), (1, 5, 7, 16, 8, 12), (2, 13, 29, 20, 5, 24),
+               (1, 40, 70, 136, 136, 12), (3, 20, 20, 8, 16, 36), (1, 33, 17, 264, 256, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DCONV_CASES)
+def test_dilated_conv_kernels_match_plain(cuda, dtype, case):
+    """Forward, weight gradient and input gradient (the forward kernel on the
+    flipped, transposed weight) against the plain version's autograd."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, h, w, cin, cout, rate = case
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy(rng.randn(n, h, w, cin).astype(np.float32)).to(cuda, dtype)
+    k = torch.from_numpy(rng.randn(3, 3, cin, cout).astype(np.float32) / 30).to(cuda)
+    g = torch.from_numpy(rng.randn(n, h, w, cout).astype(np.float32)).to(cuda, dtype)
+    runs = []
+    for fn in (dconv.dilated_conv3x3, dconv.dilated_conv3x3_plain):
+        xi, ki = x.clone().requires_grad_(), k.clone().requires_grad_()
+        out = fn(xi, ki, rate)
+        out.backward(g)
+        runs.append((out.detach(), xi.grad, ki.grad))
+    torch.cuda.synchronize()
+    assert runs[0][0].dtype == dtype and runs[0][2].dtype == torch.float32
+    # the output's absolute scale: sum |x| |W| over the in-map taps
+    scale = float(dconv.dilated_conv3x3_plain(x.abs().float(), k.abs(), rate).max())
+    for got, want in zip(runs[0], runs[1]):
+        ref = float(want.float().abs().max())
+        if dtype == torch.float32:  # f32 sums in another order
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * max(scale, ref))
+        else:  # both round one f32 sum to bf16 (the weight gradient: the plain one)
+            torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                                       atol=1e-4 * ref)
+
+
+@pytest.mark.cuda
+def test_dilated_conv_skips_input_gradient_unless_asked(cuda):
+    x = torch.randn(2, 16, 24, 32, device=cuda, dtype=torch.bfloat16)
+    k = torch.randn(3, 3, 32, 16, device=cuda, requires_grad=True)
+    before = dict(dconv.LAUNCHES)
+    dconv.dilated_conv3x3(x, k, 12).float().sum().backward()
+    assert dconv.LAUNCHES["dilated_conv3x3"] == before["dilated_conv3x3"] + 1
+    assert dconv.LAUNCHES["dilated_conv3x3_wgrad"] == before["dilated_conv3x3_wgrad"] + 1
+    assert k.grad is not None and float(k.grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties", "zero", "one", "all", "large"])
+def test_bottom_k_kernel_matches_plain(cuda, case):
+    """The radix select finds the binary search's threshold bit for bit; the
+    sum within f32 rounding; the gradient weights exactly."""
+    rng = np.random.RandomState(7)
+    n = 3_000_017 if case == "large" else 5003
+    vals = (np.floor(rng.rand(n) * 64) / 16).astype(np.float32)  # many ties
+    if case == "large":
+        vals = rng.gamma(1.0, 2.0, n).astype(np.float32)
+    valid = rng.rand(n) > 0.2
+    keyed = np.where(valid, vals, np.inf).astype(np.float32)
+    count = int(valid.sum())
+    k = {"ties": int(0.8 * count), "zero": 0, "one": 1, "all": count,
+         "large": int(0.8 * count)}[case]
+    sn = torch.tensor(k, dtype=torch.int32, device=cuda)
+    kt = torch.from_numpy(keyed).to(cuda)
+    sums, grads = [], []
+    for fn in (rcl._bottom_k_sum, rcl.bottom_k_sum_plain):
+        v = torch.from_numpy(vals).to(cuda).requires_grad_()
+        out = fn(v, kt, sn)
+        out.backward(torch.tensor(1.5, device=cuda))
+        sums.append(float(out.detach()))
+        grads.append(v.grad)
+    _, _, work, result = rcl.bottom_k_sum_cuda(torch.from_numpy(vals).to(cuda), kt, sn)
+    torch.cuda.synchronize()
+    bits = np.sort(keyed.view(np.uint32))
+    want_t = 0 if k <= 0 else int(bits[k - 1])
+    assert int(work[257].item()) & 0xFFFFFFFF == want_t
+    np.testing.assert_allclose(sums[0], sums[1], rtol=1e-6, atol=1e-6)
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_tiny_deeplab_step_on_the_card_matches_cpu(cuda):
+    """A stage-2 step of a tiny DeepLab in f32 (TF32 off): the card's kernels
+    against the CPU's plain versions, same weights, batch and draws. A ReLU
+    input within f32 rounding of 0 may take either side on either device and
+    move a whole gradient path, so the CPU's step follows the card's ReLU
+    branches (``relu_sign_hooks``): per trainable tensor, within 1e-3 of scale."""
+    import copy
+
+    from multishiftseg_torch.core.config import load_config
+    from multishiftseg_torch.models.deeplab import DeepWV3Plus
+    from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD, synthetic_batch
+    from multishiftseg_torch.utils import relu_sign_hooks
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(str(REPO / "exps" / "deeplab.yaml"))
+    cfg.train.bf16 = False
+    torch.manual_seed(0)
+    base = DeepWV3Plus(trunk_structure=(1,) * 6, trunk_channels=(
+        (8, 8), (8, 8), (16, 16), (16, 16), (8, 16, 32), (16, 32, 64)))
+    batch = synthetic_batch(1, (160, 160), 19, seed=1)
+    draws = TrainDeepLabOOD(cfg, model=copy.deepcopy(base), device="cpu").draws(2, (160, 160))
+    runs, signs = {}, {}
+    for side, dev in (("card", cuda), ("cpu", "cpu")):
+        tr = TrainDeepLabOOD(cfg, model=copy.deepcopy(base), device=dev)
+        tr.set_stage(1)
+        signs[side] = {}
+        hooks = relu_sign_hooks(tr.model, signs[side],
+                                replay=signs["card"] if side == "cpu" else None)
+        loss, _ = tr.step(*batch, draws={"rcl_noise": draws["rcl_noise"].to(dev),
+                                         "dropout": {k: v.to(dev) for k, v in
+                                                     draws["dropout"].items()}})
+        for h in hooks:
+            h.remove()
+        runs[side] = (float(loss), {n: p.grad.double().cpu()
+                                    for n, p in tr.model.named_parameters() if p.grad is not None})
+    (l_gpu, g_gpu), (l_cpu, g_cpu) = runs["card"], runs["cpu"]
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert set(g_cpu) == set(g_gpu) and "aspp.features.3.0.weight" in g_gpu
+    for name, ref in g_cpu.items():
+        err = float((g_gpu[name] - ref).abs().max()) / (float(ref.abs().max()) + 1e-30)
+        assert err <= 1e-3, (name, err)
+
+
 # ---------------------------------------------------------------------------
 # on the CPU: guards that stop a card run from silently losing gradients
 
@@ -211,6 +339,27 @@ def test_nearest_refuses_grad_off_the_cpu():
     value, loc, attn = _meta_requiring_grad((1, 8, 2, 4), (1, 3, 2, 1, 2, 2), (1, 3, 2, 1, 2))
     with pytest.raises(RuntimeError, match="no backward"):
         msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, "nearest")
+
+
+class _Sentinel(Exception):
+    pass
+
+
+def test_new_kernels_take_the_card_route_off_the_cpu(monkeypatch):
+    """Tensors that are not on the CPU go to the kernels (here: to the library
+    loader, stubbed), never to the plain versions."""
+    def refuse(name):
+        raise _Sentinel(name)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    x = torch.zeros(1, 4, 5, 8, device="meta")
+    k = torch.zeros(3, 3, 8, 8, device="meta", requires_grad=True)
+    with pytest.raises(_Sentinel, match="dilated_conv"):
+        dconv.dilated_conv3x3(x, k, 12)
+    v = torch.zeros(16, device="meta", requires_grad=True)
+    with pytest.raises(_Sentinel, match="bottom_k"):
+        rcl._bottom_k_sum(v, torch.zeros(16, device="meta"),
+                          torch.zeros((), dtype=torch.int32, device="meta"))
 
 
 def _imported_modules(path):
