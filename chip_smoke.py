@@ -49,6 +49,22 @@ exits non-zero and prints no result. Phases, one JSON line each:
 10. ``deeplab_train``: stage 0 and then stage 1 at exps/deeplab.yaml's settings
    (8 pairs of 700x700 crops, bf16 autocast, f32 master weights), each with 2
    warm-up and 3 timed steps, their launch counts and one profiled step.
+11. ``stage1_parity``: one M2F stage-1 step (RCL on the anomaly score, Adam
+   over ``class_embed2``) at full widths on 2 pairs of 256x256, f32 with TF32
+   off, card against CPU from the same weights, batch and CPU-made RCL noise,
+   the CPU attending with the card's attention masks: losses, the gradient
+   against a float64 CPU step, the Adam update, every other parameter unchanged.
+12. ``stage1_train``: stage 1 at exps/m2f.yaml's settings (8 pairs of 700x700
+   padded to 704, bf16): 2 warm-up and 3 timed steps, launch counts, peak
+   memory, one profiled step; then ``set_stage(1)`` and one stage-2 step.
+13. ``validate``: ``TrainM2FOOD.valid`` and ``TrainDeepLabOOD.valid`` over 10
+   in-memory images (6 at 720x1280, 4 at 1024x2048: two buckets), labels
+   0/1/255: seconds per image, and the binned metrics against the exact ones
+   on the same maps, within 2/8192.
+14. ``evaluate``: the eval CLI (``test_runner.main``) for ``--model m2f`` and
+   ``--model deeplab`` on a temporary RoadAnomaly21-layout folder (4 jpg
+   images of 720x1280 with their label pngs) named in a temporary YAML, with
+   a detectron2-style checkpoint of the seeded model and ``--save_outputs``.
 
 ``slice_parity`` and ``train_parity`` run the CPU's decoder on the card's
 attention masks, and hold every bit that differs to a logit within rounding of 0.
@@ -61,16 +77,23 @@ together, beside cuDNN's dilated ``conv2d`` in benchmark mode, channels-last
 and NCHW) and checked at the training shapes too, its weight gradient at the
 training shapes (beside cuDNN's) and the pixel selection, forward and
 backward, over 8 x 700 x 700 values, their bounds at the bf16 tensor-core peak (989 TFLOP/s) where the
-tensor cores do the work. A kernel's ``launches`` are those of the main paths:
-``serve`` and ``deeplab_serve`` for the eval kernels, ``train``'s and
-``deeplab_train``'s timed steps for the training kernels, each path run with
-the counts set to 0 just before it and read just after.
+tensor cores do the work; and this slice's: the two forward score tails at
+stage 1's shapes (the anomaly score, and the K class channels alone), the
+anomaly tail's backward there (d probs alone, and with d masks) and with
+forced ties, and
+the binned metrics' masked range and 8192-bin histogram at 720x1280 and
+1024x2048 (bit-for-bit equal to the plain versions). A kernel's ``launches``
+are those of the main paths: ``serve``, ``deeplab_serve``, ``validate`` and
+``evaluate`` for the eval kernels, the timed steps of ``train``,
+``deeplab_train`` and ``stage1_train`` for the training kernels, each path
+run with the counts set to 0 just before it and read just after.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device": ...}``
 when every check passed. Any failed check exits 1 without that line.
 """
 
+import contextlib
 import copy
 import json
 import statistics
@@ -110,6 +133,13 @@ DL_EVAL_MAP, DL_TRAIN_MAP = (H // 8, W // 8), (88, 88)
 DL_TRAIN_PAIRS, DL_CROP = 8, (700, 700)
 # deeplab_train_parity's seeds: each costs seven full-width steps on the CPU
 DL_TRAIN_PARITY_SEEDS = (SEED + 27, SEED + 37)
+# M2F stage 1 (exps/m2f.yaml): the anomaly tail's backward at the stage-1 shapes,
+# stride-4 masks of the 704x704 padded crops
+S1_MASK_HW = (TRAIN_HW[0] // 4, TRAIN_HW[1] // 4)
+# the binned validation metrics: 8192 bins; SMIYC RoadAnomaly21's validation
+# images are 720x1280, Cityscapes-sized ones 1024x2048
+NUM_BINS = 8192
+VAL_HW = ((720, 1280), (1024, 2048))
 
 
 def emit(obj):
@@ -317,6 +347,8 @@ def phase_kernels(torch):
         del out
     train_kernel_rows(torch, dev, rows, check, checks)
     deeplab_kernel_rows(torch, dev, rows, check, checks)
+    stage1_kernel_rows(torch, dev, rows, check, checks)
+    ood_hist_rows(torch, dev, rows, checks)
     ok = all(c["ok"] for c in checks)
     return rows, {"phase": "kernels", "ok": ok, "checks": checks}
 
@@ -621,6 +653,196 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
         check(f"bottom_k_sum_{case}_grad", res[0][1], res[1][1], 0.0, 0.0)
 
 
+def check_per_entry(checks, name, got, want, scale, rel):
+    """Pass where |got - want| <= rel * scale entry by entry (``scale``: the
+    entry's sum of absolute terms); report the largest ratio."""
+    err = (got - want).abs()
+    ok = bool((err <= rel * scale + 1e-30).all())
+    checks.append({"check": name, "max_abs_err": float(err.max()),
+                   "max_err_over_abs_terms": float((err / scale.clamp_min(1e-30)).max()),
+                   "rel_of_abs_terms": rel, "ok": ok})
+    return float(err.max())
+
+
+def tail_backward_inputs(torch, dev, seed, n, hw, out_hw, crop=None, tie=False):
+    """Mask logits [n, 100, *hw], class probabilities [n, 100, 19] and a
+    gradient [n, *out_hw] of the anomaly score (zero outside ``crop``). Where
+    the top two class sums lie within 1e-4 of each other, f32 sum order
+    decides which class takes the gradient, so it is zeroed there (counted);
+    ``tie`` makes classes 0 and 1 equal and leading instead."""
+    from multishiftseg_torch.ops import scores
+
+    g = np.random.RandomState(seed)
+    logits = g.randn(n, QUERIES, CLASSES + 1).astype(np.float32)
+    if tie:
+        logits[..., 1] = logits[..., 0] = 3.0 + g.rand(n, QUERIES).astype(np.float32)
+    probs = torch.softmax(torch.from_numpy(logits).to(dev), -1)[..., :-1].contiguous()
+    masks = torch.from_numpy(3 * g.randn(n, QUERIES, *hw).astype(np.float32)).to(dev)
+    grad = torch.from_numpy(g.randn(n, *out_hw).astype(np.float32)).to(dev)
+    if crop is not None:
+        grad[:, crop[0]:] = 0
+        grad[:, :, crop[1]:] = 0
+    zeroed = 0
+    if not tie:
+        with torch.no_grad():
+            up = torch.sigmoid(scores.resize_bilinear_nchw(masks, out_hw))
+            top2 = torch.einsum("bqk,bqhw->bhwk", probs, up).topk(2, dim=-1).values
+            del up
+            near = (top2[..., 0] - top2[..., 1]) <= 1e-4
+            zeroed = int((near & (grad != 0)).sum())
+            grad[near] = 0
+            del top2, near
+    return masks, probs, grad, zeroed
+
+
+def stage1_kernel_rows(torch, dev, rows, check, checks):
+    """Stage 1's score-tail kernels at its shapes (16 images, 176x176 masks to
+    704x704). The two forward tails of every step, the anomaly score and the K
+    class channels alone (the classes-only mode), against their plain versions
+    (f32 sums in another order: 1e-5). The anomaly tail's backward (the gradient
+    inside the 700x700 crop), d probs alone (the main path) and with d masks,
+    against autograd of the plain version: each entry within 1e-5 of its sum of
+    absolute terms (the same backward of |g|); and a small case with forced ties."""
+    from multishiftseg_torch.ops import scores
+
+    b = 2 * TRAIN_PAIRS
+    g = np.random.RandomState(SEED + 33)
+    fmasks = torch.from_numpy(3 * g.randn(b, QUERIES, *S1_MASK_HW).astype(np.float32)).to(dev)
+    cls = torch.from_numpy(g.randn(b, QUERIES, CLASSES + 1).astype(np.float32)).to(dev)
+    run_a = lambda: scores.anomaly_score_upsampled(cls, fmasks, TRAIN_HW)
+    plain_a = lambda: scores.anomaly_score_upsampled_plain(cls, fmasks, TRAIN_HW)
+    check("mask_scores_anomaly_stage1_shapes", run_a(), plain_a(), 1e-5, 1e-5)
+    checks[-1].update(ms=median_ms(torch, run_a, 20))
+    run_c = lambda: scores.semantic_inference_upsampled(cls, fmasks, TRAIN_HW, CLASSES,
+                                                        _classes_only=True)
+    plain_c = lambda: scores.semantic_inference_upsampled_plain(cls, fmasks, TRAIN_HW, CLASSES,
+                                                                _classes_only=True)
+    out = run_c()
+    err = check("mask_scores_semantic_classes_stage1_shapes", out, plain_c(), 1e-5, 1e-5)
+    checks[-1]["shape"] = list(out.shape)
+    # per output pixel and query: bilinear taps 7, sigmoid 4, the K sums 2K
+    ops = b * TRAIN_HW[0] * TRAIN_HW[1] * QUERIES * (11 + 2 * CLASSES)
+    b_ms, b_by = bound(nbytes(fmasks) + b * QUERIES * CLASSES * 4 + nbytes(out), ops)
+    rows["mask_scores_semantic_classes"] = {
+        "name": "mask_scores_semantic_classes", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/mask_scores.cu",
+        "replaces": "multishiftseg_tpu/ops/scores.py:25",
+        "max_abs_err": err, "ms": median_ms(torch, run_c, 20),
+        "plain_ms": median_ms(torch, plain_c, 3), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}
+    del fmasks, cls, out
+    masks, probs, grad, zeroed = tail_backward_inputs(torch, dev, SEED + 30, b, S1_MASK_HW,
+                                                      TRAIN_HW, crop=CROP)
+    run = lambda: scores.mask_scores_backward(masks, probs, grad, TRAIN_HW)
+    run_m = lambda: scores.mask_scores_backward(masks, probs, grad, TRAIN_HW, dmask=True)
+    plain = lambda: scores.mask_scores_backward_plain(masks, probs, grad, TRAIN_HW)
+    dp, _ = run()
+    dp2, dm = run_m()
+    want_p, want_m = scores.mask_scores_backward_plain(masks, probs, grad, TRAIN_HW, dmask=True)
+    abs_p, abs_m = scores.mask_scores_backward_plain(masks, probs, grad.abs(), TRAIN_HW,
+                                                     dmask=True)
+    torch.cuda.synchronize()
+    err = check_per_entry(checks, "mask_scores_backward_dprobs_stage1_shapes", dp, want_p,
+                          abs_p.abs(), 1e-5)
+    checks[-1].update(pixels_zeroed_near_ties=zeroed, same_as_with_dmask=bool(torch.equal(dp, dp2)),
+                      ok=checks[-1]["ok"] and bool(torch.equal(dp, dp2)))
+    check_per_entry(checks, "mask_scores_backward_dmask_stage1_shapes", dm, want_m, abs_m.abs(),
+                    1e-5)
+    del want_p, want_m, abs_p, abs_m, dm, dp2
+    times = {"ms": median_ms(torch, run, 10), "dmask_ms": median_ms(torch, run_m, 5),
+             "plain_ms": median_ms(torch, plain, 3)}
+    checks.append({"check": "mask_scores_backward_stage1_times", **times, "ok": True})
+    # operations the pixels with a gradient need: the forward's per query
+    # (bilinear 7, sigmoid 4, the K sums 2K), the max over K, and a multiply
+    # and an add into d probs per query and tied class
+    pixels = int((grad != 0).sum())
+    per_px = QUERIES * (11 + 2 * CLASSES) + CLASSES + 2 * QUERIES
+    b_ms, b_by = bound(nbytes(masks, probs, grad) + nbytes(dp), pixels * per_px)
+    rows["mask_scores_backward"] = {
+        "name": "mask_scores_backward", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/mask_scores.cu",
+        "replaces": "multishiftseg_tpu/ops/scores.py:39",
+        "max_abs_err": err, "ms": times["ms"], "plain_ms": times["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no single PyTorch call computes this gradient
+        "library_ms": None}
+    del masks, probs, grad, dp
+    # forced ties, small: the tied classes share the gradient evenly
+    masks, probs, grad, _ = tail_backward_inputs(torch, dev, SEED + 32, 2, (16, 20), (64, 80),
+                                                 tie=True)
+    dp, dm = scores.mask_scores_backward(masks, probs, grad, (64, 80), dmask=True)
+    want_p, want_m = scores.mask_scores_backward_plain(masks, probs, grad, (64, 80), dmask=True)
+    abs_p, abs_m = scores.mask_scores_backward_plain(masks, probs, grad.abs(), (64, 80),
+                                                     dmask=True)
+    torch.cuda.synchronize()
+    check_per_entry(checks, "mask_scores_backward_forced_ties_dprobs", dp, want_p, abs_p.abs(), 1e-5)
+    even = bool(torch.equal(dp[..., 0], dp[..., 1])) and float(dp[..., 0].abs().max()) > 0
+    checks[-1].update(tied_classes_equal=even, ok=checks[-1]["ok"] and even)
+    check_per_entry(checks, "mask_scores_backward_forced_ties_dmask", dm, want_m, abs_m.abs(), 1e-5)
+
+
+def ood_hist_rows(torch, dev, rows, checks):
+    """The masked score range and the 8192-bin label-split histogram of one
+    map at 720x1280 (the rows' times) and 1024x2048, with void pixels: equal
+    to the plain versions bit for bit."""
+    from multishiftseg_torch.evals import ood_metrics as om
+
+    rs = np.random.RandomState(SEED + 31)
+    times = {}
+    for hw in VAL_HW:
+        n = hw[0] * hw[1]
+        # scores shaped like an anomaly map: most low, the OOD ones higher
+        lab = torch.from_numpy(rs.choice([0, 1, 255], size=n, p=[0.75, 0.1, 0.15]).astype(
+            np.int32)).to(dev)
+        s = torch.from_numpy(rs.beta(2, 5, n).astype(np.float32)).to(dev) + 0.3 * (lab == 1)
+        lo, hi = om.masked_min_max(s, lab)
+        lo_p, hi_p = om.masked_min_max_plain(s, lab)
+        got = om.label_histograms(s, lab, lo, hi, NUM_BINS)
+        want = om.label_histograms_plain(s, lab, lo_p, hi_p, NUM_BINS)
+        torch.cuda.synchronize()
+        same_range = float(lo) == float(lo_p) and float(hi) == float(hi_p)
+        same_hist = all(bool(torch.equal(a, c)) for a, c in zip(got, want))
+        checks.append({"check": f"ood_hist_{hw[0]}x{hw[1]}", "range_equal": same_range,
+                       "histograms_equal": same_hist, "pixels": n,
+                       "counted": int(got[0].sum() + got[1].sum()), "ok": same_range and same_hist})
+
+        def library():
+            # the same bin arithmetic (elementwise passes), then one bincount
+            valid = (lab == 0) | (lab == 1)
+            x = ((s - lo) / torch.clamp(hi - lo, min=1e-12) * NUM_BINS).clamp(0, NUM_BINS)
+            bins = x.to(torch.int32).clamp(max=NUM_BINS - 1).long() + NUM_BINS * (lab == 0)
+            return torch.bincount(torch.where(valid, bins, 2 * NUM_BINS), minlength=2 * NUM_BINS + 1)
+
+        times[hw] = {
+            "minmax_ms": median_ms(torch, lambda: om.masked_min_max(s, lab), 50),
+            "minmax_plain_ms": median_ms(torch, lambda: om.masked_min_max_plain(s, lab), 20),
+            "hist_ms": median_ms(torch, lambda: om.label_histograms(s, lab, lo, hi, NUM_BINS), 50),
+            "hist_plain_ms": median_ms(torch, lambda: om.label_histograms_plain(
+                s, lab, lo, hi, NUM_BINS), 20),
+            "library_ms": median_ms(torch, library, 20),
+            "valid": int(((lab == 0) | (lab == 1)).sum()), "bytes": nbytes(s, lab)}
+        checks[-1].update({k: v for k, v in times[hw].items()})
+    t = times[VAL_HW[0]]
+    # bytes: each score and label read once (and the histograms written);
+    # operations: a compare and a min and max per valid pixel, six for a bin
+    b_mm = bound(t["bytes"] + 8, 3 * t["valid"])
+    b_h = bound(t["bytes"] + 2 * NUM_BINS * 4, 6 * t["valid"])
+    rows["ood_hist_minmax"] = {
+        "name": "ood_hist_minmax", "route": "cuda", "source": "multishiftseg_torch/csrc/ood_hist.cu",
+        "replaces": "multishiftseg_tpu/evals/ood_metrics.py:197", "max_abs_err": 0.0,
+        "ms": t["minmax_ms"], "plain_ms": t["minmax_plain_ms"], "bound_ms": b_mm[0],
+        "bound_by": b_mm[1],
+        # no single PyTorch call takes the min and max over a label mask
+        "library_ms": None}
+    rows["ood_hist"] = {
+        "name": "ood_hist", "route": "cuda", "source": "multishiftseg_torch/csrc/ood_hist.cu",
+        "replaces": "multishiftseg_tpu/evals/ood_metrics.py:186", "max_abs_err": 0.0,
+        "ms": t["hist_ms"], "plain_ms": t["hist_plain_ms"], "bound_ms": b_h[0], "bound_by": b_h[1],
+        # torch.bincount over bin + 8192 x label, one call after the same
+        # elementwise bin arithmetic (timed with it)
+        "library_ms": t["library_ms"]}
+
+
 def seeded_deeplab(torch, seed):
     """Port DeepWV3Plus (WRN-38, full widths) with seeded weights: the modules'
     own init from ``seed``, and numpy-seeded running statistics (mean 0.1 x
@@ -819,7 +1041,7 @@ def profile_request(torch, fwd, image):
 def phase_serve(torch, requests=3):
     from multishiftseg_torch.evals.ood_metrics import eval_ood_measure
     from multishiftseg_torch.ops import launch_counts, reset_launch_counts
-    from multishiftseg_torch.train.test_runner import build_m2f_forward
+    from multishiftseg_torch.train.test_runner import build_m2f_request_forward
 
     model = seeded_model(torch, SEED + 5).to(torch.bfloat16)
     g = np.random.RandomState(SEED + 6)
@@ -833,7 +1055,7 @@ def phase_serve(torch, requests=3):
     totals = {}
     ok = True
     for mode in ("bilinear", "nearest"):
-        fwd = build_m2f_forward(model, device="cuda", sample_mode=mode)
+        fwd = build_m2f_request_forward(model, device="cuda", sample_mode=mode)
         for im in images[:2]:  # warm-up
             fwd(im)
         torch.cuda.synchronize()
@@ -857,7 +1079,8 @@ def phase_serve(torch, requests=3):
         other = counts["ms_deform_attn_nearest" if mode == "bilinear" else "ms_deform_attn_bilinear"]
         tail = counts["mask_scores_anomaly"] + counts["mask_scores_semantic"]
         counts_ok = (deform == 6 * requests and other == 0 and tail == 2 * requests
-                     and counts["mask_scores_anomaly"] == requests)
+                     and counts["mask_scores_anomaly"] == requests
+                     and counts["mask_scores_semantic_classes"] == 0)
         metrics = eval_ood_measure(anomaly[0].float().cpu().numpy(), label)
         mode_ok = finite and shapes_ok and counts_ok and metrics is not None
         ok &= mode_ok
@@ -898,6 +1121,8 @@ def phase_train_parity(torch, seed, pairs=2, crop=(256, 256), card="cuda"):
     trainers = {"card": TrainM2FOOD(cfg, model=copy.deepcopy(base), device=card),
                 "cpu": TrainM2FOOD(cfg, model=copy.deepcopy(base), device="cpu"),
                 "cpu_f64": TrainM2FOOD(cfg, model=copy.deepcopy(base), device="cpu")}
+    for tr in trainers.values():
+        tr.set_stage(1)
     trainers["cpu_f64"].model.double()  # in place: the optimizer keeps the same parameters
     draws = trainers["cpu"].draws(2 * pairs, tuple(crop))  # CPU-made, used by both
 
@@ -1022,6 +1247,7 @@ def phase_train(torch, pairs=TRAIN_PAIRS, warmup=2, timed=3):
            "config": "exps/m2f.yaml", "dtype": "bfloat16 autocast, f32 master weights"}
     trainer = TrainM2FOOD(train_config(pairs, CROP, bf16=True),
                           model=seeded_model(torch, SEED + 12).train(), device="cuda")
+    trainer.set_stage(1)
     batch = [torch.from_numpy(x).cuda() for x in synthetic_batch(pairs, CROP, CLASSES, SEED + 13)]
     for _ in range(warmup):
         trainer.stage2_step(*batch)
@@ -1048,7 +1274,8 @@ def phase_train(torch, pairs=TRAIN_PAIRS, warmup=2, timed=3):
                    and per_step["ms_deform_attn_bilinear_backward"] == 6
                    and per_step["linear_sum_assignment"] >= 1 and per_step["label_points"] >= 4
                    and counts["ms_deform_attn_nearest"] == 0
-                   and counts["mask_scores_anomaly"] + counts["mask_scores_semantic"] == 0)
+                   and counts["mask_scores_anomaly"] + counts["mask_scores_semantic"]
+                   + counts["mask_scores_semantic_classes"] == 0)
     res["profiled_step"] = profile_request(torch, lambda _: trainer.stage2_step(*batch), None)
     res["checks"] = {"finite": finite, "launches_ok": launches_ok}
     res["ok"] = bool(all(res["checks"].values()))
@@ -1073,7 +1300,8 @@ def phase_deeplab_parity(torch, hw=(256, 512), card="cuda"):
         trunk = []
         last = list(model.mod7.children())[-1]  # the trunk's last block
         hook = last.register_forward_hook(lambda m, i, o, t=trunk: t.append(o.float().cpu()))
-        score, logit = build_deeplab_forward(model, device=dev, bf16=False)(image)
+        score, logit = build_deeplab_forward(deeplab_config(1, hw, bf16=False), model=model,
+                                             device=dev)(image)
         hook.remove()
         runs[side] = {"trunk": trunk[0], "score": score.cpu(), "logit": logit.cpu()}
 
@@ -1103,7 +1331,8 @@ def phase_deeplab_serve(torch, requests=3):
     from multishiftseg_torch.train.test_runner import build_deeplab_forward
 
     torch.backends.cudnn.allow_tf32 = True
-    fwd = build_deeplab_forward(seeded_deeplab(torch, SEED + 23), device="cuda", bf16=True)
+    fwd = build_deeplab_forward(deeplab_config(1, DL_CROP, bf16=True),
+                                model=seeded_deeplab(torch, SEED + 23), device="cuda")
     g = np.random.RandomState(SEED + 24)
     images = [g.randn(1, H, W, 3).astype(np.float32) for _ in range(requests)]
     label = np.zeros((H, W), np.int64)
@@ -1360,6 +1589,334 @@ def phase_deeplab_train(torch, pairs=DL_TRAIN_PAIRS, warmup=2, timed=3):
     return res, totals
 
 
+def phase_stage1_parity(torch, seed=SEED + 40, pairs=2, crop=(256, 256), card="cuda"):
+    """One stage-1 step (``set_stage(0)``: RCL on the anomaly score, Adam over
+    ``class_embed2``) at full widths in f32 (TF32 off): the card (kernels)
+    against the CPU (plain versions), same weights, batch and CPU-made RCL
+    noise, and the CPU's step in float64, which the card's gradient is held
+    against. The CPU runs attend with the card's attention masks
+    (``attention_mask_hooks``), whose flipped bits are counted. ``card="cpu"``
+    rehearses the control flow."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config(pairs, crop, bf16=False)
+    base = seeded_model(torch, seed)
+    batch = synthetic_batch(pairs, crop, CLASSES, seed + 1)
+    trainers = {"card": TrainM2FOOD(cfg, model=copy.deepcopy(base), device=card),
+                "cpu": TrainM2FOOD(cfg, model=copy.deepcopy(base), device="cpu"),
+                "cpu_f64": TrainM2FOOD(cfg, model=copy.deepcopy(base), device="cpu")}
+    trainers["cpu_f64"].model.double()  # in place: the optimizer keeps the same parameters
+    noise = trainers["cpu"].draws(2 * pairs, tuple(crop))["rcl_noise"]  # CPU-made, used by all
+    head = "sem_seg_head.predictor.class_embed2."
+    snap = lambda t: t.detach().to("cpu", torch.float64, copy=True)
+    runs = {}
+    for side, tr in trainers.items():
+        masks = []
+        hooks = attention_mask_hooks(tr.model.sem_seg_head.predictor, masks,
+                                     runs["card"]["masks"] if side != "card" else None)
+        before = {n: snap(p) for n, p in tr.model.named_parameters()}
+        reset_launch_counts()
+        try:
+            loss, aux = tr.stage1_step(*batch, draws={"rcl_noise": noise.to(tr.device)})
+            if tr.device.type == "cuda":
+                torch.cuda.synchronize()
+        finally:
+            for h in hooks:
+                h.remove()
+        runs[side] = {
+            "launches": launch_counts(), "masks": masks, "loss": float(loss),
+            "aux": {k: float(v) for k, v in aux.items()},
+            "grads": {n: snap(p.grad) for n, p in tr.model.named_parameters()
+                      if p.grad is not None},
+            "delta": {n: snap(p) - before[n] for n, p in tr.model.named_parameters()},
+            "params": before}
+    g, c, f = runs["card"], runs["cpu"], runs["cpu_f64"]
+    flips = sum(int((a[0] != b[0]).sum() + (a[1] != b[1]).sum())
+                for a, b in zip(g["masks"], runs["cpu"]["masks"]))
+    grad_err = {n: float((g["grads"][n] - w).abs().max()) / float(w.abs().max())
+                for n, w in f["grads"].items()}
+    # Adam's first step is about lr * sign(g + wd * p): where that is far above
+    # eps and clear of sign noise, the card's update meets the float64 step's
+    lr, wd = cfg.train.lr, cfg.train.weight_decay
+    upd = 0.0
+    for n, gr in f["grads"].items():
+        gr = gr + wd * f["params"][n]
+        sel = (gr.abs() > 1e-6) & (gr.abs() > 1e-2 * gr.abs().max())
+        upd = max(upd, float((g["delta"][n][sel] - f["delta"][n][sel]).abs().max()))
+    frozen_same = all(float(v.abs().max()) == 0 for run in runs.values()
+                      for n, v in run["delta"].items() if not n.startswith(head))
+    counts = g["launches"]
+    res = {"phase": "stage1_parity", "seed": seed, "pairs": pairs, "crop": list(crop),
+           "widths": "full", "dtype": "float32", "tf32": False, "loss_card": g["loss"],
+           "loss_cpu": c["loss"], "loss_f64": f["loss"], "aux_card": g["aux"], "aux_cpu": c["aux"],
+           "attention_mask_bits_flipped": flips, "trainable": sorted(f["grads"]),
+           "grad_err_vs_f64": grad_err,
+           "grad_err_vs_f64_cpu_f32": {n: float((c["grads"][n] - w).abs().max())
+                                       / float(w.abs().max()) for n, w in f["grads"].items()},
+           "param_update_max_abs_err": upd, "param_update_atol": 1e-2 * lr, "launches": counts}
+    res["checks"] = {
+        "loss_rel_err<=1e-5": all(abs(g["aux"][k] - v) <= 1e-5 * max(abs(v), 1e-6)
+                                  for k, v in c["aux"].items())
+        and abs(g["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"]),
+        "only_class_embed2_trains": sorted(f["grads"]) == [head + "bias", head + "weight"],
+        "grad_err_vs_f64<=1e-3": all(e <= 1e-3 for e in grad_err.values()),
+        "param_update_err<=1e-2*lr": upd <= 1e-2 * lr,
+        "others_unchanged": frozen_same,
+        "launches_ok": card == "cpu" or (
+            counts["mask_scores_backward"] == 1 and counts["mask_scores_anomaly"] == 1
+            and counts["mask_scores_semantic_classes"] == 1
+            and counts["mask_scores_semantic"] == 0 and counts["ms_deform_attn_bilinear"] == 6
+            and counts["ms_deform_attn_bilinear_backward"] == 0),
+        "finite": bool(np.isfinite(g["loss"]))}
+    res["ok"] = bool(all(res["checks"].values()))
+    return res
+
+
+def phase_stage1_train(torch, pairs=TRAIN_PAIRS, warmup=2, timed=3):
+    """Stage 1 at exps/m2f.yaml's settings (8 pairs of 700x700 crops padded to
+    704, bf16 autocast, f32 master weights): 2 warm-up and 3 timed steps with
+    their launch counts, peak memory and one profiled step; then
+    ``set_stage(1)`` and one stage-2 step."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"phase": "stage1_train", "model": "MaskFormer R-50 MSDeformAttn+GMA, full widths",
+           "config": "exps/m2f.yaml", "dtype": "bfloat16 autocast, f32 master weights",
+           "pairs": pairs, "images_per_step": 2 * pairs, "crop": list(CROP),
+           "padded": list(TRAIN_HW)}
+    trainer = TrainM2FOOD(train_config(pairs, CROP, bf16=True),
+                          model=seeded_model(torch, SEED + 41), device="cuda")
+    batch = [torch.from_numpy(x).cuda() for x in synthetic_batch(pairs, CROP, CLASSES, SEED + 42)]
+    frozen = "sem_seg_head.predictor.class_embed.weight"
+    params = dict(trainer.model.named_parameters())
+    start = {n: params[n].detach().clone() for n in (frozen, "sem_seg_head.predictor.class_embed2.weight")}
+    losses = [float(trainer.stage1_step(*batch)[0]) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, steps = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss, aux = trainer.stage1_step(*batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        steps.append({"loss": float(loss), **{k: float(v) for k, v in aux.items()}})
+    counts = launch_counts()
+    per_step = {k: v / timed for k, v in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    profiled = profile_request(torch, lambda _: trainer.stage1_step(*batch), None)
+    moved = {n: float((params[n].detach() - v).abs().max()) for n, v in start.items()}
+    trainer.set_stage(1)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loss2, losses2, gnorm, _ = trainer.stage2_step(*batch)
+    torch.cuda.synchronize()
+    switch = {"stage2_step_ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss2),
+              "grad_norm": float(gnorm), "losses": {k: float(v) for k, v in losses2.items()},
+              "launches": launch_counts(),
+              "trainable_tensors": sum(p.requires_grad for p in trainer.model.parameters())}
+    launches_ok = (per_step["mask_scores_backward"] == 1 and per_step["mask_scores_anomaly"] == 1
+                   and per_step["mask_scores_semantic_classes"] == 1
+                   and per_step["ms_deform_attn_bilinear"] == 6
+                   and all(v == 0 for k, v in counts.items() if k not in (
+                       "mask_scores_backward", "mask_scores_anomaly",
+                       "mask_scores_semantic_classes", "ms_deform_attn_bilinear")))
+    finite = all(np.isfinite(v) for x in steps for v in x.values())
+    res.update(step_ms=times, images_per_s=2 * pairs * timed / (sum(times) / 1e3),
+               peak_mem_gib=peak, steps=steps, losses_warmup=losses, launches=counts,
+               launches_per_step=per_step, param_change_over_5_steps=moved,
+               profiled_step=profiled, after_set_stage_1=switch)
+    res["checks"] = {
+        "finite": finite, "launches_ok": launches_ok,
+        "only_class_embed2_moved": moved[frozen] == 0 and moved[
+            "sem_seg_head.predictor.class_embed2.weight"] > 0,
+        "stage2_step_after_switch": bool(np.isfinite(switch["loss"]) and np.isfinite(
+            switch["grad_norm"]) and switch["launches"]["ms_deform_attn_bilinear_backward"] == 6)}
+    res["ok"] = bool(all(res["checks"].values()))
+    return res, counts
+
+
+def synthetic_val_set(sizes, seed):
+    """An in-memory validation set: normalised f32 images and label maps (an
+    anomaly rectangle of 1, the rest 0, a tenth of the pixels void 255)."""
+    g = np.random.RandomState(seed)
+    items = []
+    for i, (h, w) in enumerate(sizes):
+        lab = np.zeros((h, w), np.int32)
+        y0, x0 = g.randint(0, h // 2), g.randint(0, w // 2)
+        lab[y0:y0 + h // 4, x0:x0 + w // 4] = 1
+        lab[g.rand(h, w) < 0.1] = 255
+        items.append((g.randn(h, w, 3).astype(np.float32), lab, f"val{i}"))
+
+    class InMemory:
+        def __len__(self):
+            return len(items)
+
+        def __getitem__(self, i):
+            return items[i]
+
+    return InMemory()
+
+
+def phase_validate(torch, device="cuda", sizes=(VAL_HW[0],) * 6 + (VAL_HW[1],) * 4,
+                   m2f=None, deeplab=None):
+    """``TrainM2FOOD.valid`` and ``TrainDeepLabOOD.valid`` (bf16 autocast, full
+    widths) over 10 in-memory images in two shape buckets. A first, untimed
+    pass warms up each bucket and records the maps the meter sees (at its
+    ``update``); a second pass with the plain meter is timed, and its launches
+    are the path's. Both passes' binned metrics lie within 2 / 8192 of the
+    exact ones on the recorded maps. ``device="cpu"`` with small models
+    rehearses the control flow."""
+    from multishiftseg_torch.evals.ood_metrics import BinnedOODMeter, eval_ood_measure
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.train import validation
+    from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD
+    from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD
+
+    torch.backends.cudnn.allow_tf32 = True
+    ds = synthetic_val_set(sizes, SEED + 50)
+    seen = []
+
+    class RecordingMeter(BinnedOODMeter):
+        def update(self, scores, labels):
+            seen.append((scores.float().cpu().numpy().reshape(-1), np.asarray(labels).reshape(-1)))
+            super().update(scores, labels)
+
+    res = {"phase": "validate", "images": [list(hw) for hw in sizes], "bins": NUM_BINS,
+           "models": {}}
+    totals, ok = {}, True
+    trainers = {
+        "m2f": lambda: TrainM2FOOD(train_config(1, CROP, bf16=device != "cpu"),
+                                   model=m2f or seeded_model(torch, SEED + 51), device=device),
+        "deeplab": lambda: TrainDeepLabOOD(deeplab_config(1, DL_CROP, bf16=device != "cpu"),
+                                           model=deeplab or seeded_deeplab(torch, SEED + 52),
+                                           device=device)}
+    sync = (lambda: None) if device == "cpu" else torch.cuda.synchronize
+    keys = ("AUROC", "AUPRC", "FPR_TPR95")
+    for name, make in trainers.items():
+        tr = make()
+        seen.clear()
+        validation.BinnedOODMeter = RecordingMeter
+        try:
+            t0 = time.perf_counter()
+            recorded = tr.valid(ds)  # untimed: warm-up of both buckets, maps recorded
+            sync()
+            cold = time.perf_counter() - t0
+        finally:
+            validation.BinnedOODMeter = BinnedOODMeter
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        metrics = tr.valid(ds)
+        sync()
+        seconds = time.perf_counter() - t0
+        counts = launch_counts()
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        exact = dict(zip(keys, eval_ood_measure(np.concatenate([s for s, _ in seen]),
+                                                np.concatenate([lb for _, lb in seen]))))
+        diff = {k: abs(metrics[k] - exact[k]) for k in keys}
+        diff_recorded = {k: abs(recorded[k] - exact[k]) for k in keys}
+        m = {"binned": metrics, "binned_recorded_pass": recorded, "exact": exact,
+             "abs_diff": diff, "abs_diff_recorded_pass": diff_recorded, "seconds": seconds,
+             "seconds_per_image": seconds / len(sizes),
+             "first_pass_seconds_with_recording": cold, "maps": len(seen), "launches": counts}
+        m["checks"] = {
+            "within_2_bins": all(v <= 2 / NUM_BINS for v in list(diff.values())
+                                 + list(diff_recorded.values())),
+            "finite": all(np.isfinite(v) for v in metrics.values()),
+            "every_map_metered": len(seen) == len(sizes),
+            "launches_ok": device == "cpu" or (counts["ood_hist"] == len(sizes)
+                                               and counts["ood_hist_minmax"] == len(sizes))}
+        m["ok"] = bool(all(m["checks"].values()))
+        ok &= m["ok"]
+        res["models"][name] = m
+        del tr
+    res["ok"] = bool(ok)
+    return res, totals
+
+
+def phase_evaluate(torch, device="cuda", hw=VAL_HW[0], n_images=4, m2f=None, deeplab=None,
+                   extra_yaml=None):
+    """The eval CLI (``test_runner.main``), ``--model m2f`` and ``--model
+    deeplab``, on a temporary SMIYC RoadAnomaly21 folder (jpg images and
+    ``_labels_semantic.png`` labels, 4 images of 720x1280) named in a
+    temporary YAML, with ``--weight_path`` a detectron2-style ``{"model": sd}``
+    file of the seeded port model and ``--save_outputs``: finite metrics and
+    artifacts of the images' shape. ``device="cpu"`` with small models (and
+    their widths in ``extra_yaml``) rehearses the control flow."""
+    import os
+    import tempfile
+
+    import yaml
+    from PIL import Image
+
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.train import test_runner
+
+    res = {"phase": "evaluate", "images": n_images, "image_hw": list(hw), "models": {}}
+    totals, ok = {}, True
+    g = np.random.RandomState(SEED + 60)
+    here = Path(__file__).resolve().parent
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "dataset_AnomalyTrack"
+        (root / "images").mkdir(parents=True)
+        (root / "labels_masks").mkdir()
+        for i in range(n_images):
+            Image.fromarray(g.randint(0, 256, (*hw, 3)).astype(np.uint8)).save(
+                root / "images" / f"val{i}.jpg", quality=90)
+            lab = np.zeros(hw, np.uint8)
+            lab[hw[0] // 3:hw[0] // 2, hw[1] // 4:hw[1] // 2] = 1
+            lab[g.rand(*hw) < 0.1] = 255
+            Image.fromarray(lab).save(root / "labels_masks" / f"val{i}_labels_semantic.png")
+        models = {"m2f": (m2f or (lambda: seeded_model(torch, SEED + 61)), "m2f.yaml"),
+                  "deeplab": (deeplab or (lambda: seeded_deeplab(torch, SEED + 62)), "deeplab.yaml")}
+        for name, (make, base) in models.items():
+            cfg_path = Path(tmp) / f"{name}.yaml"
+            y = {"base": str(here / "exps" / base), "data": {"anomaly_track_root": str(root)},
+                 **((extra_yaml or {}).get(name, {}))}
+            cfg_path.write_text(yaml.safe_dump(y))
+            weights = Path(tmp) / f"{name}.pth"
+            torch.save({"model": make().state_dict()}, weights)
+            out = Path(tmp) / f"out_{name}"
+            argv = ["--model", name, "--cfg", str(cfg_path), "--weight_path", str(weights),
+                    "--test_dataset", "RoadAnomaly21", "--save_outputs", str(out),
+                    "--device", device]
+            os.chdir(tmp)  # the config loader writes ckpts/<id> under the working directory
+            try:
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(sys.stderr):  # the CLI prints its results
+                    results = test_runner.main(argv)
+                seconds = time.perf_counter() - t0
+                counts = launch_counts()
+            finally:
+                os.chdir(cwd)
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+            metrics = results.get("RoadAnomaly21", {})
+            arts = sorted((out / "RoadAnomaly21").glob("*_anomaly.npy"))
+            colors = sorted((out / "RoadAnomaly21").glob("*_pred_color.png"))
+            shapes_ok = (len(arts) == n_images == len(colors)
+                         and all(np.load(a).shape == tuple(hw) for a in arts)
+                         and all(Image.open(c).size == (hw[1], hw[0]) for c in colors))
+            m = {"metrics": metrics, "seconds_with_model_load": seconds,
+                 "seconds_per_image_with_model_load": seconds / n_images, "launches": counts,
+                 "artifacts": len(arts) + len(colors)}
+            m["checks"] = {"metrics_finite": len(metrics) == 3 and all(
+                np.isfinite(v) for v in metrics.values()), "artifacts_shape": shapes_ok}
+            m["ok"] = bool(all(m["checks"].values()))
+            ok &= m["ok"]
+            res["models"][name] = m
+    res["ok"] = bool(ok)
+    return res, totals
+
+
 def main():
     try:
         import torch
@@ -1410,11 +1967,24 @@ def main():
     dl_train, dl_train_launches = phase_deeplab_train(torch)
     emit(dl_train)
     phases.append(dl_train)
+    s1_parity = phase_stage1_parity(torch)
+    emit(s1_parity)
+    phases.append(s1_parity)
+    s1_train, s1_launches = phase_stage1_train(torch)
+    emit(s1_train)
+    phases.append(s1_train)
+    validate, val_launches = phase_validate(torch)
+    emit(validate)
+    phases.append(validate)
+    evaluate, eval_launches = phase_evaluate(torch)
+    emit(evaluate)
+    phases.append(evaluate)
 
     # each main path was run with the counts set to 0 just before it
     for name, row in rows.items():
         row["launches"] = sum(path.get(name, 0) for path in (
-            launches, train_launches, dl_launches, dl_train_launches))
+            launches, train_launches, dl_launches, dl_train_launches, s1_launches,
+            val_launches, eval_launches))
     ok = all(p["ok"] for p in phases) and all(r["launches"] > 0 for r in rows.values())
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")

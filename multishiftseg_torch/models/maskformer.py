@@ -87,17 +87,23 @@ def preprocess(images_uint8: torch.Tensor, pixel_mean: Tuple[float, ...] = PIXEL
 
 def inference(outputs: Dict[str, torch.Tensor], image_hw: Tuple[int, int],
               num_classes: int = 19, score_lowres: bool = False,
-              score_topq: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+              score_topq: int = 0, _classes_only: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval tail at the padded image size: (sem [N, K + Q, H, W], anomaly [N, H, W]).
 
     Both heads go through the fused upsample-and-score path
-    (``ops/scores.py``), a CUDA kernel on the card. The approximate tails
-    ``score_lowres`` and ``score_topq`` are not ported.
+    (``ops/scores.py``), a CUDA kernel on the card. The anomaly branch is
+    differentiable on both devices (stage 1 trains through it). A caller that
+    keeps only ``sem[:, :K]``, as the stage-1 step does, passes
+    ``_classes_only``: sem is then [N, K, H, W] and the kept-query channels are
+    never written. The approximate tails ``score_lowres`` and ``score_topq``
+    are not ported.
     """
     if score_lowres or score_topq:
-        raise NotImplementedError("score_lowres / score_topq are not ported")
+        raise NotImplementedError("score_lowres / score_topq are not ported "
+                                  "(ROADMAP Queue 1, alternates)")
     sem = semantic_inference_upsampled(outputs["pred_logits"], outputs["pred_masks"],
-                                       image_hw, num_classes)
+                                       image_hw, num_classes, _classes_only=_classes_only)
     anomaly = anomaly_score_upsampled(outputs["pred_logits_ood"],
                                       outputs["pred_masks_ood"], image_hw)
     return sem, anomaly

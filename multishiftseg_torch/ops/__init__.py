@@ -4,11 +4,12 @@ from typing import Dict
 
 
 def _counters():
+    from ..evals import ood_metrics
     from ..losses import criterion, matcher, rcl
     from . import dilated_conv, ms_deform_attn, scores
 
     return (ms_deform_attn.LAUNCHES, scores.LAUNCHES, matcher.LAUNCHES, criterion.LAUNCHES,
-            dilated_conv.LAUNCHES, rcl.LAUNCHES)
+            dilated_conv.LAUNCHES, rcl.LAUNCHES, ood_metrics.LAUNCHES)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -6,24 +6,38 @@ Counterpart of ``multishiftseg_tpu/ops/scores.py:25-51`` and
 upsamples the ``[N, Q, h, w]`` mask logits to image size and then contracts them;
 :func:`anomaly_score_upsampled` and :func:`semantic_inference_upsampled` compute
 the same per output pixel in one kernel (``csrc/mask_scores.cu``) for CUDA
-tensors, and through the plain path for CPU tensors. The kernel has no backward
-yet: on the card both entries raise when an input requires grad, rather than
-return a result cut off from the graph.
+tensors, and through the plain path for CPU tensors. On the card the anomaly
+entry is a ``torch.autograd.Function`` whose backward is a kernel too
+(:func:`mask_scores_backward`); the semantic entry has no backward kernel and
+raises when an input requires grad, rather than return a result cut off from
+the graph.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from .. import _build
 from .resize import resize_bilinear_nchw
 
 # Kernel launches per entry point (see ``ops.launch_counts``).
-LAUNCHES = {"mask_scores_anomaly": 0, "mask_scores_semantic": 0}
+LAUNCHES = {"mask_scores_anomaly": 0, "mask_scores_semantic": 0,
+            "mask_scores_semantic_classes": 0, "mask_scores_backward": 0}
 
 MAX_CLASSES = 32  # K accumulators per thread in the kernel
+# the backward's shared memory: the probabilities (rows padded to 4 classes),
+# d probs (Q * K floats), a [Q, 128 + 1] tile of sigmoids and 2 x 128
+# per-pixel words, in one block's 227 KB
+_BWD_TILE = 128
+_MAX_SHARED_BYTES = 232448
+# forward kernel modes (csrc/mask_scores.cu), each with its launch counter
+_ANOMALY, _SEMANTIC, _SEMANTIC_CLASSES = 0, 1, 2
+_COUNTER = {_ANOMALY: "mask_scores_anomaly", _SEMANTIC: "mask_scores_semantic",
+            _SEMANTIC_CLASSES: "mask_scores_semantic_classes"}
 
 
 def energy_score(ood_logits: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -43,9 +57,10 @@ def mask2former_semantic_logits(class_logits: torch.Tensor,
 
 def mask2former_anomaly_score(class_logits_ood: torch.Tensor,
                               mask_logits_ood: torch.Tensor) -> torch.Tensor:
-    """Mask2Anomaly per-pixel score ``1 - max_k (softmax x sigmoid)`` -> [B, H, W]."""
+    """Mask2Anomaly per-pixel score ``1 - max_k (softmax x sigmoid)`` -> [B, H, W].
+    ``amax``: a tie's gradient is split evenly among the maxima, as ``jnp.max``'s."""
     sem = mask2former_semantic_logits(class_logits_ood, mask_logits_ood)
-    return 1.0 - sem.max(dim=-1).values
+    return 1.0 - sem.amax(dim=-1)
 
 
 def keep_weights(class_logits: torch.Tensor, num_classes: int = 19) -> torch.Tensor:
@@ -71,12 +86,15 @@ def semantic_inference(class_logits: torch.Tensor, mask_logits_up: torch.Tensor,
 def anomaly_score_upsampled(class_logits_ood: torch.Tensor,
                             mask_logits_ood: torch.Tensor,
                             out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Anomaly score at ``out_hw`` from low-resolution mask logits -> [N, H, W]."""
+    """Anomaly score at ``out_hw`` from low-resolution mask logits -> [N, H, W].
+
+    Differentiable on both devices: on the card the softmax (and the dropped
+    void column) stays in torch autograd, and the fused tail's backward is the
+    :func:`mask_scores_backward` kernel."""
     if mask_logits_ood.device.type == "cpu":
         return anomaly_score_upsampled_plain(class_logits_ood, mask_logits_ood, out_hw)
-    _refuse_grad("anomaly_score_upsampled", class_logits_ood, mask_logits_ood)
     probs = torch.softmax(class_logits_ood.float(), dim=-1)[..., :-1].contiguous()
-    return _mask_scores_cuda(mask_logits_ood, probs, None, out_hw)
+    return _AnomalyTail.apply(mask_logits_ood, probs, tuple(int(v) for v in out_hw))
 
 
 def anomaly_score_upsampled_plain(class_logits_ood, mask_logits_ood, out_hw):
@@ -85,27 +103,78 @@ def anomaly_score_upsampled_plain(class_logits_ood, mask_logits_ood, out_hw):
     return mask2former_anomaly_score(class_logits_ood, up)
 
 
+class _AnomalyTail(torch.autograd.Function):
+    """The anomaly tail on the card from class probabilities [N, Q, K]; saves
+    its inputs and nothing else."""
+
+    @staticmethod
+    def forward(ctx, masks, probs, out_hw):
+        ctx.out_hw = out_hw
+        ctx.save_for_backward(masks, probs)
+        return _mask_scores_cuda(masks, probs, None, out_hw, _ANOMALY)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        masks, probs = ctx.saved_tensors
+        dprobs, dmask = mask_scores_backward(masks, probs, grad, ctx.out_hw,
+                                             dmask=ctx.needs_input_grad[0])
+        return dmask, dprobs, None
+
+
+def mask_scores_backward(masks: torch.Tensor, probs: torch.Tensor, grad: torch.Tensor,
+                         out_hw: Tuple[int, int], dmask: bool = False
+                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Gradients of ``1 - max_k sum_q probs[:, q, k] sigmoid(up(masks)[:, q])``
+    for ``grad`` [N, H, W] -> (d probs [N, Q, K], d masks [N, Q, h, w] when
+    ``dmask``, else None), f32. A tie's gradient is split evenly among the
+    classes that reach the max. The CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if masks.device.type == "cpu":
+        return mask_scores_backward_plain(masks, probs, grad, out_hw, dmask)
+    return _mask_scores_backward_cuda(masks, probs, grad, out_hw, dmask)
+
+
+def mask_scores_backward_plain(masks, probs, grad, out_hw, dmask=False):
+    """Plain version of :func:`mask_scores_backward`: autograd of resize,
+    sigmoid, the contraction and ``amax``."""
+    with torch.enable_grad():
+        m = masks.detach().float().requires_grad_(dmask)
+        p = probs.detach().float().requires_grad_()
+        up = resize_bilinear_nchw(m, out_hw, align_corners=False)
+        acc = torch.einsum("bqk,bqhw->bhwk", p, torch.sigmoid(up))
+        out = 1.0 - acc.amax(dim=-1)
+        grads = torch.autograd.grad(out, (p, m) if dmask else (p,), grad.float())
+    return grads[0], (grads[1] if dmask else None)
+
+
 def semantic_inference_upsampled(class_logits: torch.Tensor, mask_logits: torch.Tensor,
-                                 out_hw: Tuple[int, int],
-                                 num_classes: int = 19) -> torch.Tensor:
+                                 out_hw: Tuple[int, int], num_classes: int = 19,
+                                 _classes_only: bool = False) -> torch.Tensor:
     """Semantic inference at ``out_hw`` from low-resolution mask logits
-    -> [N, K + Q, H, W]."""
+    -> [N, K + Q, H, W]. ``_classes_only`` (for :func:`models.maskformer.inference`
+    when its caller keeps only ``sem[:, :K]``) computes the K class channels
+    alone, [N, K, H, W]: the kept-query channels are never written."""
     if class_logits.shape[-1] != num_classes + 1:
         raise ValueError(f"class logits have {class_logits.shape[-1]} entries, "
                          f"expected num_classes + 1 = {num_classes + 1}")
     if mask_logits.device.type == "cpu":
         return semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
-                                                  num_classes)
+                                                  num_classes, _classes_only)
     _refuse_grad("semantic_inference_upsampled", class_logits, mask_logits)
     probs = torch.softmax(class_logits.float(), dim=-1)[..., :-1].contiguous()
+    if _classes_only:
+        return _mask_scores_cuda(mask_logits, probs, None, out_hw, _SEMANTIC_CLASSES)
     keep = keep_weights(class_logits, num_classes).contiguous()
-    return _mask_scores_cuda(mask_logits, probs, keep, out_hw)
+    return _mask_scores_cuda(mask_logits, probs, keep, out_hw, _SEMANTIC)
 
 
 def semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
-                                       num_classes=19):
+                                       num_classes=19, _classes_only=False):
     """Plain version of :func:`semantic_inference_upsampled`: resize, then score."""
     up = resize_bilinear_nchw(mask_logits.float(), out_hw, align_corners=False)
+    if _classes_only:
+        return mask2former_semantic_logits(class_logits, up).permute(0, 3, 1, 2)
     return semantic_inference(class_logits, up, num_classes)
 
 
@@ -115,8 +184,7 @@ def _refuse_grad(name, *tensors):
                            "run it under torch.no_grad()")
 
 
-def _mask_scores_cuda(masks, probs, keep, out_hw):
-    semantic = keep is not None
+def _check_tail_args(masks, probs):
     if masks.dtype != torch.float32:
         raise TypeError(f"mask logits must be float32, got {masks.dtype}")
     if masks.dim() != 4 or not masks.is_contiguous():
@@ -128,24 +196,72 @@ def _mask_scores_cuda(masks, probs, keep, out_hw):
                          f"masks {tuple(masks.shape)}")
     if not 1 <= k <= MAX_CLASSES:
         raise ValueError(f"the kernel takes 1..{MAX_CLASSES} classes, got {k}")
-    tensors = (masks, probs) + ((keep,) if semantic else ())
+    return n, q, k, h, w
+
+
+def _mask_scores_cuda(masks, probs, keep, out_hw, mode):
+    n, q, k, h, w = _check_tail_args(masks, probs)
+    tensors = (masks, probs) + ((keep,) if mode == _SEMANTIC else ())
     if any(t.device != masks.device for t in tensors):
         raise ValueError("all inputs must be on one device")
     H, W = (int(v) for v in out_hw)
-    from .._build import load
-
-    lib = load("mask_scores")
-    fn = lib.mask_scores_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    shape = (n, k + q, H, W) if semantic else (n, H, W)
+    fn = _build.function("mask_scores", "mask_scores_forward",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+    shape = {_ANOMALY: (n, H, W), _SEMANTIC: (n, k + q, H, W),
+             _SEMANTIC_CLASSES: (n, k, H, W)}[mode]
     out = torch.empty(shape, dtype=torch.float32, device=masks.device)
     with torch.cuda.device(masks.device):
         stream = torch.cuda.current_stream(masks.device).cuda_stream
         rc = fn(masks.data_ptr(), probs.data_ptr(),
-                keep.data_ptr() if semantic else None, out.data_ptr(),
-                n, q, k, h, w, H, W, int(semantic), stream)
+                keep.data_ptr() if mode == _SEMANTIC else None, out.data_ptr(),
+                n, q, k, h, w, H, W, mode, stream)
     if rc != 0:
         raise RuntimeError(f"mask_scores_forward failed: cudaError {rc}")
-    LAUNCHES["mask_scores_semantic" if semantic else "mask_scores_anomaly"] += 1
+    LAUNCHES[_COUNTER[mode]] += 1
     return out
+
+
+def _mask_scores_backward_cuda(masks, probs, grad, out_hw, want_dmask):
+    n, q, k, h, w = _check_tail_args(masks, probs)
+    H, W = (int(v) for v in out_hw)
+    kp = (k + 3) // 4 * 4  # probability rows padded to float4s
+    if (q * (kp + k + _BWD_TILE + 1) + 2 * _BWD_TILE) * 4 > _MAX_SHARED_BYTES:
+        raise ValueError(f"the backward kernel's shared memory does not hold {q} queries "
+                         f"x {k} classes")
+    probs = probs.float().contiguous()
+    grad = grad.float().contiguous()
+    if tuple(grad.shape) != (n, H, W) or any(
+            t.device != masks.device for t in (probs, grad)):
+        raise ValueError(f"grad {tuple(grad.shape)} on {grad.device}, expected "
+                         f"{(n, H, W)} on {masks.device}")
+    fn = _build.function("mask_scores", "mask_scores_backward",
+                         [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                         + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    occupancy = _build.function("mask_scores", "mask_scores_backward_blocks_per_sm",
+                                [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+    dev = masks.device
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = occupancy(q, k, ctypes.byref(per_sm))
+    if rc != 0 or per_sm.value < 1:
+        raise RuntimeError(f"mask_scores_backward: no block fits on an SM (cudaError {rc})")
+    # the images share one wave of blocks, each image's pixels split in chunks
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks = max(1, per_sm.value * sms // max(n, 1))
+    partial = torch.empty((n, chunks, q, k), dtype=torch.float32, device=dev)
+    dprobs = torch.empty((n, q, k), dtype=torch.float32, device=dev)
+    dmask = tie = share = None
+    if want_dmask:
+        dmask = torch.empty_like(masks)
+        tie = torch.empty((n, H, W), dtype=torch.int32, device=dev)
+        share = torch.empty((n, H, W), dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(masks.data_ptr(), probs.data_ptr(), grad.data_ptr(), dprobs.data_ptr(),
+                partial.data_ptr(), chunks, ptr(dmask), ptr(tie), ptr(share),
+                n, q, k, h, w, H, W, stream)
+    if rc != 0:
+        raise RuntimeError(f"mask_scores_backward failed: cudaError {rc}")
+    LAUNCHES["mask_scores_backward"] += 1
+    return dprobs, dmask

@@ -1,13 +1,15 @@
-"""DeepLab OOD fine-tuning: the two-stage step.
+"""DeepLab OOD fine-tuning: the two-stage step and per-epoch validation.
 
-Counterpart of ``multishiftseg_tpu/train/deeplab_trainer.py``: the paired train
+Counterpart of ``multishiftseg_tpu/train/deeplab_trainer.py``: construction from
+a reference checkpoint (``_build_variables`` :131-139), the paired train
 step (``make_train_step`` :43-91: clean ‖ augmented concatenated on the leading
 axis, the whole model in training mode, RCL on the logits and energy scores) and
 the two-stage schedule (``_stage_optimizer`` :169-180): stage 0 trains
 ``trainable_params_name`` (``ood_head``) at ``lr``, stage 1 trains
 ``trainable_params_name_update`` (``aspp``, ``bot_fine``, ``bot_aspp``,
 ``ood_head``) at ``lr_update``, each with a fresh torch ``Adam`` (L2 added to the
-gradient). Datasets, the epoch loop, validation and checkpoints are not ported
+gradient), and ``valid`` (:324-333: the energy score in eval mode through
+``batched_valid``). Datasets, the epoch loop and checkpoints are not ported
 yet.
 
 Every BatchNorm, the frozen trunk's included, normalises with batch statistics
@@ -28,27 +30,35 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 
 from ..convert.from_jax import deeplab_from_jax
+from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
 from ..losses.rcl import make_rcl_params, rel_contrastive_loss
-from ..models.deeplab import DeepWV3Plus
+from ..models.deeplab import DeepWV3Plus, init_ood_head_from_final
 from ..models.wider_resnet import draw_dropout_masks
 from ..utils import resolve_device
 from .m2f_trainer import synthetic_batch  # noqa: F401  seeded batches, as for M2F
 from .state import build_stage_optimizer
+from .validation import batched_valid
 
 
 class TrainDeepLabOOD:
     """Two-stage DeepLab step. ``cfg`` is a :class:`Config`
-    (``load_config("exps/deeplab.yaml")``); ``model`` defaults to WRN-38 DeepLab
-    at random init from ``cfg.train.seed``. Runs on CUDA unless the caller asks
-    for the CPU. Starts in stage 0."""
+    (``load_config("exps/deeplab.yaml")``); ``weight_path`` a reference
+    checkpoint (loaded strictly, then ``ood_head`` <- the classifier);
+    ``model`` defaults to WRN-38 DeepLab at random init from
+    ``cfg.train.seed``. Runs on CUDA unless the caller asks for the CPU. Starts
+    in stage 0."""
 
-    def __init__(self, cfg: Config, model: Optional[DeepWV3Plus] = None, device="cuda"):
+    def __init__(self, cfg: Config, weight_path: Optional[str] = None,
+                 model: Optional[DeepWV3Plus] = None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         if model is None:
             torch.manual_seed(cfg.train.seed)
             model = DeepWV3Plus(num_classes=cfg.data.class_num)
+        if weight_path:
+            load_reference_weights(model, weight_path)
+            init_ood_head_from_final(model)
         self.model = model.to(self.device).float()
         if self.device.type == "cuda":
             self.model = self.model.to(memory_format=torch.channels_last)
@@ -105,3 +115,18 @@ class TrainDeepLabOOD:
         loss.backward()
         self.optimizer.step()
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
+
+    @torch.inference_mode()
+    def eval_step(self, imgs) -> Tuple[torch.Tensor, torch.Tensor]:
+        """imgs: normalised f32 [B, H, W, 3] -> (score [B, H, W], logit
+        [B, C, H, W]), f32: eval mode (running statistics), bf16 autocast over
+        the f32 master weights when ``cfg.train.bf16``."""
+        x = torch.as_tensor(imgs).to(self.device, torch.float32)
+        self.model.eval()
+        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
+            return self.model(x.permute(0, 3, 1, 2))
+
+    def valid(self, val_ds) -> Optional[Dict[str, float]]:
+        """Per-epoch validation: binned metrics of the energy score over
+        shape-bucketed batches (``batched_valid``)."""
+        return batched_valid(val_ds, lambda imgs: self.eval_step(imgs)[0])

@@ -1,16 +1,22 @@
-"""Mask2Anomaly stage-2 fine-tuning step.
+"""Mask2Anomaly two-stage fine-tuning steps and per-epoch validation.
 
-Counterpart of ``multishiftseg_tpu/train/m2f_trainer.py``: ``copy_class_embed_to_ood``
-(:60-70), ``_pad_batch`` (:236-244) and the paired stage-2 step
-(``make_stage2_step`` + ``_pairify``, :281-324): the official Hungarian-matched
-set criterion with RCL as its OOD loss, over all parameters, through the
-detectron2-style AdamW groups and full-model gradient clipping. Datasets, the
-epoch loop, validation and stage 1 are not ported yet.
+Counterpart of ``multishiftseg_tpu/train/m2f_trainer.py``: construction from a
+reference checkpoint (``_build_variables`` :156-173), ``copy_class_embed_to_ood``
+(:60-70), ``_pad_batch`` (:236-244), the paired stage-1 step
+(``make_stage1_step`` + ``_pairify``, :246-279, :308-324: the eval-style
+``inference``, then RCL on the semantic logits and the anomaly score, Adam over
+``class_embed2``), the paired stage-2 step (``make_stage2_step``, :281-306: the
+official Hungarian-matched set criterion with RCL as its OOD loss, over all
+parameters, through the detectron2-style AdamW groups and full-model gradient
+clipping), the stage switch of ``train`` (:380-392, :427-441), ``make_eval_step``
+(:326-343) and ``valid`` (:494-506). Datasets and the epoch loop are not ported
+yet.
 
-The model keeps f32 master weights and AdamW state; with ``cfg.train.bf16`` the
-forward runs under ``torch.autocast`` in bf16 (the JAX model's
-``dtype=bfloat16``), with the mask products, attention softmax and all losses in
-f32. Every random draw comes from the trainer's ``torch.Generator``.
+The model keeps f32 master weights and optimizer state; with ``cfg.train.bf16``
+the forward runs under ``torch.autocast`` in bf16 (the JAX model's
+``dtype=bfloat16``), with the mask products, attention softmax, score tails
+and all losses in f32. Every random draw comes from the trainer's
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -21,12 +27,15 @@ import numpy as np
 import torch
 
 from ..convert.from_jax import maskformer_from_jax
+from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
 from ..losses.criterion import CriterionConfig, criterion_draws, set_criterion
-from ..losses.rcl import make_rcl_params
-from ..models.maskformer import MaskFormer
+from ..losses.rcl import make_rcl_params, rel_contrastive_loss
+from ..models.maskformer import MaskFormer, inference
+from ..ops.scores import anomaly_score_upsampled
 from ..utils import resolve_device
-from .state import build_m2f_official_optimizer, clip_grad_norm
+from .state import build_m2f_official_optimizer, build_stage_optimizer, clip_grad_norm
+from .validation import batched_valid
 
 SIZE_DIVISIBILITY = 32
 IGNORE_LABEL = 255
@@ -53,11 +62,14 @@ def pad_batch(img: torch.Tensor, target: torch.Tensor
 
 
 class TrainM2FOOD:
-    """Stage-2 trainer. ``cfg`` is a :class:`Config` (``load_config("exps/m2f.yaml")``);
-    ``model`` defaults to the configured MaskFormer at random init from
-    ``cfg.train.seed``. Runs on CUDA unless the caller asks for the CPU."""
+    """Two-stage trainer. ``cfg`` is a :class:`Config` (``load_config("exps/m2f.yaml")``);
+    ``weight_path`` a reference checkpoint (loaded strictly, then
+    ``class_embed2`` <- ``class_embed``); ``model`` defaults to the configured
+    MaskFormer at random init from ``cfg.train.seed``. Runs on CUDA unless the
+    caller asks for the CPU. Starts in stage 0 (:meth:`set_stage`)."""
 
-    def __init__(self, cfg: Config, model: Optional[MaskFormer] = None, device="cuda"):
+    def __init__(self, cfg: Config, weight_path: Optional[str] = None,
+                 model: Optional[MaskFormer] = None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
         m = cfg.model.m2f
@@ -73,6 +85,9 @@ class TrainM2FOOD:
                                dec_layers=m.dec_layers - 1, mask_dim=m.mask_dim,
                                transformer_enc_layers=m.transformer_enc_layers,
                                pixel_decoder=m.pixel_decoder, predictor=m.transformer_decoder)
+        if weight_path:
+            load_reference_weights(model, weight_path, fill=_ood_head_from_class_head)
+            copy_class_embed_to_ood(model)
         self.model = model.to(self.device).float()
         self.rcl_params = make_rcl_params(cfg.loss.params)
         self.crit_cfg = CriterionConfig(
@@ -87,12 +102,28 @@ class TrainM2FOOD:
             mask_loss_with_pixel_selection=cfg.model.mask2anomaly.mask_loss_with_pixel_selection)
         self.crop_hw = tuple(cfg.data.crop_size)
         self.clip_value = m.clip_gradients_value
-        self.optimizer = build_m2f_official_optimizer(
-            self.model, base_lr=m.base_lr, weight_decay=m.weight_decay,
-            trainable_names=cfg.model.trainable_params_name_update or (".",))
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.bf16 = cfg.train.bf16
         self.step = 0
+        self.set_stage(0)
+
+    def set_stage(self, stage: int) -> None:
+        """Stage 0: a fresh ``Adam`` at ``train.lr`` / ``train.weight_decay``
+        over ``trainable_params_name`` (``class_embed2``), the rest frozen.
+        Stage 1: the detectron2-style AdamW groups over
+        ``trainable_params_name_update`` (all), as ``train`` builds them at the
+        warmup boundary."""
+        m, t = self.cfg.model, self.cfg.train
+        if stage == 0:
+            self.optimizer = build_stage_optimizer(self.model, t.lr, t.weight_decay,
+                                                   m.trainable_params_name)
+        elif stage == 1:
+            self.optimizer = build_m2f_official_optimizer(
+                self.model, base_lr=m.m2f.base_lr, weight_decay=m.m2f.weight_decay,
+                trainable_names=m.trainable_params_name_update or (".",))
+        else:
+            raise ValueError(f"stage {stage}: the recipe has stages 0 and 1")
+        self.stage = stage
 
     def load_jax_variables(self, variables: Mapping) -> None:
         """Load a JAX ``MaskFormer`` variable tree (numpy leaves) strictly,
@@ -101,16 +132,65 @@ class TrainM2FOOD:
         self.optimizer.state.clear()
 
     def draws(self, batch: int, label_hw: Tuple[int, int]) -> Dict[str, object]:
-        """The criterion's draws for one step, from the trainer's generator."""
+        """The current stage's draws for one step, from the trainer's generator:
+        stage 0 the RCL noise [3, batch * crop_h * crop_w], stage 1 the criterion's."""
+        if self.stage == 0:
+            ch, cw = self.crop_hw
+            return {"rcl_noise": torch.rand((3, batch * ch * cw), generator=self.generator,
+                                            device=self.device)}
         n_aux = len(self.model.sem_seg_head.predictor.transformer_cross_attention_layers) - 1
         return criterion_draws(self.generator, batch, self.crit_cfg, label_hw,
                                crop_hw=self.crop_hw, num_aux=n_aux, device=self.device)
+
+    def _pair(self, img_c, img_g, tgt_c, tgt_g):
+        img = torch.cat([torch.as_tensor(img_c), torch.as_tensor(img_g)]).to(
+            self.device, torch.float32)
+        tgt = torch.cat([torch.as_tensor(tgt_c), torch.as_tensor(tgt_g)]).to(
+            self.device, torch.int32)
+        img, tgt, _ = pad_batch(img, tgt)
+        return img, tgt
+
+    def _need_stage(self, stage: int, step: str) -> None:
+        if self.stage != stage:
+            raise RuntimeError(f"{step} runs in stage {stage}; the trainer is in stage "
+                               f"{self.stage} (set_stage)")
+
+    def stage1_step(self, img_c: torch.Tensor, img_g: torch.Tensor, tgt_c: torch.Tensor,
+                    tgt_g: torch.Tensor, draws: Optional[Dict[str, object]] = None
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One stage-1 step (``set_stage(0)``) on the clean and augmented halves.
+
+        img_*: normalised f32 [B, H, W, 3]; tgt_*: int [B, H, W] label maps,
+        padded to /32 and concatenated as [clean ‖ augmented]. The model runs in
+        training mode; ``inference`` scores at the padded size, and RCL takes
+        the semantic logits (NHWC) and the anomaly score cropped to
+        ``crop_size``. ``draws`` (from :meth:`draws`, or made elsewhere for a
+        replay) default to fresh ones. Returns (loss, RCL components), detached.
+        """
+        self._need_stage(0, "stage1_step")
+        img, tgt = self._pair(img_c, img_g, tgt_c, tgt_g)
+        if draws is None:
+            draws = self.draws(img.shape[0], tuple(tgt.shape[1:]))
+        self.model.train()
+        with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
+            outputs = self.model(img)
+        sem, anomaly = inference(outputs, tuple(img.shape[1:3]),
+                                 num_classes=self.model.num_classes, _classes_only=True)
+        ch, cw = self.crop_hw
+        loss, aux = rel_contrastive_loss(sem[:, :, :ch, :cw].permute(0, 2, 3, 1),
+                                         anomaly[:, :ch, :cw], tgt[:, :ch, :cw],
+                                         draws["rcl_noise"], self.rcl_params)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     def stage2_step(self, img_c: torch.Tensor, img_g: torch.Tensor, tgt_c: torch.Tensor,
                     tgt_g: torch.Tensor, draws: Optional[Dict[str, object]] = None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor,
                                List[torch.Tensor]]:
-        """One stage-2 step on the clean and augmented halves.
+        """One stage-2 step (``set_stage(1)``) on the clean and augmented halves.
 
         img_*: normalised f32 [B, H, W, 3]; tgt_*: int [B, H, W] label maps (train
         ids, OOD > 100, void 255). Both halves are padded to /32 and concatenated
@@ -119,11 +199,8 @@ class TrainM2FOOD:
         global gradient norm before clipping, the criterion's assignments),
         detached.
         """
-        img = torch.cat([torch.as_tensor(img_c), torch.as_tensor(img_g)]).to(
-            self.device, torch.float32)
-        tgt = torch.cat([torch.as_tensor(tgt_c), torch.as_tensor(tgt_g)]).to(
-            self.device, torch.int32)
-        img, tgt, _ = pad_batch(img, tgt)
+        self._need_stage(1, "stage2_step")
+        img, tgt = self._pair(img_c, img_g, tgt_c, tgt_g)
         if draws is None:
             draws = self.draws(img.shape[0], tuple(tgt.shape[1:]))
         self.model.train()
@@ -139,6 +216,49 @@ class TrainM2FOOD:
         self.step += 1
         return (total.detach(), {k: v.detach() for k, v in losses.items()}, grad_norm,
                 assignments)
+
+    def eval_step(self, imgs, sample_mode: str = "bilinear") -> Tuple[torch.Tensor, torch.Tensor]:
+        """imgs: normalised f32 [B, H, W, 3], H and W multiples of 32 ->
+        (sem [B, K + Q, H, W], anomaly [B, H, W]): :func:`eval_forward` with
+        bf16 autocast over the f32 master weights when ``cfg.train.bf16``."""
+        return eval_forward(self.model, imgs, self.bf16, sample_mode)
+
+    def valid(self, val_ds) -> Optional[Dict[str, float]]:
+        """Per-epoch validation: binned metrics over shape-bucketed batches
+        (``batched_valid``) of the anomaly score alone."""
+        return batched_valid(val_ds, lambda imgs: eval_forward(self.model, imgs, self.bf16,
+                                                               anomaly_only=True))
+
+
+@torch.inference_mode()
+def eval_forward(model: MaskFormer, imgs, bf16: bool = False, sample_mode: str = "bilinear",
+                 anomaly_only: bool = False):
+    """The M2F eval forward (``make_eval_step``): ``model`` in eval mode on
+    normalised f32 images [B, H, W, 3] (H and W multiples of 32), moved to the
+    model's device, under bf16 autocast when ``bf16``; then ``inference`` at
+    the image size -> (sem [B, K + Q, H, W], anomaly [B, H, W]), or the anomaly
+    score alone when ``anomaly_only``. f32 tensors on the model's device."""
+    x = torch.as_tensor(imgs)
+    if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] != 3:
+        raise ValueError(f"expected normalised float32 [N, H, W, 3] images, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    device = next(model.parameters()).device
+    x = x.to(device)
+    model.eval()
+    with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+        outputs = model(x, deform_sample_mode=sample_mode)
+    hw = tuple(x.shape[1:3])
+    if anomaly_only:
+        return anomaly_score_upsampled(outputs["pred_logits_ood"], outputs["pred_masks_ood"], hw)
+    return inference(outputs, hw, num_classes=model.num_classes)
+
+
+def _ood_head_from_class_head(state: Dict[str, torch.Tensor]) -> None:
+    """A reference checkpoint may lack ``class_embed2``; the JAX converter then
+    takes ``class_embed``'s (``torch2jax.py:302``), and so does the port."""
+    pred = "sem_seg_head.predictor."
+    for leaf in ("weight", "bias"):
+        state.setdefault(f"{pred}class_embed2.{leaf}", state[f"{pred}class_embed.{leaf}"])
 
 
 def synthetic_batch(pairs: int, hw: Tuple[int, int], num_classes: int, seed: int,

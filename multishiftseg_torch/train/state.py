@@ -50,15 +50,16 @@ def build_m2f_official_optimizer(model: nn.Module, base_lr: float = 1e-5,
                                  trainable_names: Sequence[str] = (".",)
                                  ) -> torch.optim.AdamW:
     """Stage-2 AdamW (betas 0.9 / 0.999, eps 1e-8) with one group per (lr, decay)
-    pair. Parameters outside ``trainable_names`` are frozen (requires_grad off).
+    pair. Parameters outside ``trainable_names`` are frozen (requires_grad off),
+    the others trainable.
     Each group records its ``lr_mult`` and whether it decays."""
     rules = m2f_param_rules(model)
     keep = trainable_mask(model, trainable_names)
     groups: Dict[Tuple[float, bool], List[nn.Parameter]] = {}
     names: Dict[Tuple[float, bool], List[str]] = {}
     for name, param in model.named_parameters():
+        param.requires_grad_(keep[name])
         if not keep[name]:
-            param.requires_grad_(False)
             continue
         r = rules[name]
         key = (r["lr_mult"], r["decay"])

@@ -1,38 +1,251 @@
-"""Whole-image eval forwards of both model families.
+"""Evaluation driver: whole-image forwards of both model families over the
+anomaly benchmarks, and its command line.
 
-Counterpart of ``multishiftseg_tpu/train/test_runner.py::build_m2f_forward``
-(:316-411) for the ``bilinear`` and ``nearest`` sample modes, and of
-``build_deeplab_forward`` (:255-271). The config loader, the checkpoint loading,
-the sampling-qualification gate and ``OODEvaluator`` are not ported yet.
+Counterpart of ``multishiftseg_tpu/train/test_runner.py``: ``bucket_shape``,
+``tta_wrap``, ``OODEvaluator`` (:59-205), the sampling-qualification gate
+(:285-313), ``build_deeplab_forward`` (:255-271), ``build_m2f_forward``
+(:316-411) and ``main`` (:414-486). Images are padded to shape buckets
+(multiples of 128) and batched 4 to a forward; scores are cropped back before
+the exact metrics. The forwards take the evaluator's images: ``ToTensor`` +
+``Normalize(cfg.data.mean, cfg.data.std)``, f32 [B, H, W, 3], H and W
+multiples of 32. ``build_m2f_request_forward`` serves uint8 requests over the
+same forward. Spatial sharding, the approximate score tails and the sampling
+modes beyond ``bilinear`` / ``nearest`` are not ported (ROADMAP Queue 1).
+
+CLI::
+
+    python -m multishiftseg_torch.train.test_runner --model m2f \\
+        --cfg exps/m2f.yaml --weight_path ckpt.pth [--test_dataset RoadAnomaly21]
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import argparse
+import json
+import logging
+import os
+from pathlib import Path
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..core.config import Config, load_config
+from ..data.anomaly import EVAL_DATASETS
+from ..data.transforms import Compose, Normalize, ToTensor
+from ..evals.ood_metrics import eval_ood_measure
+from ..evals.seg_metrics import compute_metric, hist_info
 from ..models.deeplab import DeepWV3Plus
-from ..models.maskformer import MaskFormer, inference, preprocess
+from ..models.maskformer import MaskFormer, preprocess
 from ..ops.ms_deform_attn import SAMPLE_MODES
-from ..utils import resolve_device
+from ..utils import map2citycolor, resolve_device
+
+log = logging.getLogger(__name__)
+
+# the reference's defaults: test_deeplab iterates {RoadAnomaly, RA21, RO21}; test_m2f adds MUAD
+DEFAULT_DATASETS = ("RoadAnomaly", "RoadAnomaly21", "RoadObstacle21")
+DEFAULT_DATASETS_M2F = DEFAULT_DATASETS + ("MUAD",)
+
+Forward = Callable[[torch.Tensor], Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
 
-def build_m2f_forward(model: MaskFormer, device="cuda", sample_mode: str = "bilinear"
-                      ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
+def bucket_shape(h: int, w: int, multiple: int = 128) -> Tuple[int, int]:
+    """Round (h, w) up to a coarse bucket."""
+    return (-(-h // multiple) * multiple, -(-w // multiple) * multiple)
+
+
+def tta_wrap(forward_fn: Forward) -> Forward:
+    """Horizontal-flip TTA over an (anomaly, sem) forward
+    (``SemanticSegmentorWithTTA``): the mean of the image's and its mirror's."""
+
+    def wrapped(img):
+        a, s = forward_fn(img)
+        a2, s2 = forward_fn(torch.flip(torch.as_tensor(img), dims=[2]))
+        a = 0.5 * (a + torch.flip(a2, dims=[2]))
+        if s is not None and s2 is not None:
+            s = 0.5 * (s + torch.flip(s2, dims=[-1]))
+        return a, s
+
+    return wrapped
+
+
+class OODEvaluator:
+    """Whole-image eval loop over the anomaly benchmarks."""
+
+    def __init__(self, cfg: Config, forward_fn: Forward, dataset_roots: Dict[str, str],
+                 tta: bool = False, save_dir: Optional[str] = None, batch_size: int = 4):
+        """``forward_fn(imgs [B, H, W, 3] f32) -> (anomaly [B, H, W], sem
+        [B, C, H, W] or None)``, tensors on any device. ``batch_size`` images
+        of one shape bucket go to one forward. ``save_dir``: per-image
+        artifacts under ``<save_dir>/<dataset>/``, named by the image's path
+        (separators as ``_``): ``<stem>_anomaly.npy`` (the f32 score map) and
+        ``<stem>_pred_color.png`` (the train-id argmax in the Cityscapes
+        palette)."""
+        self.cfg = cfg
+        self.forward_fn = tta_wrap(forward_fn) if tta else forward_fn
+        self.roots = dataset_roots
+        self.save_dir = save_dir
+        self.batch_size = batch_size
+
+    def _save_outputs(self, name: str, image_path: str, anomaly: np.ndarray,
+                      sem: Optional[np.ndarray]) -> None:
+        from PIL import Image
+
+        out = os.path.join(self.save_dir, name)
+        os.makedirs(out, exist_ok=True)
+        # the whole path: per-city layouts repeat basenames
+        stem = os.path.splitext(image_path)[0].replace(os.sep, "_").lstrip("_")
+        np.save(os.path.join(out, f"{stem}_anomaly.npy"), anomaly)
+        if sem is not None:
+            pred = np.argmax(sem[:19], axis=0).astype(np.uint8)
+            Image.fromarray(map2citycolor(pred)).save(os.path.join(out, f"{stem}_pred_color.png"))
+
+    def _transform(self):
+        d = self.cfg.data
+        return Compose([ToTensor(), Normalize(mean=d.mean, std=d.std)])
+
+    def test(self, name: str) -> Optional[Dict[str, float]]:
+        """Evaluate one benchmark, batching images that share a padded bucket."""
+        from PIL import Image
+
+        kwargs = {"root": self.roots[name]} if name in self.roots else {}
+        ds = EVAL_DATASETS[name](transform=self._transform(), **kwargs)
+        if len(ds) == 0:
+            log.warning("%s: no images found", name)
+            return None
+        scores: List[np.ndarray] = []
+        gts: List[np.ndarray] = []
+        hists = []
+        # bucket by a header-only size probe
+        buckets: Dict[Tuple[int, int], List[int]] = {}
+        for i in range(len(ds)):
+            with Image.open(ds.images[i]) as im:
+                w, h = im.size
+            buckets.setdefault(bucket_shape(h, w), []).append(i)
+
+        for (bh, bw), idxs in buckets.items():
+            for s in range(0, len(idxs), self.batch_size):
+                chunk = [ds[i] for i in idxs[s:s + self.batch_size]]
+                imgs = np.zeros((len(chunk), bh, bw, 3), np.float32)
+                for j, item in enumerate(chunk):
+                    imgs[j, :item[0].shape[0], :item[0].shape[1]] = item[0]
+                anomaly, sem = self.forward_fn(torch.from_numpy(imgs))
+                anomaly = anomaly.float().cpu().numpy()
+                sem_np = (sem.float().cpu().numpy()
+                          if self.save_dir is not None and sem is not None else None)
+                for j, item in enumerate(chunk):
+                    h, w = item[0].shape[:2]
+                    eval_gt = item[3] if len(item) > 3 else None
+                    scores.append(anomaly[j, :h, :w].reshape(-1))
+                    gts.append(np.asarray(item[1]).reshape(-1))
+                    if self.save_dir is not None:
+                        self._save_outputs(
+                            name, ds.images[idxs[s + j]], anomaly[j, :h, :w],
+                            None if sem_np is None else sem_np[j, :, :h, :w])
+                    if eval_gt is not None and sem is not None:
+                        pred = torch.argmax(sem[j, :19, :h, :w], dim=0).cpu().numpy()
+                        hists.append(dict(zip(("hist", "labeled", "correct"),
+                                              hist_info(19, pred, np.asarray(eval_gt)))))
+        res = eval_ood_measure(np.concatenate(scores), np.concatenate(gts))
+        out = {} if res is None else {"AUROC": res[0], "AUPRC": res[1], "FPR_TPR95": res[2]}
+        if hists:
+            miou, pacc = compute_metric(hists)
+            out.update({"mIoU": miou, "pixel_acc": pacc})
+        return out or None
+
+    def test_all(self, names: Sequence[str] = DEFAULT_DATASETS) -> Dict[str, Dict[str, float]]:
+        results = {}
+        for name in names:
+            try:
+                r = self.test(name)
+            except Exception as e:  # per-dataset resilience (test_deeplab.py:122-128)
+                log.warning("%s failed: %s", name, e)
+                r = None
+            if r is not None:
+                results[name] = r
+                if "AUROC" in r:
+                    log.warning("%s: AUROC %.2f AUPRC %.2f FPR95 %.2f", name,
+                                100 * r["AUROC"], 100 * r["AUPRC"], 100 * r["FPR_TPR95"])
+                if "mIoU" in r:
+                    log.warning("%s: mIoU %.2f pixel_acc %.2f", name,
+                                100 * r["mIoU"], 100 * r["pixel_acc"])
+        return results
+
+
+def sampling_qualification_path(weight_path: str) -> Path:
+    """Where ``tools/validate_release.py`` records a checkpoint's
+    approximate-sampling qualification."""
+    p = Path(weight_path)
+    return p.parent / (p.stem + ".sampling_qualification.json")
+
+
+def check_sampling_qualification(weight_path: Optional[str], sample_mode: str) -> None:
+    """Refuse an approximate sampling mode whose qualification on these
+    weights failed; warn where no qualification of the mode is recorded (no
+    artifact, or an artifact without the mode's key)."""
+    if sample_mode == "bilinear" or not weight_path:
+        return
+    qp = sampling_qualification_path(weight_path)
+    if not qp.exists():
+        log.warning("sample_mode=%s: no per-checkpoint qualification artifact (%s); "
+                    "run tools/validate_release.py to qualify this checkpoint.",
+                    sample_mode, qp)
+        return
+    rec = json.loads(qp.read_text()).get("modes", {}).get(sample_mode)
+    if rec is None:
+        log.warning("sample_mode=%s: the qualification artifact %s has no entry for "
+                    "this mode; it is not qualified on these weights.", sample_mode, qp)
+        return
+    if not rec.get("qualified", False):
+        raise RuntimeError(
+            f"sample_mode={sample_mode!r} REFUSED for {weight_path}: measured deltas vs "
+            f"exact bilinear exceeded the qualification budget ({rec.get('delta_pts')}, "
+            f"artifact {qp}). Use --sample_mode bilinear.")
+
+
+def _check_sample_mode(sample_mode: str) -> None:
+    if sample_mode not in SAMPLE_MODES:
+        raise NotImplementedError(f"sample_mode {sample_mode!r} is not ported; choose "
+                                  f"from {SAMPLE_MODES} (ROADMAP Queue 1, alternates)")
+
+
+def build_m2f_forward(cfg: Config, weight_path: Optional[str] = None, *,
+                      model: Optional[MaskFormer] = None, device="cuda",
+                      sample_mode: str = "bilinear") -> Forward:
+    """``fwd(imgs) -> (anomaly [B, H, W], sem [B, K + Q, H, W])`` for the
+    evaluator's images, f32 on ``device`` (CUDA unless the caller asks for the
+    CPU). The model is ``TrainM2FOOD``'s: from ``weight_path``, or ``model``,
+    or random init from ``cfg.train.seed``; ``TrainM2FOOD.eval_step``: eval
+    mode, bf16 autocast over f32 weights when ``cfg.train.bf16``. The
+    qualification gate runs first."""
+    _check_sample_mode(sample_mode)
+    check_sampling_qualification(weight_path, sample_mode)
+    from .m2f_trainer import TrainM2FOOD
+
+    trainer = TrainM2FOOD(cfg, weight_path, model=model, device=device)
+
+    def fwd(images):
+        sem, anomaly = trainer.eval_step(images, sample_mode)
+        return anomaly, sem
+
+    return fwd
+
+
+def build_m2f_request_forward(model: MaskFormer, device="cuda", sample_mode: str = "bilinear"
+                              ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """``fwd(images_uint8 [N, H, W, 3]) -> (anomaly [N, H, W], sem [N, K + Q, H, W])``.
 
-    Moves ``model`` to ``device`` (CUDA unless the caller asks for the CPU) in
-    eval mode; it keeps its parameter dtype (bf16 or f32). ``fwd`` normalises and
-    pads the images to /32, runs the model and the fused score tail, and crops
-    both outputs back to the input size. Outputs are f32 tensors on ``device``.
+    A request path over the same forward (``m2f_trainer.eval_forward``): moves
+    ``model`` to ``device``, keeping its parameter dtype (bf16 or f32, no
+    autocast); ``fwd`` normalises with ``PIXEL_MEAN`` / ``PIXEL_STD`` in 0-255
+    space, pads to /32, and crops both outputs back to the input size. f32
+    tensors on ``device``.
     """
-    if sample_mode not in SAMPLE_MODES:
-        raise NotImplementedError(f"sample_mode {sample_mode!r} is not ported; "
-                                  f"choose from {SAMPLE_MODES}")
+    from .m2f_trainer import eval_forward
+
+    _check_sample_mode(sample_mode)
     device = resolve_device(device)
     model = model.to(device).eval()
-    num_classes = model.num_classes
 
     @torch.inference_mode()
     def fwd(images_uint8):
@@ -41,36 +254,79 @@ def build_m2f_forward(model: MaskFormer, device="cuda", sample_mode: str = "bili
             raise ValueError(f"expected uint8 [N, H, W, 3] images, got "
                              f"{imgs.dtype} {tuple(imgs.shape)}")
         h, w = imgs.shape[1:3]
-        x = preprocess(imgs)
-        outputs = model(x, deform_sample_mode=sample_mode)
-        sem, anomaly = inference(outputs, x.shape[1:3], num_classes=num_classes)
+        sem, anomaly = eval_forward(model, preprocess(imgs), sample_mode=sample_mode)
         return anomaly[:, :h, :w], sem[..., :h, :w]
 
     return fwd
 
 
-def build_deeplab_forward(model: DeepWV3Plus, device="cuda", bf16: bool = True
-                          ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
-    """``fwd(images [N, H, W, 3] normalised f32) -> (score [N, H, W], logit
-    [N, C, H, W])``, both f32 on ``device``.
+def build_deeplab_forward(cfg: Config, weight_path: Optional[str] = None, *,
+                          model: Optional[DeepWV3Plus] = None, device="cuda") -> Forward:
+    """``fwd(imgs [N, H, W, 3] normalised f32) -> (score [N, H, W], logit
+    [N, C, H, W])``, both f32 on ``device`` (CUDA unless the caller asks for
+    the CPU): ``TrainDeepLabOOD.eval_step`` of the model from ``weight_path``,
+    or ``model``, or random init; bf16 autocast over f32 weights when
+    ``cfg.train.bf16``, the energy score and the logits' resize in f32."""
+    from .deeplab_trainer import TrainDeepLabOOD
 
-    Moves ``model`` to ``device`` (CUDA unless the caller asks for the CPU) in
-    eval mode, in the channels-last memory format on the card. With ``bf16`` the
-    forward runs under autocast in bf16 over the model's f32 weights (the JAX
-    model's ``dtype=bfloat16``); the energy score and the logits' resize stay f32.
-    """
-    device = resolve_device(device)
-    model = model.to(device).eval()
-    if device.type == "cuda":
-        model = model.to(memory_format=torch.channels_last)
+    trainer = TrainDeepLabOOD(cfg, weight_path, model=model, device=device)
 
-    @torch.inference_mode()
     def fwd(images):
-        x = torch.as_tensor(images, device=device)
+        x = torch.as_tensor(images)
         if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] != 3:
             raise ValueError(f"expected normalised float32 [N, H, W, 3] images, got "
                              f"{x.dtype} {tuple(x.shape)}")
-        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
-            return model(x.permute(0, 3, 1, 2))
+        return trainer.eval_step(x)
 
     return fwd
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", choices=["deeplab", "m2f"], required=True)
+    parser.add_argument("--cfg", default=None)
+    parser.add_argument("--id", default="eval")
+    parser.add_argument("--weight_path", default=None)
+    parser.add_argument("--test_dataset", default=None)
+    parser.add_argument("--tta", action="store_true",
+                        help="horizontal-flip test-time augmentation")
+    parser.add_argument("--save_outputs", default=None, metavar="DIR",
+                        help="write per-image anomaly score maps (.npy) and colorized "
+                             "predictions (.png) under DIR/<dataset>/")
+    parser.add_argument("--sample_mode", default="bilinear",
+                        help="m2f deformable sampling: bilinear (exact, default) or nearest")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    parser.add_argument("--spatial", type=int, default=0, metavar="N",
+                        help="not ported (ROADMAP Queue 1, parallelism)")
+    parser.add_argument("--score_lowres", action="store_true",
+                        help="not ported (ROADMAP Queue 1, alternates)")
+    parser.add_argument("--score_topq", type=int, default=0, metavar="Q",
+                        help="not ported (ROADMAP Queue 1, alternates)")
+    args = parser.parse_args(argv)
+    if args.spatial:
+        raise NotImplementedError("--spatial is not ported (ROADMAP Queue 1, parallelism)")
+    if args.model == "m2f" and (args.score_lowres or args.score_topq):
+        raise NotImplementedError("--score_lowres / --score_topq are not ported "
+                                  "(ROADMAP Queue 1, alternates)")
+
+    logging.basicConfig(level=logging.INFO)
+    cfg = load_config(args.cfg, args.id)
+    if args.model == "deeplab":
+        fwd = build_deeplab_forward(cfg, args.weight_path, device=args.device)
+    else:
+        fwd = build_m2f_forward(cfg, args.weight_path, device=args.device,
+                                sample_mode=args.sample_mode)
+    d = cfg.data
+    roots = {"CityscapesVal": d.cityscapes_root, "RoadAnomaly": d.road_anomaly_root,
+             "RoadAnomaly21": d.anomaly_track_root, "RoadObstacle21": d.obstacle_track_root,
+             "MUAD": d.muad_root, "ACDC_POC": d.acdc_root}
+    ev = OODEvaluator(cfg, fwd, roots, tta=args.tta, save_dir=args.save_outputs)
+    names = ((args.test_dataset,) if args.test_dataset
+             else DEFAULT_DATASETS if args.model == "deeplab" else DEFAULT_DATASETS_M2F)
+    results = ev.test_all(names)
+    print(results)
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -197,7 +197,9 @@ def test_tiny_eval_forward_matches_jax(tiny):
                                                                         jnp.asarray(x))
     model = DeepWV3Plus(**TINY)
     model.load_state_dict(deeplab_from_jax(variables), strict=True)
-    score, logit = build_deeplab_forward(model, device="cpu", bf16=False)(x)
+    cfg = load_config("exps/deeplab.yaml")
+    cfg.train.bf16 = False
+    score, logit = build_deeplab_forward(cfg, model=model, device="cpu")(x)
     assert score.dtype == logit.dtype == torch.float32
     assert tuple(score.shape) == (2, 256, 256) and tuple(logit.shape) == (2, 19, 256, 256)
     for got, want in ((score, np.asarray(score_j)),
@@ -236,6 +238,6 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     model = DeepWV3Plus(**TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
-        build_deeplab_forward(model)
+        build_deeplab_forward(load_config("exps/deeplab.yaml"), model=model)
     with pytest.raises(RuntimeError, match="CUDA"):
         TrainDeepLabOOD(load_config("exps/deeplab.yaml"), model=model)

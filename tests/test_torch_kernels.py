@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from multishiftseg_torch import _build
+from multishiftseg_torch.evals import ood_metrics
 from multishiftseg_torch.losses import criterion, matcher, rcl
 from multishiftseg_torch.ops import dilated_conv as dconv
 from multishiftseg_torch.ops import ms_deform_attn as msda
@@ -317,6 +318,162 @@ def test_tiny_deeplab_step_on_the_card_matches_cpu(cuda):
         assert err <= 1e-3, (name, err)
 
 
+def _tail_case(rng, n=2, q=6, k=19, hw=(16, 20), out_hw=(64, 80), tie=False):
+    logits = rng.randn(n, q, k + 1).astype(np.float32)
+    if tie:  # classes 0 and 1 equal and leading: their sums tie where they lead
+        logits[..., 1] = logits[..., 0] = 3.0 + rng.rand(n, q).astype(np.float32)
+    probs = torch.softmax(torch.from_numpy(logits), -1)[..., :-1].contiguous()
+    masks = torch.from_numpy((3 * rng.randn(n, q, *hw)).astype(np.float32))
+    g = torch.from_numpy(rng.randn(n, *out_hw).astype(np.float32))
+    if not tie:
+        # zero the gradient where the top two class sums lie within f32 rounding
+        # of each other: there the sum order decides which class gets it
+        up = torch.sigmoid(scores.resize_bilinear_nchw(masks, out_hw))
+        top2 = torch.einsum("bqk,bqhw->bhwk", probs, up).topk(2, dim=-1).values
+        g = torch.where(top2[..., 0] - top2[..., 1] > 1e-4, g, torch.zeros_like(g))
+    return masks, probs, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dmask", [False, True])
+@pytest.mark.parametrize("case", ["k19", "k25_odd_shapes", "tie"])
+def test_mask_scores_backward_kernel_matches_plain(cuda, case, dmask):
+    """d probs (and d masks) of the anomaly tail: kernel against autograd of the
+    plain version. Tolerance: 1e-5 of each entry's sum of absolute terms (the
+    same backward with |g|), f32 sums in another order. The kernel's sums are
+    in a fixed order, so two runs agree bit for bit; tied classes get equal
+    shares."""
+    rng = np.random.RandomState(11)
+    kw = {"k19": {}, "k25_odd_shapes": dict(k=25, q=7, hw=(13, 9), out_hw=(37, 45)),
+          "tie": dict(tie=True)}[case]
+    masks, probs, g = (t.to(cuda) for t in _tail_case(rng, **kw))
+    out_hw = tuple(g.shape[1:])
+    dp, dm = scores.mask_scores_backward(masks, probs, g, out_hw, dmask=dmask)
+    dp2, dm2 = scores.mask_scores_backward(masks, probs, g, out_hw, dmask=dmask)
+    want_p, want_m = scores.mask_scores_backward_plain(masks, probs, g, out_hw, dmask=dmask)
+    abs_p, abs_m = scores.mask_scores_backward_plain(masks, probs, g.abs(), out_hw, dmask=dmask)
+    torch.cuda.synchronize()
+    assert torch.equal(dp, dp2)
+    assert bool(((dp - want_p).abs() <= 1e-5 * abs_p.abs() + 1e-30).all())
+    if dmask:
+        assert torch.equal(dm, dm2)
+        assert bool(((dm - want_m).abs() <= 1e-5 * abs_m.abs() + 1e-30).all())
+    else:
+        assert dm is None
+    if case == "tie":
+        assert torch.equal(dp[..., 0], dp[..., 1]) and float(dp[..., 0].abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_anomaly_tail_autograd_on_the_card(cuda):
+    """Gradients through ``anomaly_score_upsampled`` on the card (the softmax in
+    torch autograd, the tail's backward kernel) against the CPU's autograd,
+    with one backward launch; without a gradient for the mask logits, none is
+    computed for them."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    rng = np.random.RandomState(12)
+    logits = rng.randn(2, 6, 20).astype(np.float32)
+    masks = (3 * rng.randn(2, 6, 16, 20)).astype(np.float32)
+    g = rng.randn(2, 64, 80).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        c = torch.from_numpy(logits).to(dev).requires_grad_()
+        m = torch.from_numpy(masks).to(dev).requires_grad_()
+        reset_launch_counts()
+        scores.anomaly_score_upsampled(c, m, (64, 80)).backward(torch.from_numpy(g).to(dev))
+        grads[str(dev)] = (c.grad.cpu(), m.grad.cpu(), launch_counts()["mask_scores_backward"])
+    (gc, gm, n_cpu), (kc, km, n_card) = grads["cpu"], grads[str(cuda)]
+    assert n_cpu == 0 and n_card == 1
+    torch.testing.assert_close(kc, gc, rtol=1e-4, atol=1e-5 * float(gc.abs().max()))
+    torch.testing.assert_close(km, gm, rtol=1e-4, atol=1e-5 * float(gm.abs().max()))
+    c = torch.from_numpy(logits).to(cuda).requires_grad_()
+    m = torch.from_numpy(masks).to(cuda)
+    scores.anomaly_score_upsampled(c, m, (64, 80)).sum().backward()
+    assert c.grad is not None and m.grad is None
+
+
+@pytest.mark.cuda
+def test_semantic_classes_only_equals_the_first_k_channels(cuda):
+    rng = np.random.RandomState(13)
+    cls = torch.from_numpy(rng.randn(2, 6, 20).astype(np.float32)).to(cuda)
+    masks = torch.from_numpy((3 * rng.randn(2, 6, 16, 20)).astype(np.float32)).to(cuda)
+    full = scores.semantic_inference_upsampled(cls, masks, (64, 80), 19)
+    only = scores.semantic_inference_upsampled(cls, masks, (64, 80), 19, _classes_only=True)
+    torch.cuda.synchronize()
+    assert only.shape == (2, 19, 64, 80) and torch.equal(only, full[:, :19])
+
+
+def _hist_cases(rng):
+    n = 921_600  # a 720x1280 map
+    s = rng.rand(n).astype(np.float32)
+    lab = rng.choice([0, 1, 255], size=n, p=[0.6, 0.25, 0.15]).astype(np.int32)
+    yield "720x1280", s, lab, None
+    yield "given_range", s, lab, (0.2, 0.7)  # pixels outside it
+    yield "no_valid_pixel", s[:1000], np.full(1000, 255, np.int32), None
+    yield "constant", np.full(5000, 0.3, np.float32), lab[:5000], None
+    yield "one_pixel", s[:1], np.ones(1, np.int32), None
+    nan = s.copy()
+    nan[rng.randint(0, n, 3)] = np.nan  # a NaN score: the range is NaN, as JAX's
+    yield "nan", nan, np.zeros(n, np.int32), None
+
+
+@pytest.mark.cuda
+def test_ood_hist_kernels_equal_plain(cuda):
+    """The masked range and the histograms (8192 bins) equal the plain
+    versions bit for bit."""
+    rng = np.random.RandomState(14)
+    for name, s, lab, given in _hist_cases(rng):
+        st, lt = torch.from_numpy(s), torch.from_numpy(lab)
+        lo_p, hi_p = ood_metrics.masked_min_max_plain(st, lt)
+        lo_k, hi_k = ood_metrics.masked_min_max(st.to(cuda), lt.to(cuda))
+        np.testing.assert_array_equal([float(lo_k), float(hi_k)], [float(lo_p), float(hi_p)],
+                                      err_msg=name)
+        if not np.isfinite(float(lo_p)) or not np.isfinite(float(hi_p)):
+            continue
+        lo, hi = given or (lo_p, hi_p)
+        want = ood_metrics.label_histograms_plain(st, lt, lo, hi, 8192)
+        got = ood_metrics.label_histograms(st.to(cuda), lt.to(cuda),
+                                           torch.as_tensor(lo).to(cuda),
+                                           torch.as_tensor(hi).to(cuda), 8192)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
+def test_binned_meter_on_the_card_equals_the_cpu(cuda):
+    rng = np.random.RandomState(15)
+    card, cpu = ood_metrics.BinnedOODMeter(), ood_metrics.BinnedOODMeter()
+    for h, w in ((120, 200), (64, 64), (90, 33)):
+        s = torch.from_numpy(rng.rand(h, w).astype(np.float32))
+        lab = rng.choice([0, 1, 255], size=(h, w)).astype(np.int32)
+        card.update(s.to(cuda), lab)
+        cpu.update(s, lab)
+    for a, b in zip(card._hists, cpu._hists):
+        assert all(np.array_equal(x, y) for x, y in zip(a[:2], b[:2])) and a[2:] == b[2:]
+    assert card.compute() == cpu.compute()
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_when_the_build_fails(cuda, monkeypatch):
+    """On the card a failed build raises; no wrapper falls back to its plain version."""
+    def fail(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(_build, "load", fail)
+    masks, probs, g = (t.to(cuda) for t in _tail_case(np.random.RandomState(16)))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        scores.mask_scores_backward(masks, probs, g, tuple(g.shape[1:]))
+    c = torch.zeros(2, 6, 20, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        scores.anomaly_score_upsampled(c, masks, tuple(g.shape[1:]))
+    s, lab = torch.rand(64, device=cuda), torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ood_metrics.masked_min_max(s, lab)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ood_metrics.BinnedOODMeter().update(s, lab.cpu().numpy())
+
+
 # ---------------------------------------------------------------------------
 # on the CPU: guards that stop a card run from silently losing gradients
 
@@ -327,12 +484,20 @@ def _meta_requiring_grad(*shapes, dtype=torch.float32):
     return [torch.zeros(s, device="meta", dtype=dtype).requires_grad_() for s in shapes]
 
 
-def test_score_tail_refuses_grad_off_the_cpu():
+def test_score_tail_refuses_grad_off_the_cpu(monkeypatch):
+    """The semantic tail has no backward kernel: off the CPU it raises under
+    grad. The anomaly tail has one: it goes to its kernel (here: the library
+    loader, stubbed) under grad too."""
     cls, masks = _meta_requiring_grad((1, 4, 6), (1, 4, 3, 5))
     with pytest.raises(RuntimeError, match="no backward"):
-        scores.anomaly_score_upsampled(cls, masks, (6, 10))
-    with pytest.raises(RuntimeError, match="no backward"):
         scores.semantic_inference_upsampled(cls, masks, (6, 10), num_classes=5)
+
+    def refuse(name):
+        raise _Sentinel(name)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    with pytest.raises(_Sentinel, match="mask_scores"):
+        scores.anomaly_score_upsampled(cls, masks, (6, 10))
 
 
 def test_nearest_refuses_grad_off_the_cpu():
@@ -360,6 +525,36 @@ def test_new_kernels_take_the_card_route_off_the_cpu(monkeypatch):
     with pytest.raises(_Sentinel, match="bottom_k"):
         rcl._bottom_k_sum(v, torch.zeros(16, device="meta"),
                           torch.zeros((), dtype=torch.int32, device="meta"))
+    masks, probs = torch.zeros(1, 4, 3, 5, device="meta"), torch.zeros(1, 4, 6, device="meta")
+    with pytest.raises(_Sentinel, match="mask_scores"):
+        scores.mask_scores_backward(masks, probs, torch.zeros(1, 6, 10, device="meta"),
+                                    (6, 10), dmask=True)
+    s_, l_ = torch.zeros(16, device="meta"), torch.zeros(16, dtype=torch.int32, device="meta")
+    with pytest.raises(_Sentinel, match="ood_hist"):
+        ood_metrics.masked_min_max(s_, l_)
+    with pytest.raises(_Sentinel, match="ood_hist"):
+        ood_metrics.label_histograms(s_, l_, torch.zeros((), device="meta"),
+                                     torch.ones((), device="meta"), 8)
+
+
+def test_new_kernels_stay_off_the_cpu(monkeypatch):
+    """CPU tensors take the plain versions: no library is loaded and no
+    launch is counted."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    def refuse(name):
+        raise _Sentinel(name)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    reset_launch_counts()
+    masks, probs, g = _tail_case(np.random.RandomState(17))
+    scores.mask_scores_backward(masks, probs, g, tuple(g.shape[1:]), dmask=True)
+    c = torch.zeros(2, 6, 20, requires_grad=True)
+    scores.anomaly_score_upsampled(c, masks, tuple(g.shape[1:])).sum().backward()
+    meter = ood_metrics.BinnedOODMeter()
+    meter.update(torch.rand(40, 30), np.random.RandomState(0).randint(0, 2, (40, 30)))
+    assert meter.compute() is not None
+    assert all(v == 0 for v in launch_counts().values())
 
 
 def _imported_modules(path):

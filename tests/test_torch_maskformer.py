@@ -1,5 +1,5 @@
 """PyTorch port, the whole eval slice: ``MaskFormer`` + ``inference`` and
-``build_m2f_forward`` against the JAX package on the CPU, the converter round
+``build_m2f_request_forward`` against the JAX package on the CPU, the converter round
 trip through ``convert_maskformer``, and the metrics at the end of the path.
 
 Narrow widths (hidden 32, 8 queries, 2 encoder and 3 decoder layers; R-50 at its
@@ -25,7 +25,7 @@ from multishiftseg_torch.convert.from_jax import maskformer_from_jax
 from multishiftseg_torch.evals.ood_metrics import eval_ood_measure
 from multishiftseg_torch.models.maskformer import MaskFormer, inference, preprocess
 from multishiftseg_torch.ops.resize import resize_bilinear_nchw
-from multishiftseg_torch.train.test_runner import build_m2f_forward
+from multishiftseg_torch.train.test_runner import build_m2f_request_forward
 
 CFG = dict(num_classes=19, hidden_dim=32, num_queries=8, nheads=4, dim_feedforward=64,
            dec_layers=3, mask_dim=32, transformer_enc_layers=2)
@@ -135,7 +135,7 @@ def test_inference_matches_jax(slice_run):
 
 
 def test_build_m2f_forward_matches_jax_and_reaches_metrics(slice_run):
-    fwd = build_m2f_forward(slice_run["port"], device="cpu")
+    fwd = build_m2f_request_forward(slice_run["port"], device="cpu")
     anomaly, sem = fwd(slice_run["images"])
     np.testing.assert_allclose(anomaly.numpy(), slice_run["anomaly_ref"], rtol=0, atol=1e-4)
     np.testing.assert_allclose(sem.numpy(), slice_run["sem_ref"], rtol=0, atol=1e-4)
@@ -147,8 +147,8 @@ def test_build_m2f_forward_matches_jax_and_reaches_metrics(slice_run):
 
 
 def test_nearest_mode_forward_runs(slice_run):
-    anomaly, sem = build_m2f_forward(slice_run["port"], device="cpu",
-                                     sample_mode="nearest")(slice_run["images"])
+    anomaly, sem = build_m2f_request_forward(slice_run["port"], device="cpu",
+                                             sample_mode="nearest")(slice_run["images"])
     assert anomaly.shape == (1, H, W) and sem.shape == (1, 27, H, W)
     assert torch.isfinite(anomaly).all() and torch.isfinite(sem).all()
 
@@ -161,7 +161,7 @@ def test_unported_options_raise(slice_run):
     with pytest.raises(NotImplementedError):
         inference(slice_run["out"], (H, W), score_lowres=True)
     with pytest.raises(NotImplementedError):
-        build_m2f_forward(slice_run["port"], device="cpu", sample_mode="shared")
+        build_m2f_request_forward(slice_run["port"], device="cpu", sample_mode="shared")
 
 
 def test_converter_round_trip_through_convert_maskformer():

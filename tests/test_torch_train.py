@@ -226,6 +226,7 @@ def test_adamw_groups_equal_m2f_param_rules():
                                             jnp.zeros((1, *HW, 3)), train=False))["params"]
     cfg = load_config("exps/m2f.yaml")
     trainer = TrainM2FOOD(cfg, model=MaskFormer(**MODEL), device="cpu")
+    trainer.set_stage(1)
     groups = {n: {"lr": g["lr"], "weight_decay": g["weight_decay"]}
               for g in trainer.optimizer.param_groups for n in g["names"]}
     assert set(groups) == {n for n, _ in trainer.model.named_parameters()}
@@ -326,9 +327,11 @@ def step_run():
     # gradients below it by up to 5e-3 of scale. The port in float64 agrees with
     # the JAX f32 step to about 1e-5 of scale.
     t32 = TrainM2FOOD(_tiny_cfg(), model=MaskFormer(**MODEL), device="cpu")
+    t32.set_stage(1)
     t32.load_jax_variables(variables)
     t_loss, t_losses, _, _ = t32.stage2_step(img_c, img_g, tgt_c, tgt_g, draws=draws)
     t64 = TrainM2FOOD(_tiny_cfg(), model=MaskFormer(**MODEL), device="cpu")
+    t64.set_stage(1)
     t64.load_jax_variables(variables)
     t64.model.double()  # in place: the optimizer keeps the same parameters
     loss64, _, grad_norm, _ = t64.stage2_step(img_c, img_g, tgt_c, tgt_g, draws=draws)
@@ -410,6 +413,7 @@ def test_checkpoint_round_trip(tmp_path):
     batch = synthetic_batch(1, CROP, K, seed=2)
     torch.manual_seed(0)
     a = TrainM2FOOD(cfg, model=MaskFormer(**MODEL), device="cpu")
+    a.set_stage(1)
     a.stage2_step(*batch)
     path = save_checkpoint(str(tmp_path / "ckpt" / "last.pt"), a)
     loss_a, _, _, _ = a.stage2_step(*batch)
