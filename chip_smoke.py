@@ -16,10 +16,17 @@ exits non-zero and prints no result. Phases, one JSON line each:
 3. ``slice_parity``: the port's MaskFormer at full widths and a reduced image,
    in f32 with TF32 off, on the card (kernels) against the same weights on the
    CPU (plain versions).
-4. ``serve``: ``build_m2f_forward`` on the full-width R-50 model in bf16 with
-   1024x2048 uint8 images made from a seed, 3 requests after warm-up per sample
-   mode, with the kernel launch counts of those requests and the OOD metrics of
-   a synthetic label map (random weights: their values mean nothing).
+4. ``serve``: ``build_m2f_request_forward`` on the full-width R-50 model in
+   bf16 with 1024x2048 uint8 images made from a seed, 3 requests after warm-up
+   in each setting of ``SERVE_SETTINGS`` (``bilinear``, ``nearest``, ``int8``,
+   ``nearest_top6``, ``nearest_top6c``, ``shared``, a bilinear / nearest_top6c
+   hybrid, ``nearest`` with ``score_lowres`` and with ``score_topq=32``), with
+   the kernel launch counts of those requests (the setting's deformable
+   entries, 6 a request, 3 + 3 for the hybrid, 6 quantize launches more for
+   int8; one anomaly tail, on 32 queries for topq and at the identity resize
+   for lowres; one semantic tail; nothing else), one profiled request and the
+   OOD metrics of a synthetic label map (random weights: their values mean
+   nothing).
 5. ``train_parity``, once per seed of ``TRAIN_PARITY_SEEDS``: one stage-2 step
    of ``TrainM2FOOD`` (exps/m2f.yaml) at full widths on 2 pairs of 256x256
    crops, f32 with TF32 off, on the card (kernels) and on the CPU (plain
@@ -64,7 +71,12 @@ exits non-zero and prints no result. Phases, one JSON line each:
 14. ``evaluate``: the eval CLI (``test_runner.main``) for ``--model m2f`` and
    ``--model deeplab`` on a temporary RoadAnomaly21-layout folder (4 jpg
    images of 720x1280 with their label pngs) named in a temporary YAML, with
-   a detectron2-style checkpoint of the seeded model and ``--save_outputs``.
+   a detectron2-style checkpoint of the seeded model and ``--save_outputs``;
+   then the CLI with ``--sample_mode nearest_top6c --score_topq 32``, and
+   ``multishiftseg_torch.tools.validate_release.qualify_sampling_modes`` over
+   its six settings on the same folder against the ``bilinear`` run, writing
+   the artifact, after which the gate must refuse exactly the settings
+   recorded unqualified.
 
 ``slice_parity`` and ``train_parity`` run the CPU's decoder on the card's
 attention masks, and hold every bit that differs to a logit within rounding of 0.
@@ -77,12 +89,17 @@ together, beside cuDNN's dilated ``conv2d`` in benchmark mode, channels-last
 and NCHW) and checked at the training shapes too, its weight gradient at the
 training shapes (beside cuDNN's) and the pixel selection, forward and
 backward, over 8 x 700 x 700 values, their bounds at the bf16 tensor-core peak (989 TFLOP/s) where the
-tensor cores do the work; and this slice's: the two forward score tails at
+tensor cores do the work; stage 1's and validation's: the two forward score tails at
 stage 1's shapes (the anomaly score, and the K class channels alone), the
 anomaly tail's backward there (d probs alone, and with d masks) and with
 forced ties, and
 the binned metrics' masked range and 8192-bin histogram at 720x1280 and
-1024x2048 (bit-for-bit equal to the plain versions). A kernel's ``launches``
+1024x2048 (bit-for-bit equal to the plain versions); and the eval fast
+paths' at the main-path shapes: the int8 table's quantize (bit for bit) and
+forward, ``nearest_top6``, ``nearest_top6c`` and ``shared`` (the centroid modes
+held off their rounding boundaries, flips counted), with f32 edge cases
+(degenerate levels with 30 channels and points outside the map, all-equal
+weights, T = J against ``nearest``). A kernel's ``launches``
 are those of the main paths: ``serve``, ``deeplab_serve``, ``validate`` and
 ``evaluate`` for the eval kernels, the timed steps of ``train``,
 ``deeplab_train`` and ``stage1_train`` for the training kernels, each path
@@ -142,7 +159,13 @@ NUM_BINS = 8192
 VAL_HW = ((720, 1280), (1024, 2048))
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; a phase's carries the seconds since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "at_seconds": time.perf_counter() - _STARTED}
     print(json.dumps(obj), flush=True)
 
 
@@ -345,12 +368,185 @@ def phase_kernels(torch):
             "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
         del out
+    approx_kernel_rows(torch, dev, rows, check, checks)
     train_kernel_rows(torch, dev, rows, check, checks)
     deeplab_kernel_rows(torch, dev, rows, check, checks)
     stage1_kernel_rows(torch, dev, rows, check, checks)
     ood_hist_rows(torch, dev, rows, checks)
     ok = all(c["ok"] for c in checks)
     return rows, {"phase": "kernels", "ok": ok, "checks": checks}
+
+
+def near_rounding_boundary(torch, loc, attn, levels, mode, margin=1e-4):
+    """[N, Lq, M] bool: outputs whose centroid (float64) lies within ``margin``
+    px of a nearest-pixel boundary (c * W an integer), where f32 sums in
+    another order may round to the neighbouring pixel: ``nearest_top{T}c``'s
+    tail centroid of each (head, level), ``shared``'s point of each (level,
+    point) for every head. A centroid without mass is exactly 0 (or 0.5) in
+    every version and is not counted."""
+    loc, a = loc.double(), attn.double()
+    size = torch.tensor([[w, h] for h, w in levels], dtype=torch.float64, device=loc.device)
+    n, lq, m, L, p = a.shape
+    if mode == "shared":
+        asum = a.sum(2)
+        c = (loc * a[..., None]).sum(2) / asum.clamp_min(1e-12)[..., None]
+        px = c * size[None, None, :, None, :]
+        near = ((px - px.round()).abs() < margin).any(-1) & (asum > 1e-12)
+        return near.reshape(n, lq, -1).any(-1)[:, :, None].expand(n, lq, m)
+    top = int(mode[len("nearest_top"):-1])
+    x = loc * size[None, None, None, :, None, :] - 0.5
+    inb = ((x > -0.5) & (x < size[None, None, None, :, None, :] - 0.5)).all(-1)
+    w = torch.where(inb, a, 0.0).reshape(n, lq, m, L * p)
+    order = torch.sort(w, dim=-1, descending=True, stable=True).indices[..., :top]
+    tail = w.scatter(-1, order, 0.0).reshape(n, lq, m, L, p)
+    mass = tail.sum(-1)
+    c = (tail[..., None] * loc).sum(-2) / mass.clamp_min(1e-12)[..., None]
+    px = c * size[None, None, None, :, :]
+    return (((px - px.round()).abs() < margin).any(-1) & (mass > 1e-12)).any(-1)
+
+
+def check_off_boundaries(torch, checks, name, got, want, loc, attn, levels, mode, atol, rtol):
+    """``check`` for a centroid mode: every output within atol + rtol |want|,
+    except outputs whose centroid lies within 1e-4 px of a rounding boundary
+    (:func:`near_rounding_boundary`); those off tolerance are counted (flips)."""
+    n, lq, m = attn.shape[:3]
+    err = (got.float() - want.float()).abs().view(n, lq, m, -1)
+    bad = (err > atol + rtol * want.float().abs().view(n, lq, m, -1)).any(-1)
+    near = (near_rounding_boundary(torch, loc, attn.float(), levels, mode)
+            if mode == "shared" or mode.endswith("c") else torch.zeros_like(bad))
+    held = err[~near]
+    max_err = float(held.max()) if held.numel() else 0.0
+    flips = int((bad & near).sum())
+    checks.append({"check": name, "max_abs_err": max_err, "atol": atol, "rtol": rtol,
+                   "outputs_near_boundary": int(near.sum()), "flipped_outputs": flips,
+                   "ok": not bool((bad & ~near).any()) and flips <= max(2, bad.numel() // 10000)})
+    return max_err
+
+
+def msda_approx_ops(torch, loc, attn, levels, mode):
+    """f32 operations these inputs need: 2 per channel and gathered in-map row
+    (weight x value, accumulate); the top-T selection's J^2 comparisons a head
+    and the tail centroids' 6 a point (centroid mode); the shared points' 6 a
+    head and point."""
+    n, lq, m, L, p = attn.shape
+    size = torch.tensor([[w, h] for h, w in levels], dtype=torch.float32, device=loc.device)
+    x = loc * size[None, None, None, :, None, :] - 0.5
+    inb = ((x > -0.5) & (x < size[None, None, None, :, None, :] - 0.5)).all(-1)
+    heads, J = n * lq * m, L * p
+    if mode == "shared":
+        return n * lq * J * m * 6 + int(inb.sum()) * 2 * HEAD_DIM
+    top = int(mode[len("nearest_top"):].rstrip("c"))
+    kept = int(inb.reshape(heads, J).sum(-1).clamp(max=top).sum())
+    ops = heads * J * J + kept * 2 * HEAD_DIM
+    if mode.endswith("c"):
+        ops += heads * (J - top) * 6 + heads * L * 2 * HEAD_DIM
+    return ops
+
+
+def approx_kernel_rows(torch, dev, rows, check, checks):
+    """The int8 table and the approximate deformable modes at the main-path
+    shapes (1024x2048, batch 1, bf16): the quantize against its plain version
+    bit for bit; the int8 forward, ``nearest_top6``, ``nearest_top6c`` and
+    ``shared`` within one bf16 step plus f32 order noise, as the exact rows
+    (the centroid modes off their rounding boundaries, flips counted); and f32
+    edge cases: degenerate h == 1 / w == 1 levels with 30 channels a head and
+    points outside the map, T = J against ``nearest``, all-equal weights."""
+    from multishiftseg_torch.ops import ms_deform_attn as msda
+
+    lq = sum(h * w for h, w in LEVELS)
+    value, loc, attn = msda_inputs(torch, LEVELS, lq, torch.bfloat16, dev, SEED + 70,
+                                   avoid_ties=False)
+    src = "multishiftseg_torch/csrc/ms_deform_attn.cu"
+    approx_src = "multishiftseg_torch/csrc/ms_deform_attn_approx.cu"
+    replaces = "multishiftseg_tpu/ops/ms_deform_attn.py:"
+
+    run_q = lambda: msda.quantize_value_table(value)
+    plain_q = lambda: msda.quantize_value_table_plain(value)
+    (q, scale), (qp, sp) = run_q(), plain_q()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(q, qp)) and bool(torch.equal(scale.view(torch.int32),
+                                                         sp.view(torch.int32)))
+    checks.append({"check": "ms_deform_attn_quantize_main_shapes_bit_for_bit", "equal": same,
+                   "max_abs_err": float((q.int() - qp.int()).abs().max()), "ok": same})
+    # per element: abs and max, then divide, round, clamp
+    b_ms, b_by = bound(nbytes(value, q, scale), 5 * value.numel())
+    rows["ms_deform_attn_quantize"] = {
+        "name": "ms_deform_attn_quantize", "route": "cuda", "source": src,
+        "replaces": replaces + "130", "counter": "ms_deform_attn_quantize",
+        "max_abs_err": float((q.int() - qp.int()).abs().max()), "ms": median_ms(torch, run_q, 50),
+        "plain_ms": median_ms(torch, plain_q, 10), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}
+    del qp, sp
+
+    run_i = lambda: msda._ms_deform_attn_int8_cuda(q, scale, LEVELS, loc, attn)
+    plain_i = lambda: msda._bilinear_int8_plain(q, scale, LEVELS, loc, attn).to(attn.dtype)
+    out = run_i()
+    torch.cuda.synchronize()
+    err = check("ms_deform_attn_int8_main_shapes", out, plain_i(), 1e-3, 1e-2)
+    # the bilinear forward's operations and one scale multiply per corner and channel
+    size = torch.tensor([[w, h] for h, w in LEVELS], dtype=torch.float32, device=dev)
+    px = loc * size[None, None, None, :, None, :] - 0.5
+    points = int(((px[..., 0] > -1) & (px[..., 0] < size[:, 0, None])
+                  & (px[..., 1] > -1) & (px[..., 1] < size[:, 1, None])).sum())
+    ops = msda_ops(torch, loc, LEVELS, "bilinear") + 4 * points * HEAD_DIM
+    b_ms, b_by = bound(nbytes(q, scale, loc, attn, out), ops)
+    rows["ms_deform_attn_int8"] = {
+        "name": "ms_deform_attn_int8", "route": "cuda", "source": src,
+        "replaces": replaces + "221", "counter": "ms_deform_attn_int8",
+        "max_abs_err": err, "ms": median_ms(torch, run_i, 50),
+        "plain_ms": median_ms(torch, plain_i, 10), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}
+    del q, scale, out
+
+    for mode, line, counter in (("nearest_top6", 304, "ms_deform_attn_nearest_top"),
+                                ("nearest_top6c", 375, "ms_deform_attn_nearest_topc"),
+                                ("shared", 481, "ms_deform_attn_shared")):
+        run = lambda: msda.ms_deform_attn_core(value, LEVELS, loc, attn, mode)
+        plain = lambda: msda.ms_deform_attn_core_plain(value, LEVELS, loc, attn, mode)
+        out = run()
+        torch.cuda.synchronize()
+        # both sides sum in f32 and round once to bf16: one bf16 step plus
+        # f32 order noise, as the exact rows
+        err = check_off_boundaries(torch, checks, f"ms_deform_attn_{mode}_main_shapes", out,
+                                   plain(), loc, attn, LEVELS, mode, 1e-3, 1e-2)
+        b_ms, b_by = bound(nbytes(value, loc, attn, out),
+                           msda_approx_ops(torch, loc, attn, LEVELS, mode))
+        rows[f"ms_deform_attn_{mode}"] = {
+            "name": f"ms_deform_attn_{mode}", "route": "cuda", "source": approx_src,
+            "replaces": replaces + str(line), "counter": counter, "max_abs_err": err,
+            "ms": median_ms(torch, run, 50), "plain_ms": median_ms(torch, plain, 10),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        del out
+    del value, loc, attn
+
+    # f32 edge cases, f32 sums in another order (1e-5): a degenerate pyramid
+    # (a 32-px side) with 30 channels a head (the one-channel path) and points
+    # outside the map, in every mode; all-equal weights (the tie rule alone);
+    # T = J against nearest
+    edge = [(1, 5), (4, 1), (3, 3)]
+    v32, l32, a32 = msda_inputs(torch, edge, 64, torch.float32, dev, SEED + 71, d=30,
+                                avoid_ties=False)
+    equal = torch.full_like(a32, 1.0 / a32[0, 0, 0].numel())
+    outside = int(((l32 < 0) | (l32 > 1)).any(-1).sum())
+    for mode in ("nearest_top6", "nearest_top6c", "shared"):
+        for tag, a in (("degenerate_levels", a32), ("equal_weights", equal)):
+            check_off_boundaries(torch, checks, f"ms_deform_attn_{mode}_{tag}",
+                                 msda.ms_deform_attn_core(v32, edge, l32, a, mode),
+                                 msda.ms_deform_attn_core_plain(v32, edge, l32, a, mode),
+                                 l32, a, edge, mode, 1e-5, 1e-5)
+            checks[-1]["points_outside_map"] = outside
+    check("ms_deform_attn_int8_degenerate_levels",
+          msda.ms_deform_attn_core(v32, edge, l32, a32, quantize_table=True),
+          msda.ms_deform_attn_core_plain(v32, edge, l32, a32, quantize_table=True), 1e-5, 1e-5)
+    near = msda.ms_deform_attn_core(v32, edge, l32, a32, "nearest")
+    for mode in ("nearest_top12", "nearest_top12c"):
+        check(f"ms_deform_attn_{mode}_all_points_is_nearest",
+              msda.ms_deform_attn_core(v32, edge, l32, a32, mode), near, 1e-5, 1e-5)
+    q32, s32 = msda.quantize_value_table(v32)
+    qp32, sp32 = msda.quantize_value_table_plain(v32)
+    same = bool(torch.equal(q32, qp32)) and bool(torch.equal(s32, sp32))
+    checks.append({"check": "ms_deform_attn_quantize_degenerate_levels_bit_for_bit",
+                   "equal": same, "ok": same})
 
 
 def train_kernel_rows(torch, dev, rows, check, checks):
@@ -1038,58 +1234,115 @@ def profile_request(torch, fwd, image):
             "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]} for k, v in top]}
 
 
-def phase_serve(torch, requests=3):
+# the serve phase's settings: (sample_mode, score_lowres, score_topq), and the
+# deformable launches each request makes (6 encoder layers; the hybrid 3 + 3)
+HYBRID = "bilinear,bilinear,bilinear,nearest_top6c,nearest_top6c,nearest_top6c"
+SERVE_SETTINGS = {
+    "bilinear": (("bilinear", False, 0), {"ms_deform_attn_bilinear": 6}),
+    "nearest": (("nearest", False, 0), {"ms_deform_attn_nearest": 6}),
+    "int8": (("int8", False, 0), {"ms_deform_attn_quantize": 6, "ms_deform_attn_int8": 6}),
+    "nearest_top6": (("nearest_top6", False, 0), {"ms_deform_attn_nearest_top": 6}),
+    "nearest_top6c": (("nearest_top6c", False, 0), {"ms_deform_attn_nearest_topc": 6}),
+    "shared": (("shared", False, 0), {"ms_deform_attn_shared": 6}),
+    "hybrid": ((HYBRID, False, 0), {"ms_deform_attn_bilinear": 3,
+                                    "ms_deform_attn_nearest_topc": 3}),
+    "nearest+lowres": (("nearest", True, 0), {"ms_deform_attn_nearest": 6}),
+    "nearest+topq32": (("nearest", False, 32), {"ms_deform_attn_nearest": 6}),
+}
+
+
+@contextlib.contextmanager
+def tail_launch_shapes(scores):
+    """Record (Q, h, w, H, W) of every anomaly-tail launch of ``scores``."""
+    seen, orig = [], scores._mask_scores_cuda
+
+    def recording(masks, probs, keep, out_hw, mode):
+        if mode == scores._ANOMALY:
+            seen.append((*masks.shape[1:], *out_hw))
+        return orig(masks, probs, keep, out_hw, mode)
+
+    scores._mask_scores_cuda = recording
+    try:
+        yield seen
+    finally:
+        scores._mask_scores_cuda = orig
+
+
+def phase_serve(torch, requests=3, settings=tuple(SERVE_SETTINGS), model=None, hw=(H, W),
+                device="cuda"):
+    """``build_m2f_request_forward`` in every setting of ``settings``: launch
+    counts per request (the setting's deformable entries, one anomaly and one
+    semantic tail, nothing else; the anomaly tail at the identity resize for
+    ``score_lowres`` and on 32 queries for ``score_topq``), finite outputs of
+    the input's shape, latency, and one profiled request. ``device="cpu"``
+    with a small model rehearses the control flow (no counts, no profile)."""
     from multishiftseg_torch.evals.ood_metrics import eval_ood_measure
-    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts, scores
     from multishiftseg_torch.train.test_runner import build_m2f_request_forward
 
-    model = seeded_model(torch, SEED + 5).to(torch.bfloat16)
+    model = model or seeded_model(torch, SEED + 5).to(torch.bfloat16)
+    h, w = hw
     g = np.random.RandomState(SEED + 6)
-    images = [g.randint(0, 256, (1, H, W, 3)).astype(np.uint8) for _ in range(requests)]
-    label = np.zeros((H, W), np.int64)
-    side = H // 4
-    y0, x0 = g.randint(0, H - side), g.randint(0, W - side)
+    images = [g.randint(0, 256, (1, h, w, 3)).astype(np.uint8) for _ in range(requests)]
+    label = np.zeros((h, w), np.int64)
+    side = h // 4
+    y0, x0 = g.randint(0, h - side), g.randint(0, w - side)
     label[y0:y0 + side, x0:x0 + side] = 1  # a seeded anomaly square
     res = {"phase": "serve", "model": "MaskFormer R-50 MSDeformAttn+GMA, full widths",
-           "dtype": "bfloat16", "image_hw": [H, W], "batch": 1, "modes": {}}
+           "dtype": "bfloat16", "image_hw": [h, w], "batch": 1, "modes": {}}
     totals = {}
     ok = True
-    for mode in ("bilinear", "nearest"):
-        fwd = build_m2f_request_forward(model, device="cuda", sample_mode=mode)
+    card = device != "cpu"
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    n_queries = model.sem_seg_head.predictor.num_queries
+    for name in settings:
+        (mode, lowres, topq), deform = SERVE_SETTINGS[name]
+        fwd = build_m2f_request_forward(model, device=device, sample_mode=mode,
+                                        score_lowres=lowres, score_topq=topq)
         for im in images[:2]:  # warm-up
             fwd(im)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        sync()
+        if card:
+            torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         latencies, outs = [], []
-        for im in images:
-            t0 = time.perf_counter()
-            anomaly, sem = fwd(im)
-            torch.cuda.synchronize()
-            latencies.append((time.perf_counter() - t0) * 1e3)
-            outs.append((anomaly, sem))
+        with tail_launch_shapes(scores) as tails:
+            for im in images:
+                t0 = time.perf_counter()
+                anomaly, sem = fwd(im)
+                sync()
+                latencies.append((time.perf_counter() - t0) * 1e3)
+                outs.append((anomaly, sem))
         counts = launch_counts()
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         anomaly, sem = outs[-1]
         finite = all(bool(torch.isfinite(a).all() and torch.isfinite(s).all()) for a, s in outs)
-        shapes_ok = (tuple(anomaly.shape) == (1, H, W)
-                     and tuple(sem.shape) == (1, CLASSES + QUERIES, H, W))
-        deform = counts[f"ms_deform_attn_{mode}"]
-        other = counts["ms_deform_attn_nearest" if mode == "bilinear" else "ms_deform_attn_bilinear"]
-        tail = counts["mask_scores_anomaly"] + counts["mask_scores_semantic"]
-        counts_ok = (deform == 6 * requests and other == 0 and tail == 2 * requests
-                     and counts["mask_scores_anomaly"] == requests
-                     and counts["mask_scores_semantic_classes"] == 0)
+        shapes_ok = (tuple(anomaly.shape) == (1, h, w)
+                     and tuple(sem.shape) == (1, CLASSES + n_queries, h, w))
+        want = {k: 0 for k in counts}
+        want.update({k: v * requests for k, v in deform.items()})
+        want.update(mask_scores_anomaly=requests, mask_scores_semantic=requests)
+        # the anomaly tail: on Q queries (score_topq's), from the stride-4
+        # masks of the /32-padded input, to the padded input or (score_lowres)
+        # to the masks' own size
+        mask_hw = (-(-h // 32) * 8, -(-w // 32) * 8)
+        out_hw = mask_hw if lowres else (-(-h // 32) * 32, -(-w // 32) * 32)
+        tails_ok = len(tails) == requests and all(
+            t == (topq or n_queries, *mask_hw, *out_hw) for t in tails)
+        counts_ok = not card or (counts == want and tails_ok)
         metrics = eval_ood_measure(anomaly[0].float().cpu().numpy(), label)
         mode_ok = finite and shapes_ok and counts_ok and metrics is not None
         ok &= mode_ok
-        res["modes"][mode] = {
+        res["modes"][name] = {
+            "sample_mode": mode, "score_lowres": lowres, "score_topq": topq,
             "latency_ms": latencies, "images_per_s": requests / (sum(latencies) / 1e3),
-            "launches": counts, "launches_per_image_ok": counts_ok, "finite": finite,
-            "shapes_ok": shapes_ok, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {k: v for k, v in counts.items() if v}, "launches_per_image_ok": counts_ok,
+            "anomaly_tail_launches_q_h_w_H_W": [list(t) for t in tails[:1]],
+            "finite": finite, "shapes_ok": shapes_ok,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if card else None,
             "auroc_auprc_fpr95_random_weights": metrics, "ok": mode_ok,
-            "profiled_request": profile_request(torch, fwd, images[0])}
+            "profiled_request": profile_request(torch, fwd, images[0]) if card else None}
     res["ok"] = ok
     return res, totals
 
@@ -1847,8 +2100,9 @@ def phase_evaluate(torch, device="cuda", hw=VAL_HW[0], n_images=4, m2f=None, dee
     ``_labels_semantic.png`` labels, 4 images of 720x1280) named in a
     temporary YAML, with ``--weight_path`` a detectron2-style ``{"model": sd}``
     file of the seeded port model and ``--save_outputs``: finite metrics and
-    artifacts of the images' shape. ``device="cpu"`` with small models (and
-    their widths in ``extra_yaml``) rehearses the control flow."""
+    artifacts of the images' shape; then :func:`evaluate_approximate` on the
+    m2f run. ``device="cpu"`` with small models (and their widths in
+    ``extra_yaml``) rehearses the control flow."""
     import os
     import tempfile
 
@@ -1859,7 +2113,7 @@ def phase_evaluate(torch, device="cuda", hw=VAL_HW[0], n_images=4, m2f=None, dee
     from multishiftseg_torch.train import test_runner
 
     res = {"phase": "evaluate", "images": n_images, "image_hw": list(hw), "models": {}}
-    totals, ok = {}, True
+    totals, ok, runs = {}, True, {}
     g = np.random.RandomState(SEED + 60)
     here = Path(__file__).resolve().parent
     cwd = os.getcwd()
@@ -1913,7 +2167,91 @@ def phase_evaluate(torch, device="cuda", hw=VAL_HW[0], n_images=4, m2f=None, dee
             m["ok"] = bool(all(m["checks"].values()))
             ok &= m["ok"]
             res["models"][name] = m
+            runs[name] = (cfg_path, weights, metrics)
+        cfg_path, weights, metrics = runs["m2f"]
+        approx, counts = evaluate_approximate(torch, device, tmp, root, cfg_path, weights, metrics)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        res["approximate"] = approx
+        ok &= approx["ok"]
     res["ok"] = bool(ok)
+    return res, totals
+
+
+def evaluate_approximate(torch, device, tmp, root, cfg_path, weights, bilinear):
+    """The eval CLI in an approximate setting (``--sample_mode nearest_top6c
+    --score_topq 32``), then ``multishiftseg_torch.tools.validate_release``'s
+    ``qualify_sampling_modes`` over its ``QUAL_MODES`` on the same folder and
+    weights against the ``bilinear`` CLI run's metrics (``bilinear``), the
+    artifact written next to the weights; the gate then refuses exactly the
+    settings recorded unqualified. Random weights: the verdicts mean nothing,
+    the path is what is checked. Launch counts of the CLI run and of the
+    qualification, each path run with the counts set to 0 just before it."""
+    import os
+
+    from multishiftseg_torch.core.config import load_config
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.tools import validate_release as vr
+    from multishiftseg_torch.train import test_runner
+
+    totals, res = {}, {}
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        argv = ["--model", "m2f", "--cfg", str(cfg_path), "--weight_path", str(weights),
+                "--test_dataset", "RoadAnomaly21", "--device", device,
+                "--sample_mode", "nearest_top6c", "--score_topq", "32"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            metrics = test_runner.main(argv).get("RoadAnomaly21", {})
+        cli = {"argv_flags": argv[-4:], "metrics": metrics,
+               "seconds_with_model_load": time.perf_counter() - t0, "launches": launch_counts()}
+        cli["ok"] = len(metrics) == 3 and all(np.isfinite(v) for v in metrics.values())
+        res["cli"] = cli
+
+        cfg = load_config(str(cfg_path))
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            record = vr.qualify_sampling_modes(
+                cfg, str(weights), "RoadAnomaly21", str(root),
+                {k: 100.0 * v for k, v in bilinear.items()}, 0.5, device=device)
+        qual = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
+                "record": record}
+        path = vr.write_qualification(str(weights), record)
+        # the gate as build_m2f_forward runs it first; a refused setting must
+        # also stop build_m2f_forward before it builds anything
+        gate = {}
+        for mode, rec in record["modes"].items():
+            base, _, suffix = mode.partition("+")
+            opts = dict(sample_mode=base, score_lowres=suffix == "lowres",
+                        score_topq=int(suffix[4:]) if suffix.startswith("topq") else 0)
+            try:
+                test_runner.check_sampling_qualification(
+                    str(weights), test_runner.qualification_key(**opts))
+                gate[mode] = "allowed"
+            except RuntimeError as e:
+                if "REFUSED" not in str(e):
+                    raise
+                try:
+                    test_runner.build_m2f_forward(cfg, str(weights), device=device, **opts)
+                    gate[mode] = "refused by the gate, built by build_m2f_forward"
+                except RuntimeError as e2:
+                    gate[mode] = "refused" if "REFUSED" in str(e2) else repr(e2)
+        qual["gate"] = gate
+        qual["artifact_written"] = path.exists()
+        qual["ok"] = path.exists() and set(record["modes"]) == set(vr.QUAL_MODES) and all(
+            gate[m] == ("allowed" if r["qualified"] else "refused")
+            for m, r in record["modes"].items())
+        res["qualification"] = qual
+    finally:
+        os.chdir(cwd)
+    for part in (cli, qual):
+        for k, v in part["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        part["launches"] = {k: v for k, v in part["launches"].items() if v}
+    res["ok"] = bool(cli["ok"] and qual["ok"])
     return res, totals
 
 
@@ -1982,7 +2320,7 @@ def main():
 
     # each main path was run with the counts set to 0 just before it
     for name, row in rows.items():
-        row["launches"] = sum(path.get(name, 0) for path in (
+        row["launches"] = sum(path.get(row.get("counter", name), 0) for path in (
             launches, train_launches, dl_launches, dl_train_launches, s1_launches,
             val_launches, eval_launches))
     ok = all(p["ok"] for p in phases) and all(r["launches"] > 0 for r in rows.values())

@@ -5,6 +5,8 @@
 //                             align_corners=False), entry msda_forward(nearest=0)
 //   * _core_forward_nearest  (nearest pixel, weight zeroed outside the half-pixel
 //                             border), entry msda_forward(nearest=1)
+//   * _core_forward with quantize_table (the int8 value table), entries
+//     msda_quantize and msda_forward_int8 (below the backward)
 // The TPU version builds a 2x2 im2col table per level to suit the TPU's gather
 // unit; here every thread reads its corners straight from value[N, S, M, D].
 //
@@ -35,6 +37,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #define MSDA_MAX_LEVELS 8
 
 struct MsdaLevels {
@@ -46,6 +50,7 @@ struct MsdaLevels {
 
 __device__ __forceinline__ float msda_to_float(float v) { return v; }
 __device__ __forceinline__ float msda_to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float msda_to_float(int8_t v) { return (float)v; }
 
 // V consecutive channels <-> f32 registers
 template <typename T>
@@ -63,6 +68,20 @@ __device__ __forceinline__ void msda_load(const __nv_bfloat16* p, float (&v)[8])
     v[2 * i] = f.x;
     v[2 * i + 1] = f.y;
   }
+}
+// the int8 table: 8 channels as one 8-byte load (bf16 output), 4 as one
+// 4-byte load (f32 output)
+__device__ __forceinline__ void msda_load(const int8_t* p, float (&v)[8]) {
+  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+  const char4 a = *reinterpret_cast<const char4*>(&r.x);
+  const char4 b = *reinterpret_cast<const char4*>(&r.y);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+__device__ __forceinline__ void msda_load(const int8_t* p, float (&v)[4]) {
+  const int r = __ldg(reinterpret_cast<const int*>(p));
+  const char4 a = *reinterpret_cast<const char4*>(&r);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
 }
 __device__ __forceinline__ void msda_store(float* p, const float (&v)[1]) { *p = v[0]; }
 __device__ __forceinline__ void msda_store(__nv_bfloat16* p, const float (&v)[1]) {
@@ -87,8 +106,31 @@ __device__ __forceinline__ void msda_fma(const T* p, float w, float (&acc)[V]) {
   for (int i = 0; i < V; ++i) acc[i] = fmaf(w, v[i], acc[i]);
 }
 
-template <typename T, int V, bool NEAREST>
-__global__ void msda_forward_kernel(const T* __restrict__ value,
+// a corner of the int8 table: the channel's scale folded into the corner weight
+template <int V>
+__device__ __forceinline__ void msda_fma_scaled(const int8_t* p, float w,
+                                                const float (&sc)[V], float (&acc)[V]) {
+  float v[V];
+  msda_load(p, v);
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = fmaf(w * sc[i], v[i], acc[i]);
+}
+
+// One corner read: TV = T, or int8_t with the per-channel scale sc.
+template <typename TV, int V>
+__device__ __forceinline__ void msda_corner(const TV* p, float w, const float (&sc)[V],
+                                            float (&acc)[V]) {
+  if constexpr (std::is_same<TV, int8_t>::value) {
+    msda_fma_scaled<V>(p, w, sc, acc);
+  } else {
+    msda_fma<TV, V>(p, w, acc);
+  }
+}
+
+// TV: the value table's type, T (bf16 or f32) or int8_t (scale [D] given)
+template <typename T, typename TV, int V, bool NEAREST>
+__global__ void msda_forward_kernel(const TV* __restrict__ value,
+                                    const float* __restrict__ scale,
                                     const float* __restrict__ loc,
                                     const T* __restrict__ attn,
                                     T* __restrict__ out,
@@ -105,17 +147,21 @@ __global__ void msda_forward_kernel(const T* __restrict__ value,
   const float2* lp = reinterpret_cast<const float2*>(loc) + nqm * J;
   const T* ap = attn + nqm * J;
   const int64_t row = (int64_t)M * D;    // stride of one s in value
-  const T* vb = value + (int64_t)n * S * row + (int64_t)m * D + d0;
+  const TV* vb = value + (int64_t)n * S * row + (int64_t)m * D + d0;
 
   float acc[V];
+  float sc[V];
 #pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  for (int i = 0; i < V; ++i) {
+    acc[i] = 0.f;
+    sc[i] = std::is_same<TV, int8_t>::value ? __ldg(scale + d0 + i) : 1.f;
+  }
 #pragma unroll
   for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
     if (l >= lv.n) break;
     const int H = lv.h[l];
     const int W = lv.w[l];
-    const T* vl = vb + (int64_t)lv.start[l] * row;
+    const TV* vl = vb + (int64_t)lv.start[l] * row;
     for (int p = 0; p < P; ++p) {
       const int j = l * P + p;
       const float2 xy = __ldg(lp + j);
@@ -128,7 +174,7 @@ __global__ void msda_forward_kernel(const T* __restrict__ value,
         if (x > -0.5f && x < (float)W - 0.5f && y > -0.5f && y < (float)H - 0.5f) {
           const int ix = min(max((int)floorf(x + 0.5f), 0), W - 1);
           const int iy = min(max((int)floorf(y + 0.5f), 0), H - 1);
-          msda_fma<T, V>(vl + ((int64_t)iy * W + ix) * row, a, acc);
+          msda_corner<TV, V>(vl + ((int64_t)iy * W + ix) * row, a, sc, acc);
         }
       } else if (x > -1.f && x < (float)W && y > -1.f && y < (float)H) {
         // All four corners lie outside unless -1 < x < W and -1 < y < H; the
@@ -144,10 +190,10 @@ __global__ void msda_forward_kernel(const T* __restrict__ value,
         const float wy1 = y0 + 1 < H ? a * fy : 0.f;
         const int64_t cx0 = max(x0, 0), cx1 = min(x0 + 1, W - 1);
         const int64_t ry0 = (int64_t)max(y0, 0) * W, ry1 = (int64_t)min(y0 + 1, H - 1) * W;
-        msda_fma<T, V>(vl + (ry0 + cx0) * row, wy0 * wx0, acc);
-        msda_fma<T, V>(vl + (ry0 + cx1) * row, wy0 * wx1, acc);
-        msda_fma<T, V>(vl + (ry1 + cx0) * row, wy1 * wx0, acc);
-        msda_fma<T, V>(vl + (ry1 + cx1) * row, wy1 * wx1, acc);
+        msda_corner<TV, V>(vl + (ry0 + cx0) * row, wy0 * wx0, sc, acc);
+        msda_corner<TV, V>(vl + (ry0 + cx1) * row, wy0 * wx1, sc, acc);
+        msda_corner<TV, V>(vl + (ry1 + cx0) * row, wy1 * wx0, sc, acc);
+        msda_corner<TV, V>(vl + (ry1 + cx1) * row, wy1 * wx1, sc, acc);
       }
     }
   }
@@ -162,13 +208,13 @@ static void msda_launch(const void* value, const void* loc, const void* attn,
   const int threads = 256;
   const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
   if (nearest) {
-    msda_forward_kernel<T, V, true><<<blocks, threads, 0, stream>>>(
-        (const T*)value, (const float*)loc, (const T*)attn, (T*)out, total, S,
-        M, D, Lq, P, lv);
+    msda_forward_kernel<T, T, V, true><<<blocks, threads, 0, stream>>>(
+        (const T*)value, nullptr, (const float*)loc, (const T*)attn, (T*)out, total,
+        S, M, D, Lq, P, lv);
   } else {
-    msda_forward_kernel<T, V, false><<<blocks, threads, 0, stream>>>(
-        (const T*)value, (const float*)loc, (const T*)attn, (T*)out, total, S,
-        M, D, Lq, P, lv);
+    msda_forward_kernel<T, T, V, false><<<blocks, threads, 0, stream>>>(
+        (const T*)value, nullptr, (const float*)loc, (const T*)attn, (T*)out, total,
+        S, M, D, Lq, P, lv);
   }
 }
 
@@ -402,4 +448,183 @@ extern "C" int msda_backward(const void* value, const void* loc, const void* att
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The int8 value table of the bilinear mode (quantize_table=True).
+//
+// Replaces multishiftseg_tpu/ops/ms_deform_attn.py:130-139 (per-channel
+// symmetric int8 quantisation of value [N, S, M, D]: scale_d = max |v| over
+// (N, S, M) / 127, floored at 1e-12; q = clip(round(v / scale_d), -127, 127))
+// and :221-225 (the scale folded into the corner weights of the forward).
+//
+// msda_quantize, two kernels:
+//   1. the per-channel absolute max. A block's threads own fixed channels of
+//      consecutive rows of the [N*S*M, D] view and walk the rows grid-strided;
+//      the block reduces its rows in shared memory and issues one atomicMax a
+//      channel on the max's bits (non-negative floats order as their bits), so
+//      the result is exact whatever the order.
+//   2. one pass that writes the table: rintf(__fdiv_rn(v, scale)) clamped to
+//      +-127 (round half to even and IEEE division, as jnp.round and the plain
+//      version's true division; no fast math); then a small kernel writes the
+//      scale over the max, after the table pass in stream order.
+// The table equals the plain version's bit for bit.
+// msda_forward_int8: the bilinear kernel above reading int8 corners
+// (msda_forward_kernel<T, int8_t, ...>), with each channel's scale multiplied
+// into the corner weight; sums in f32, the output in attn's type.
+//
+// Bound at the main-path shapes (S = Lq = 43008, M = 8, D = 32, L = 3, P = 4,
+// bf16): the quantize must read value 22 MB and write the 11 MB table, 33 MB,
+// 9.9 us at 3.35 TB/s (the max pass reads value once more, 44 MB in all); the
+// forward must read the table 11 MB, loc 33 MB and attn 8.3 MB and write 22 MB,
+// 74.3 MB, 22.2 us. Both are bound by bytes.
+
+#define MSDA_Q_THREADS 256
+
+template <typename T>
+__global__ void msda_absmax_kernel(const T* __restrict__ value, int64_t rows, int D,
+                                   int rows_per_step, unsigned int* __restrict__ amax) {
+  __shared__ float smax[MSDA_Q_THREADS];
+  const int d = threadIdx.x % D;
+  const int r0 = threadIdx.x / D;
+  float mx = 0.f;
+  if (r0 < rows_per_step) {
+    for (int64_t r = (int64_t)blockIdx.x * rows_per_step + r0; r < rows;
+         r += (int64_t)gridDim.x * rows_per_step) {
+      mx = fmaxf(mx, fabsf(msda_to_float(value[r * D + d])));
+    }
+  }
+  smax[threadIdx.x] = mx;
+  __syncthreads();
+  if (threadIdx.x < D) {
+    for (int k = 1; k < rows_per_step; ++k) mx = fmaxf(mx, smax[k * D + threadIdx.x]);
+    atomicMax(amax + threadIdx.x, __float_as_uint(mx));
+  }
+}
+
+__device__ __forceinline__ float msda_scale(unsigned int amax_bits) {
+  return fmaxf(__fdiv_rn(__uint_as_float(amax_bits), 127.f), 1e-12f);
+}
+
+template <typename T>
+__global__ void msda_quantize_kernel(const T* __restrict__ value, int64_t total, int D,
+                                     unsigned int* __restrict__ amax_scale,
+                                     int8_t* __restrict__ q) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const float s = msda_scale(amax_scale[i % D]);
+  const float v = rintf(__fdiv_rn(msda_to_float(value[i]), s));
+  q[i] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
+}
+
+__global__ void msda_scale_kernel(unsigned int* __restrict__ amax_scale, int D) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d < D) amax_scale[d] = __float_as_uint(msda_scale(amax_scale[d]));
+}
+
+template <typename T>
+static int msda_quantize_launch(const T* value, int8_t* q, unsigned int* scale,
+                                int64_t rows, int D, cudaStream_t st) {
+  const int rows_per_step = MSDA_Q_THREADS / D;
+  int sms = 132;
+  int dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess) {
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int64_t steps = (rows + rows_per_step - 1) / rows_per_step;
+  const int blocks1 = (int)(steps < 4 * (int64_t)sms ? steps : 4 * (int64_t)sms);
+  msda_absmax_kernel<T><<<blocks1, MSDA_Q_THREADS, 0, st>>>(value, rows, D, rows_per_step,
+                                                           scale);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  const int64_t total = rows * D;
+  const int64_t blocks2 = (total + MSDA_Q_THREADS - 1) / MSDA_Q_THREADS;
+  if (blocks2 > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  msda_quantize_kernel<T><<<(unsigned int)blocks2, MSDA_Q_THREADS, 0, st>>>(
+      value, total, D, scale, q);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  // stream order: the table pass has read every max before the scale replaces it
+  msda_scale_kernel<<<(D + 255) / 256, 256, 0, st>>>(scale, D);
+  return (int)cudaGetLastError();
+}
+
+// value [rows, D] (rows = N * S * M) f32 (dtype 0) or bf16 (1); q int8 [rows, D];
+// scale: a zeroed f32 [D] buffer, the scale on return. D <= 256.
+extern "C" int msda_quantize(const void* value, void* q, void* scale, long long rows,
+                             int d, int dtype, void* stream) {
+  if (d < 1 || d > MSDA_Q_THREADS || rows < 0) return (int)cudaErrorInvalidValue;
+  if (rows == 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    return msda_quantize_launch<float>((const float*)value, (int8_t*)q,
+                                       (unsigned int*)scale, rows, d, st);
+  }
+  if (dtype == 1) {
+    return msda_quantize_launch<__nv_bfloat16>((const __nv_bfloat16*)value, (int8_t*)q,
+                                               (unsigned int*)scale, rows, d, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int V>
+static void msda_int8_launch(const int8_t* qvalue, const float* scale, const float* loc,
+                             const T* attn, T* out, int64_t total, int S, int M, int D,
+                             int Lq, int P, const MsdaLevels& lv, cudaStream_t st) {
+  const int threads = 256;
+  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+  msda_forward_kernel<T, int8_t, V, false><<<blocks, threads, 0, st>>>(
+      qvalue, scale, loc, attn, out, total, S, M, D, Lq, P, lv);
+}
+
+template <typename T, int VEC>
+static int msda_int8_dispatch(const void* qvalue, const void* scale, const void* loc,
+                              const void* attn, void* out, int n, int s, int m, int d,
+                              int lq, int n_points, const MsdaLevels& lv, cudaStream_t st) {
+  // VEC int8 channels in one VEC-byte load, VEC outputs in one 16-byte store
+  const bool vec = d % VEC == 0 && ((uintptr_t)qvalue % VEC) == 0 &&
+                   ((uintptr_t)out & 15) == 0;
+  const int64_t total = (int64_t)n * lq * m * (vec ? d / VEC : d);
+  if (total == 0) return (int)cudaSuccess;
+  if ((total + 255) / 256 > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (vec) {
+    msda_int8_launch<T, VEC>((const int8_t*)qvalue, (const float*)scale, (const float*)loc,
+                             (const T*)attn, (T*)out, total, s, m, d, lq, n_points, lv, st);
+  } else {
+    msda_int8_launch<T, 1>((const int8_t*)qvalue, (const float*)scale, (const float*)loc,
+                           (const T*)attn, (T*)out, total, s, m, d, lq, n_points, lv, st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// qvalue int8 [N, S, M, D] and its f32 scale [D] (msda_quantize); loc, attn and
+// out as msda_forward, dtype that of attn and out (0 f32, 1 bf16).
+extern "C" int msda_forward_int8(const void* qvalue, const void* scale, const void* loc,
+                                 const void* attn, void* out, int n, int s, int m, int d,
+                                 int lq, int n_levels, int n_points, const int* shapes_hw,
+                                 int dtype, void* stream) {
+  if (n_levels < 1 || n_levels > MSDA_MAX_LEVELS || n_points < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  MsdaLevels lv;
+  lv.n = n_levels;
+  int64_t start = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    lv.h[l] = shapes_hw[2 * l];
+    lv.w[l] = shapes_hw[2 * l + 1];
+    lv.start[l] = (int)start;
+    start += (int64_t)lv.h[l] * lv.w[l];
+  }
+  if (start != s) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)loc & 7) != 0) return (int)cudaErrorMisalignedAddress;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    return msda_int8_dispatch<float, 4>(qvalue, scale, loc, attn, out, n, s, m, d, lq,
+                                        n_points, lv, st);
+  }
+  if (dtype == 1) {
+    return msda_int8_dispatch<__nv_bfloat16, 8>(qvalue, scale, loc, attn, out, n, s, m, d,
+                                                lq, n_points, lv, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }

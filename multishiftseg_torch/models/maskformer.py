@@ -9,13 +9,14 @@ follow the reference: ``backbone.*``, ``sem_seg_head.pixel_decoder.*``,
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.scores import (anomaly_score_upsampled, semantic_inference,  # noqa: F401
+from ..ops.scores import (anomaly_score_lowres, anomaly_score_topq,  # noqa: F401
+                          anomaly_score_upsampled, semantic_inference,
                           semantic_inference_upsampled)
 from .pixel_decoder import MSDeformAttnPixelDecoder
 from .resnet import ResNet
@@ -62,13 +63,17 @@ class MaskFormer(nn.Module):
                 mask_dim=mask_dim))
 
     def forward(self, images: torch.Tensor,
-                deform_sample_mode: str = "bilinear") -> Dict[str, object]:
-        """images: [N, H, W, 3], normalised and padded to /32 (:func:`preprocess`);
-        ``deform_sample_mode`` is ``bilinear`` (exact) or ``nearest``."""
+                deform_sample_mode: Union[str, Sequence[str]] = "bilinear",
+                quantize_deform_table: bool = False) -> Dict[str, object]:
+        """images: [N, H, W, 3], normalised and padded to /32 (:func:`preprocess`).
+        ``deform_sample_mode``: a sample mode of ``ops.ms_deform_attn``
+        (``bilinear``, exact, by default), or one per encoder layer;
+        ``quantize_deform_table``: the int8 value table (``bilinear`` layers;
+        one scale over the batch, as JAX's model)."""
         x = images.permute(0, 3, 1, 2).to(self.backbone.stem.conv1.weight.dtype)
         feats = self.backbone(x)
         mask_features, _, multi_scale = self.sem_seg_head.pixel_decoder(
-            feats, deform_sample_mode)
+            feats, deform_sample_mode, quantize_deform_table)
         return self.sem_seg_head.predictor(multi_scale, mask_features)
 
 
@@ -96,14 +101,25 @@ def inference(outputs: Dict[str, torch.Tensor], image_hw: Tuple[int, int],
     differentiable on both devices (stage 1 trains through it). A caller that
     keeps only ``sem[:, :K]``, as the stage-1 step does, passes
     ``_classes_only``: sem is then [N, K, H, W] and the kept-query channels are
-    never written. The approximate tails ``score_lowres`` and ``score_topq``
-    are not ported.
+    never written.
+
+    The approximate anomaly tails of JAX ``inference`` (:210-240), each to be
+    qualified per checkpoint: ``score_lowres`` scores at mask resolution and
+    resizes the score plane once (:func:`ops.scores.anomaly_score_lowres`);
+    ``score_topq = Q`` scores the Q OOD queries with the largest non-void peak
+    probability alone (:func:`ops.scores.anomaly_score_topq`). JAX lets
+    ``score_topq`` win silently when both are set (:214); here setting both
+    raises ``ValueError``.
     """
-    if score_lowres or score_topq:
-        raise NotImplementedError("score_lowres / score_topq are not ported "
-                                  "(ROADMAP Queue 1, alternates)")
+    if score_lowres and score_topq:
+        raise ValueError("score_lowres and score_topq are exclusive; set one")
     sem = semantic_inference_upsampled(outputs["pred_logits"], outputs["pred_masks"],
                                        image_hw, num_classes, _classes_only=_classes_only)
-    anomaly = anomaly_score_upsampled(outputs["pred_logits_ood"],
-                                      outputs["pred_masks_ood"], image_hw)
+    cls, masks = outputs["pred_logits_ood"], outputs["pred_masks_ood"]
+    if score_topq:
+        anomaly = anomaly_score_topq(cls, masks, image_hw, score_topq)
+    elif score_lowres:
+        anomaly = anomaly_score_lowres(cls, masks, image_hw)
+    else:
+        anomaly = anomaly_score_upsampled(cls, masks, image_hw)
     return sem, anomaly

@@ -9,7 +9,7 @@ reference ``MSDeformAttnPixelDecoder``: ``input_proj.{i}.{0,1}``,
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,9 +45,10 @@ class DeformableEncoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, src, pos, reference_points, spatial_shapes, sample_mode="bilinear"):
+    def forward(self, src, pos, reference_points, spatial_shapes, sample_mode="bilinear",
+                quantize_table=False):
         attn_out = self.self_attn(src + pos, reference_points, src, spatial_shapes,
-                                  sample_mode)
+                                  sample_mode, quantize_table)
         src = self.norm1(src + attn_out)
         ffn = self.linear2(F.relu(self.linear1(src)))
         return self.norm2(src + ffn)
@@ -78,6 +79,8 @@ def _group_norm(channels: int) -> nn.GroupNorm:
 ENCODER_FEATURES = ("res5", "res4", "res3")
 FPN_FEATURE = "res2"
 N_HEADS, N_POINTS, D_FFN = 8, 4, 1024  # the JAX encoder layer's fixed widths
+# J = L * P sample points a head: the bound on T of the nearest_top{T} modes
+DEFORM_POINTS = len(ENCODER_FEATURES) * N_POINTS
 
 
 class MSDeformAttnPixelDecoder(nn.Module):
@@ -110,9 +113,20 @@ class MSDeformAttnPixelDecoder(nn.Module):
             self._constants[key] = (pos, ref)
         return self._constants[key]
 
-    def forward(self, features: Dict[str, torch.Tensor], sample_mode: str = "bilinear"):
+    def forward(self, features: Dict[str, torch.Tensor],
+                sample_mode: Union[str, Sequence[str]] = "bilinear",
+                quantize_table: bool = False):
         """features: channels-first maps by name. Returns (mask_features
-        [N, mask_dim, H/4, W/4], encoder_top, multi-scale maps [stride 32, 16, 8])."""
+        [N, mask_dim, H/4, W/4], encoder_top, multi-scale maps [stride 32, 16, 8]).
+
+        ``sample_mode``: one deformable sample mode for every encoder layer, or
+        one per layer (a hybrid, JAX ``pixel_decoder.py:146-159``);
+        ``quantize_table``: the int8 value table in every layer."""
+        layers = self.transformer.encoder.layers
+        modes = (sample_mode,) * len(layers) if isinstance(sample_mode, str) else tuple(sample_mode)
+        if len(modes) != len(layers):
+            raise ValueError(f"per-layer sample_mode needs {len(layers)} entries, got "
+                             f"{len(modes)}: {modes}")
         srcs, shapes = [], []
         for proj, name in zip(self.input_proj, ENCODER_FEATURES):
             x = proj(features[name])
@@ -125,8 +139,8 @@ class MSDeformAttnPixelDecoder(nn.Module):
         pos = torch.cat([p.to(src.dtype) + level_embed[i] for i, p in enumerate(pos_levels)])
         pos = pos[None].expand(n, -1, -1)
         ref = ref[None, :, None, :].expand(n, -1, len(shapes), -1)
-        for layer in self.transformer.encoder.layers:
-            src = layer(src, pos, ref, shapes, sample_mode)
+        for layer, mode in zip(layers, modes):
+            src = layer(src, pos, ref, shapes, mode, quantize_table)
 
         # split back to 2-D maps, low -> high resolution
         outs: List[torch.Tensor] = []

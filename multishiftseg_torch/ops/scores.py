@@ -10,7 +10,11 @@ tensors, and through the plain path for CPU tensors. On the card the anomaly
 entry is a ``torch.autograd.Function`` whose backward is a kernel too
 (:func:`mask_scores_backward`); the semantic entry has no backward kernel and
 raises when an input requires grad, rather than return a result cut off from
-the graph.
+the graph. The approximate anomaly tails of JAX ``inference``
+(``maskformer.py:214-234``) reuse the anomaly kernel:
+:func:`anomaly_score_lowres` at the identity resize, then one resize of the
+score plane; :func:`anomaly_score_topq` on the gathered rows of the kept
+queries.
 """
 
 from __future__ import annotations
@@ -101,6 +105,65 @@ def anomaly_score_upsampled_plain(class_logits_ood, mask_logits_ood, out_hw):
     """Plain version of :func:`anomaly_score_upsampled`: resize, then score."""
     up = resize_bilinear_nchw(mask_logits_ood.float(), out_hw, align_corners=False)
     return mask2former_anomaly_score(class_logits_ood, up)
+
+
+def anomaly_score_lowres(class_logits_ood: torch.Tensor, mask_logits_ood: torch.Tensor,
+                         out_hw: Tuple[int, int]) -> torch.Tensor:
+    """The ``score_lowres`` tail (JAX ``inference``, ``maskformer.py:229-234``):
+    the anomaly score at the masks' own resolution, the fused tail at the
+    identity resize (a CUDA kernel on the card), then one bilinear resize of
+    the [N, h, w] score plane to ``out_hw``."""
+    low = anomaly_score_upsampled(class_logits_ood, mask_logits_ood,
+                                  tuple(mask_logits_ood.shape[-2:]))
+    return resize_bilinear_nchw(low, out_hw, align_corners=False)
+
+
+def top_queries(class_logits_ood: torch.Tensor, q: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(class probabilities [N, Q, K + 1] in f32, the indices [N, q] of the q
+    queries with the largest non-void peak probability), as JAX's ``score_topq``
+    picks them (``maskformer.py:214-218``): a stable descending sort, so equal
+    peaks keep the lower index first, as ``jax.lax.top_k``."""
+    n_queries = class_logits_ood.shape[1]
+    if not 1 <= q <= n_queries:
+        raise ValueError(f"score_topq = {q} must lie in 1..{n_queries} (the queries)")
+    probs = torch.softmax(class_logits_ood.float(), dim=-1)
+    peak = probs[..., :-1].amax(dim=-1)
+    return probs, torch.sort(peak, dim=-1, descending=True, stable=True).indices[:, :q]
+
+
+def _top_query_inputs(class_logits_ood, mask_logits_ood, q):
+    """(the kept queries' non-void probabilities [N, q, K], their mask logits
+    [N, q, h, w] in f32), contiguous."""
+    probs, idx = top_queries(class_logits_ood, q)
+    k = probs.shape[-1] - 1
+    probs_sel = probs[..., :-1].gather(1, idx[:, :, None].expand(-1, -1, k))
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return probs_sel.contiguous(), mask_logits_ood[rows, idx].float().contiguous()
+
+
+def anomaly_score_topq(class_logits_ood: torch.Tensor, mask_logits_ood: torch.Tensor,
+                       out_hw: Tuple[int, int], q: int) -> torch.Tensor:
+    """The ``score_topq = q`` tail (JAX ``inference``, ``maskformer.py:214-228``):
+    the anomaly score at ``out_hw`` from the q OOD queries with the largest
+    non-void peak probability (:func:`top_queries`) and nothing else, with no
+    renormalisation. The fused tail (a CUDA kernel on the card, its launch on
+    q queries) over the gathered probability rows and mask planes."""
+    probs_sel, masks_sel = _top_query_inputs(class_logits_ood, mask_logits_ood, q)
+    if masks_sel.device.type == "cpu":
+        return _anomaly_from_probs_plain(probs_sel, masks_sel, out_hw)
+    return _AnomalyTail.apply(masks_sel, probs_sel, tuple(int(v) for v in out_hw))
+
+
+def anomaly_score_topq_plain(class_logits_ood, mask_logits_ood, out_hw, q):
+    """Plain version of :func:`anomaly_score_topq`: resize the q planes, then score."""
+    return _anomaly_from_probs_plain(*_top_query_inputs(class_logits_ood, mask_logits_ood, q),
+                                     out_hw)
+
+
+def _anomaly_from_probs_plain(probs, masks, out_hw):
+    up = resize_bilinear_nchw(masks, out_hw, align_corners=False)
+    sem = torch.einsum("bqk,bqhw->bhwk", probs, torch.sigmoid(up))
+    return 1.0 - sem.amax(dim=-1)
 
 
 class _AnomalyTail(torch.autograd.Function):

@@ -32,6 +32,8 @@ from ..core.config import Config
 from ..losses.criterion import CriterionConfig, criterion_draws, set_criterion
 from ..losses.rcl import make_rcl_params, rel_contrastive_loss
 from ..models.maskformer import MaskFormer, inference
+from ..models.pixel_decoder import DEFORM_POINTS
+from ..ops.ms_deform_attn import parse_eval_sample_mode
 from ..ops.scores import anomaly_score_upsampled
 from ..utils import resolve_device
 from .state import build_m2f_official_optimizer, build_stage_optimizer, clip_grad_norm
@@ -217,11 +219,13 @@ class TrainM2FOOD:
         return (total.detach(), {k: v.detach() for k, v in losses.items()}, grad_norm,
                 assignments)
 
-    def eval_step(self, imgs, sample_mode: str = "bilinear") -> Tuple[torch.Tensor, torch.Tensor]:
+    def eval_step(self, imgs, sample_mode: str = "bilinear", score_lowres: bool = False,
+                  score_topq: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         """imgs: normalised f32 [B, H, W, 3], H and W multiples of 32 ->
         (sem [B, K + Q, H, W], anomaly [B, H, W]): :func:`eval_forward` with
         bf16 autocast over the f32 master weights when ``cfg.train.bf16``."""
-        return eval_forward(self.model, imgs, self.bf16, sample_mode)
+        return eval_forward(self.model, imgs, self.bf16, sample_mode,
+                            score_lowres=score_lowres, score_topq=score_topq)
 
     def valid(self, val_ds) -> Optional[Dict[str, float]]:
         """Per-epoch validation: binned metrics over shape-bucketed batches
@@ -232,12 +236,25 @@ class TrainM2FOOD:
 
 @torch.inference_mode()
 def eval_forward(model: MaskFormer, imgs, bf16: bool = False, sample_mode: str = "bilinear",
-                 anomaly_only: bool = False):
+                 anomaly_only: bool = False, score_lowres: bool = False, score_topq: int = 0):
     """The M2F eval forward (``make_eval_step``): ``model`` in eval mode on
     normalised f32 images [B, H, W, 3] (H and W multiples of 32), moved to the
     model's device, under bf16 autocast when ``bf16``; then ``inference`` at
     the image size -> (sem [B, K + Q, H, W], anomaly [B, H, W]), or the anomaly
-    score alone when ``anomaly_only``. f32 tensors on the model's device."""
+    score alone when ``anomaly_only``. f32 tensors on the model's device.
+
+    ``sample_mode`` is an evaluator's mode (``ops.ms_deform_attn.
+    parse_eval_sample_mode``): ``bilinear``, ``int8``, one approximate mode, or
+    a comma-separated per-encoder-layer hybrid; ``score_lowres`` /
+    ``score_topq``: the approximate anomaly tails of ``inference``.
+
+    ``int8`` takes its scale per image: the batch runs one image at a time, as
+    JAX's ``build_m2f_forward`` runs the model under ``lax.map``
+    (``test_runner.py:397-408``), so an image's scores do not depend on the
+    images it is batched with. The op itself keeps JAX's one scale over its
+    batch.
+    """
+    deform_mode, quantize = parse_eval_sample_mode(sample_mode, DEFORM_POINTS)
     x = torch.as_tensor(imgs)
     if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] != 3:
         raise ValueError(f"expected normalised float32 [N, H, W, 3] images, got "
@@ -245,12 +262,21 @@ def eval_forward(model: MaskFormer, imgs, bf16: bool = False, sample_mode: str =
     device = next(model.parameters()).device
     x = x.to(device)
     model.eval()
-    with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
-        outputs = model(x, deform_sample_mode=sample_mode)
     hw = tuple(x.shape[1:3])
-    if anomaly_only:
-        return anomaly_score_upsampled(outputs["pred_logits_ood"], outputs["pred_masks_ood"], hw)
-    return inference(outputs, hw, num_classes=model.num_classes)
+
+    def run(part):
+        with torch.autocast(device.type, dtype=torch.bfloat16, enabled=bf16):
+            outputs = model(part, deform_sample_mode=deform_mode,
+                            quantize_deform_table=quantize)
+        if anomaly_only:
+            return (anomaly_score_upsampled(outputs["pred_logits_ood"],
+                                            outputs["pred_masks_ood"], hw),)
+        return inference(outputs, hw, num_classes=model.num_classes,
+                         score_lowres=score_lowres, score_topq=score_topq)
+
+    parts = [run(part) for part in (x.split(1) if quantize else (x,))]
+    out = tuple(torch.cat(t) if len(parts) > 1 else t[0] for t in zip(*parts))
+    return out[0] if anomaly_only else out
 
 
 def _ood_head_from_class_head(state: Dict[str, torch.Tensor]) -> None:

@@ -9,13 +9,21 @@ Counterpart of ``multishiftseg_tpu/train/test_runner.py``: ``bucket_shape``,
 the exact metrics. The forwards take the evaluator's images: ``ToTensor`` +
 ``Normalize(cfg.data.mean, cfg.data.std)``, f32 [B, H, W, 3], H and W
 multiples of 32. ``build_m2f_request_forward`` serves uint8 requests over the
-same forward. Spatial sharding, the approximate score tails and the sampling
-modes beyond ``bilinear`` / ``nearest`` are not ported (ROADMAP Queue 1).
+same forward. Both M2F forwards take every sample mode of JAX's
+``build_m2f_forward`` (``bilinear``, the default and exact; ``int8``;
+``nearest``; ``nearest_top{T}``; ``nearest_top{T}c``; ``shared``; a
+comma-separated per-encoder-layer hybrid) and either approximate anomaly tail
+(``score_lowres``, ``score_topq``; not both). Every mode but ``bilinear`` is
+gated per checkpoint by the qualification artifact that
+``multishiftseg_torch.tools.validate_release`` writes, under the key
+``sample_mode[+lowres|+topq{Q}]``. Spatial sharding is not ported (ROADMAP
+Queue 1, parallelism).
 
 CLI::
 
     python -m multishiftseg_torch.train.test_runner --model m2f \\
-        --cfg exps/m2f.yaml --weight_path ckpt.pth [--test_dataset RoadAnomaly21]
+        --cfg exps/m2f.yaml --weight_path ckpt.pth [--test_dataset RoadAnomaly21] \\
+        [--sample_mode nearest_top6c] [--score_lowres | --score_topq 32]
 """
 
 from __future__ import annotations
@@ -37,7 +45,8 @@ from ..evals.ood_metrics import eval_ood_measure
 from ..evals.seg_metrics import compute_metric, hist_info
 from ..models.deeplab import DeepWV3Plus
 from ..models.maskformer import MaskFormer, preprocess
-from ..ops.ms_deform_attn import SAMPLE_MODES
+from ..models.pixel_decoder import DEFORM_POINTS
+from ..ops.ms_deform_attn import parse_eval_sample_mode
 from ..utils import map2citycolor, resolve_device
 
 log = logging.getLogger(__name__)
@@ -203,35 +212,55 @@ def check_sampling_qualification(weight_path: Optional[str], sample_mode: str) -
             f"artifact {qp}). Use --sample_mode bilinear.")
 
 
-def _check_sample_mode(sample_mode: str) -> None:
-    if sample_mode not in SAMPLE_MODES:
-        raise NotImplementedError(f"sample_mode {sample_mode!r} is not ported; choose "
-                                  f"from {SAMPLE_MODES} (ROADMAP Queue 1, alternates)")
+def qualification_key(sample_mode: str, score_lowres: bool = False, score_topq: int = 0) -> str:
+    """The artifact's key of an eval setting, as JAX's (``test_runner.py:353-356``):
+    the sample mode, then ``+lowres`` or ``+topq{Q}``."""
+    return sample_mode + ("+lowres" if score_lowres else "") + (
+        f"+topq{score_topq}" if score_topq else "")
+
+
+def _check_eval_options(sample_mode: str, score_lowres: bool, score_topq: int) -> None:
+    """Refuse a setting the forward would refuse, before anything is built:
+    an unknown mode, T outside 1..L * P, a negative Q, both tails."""
+    parse_eval_sample_mode(sample_mode, DEFORM_POINTS)
+    if score_lowres and score_topq:
+        raise ValueError("score_lowres and score_topq are exclusive; set one")
+    if score_topq < 0:
+        raise ValueError(f"score_topq must be >= 0, got {score_topq}")
 
 
 def build_m2f_forward(cfg: Config, weight_path: Optional[str] = None, *,
                       model: Optional[MaskFormer] = None, device="cuda",
-                      sample_mode: str = "bilinear") -> Forward:
+                      sample_mode: str = "bilinear", score_lowres: bool = False,
+                      score_topq: int = 0, enforce_qualification: bool = True) -> Forward:
     """``fwd(imgs) -> (anomaly [B, H, W], sem [B, K + Q, H, W])`` for the
     evaluator's images, f32 on ``device`` (CUDA unless the caller asks for the
     CPU). The model is ``TrainM2FOOD``'s: from ``weight_path``, or ``model``,
     or random init from ``cfg.train.seed``; ``TrainM2FOOD.eval_step``: eval
-    mode, bf16 autocast over f32 weights when ``cfg.train.bf16``. The
-    qualification gate runs first."""
-    _check_sample_mode(sample_mode)
-    check_sampling_qualification(weight_path, sample_mode)
+    mode, bf16 autocast over f32 weights when ``cfg.train.bf16``, the sample
+    mode and tail given (module docstring). The setting is checked, then the
+    qualification gate runs under :func:`qualification_key` unless
+    ``enforce_qualification`` is False (the qualification run itself), then the
+    model is built."""
     from .m2f_trainer import TrainM2FOOD
 
+    _check_eval_options(sample_mode, score_lowres, score_topq)
+    if enforce_qualification:
+        check_sampling_qualification(weight_path,
+                                     qualification_key(sample_mode, score_lowres, score_topq))
     trainer = TrainM2FOOD(cfg, weight_path, model=model, device=device)
 
     def fwd(images):
-        sem, anomaly = trainer.eval_step(images, sample_mode)
+        sem, anomaly = trainer.eval_step(images, sample_mode, score_lowres, score_topq)
         return anomaly, sem
 
     return fwd
 
 
-def build_m2f_request_forward(model: MaskFormer, device="cuda", sample_mode: str = "bilinear"
+def build_m2f_request_forward(model: MaskFormer, device="cuda", sample_mode: str = "bilinear",
+                              score_lowres: bool = False, score_topq: int = 0,
+                              weight_path: Optional[str] = None,
+                              enforce_qualification: bool = True
                               ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """``fwd(images_uint8 [N, H, W, 3]) -> (anomaly [N, H, W], sem [N, K + Q, H, W])``.
 
@@ -239,11 +268,16 @@ def build_m2f_request_forward(model: MaskFormer, device="cuda", sample_mode: str
     ``model`` to ``device``, keeping its parameter dtype (bf16 or f32, no
     autocast); ``fwd`` normalises with ``PIXEL_MEAN`` / ``PIXEL_STD`` in 0-255
     space, pads to /32, and crops both outputs back to the input size. f32
-    tensors on ``device``.
+    tensors on ``device``. ``sample_mode``, ``score_lowres`` and ``score_topq``
+    as :func:`build_m2f_forward`; ``weight_path``, the checkpoint ``model``
+    was loaded from, if any, names the qualification artifact the gate reads.
     """
     from .m2f_trainer import eval_forward
 
-    _check_sample_mode(sample_mode)
+    _check_eval_options(sample_mode, score_lowres, score_topq)
+    if enforce_qualification:
+        check_sampling_qualification(weight_path,
+                                     qualification_key(sample_mode, score_lowres, score_topq))
     device = resolve_device(device)
     model = model.to(device).eval()
 
@@ -254,7 +288,8 @@ def build_m2f_request_forward(model: MaskFormer, device="cuda", sample_mode: str
             raise ValueError(f"expected uint8 [N, H, W, 3] images, got "
                              f"{imgs.dtype} {tuple(imgs.shape)}")
         h, w = imgs.shape[1:3]
-        sem, anomaly = eval_forward(model, preprocess(imgs), sample_mode=sample_mode)
+        sem, anomaly = eval_forward(model, preprocess(imgs), sample_mode=sample_mode,
+                                    score_lowres=score_lowres, score_topq=score_topq)
         return anomaly[:, :h, :w], sem[..., :h, :w]
 
     return fwd
@@ -294,20 +329,26 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
                         help="write per-image anomaly score maps (.npy) and colorized "
                              "predictions (.png) under DIR/<dataset>/")
     parser.add_argument("--sample_mode", default="bilinear",
-                        help="m2f deformable sampling: bilinear (exact, default) or nearest")
+                        help="m2f deformable sampling: bilinear (exact, default); int8, "
+                             "nearest, nearest_top{T}, nearest_top{T}c, shared "
+                             "(approximate, qualified per checkpoint by "
+                             "multishiftseg_torch.tools.validate_release); a "
+                             "comma-separated list gives a per-encoder-layer hybrid")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--spatial", type=int, default=0, metavar="N",
                         help="not ported (ROADMAP Queue 1, parallelism)")
     parser.add_argument("--score_lowres", action="store_true",
-                        help="not ported (ROADMAP Queue 1, alternates)")
+                        help="m2f: score the anomaly branch at mask resolution and "
+                             "resize the score map (approximate; qualified under the "
+                             "'<sample_mode>+lowres' key)")
     parser.add_argument("--score_topq", type=int, default=0, metavar="Q",
-                        help="not ported (ROADMAP Queue 1, alternates)")
+                        help="m2f: score the anomaly branch from the Q OOD queries of "
+                             "largest non-void peak probability (approximate; "
+                             "qualified under '<sample_mode>+topq{Q}'); not with "
+                             "--score_lowres")
     args = parser.parse_args(argv)
     if args.spatial:
         raise NotImplementedError("--spatial is not ported (ROADMAP Queue 1, parallelism)")
-    if args.model == "m2f" and (args.score_lowres or args.score_topq):
-        raise NotImplementedError("--score_lowres / --score_topq are not ported "
-                                  "(ROADMAP Queue 1, alternates)")
 
     logging.basicConfig(level=logging.INFO)
     cfg = load_config(args.cfg, args.id)
@@ -315,7 +356,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
         fwd = build_deeplab_forward(cfg, args.weight_path, device=args.device)
     else:
         fwd = build_m2f_forward(cfg, args.weight_path, device=args.device,
-                                sample_mode=args.sample_mode)
+                                sample_mode=args.sample_mode,
+                                score_lowres=args.score_lowres, score_topq=args.score_topq)
     d = cfg.data
     roots = {"CityscapesVal": d.cityscapes_root, "RoadAnomaly": d.road_anomaly_root,
              "RoadAnomaly21": d.anomaly_track_root, "RoadObstacle21": d.obstacle_track_root,

@@ -21,6 +21,7 @@ import pytest
 import torch
 from PIL import Image
 
+import jax
 import jax.numpy as jnp
 
 from multishiftseg_tpu.convert.torch2jax import load_torch_checkpoint as jax_load_ckpt
@@ -29,6 +30,7 @@ from multishiftseg_tpu.data import anomaly as jax_anomaly
 from multishiftseg_tpu.data import transforms as jax_tf
 from multishiftseg_tpu.data.native_io import decode as jax_decode
 from multishiftseg_tpu.evals import seg_metrics as jax_seg
+from multishiftseg_tpu.ops import ms_deform_attn as jax_msda
 from multishiftseg_tpu.train import test_runner as jax_runner
 from multishiftseg_tpu.utils import map2citycolor as jax_map2citycolor
 
@@ -40,6 +42,7 @@ from multishiftseg_torch.data.io import decode
 from multishiftseg_torch.evals import seg_metrics
 from multishiftseg_torch.models.deeplab import DeepWV3Plus
 from multishiftseg_torch.models.maskformer import MaskFormer
+from multishiftseg_torch.ops import ms_deform_attn as msda
 from multishiftseg_torch.train import test_runner
 from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD
 from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD
@@ -332,10 +335,10 @@ def test_main_runs_the_tiny_model_on_a_folder(tree, tmp_path, monkeypatch):
         assert np.load(out / "RoadAnomaly21" / f"{_artifact_stem(p)}_anomaly.npy").shape == (h, w)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         test_runner.main(argv + ["--spatial", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_runner.main(argv + ["--score_lowres"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_runner.main(argv + ["--sample_mode", "int8"])
+    with pytest.raises(ValueError, match="exclusive"):
+        test_runner.main(argv + ["--score_lowres", "--score_topq", "4"])
+    with pytest.raises(ValueError, match="unknown sample_mode"):
+        test_runner.main(argv + ["--sample_mode", "bicubic"])
 
 
 def test_m2f_forward_from_a_checkpoint_matches_jax(tmp_path, monkeypatch):
@@ -370,3 +373,231 @@ def test_entry_points_need_the_card_unless_asked(monkeypatch, tmp_path):
         TrainM2FOOD(cfg, model=MaskFormer(**M2F))
     with pytest.raises(RuntimeError, match="CUDA"):
         test_runner.build_m2f_request_forward(MaskFormer(**M2F))
+
+
+# ---------------------------------------------------------------------------
+# the approximate eval modes: every setting JAX's build_m2f_forward accepts
+
+HYBRID = "bilinear,bilinear,bilinear,nearest_top6c,nearest_top6c,nearest_top6c"
+EVAL_SETTINGS = {"int8": ("int8", False, 0), "nearest": ("nearest", False, 0),
+                 "nearest_top6": ("nearest_top6", False, 0),
+                 "nearest_top6c": ("nearest_top6c", False, 0), "shared": ("shared", False, 0),
+                 "hybrid": (HYBRID, False, 0), "nearest+lowres": ("nearest", True, 0),
+                 "nearest+topq4": ("nearest", False, 4)}
+
+
+def replay_deform_inputs(monkeypatch, layers, images):
+    """Run the port's deformable cores on the JAX model's own core inputs.
+
+    The approximate modes take discrete decisions inside the core: a point's
+    nearest pixel, a centroid's pixel, the top-T set, an int8 rounding step.
+    The two frameworks' f32 inputs differ in the last bits, so a decision whose
+    input lies within that noise of its boundary may go either way, and in a
+    deformable encoder one such flip moves every later feature (queries on a
+    coarse level sample the finer levels exactly on pixel boundaries, where
+    the centroid of points in one row is a tie). So, as the decoder tests
+    replay attention-mask bits, JAX's ``ms_deform_attn_core`` records its
+    (value, loc, attn) in order (``jax.debug.callback``, the JAX file
+    unedited) and the port's core runs on them: the rest of both models is
+    held to f32 noise, and each core's own decisions are held by the op tests.
+    Returns a list that counts, per port call, the outputs that its own inputs
+    would have moved by more than 1e-3 of the output's scale (flipped
+    decisions)."""
+    recorded, moved = [], []
+    jax_core = jax_msda.ms_deform_attn_core
+
+    def recording(value, shapes, loc, attn, quantize_table=False, sample_mode="bilinear"):
+        jax.debug.callback(lambda *a: recorded.append([np.asarray(t) for t in a]),
+                           value, loc, attn, ordered=True)
+        return jax_core(value, shapes, loc, attn, quantize_table=quantize_table,
+                        sample_mode=sample_mode)
+
+    port_core = msda.ms_deform_attn_core
+    calls = []
+
+    def replaying(value, shapes, loc, attn, sample_mode="bilinear", quantize_table=False):
+        # JAX maps the model over the images: image-major records; the port
+        # runs the batch at once (or one image at a time for int8)
+        k = len(calls)
+        picks = ([recorded[k]] if value.shape[0] == 1 else
+                 [recorded[k + i * layers] for i in range(images)])
+        calls.append(k)
+        v, l, a = (torch.from_numpy(np.concatenate(t)) for t in zip(*picks))
+        assert tuple(v.shape) == tuple(value.shape) and tuple(l.shape) == tuple(loc.shape)
+        own = port_core(value, shapes, loc, attn, sample_mode, quantize_table)
+        out = port_core(v, shapes, l, a, sample_mode, quantize_table)
+        moved.append(int(((own - out).abs() > 1e-3 * out.abs().max()).sum()))
+        return out
+
+    monkeypatch.setattr(jax_msda, "ms_deform_attn_core", recording)
+    monkeypatch.setattr(msda, "ms_deform_attn_core", replaying)
+    return moved
+
+
+@pytest.mark.parametrize("setting", sorted(EVAL_SETTINGS))
+def test_m2f_forward_in_each_mode_matches_jax(tmp_path, monkeypatch, caplog, setting):
+    """``build_m2f_forward`` in each framework in one approximate setting, from
+    one checkpoint, on one batch of 2 (so ``int8`` takes a scale per image in
+    both; the port's int8 cores see one image each), the cores' discrete
+    decisions replayed (:func:`replay_deform_inputs`): anomaly and sem within
+    1e-4, as the ``bilinear`` test. The gate warns in both, no artifact being
+    recorded."""
+    mode, lowres, topq = EVAL_SETTINGS[setting]
+    cfg = m2f_cfg(tmp_path, enc_layers=6)
+    jcfg = jax_load_config(str(tmp_path / "tiny.yaml"))
+    torch.manual_seed(7)
+    m2f = MaskFormer(**{**M2F, "transformer_enc_layers": 6})
+    with torch.no_grad():  # the deformable weight heads init to 0: give them weights
+        rng = np.random.RandomState(8)
+        for name, p in m2f.named_parameters():
+            if "attention_weights" in name or "sampling_offsets" in name:
+                p.add_(torch.from_numpy(0.1 * rng.randn(*p.shape).astype(np.float32)))
+    torch.save({"model": m2f.state_dict()}, tmp_path / "w.pth")
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.RandomState(9)
+    imgs = np.zeros((2, 128, 128, 3), np.float32)
+    imgs[:, :70, :100] = (rng.rand(2, 70, 100, 3) - np.array(MEAN)) / np.array(STD)
+    imgs[1] *= 1.5  # images of another scale: a shared int8 scale would differ
+    opts = dict(sample_mode=mode, score_lowres=lowres, score_topq=topq)
+    moved = replay_deform_inputs(monkeypatch, layers=6, images=2)
+    with caplog.at_level(logging.WARNING):
+        fwd = test_runner.build_m2f_forward(cfg, str(tmp_path / "w.pth"), device="cpu", **opts)
+        anomaly_j, sem_j = jax_runner.build_m2f_forward(jcfg, str(tmp_path / "w.pth"), **opts)(
+            jnp.asarray(imgs))
+    assert caplog.text.count("no per-checkpoint qualification artifact") == 2
+    anomaly, sem = fwd(torch.from_numpy(imgs))
+    assert len(moved) == (12 if mode == "int8" else 6)
+    assert anomaly.shape == (2, 128, 128) and sem.shape == (2, 19 + 8, 128, 128)
+    np.testing.assert_allclose(anomaly.numpy(), np.asarray(anomaly_j), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(sem.numpy(), np.asarray(sem_j), rtol=0, atol=1e-4)
+    # flipped decisions move few of a core's 2 x 336 x 32 outputs
+    assert max(moved) <= 0.01 * 2 * 336 * 32, moved
+
+
+def test_int8_scale_is_per_image():
+    """The port's int8 eval runs one image at a time: an image's scores do not
+    depend on the images batched with it (JAX: one image a ``lax.map`` step)."""
+    from multishiftseg_torch.train.m2f_trainer import eval_forward
+
+    torch.manual_seed(7)
+    m2f = MaskFormer(**M2F)
+    rng = np.random.RandomState(9)
+    imgs = torch.from_numpy(rng.randn(2, 64, 64, 3).astype(np.float32))
+    imgs[1] *= 3.0
+    sem, anomaly = eval_forward(m2f, imgs, sample_mode="int8")
+    alone_sem, alone = eval_forward(m2f, imgs[1:], sample_mode="int8")
+    assert torch.equal(alone[0], anomaly[1]) and torch.equal(alone_sem[0], sem[1])
+    launches = []
+    orig = msda.quantize_value_table_plain
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(msda, "quantize_value_table_plain",
+                   lambda v: launches.append(v.shape[0]) or orig(v))
+        eval_forward(m2f, imgs, sample_mode="int8")
+    assert launches == [1, 1]  # one encoder layer, two images
+
+
+def test_cli_takes_the_approximate_flags(tree, tmp_path, monkeypatch):
+    """``--sample_mode`` in every form and either tail: the CLI's numbers are
+    the evaluator's through ``build_m2f_forward`` with the same options."""
+    cfg = m2f_cfg(tmp_path, tree)
+    torch.manual_seed(3)
+    torch.save({"model": MaskFormer(**M2F).state_dict()}, tmp_path / "w.pth")
+    monkeypatch.chdir(tmp_path)
+    argv = ["--model", "m2f", "--cfg", str(tmp_path / "tiny.yaml"), "--weight_path",
+            str(tmp_path / "w.pth"), "--test_dataset", "RoadAnomaly21", "--device", "cpu"]
+    for flags, opts in ((["--sample_mode", "nearest_top6c", "--score_topq", "4"],
+                         dict(sample_mode="nearest_top6c", score_topq=4)),
+                        (["--sample_mode", "int8", "--score_lowres"],
+                         dict(sample_mode="int8", score_lowres=True))):
+        res = test_runner.main(argv + flags)["RoadAnomaly21"]
+        assert set(res) == {"AUROC", "AUPRC", "FPR_TPR95"}
+        fwd = test_runner.build_m2f_forward(cfg, str(tmp_path / "w.pth"),
+                                            model=MaskFormer(**M2F), device="cpu", **opts)
+        direct = test_runner.OODEvaluator(cfg, fwd, {"RoadAnomaly21": tree["RoadAnomaly21"]})
+        assert direct.test("RoadAnomaly21") == res
+    with pytest.raises(ValueError, match="outside 1..12"):
+        test_runner.main(argv + ["--sample_mode", "nearest_top13"])
+
+
+def test_qualification_key_is_composite(tmp_path, caplog):
+    """The key is JAX's (``test_runner.py:353-356``): a missing key warns, a key
+    recorded unqualified refuses before any model is built, a qualified one
+    passes, and ``enforce_qualification=False`` measures a refused one."""
+    for args in (("nearest", False, 0), ("nearest", True, 0), ("int8", False, 32),
+                 (HYBRID, False, 0), ("bilinear", False, 4)):
+        want = args[0] + ("+lowres" if args[1] else "") + (f"+topq{args[2]}" if args[2] else "")
+        assert test_runner.qualification_key(*args) == want
+    weights = tmp_path / "ckpt.pth"
+    torch.save({"model": MaskFormer(**M2F).state_dict()}, weights)
+    qp = test_runner.sampling_qualification_path(str(weights))
+    qp.write_text(json.dumps({"modes": {"nearest": {"qualified": True},
+                                        "nearest+topq4": {"qualified": False, "delta_pts": -3},
+                                        "nearest+lowres": {"qualified": True}}}))
+    cfg = m2f_cfg(tmp_path)
+    with caplog.at_level(logging.WARNING):
+        test_runner.build_m2f_forward(cfg, str(weights), model=MaskFormer(**M2F), device="cpu",
+                                      sample_mode="nearest", score_topq=8)
+    assert "no entry for this mode" in caplog.text and "nearest+topq8" in caplog.text
+    with pytest.raises(RuntimeError, match="REFUSED"):
+        test_runner.build_m2f_forward(cfg, str(weights), device="cpu", sample_mode="nearest",
+                                      score_topq=4)
+    with pytest.raises(RuntimeError, match="REFUSED"):
+        test_runner.build_m2f_request_forward(MaskFormer(**M2F), device="cpu",
+                                              sample_mode="nearest", score_topq=4,
+                                              weight_path=str(weights))
+    caplog.clear()
+    with caplog.at_level(logging.WARNING):
+        test_runner.build_m2f_forward(cfg, str(weights), model=MaskFormer(**M2F), device="cpu",
+                                      sample_mode="nearest", score_lowres=True)
+        test_runner.build_m2f_forward(cfg, str(weights), model=MaskFormer(**M2F), device="cpu",
+                                      sample_mode="nearest", score_topq=4,
+                                      enforce_qualification=False)
+    assert not caplog.text
+
+
+def test_qualify_sampling_modes_on_a_folder(tree, tmp_path, monkeypatch):
+    """The port's ``validate_release``: ``qualify_sampling_modes`` measures each
+    mode against a measured ``bilinear`` result on a RoadAnomaly folder and
+    writes the artifact; the gate then refuses exactly the modes recorded
+    unqualified. ``main``'s exit codes: 2 without a dataset, 1 off the
+    published numbers, 3 with a refused mode, 0 with none."""
+    from multishiftseg_torch.tools import validate_release as vr
+
+    cfg = m2f_cfg(tmp_path, tree)
+    torch.manual_seed(11)
+    weights = str(tmp_path / "w.pth")
+    torch.save({"model": MaskFormer(**M2F).state_dict()}, weights)
+    monkeypatch.chdir(tmp_path)
+    fwd = test_runner.build_m2f_forward(cfg, weights, device="cpu")
+    got = test_runner.OODEvaluator(cfg, fwd, tree).test("RoadAnomaly")
+    bilinear_pts = {k: 100.0 * got[k] for k in ("AUROC", "AUPRC", "FPR_TPR95")}
+    modes = ("nearest", "int8", "nearest_top6c", "shared", "nearest+lowres", "nearest+topq4")
+    rec = vr.qualify_sampling_modes(cfg, weights, "RoadAnomaly", tree["RoadAnomaly"],
+                                    bilinear_pts, 0.5, modes=modes, device="cpu")
+    assert set(rec["modes"]) == set(modes) and rec["tolerance_pts"] == 0.5
+    for mode, r in rec["modes"].items():
+        assert r["qualified"] == all(abs(d) <= 0.5 for d in r["delta_pts"].values()), mode
+    path = vr.write_qualification(weights, rec)
+    assert path == test_runner.sampling_qualification_path(weights)
+    for mode, r in rec["modes"].items():
+        base, _, suffix = mode.partition("+")
+        opts = dict(sample_mode=base, score_lowres=suffix == "lowres",
+                    score_topq=int(suffix[4:]) if suffix.startswith("topq") else 0)
+        if r["qualified"]:
+            test_runner.build_m2f_forward(cfg, weights, model=MaskFormer(**M2F), device="cpu",
+                                          **opts)
+        else:
+            with pytest.raises(RuntimeError, match="REFUSED"):
+                test_runner.build_m2f_forward(cfg, weights, device="cpu", **opts)
+
+    argv = ["--model", "m2f", "--cfg", str(tmp_path / "tiny.yaml"), "--weight_path", weights,
+            "--device", "cpu", "--road_anomaly_root"]
+    assert vr.main(argv + [str(tmp_path / "absent")]) == 2
+    assert vr.main(argv + [tree["RoadAnomaly"]]) == 1  # random weights
+    monkeypatch.setitem(vr.PUBLISHED, "m2f", bilinear_pts)
+    monkeypatch.setattr(vr, "QUAL_MODES", ("int8", "nearest+topq4"))
+    assert vr.main(argv + [tree["RoadAnomaly"], "--tolerance", "1000"]) == 0
+    assert set(json.loads(path.read_text())["modes"]) == {"int8", "nearest+topq4"}
+    monkeypatch.setattr(vr, "QUAL_MODES", ("nearest+topq32",))  # 8 queries: no result
+    assert vr.main(argv + [tree["RoadAnomaly"], "--tolerance", "1000"]) == 3
+    assert json.loads(path.read_text())["modes"]["nearest+topq32"]["qualified"] is False

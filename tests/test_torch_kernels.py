@@ -475,6 +475,159 @@ def test_new_wrappers_raise_when_the_build_fails(cuda, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the int8 table and the approximate deformable modes
+
+
+def near_rounding_boundary(loc, attn, shapes, mode, margin=1e-4):
+    """[N, Lq, M] bool: outputs whose centroid (float64) lies within ``margin``
+    px of a nearest-pixel boundary (c * W an integer), where f32 sums in
+    another order may round to the neighbouring pixel. ``nearest_top{T}c``:
+    each (head, level)'s tail centroid; ``shared``: each (level, point)'s
+    shared point, for every head. A centroid without mass sits at exactly 0 (or
+    0.5) in every version and is not counted."""
+    loc = loc.astype(np.float64)
+    a = attn.astype(np.float64)
+    size = np.array([[w, h] for h, w in shapes], np.float64)  # [L, 2]
+    n, lq, m, L, p = a.shape
+    if mode == "shared":
+        asum = a.sum(2)
+        c = (loc * a[..., None]).sum(2) / np.maximum(asum, 1e-12)[..., None]
+        px = c * size[None, None, :, None, :]
+        near = (np.abs(px - np.round(px)) < margin).any(-1) & (asum > 1e-12)
+        return np.broadcast_to(near.reshape(n, lq, -1).any(-1)[:, :, None], (n, lq, m))
+    if not mode.endswith("c"):
+        return np.zeros((n, lq, m), bool)
+    top = int(mode[len("nearest_top"):-1])
+    x = loc * size[None, None, None, :, None, :] - 0.5
+    inb = ((x > -0.5) & (x < size[None, None, None, :, None, :] - 0.5)).all(-1)
+    w = np.where(inb, a, 0.0).reshape(n, lq, m, L * p)
+    order = np.argsort(-w, axis=-1, kind="stable")[..., :top]
+    tail = w.copy()
+    np.put_along_axis(tail, order, 0.0, axis=-1)
+    tail = tail.reshape(n, lq, m, L, p)
+    mass = tail.sum(-1)
+    c = (tail[..., None] * loc).sum(-2) / np.maximum(mass, 1e-12)[..., None]
+    px = c * size[None, None, None, :, :]
+    near = (np.abs(px - np.round(px)) < margin).any(-1) & (mass > 1e-12)
+    return near.any(-1)
+
+
+def _approx_inputs(rng, shapes, d, weights):
+    value, loc, attn = _msda_inputs(rng, shapes, d)
+    if weights == "equal":  # every selection rests on the tie rule
+        attn = np.full_like(attn, 1.0 / (len(shapes) * P))
+    elif weights == "zeros":  # a third exactly 0, one head all 0
+        attn[rng.rand(*attn.shape) < 0.33] = 0.0
+        attn[:, 0, 0] = 0.0
+    return value, loc, attn
+
+
+APPROX_MODES = ("nearest_top1", "nearest_top6", "nearest_topJ", "nearest_top1c",
+                "nearest_top6c", "nearest_topJc", "shared")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["random", "equal", "zeros"])
+@pytest.mark.parametrize("d", [32, 6])  # 16-byte channel groups, single channels
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", APPROX_MODES)
+@pytest.mark.parametrize("levels", sorted(LEVEL_SETS))
+def test_approximate_kernels_match_plain(cuda, levels, mode, dtype, d, weights):
+    """``nearest_top{T}`` / ``nearest_top{T}c`` (T in 1, 6, J) and ``shared``:
+    the kernel against its plain version on the card. Tolerance: f32 1e-5,
+    sums in another order; bf16 1e-2, both round one f32 sum to bf16. Outputs
+    whose centroid lies within 1e-4 px of a rounding boundary may take the
+    neighbouring pixel; those that do are counted and must be few, every
+    other output is held."""
+    rng = np.random.RandomState(20)
+    shapes = LEVEL_SETS[levels]
+    mode = mode.replace("J", str(len(shapes) * P))
+    value, loc, attn = _approx_inputs(rng, shapes, d, weights)
+    v = torch.from_numpy(value).to(cuda, dtype)
+    lo = torch.from_numpy(loc).to(cuda)
+    a = torch.from_numpy(attn).to(cuda, dtype)
+    kind = msda.parse_sample_mode(mode)[0]
+    before = msda.LAUNCHES[f"ms_deform_attn_{kind}"]
+    out = msda.ms_deform_attn_core(v, shapes, lo, a, mode)
+    ref = msda.ms_deform_attn_core_plain(v, shapes, lo, a, mode)
+    torch.cuda.synchronize()
+    assert msda.LAUNCHES[f"ms_deform_attn_{kind}"] == before + 1
+    assert out.dtype == dtype and out.shape == (N, LQ, M * d)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    bad = ((out.float() - ref.float()).abs() > tol + tol * ref.float().abs()).cpu().numpy()
+    near = near_rounding_boundary(loc, attn.astype(np.float32) if dtype == torch.float32
+                                  else a.float().cpu().numpy(), shapes, mode)
+    bad = bad.reshape(N, LQ, M, d).any(-1)
+    assert not (bad & ~near).any()
+    assert int(bad.sum()) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(2, 300, 4, 32), (1, 977, 8, 30), (3, 50, 2, 256),
+                                  (1, 43008, 8, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernel_equals_plain_bit_for_bit(cuda, dtype, case):
+    """The int8 table and its scale, bit for bit: the max is order-free, the
+    division IEEE and the rounding half to even on both sides. An all-zero
+    channel floors its scale at 1e-12; exact half steps round to even."""
+    rng = np.random.RandomState(21)
+    value = (rng.randn(*case) * rng.rand(1, 1, 1, case[-1]) * 4).astype(np.float32)
+    value[..., 1] = 0.0
+    value[0, 0, 0, 2:6] = [0.5, 1.5, -2.5, 127.0]
+    v = torch.from_numpy(value).to(cuda, dtype)
+    q, scale = msda.quantize_value_table(v)
+    qp, sp = msda.quantize_value_table_plain(v)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and scale.shape == (case[-1],)
+    assert torch.equal(q, qp) and torch.equal(scale.view(torch.int32), sp.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("levels", sorted(LEVEL_SETS))
+def test_int8_forward_kernel_matches_plain(cuda, dtype, levels, d):
+    rng = np.random.RandomState(22)
+    shapes = LEVEL_SETS[levels]
+    value, loc, attn = _msda_inputs(rng, shapes, d)
+    v = torch.from_numpy(value).to(cuda, dtype)
+    lo = torch.from_numpy(loc).to(cuda)
+    a = torch.from_numpy(attn).to(cuda, dtype)
+    before = dict(msda.LAUNCHES)
+    out = msda.ms_deform_attn_core(v, shapes, lo, a, quantize_table=True)
+    ref = msda.ms_deform_attn_core_plain(v, shapes, lo, a, quantize_table=True)
+    torch.cuda.synchronize()
+    assert msda.LAUNCHES["ms_deform_attn_quantize"] == before["ms_deform_attn_quantize"] + 1
+    assert msda.LAUNCHES["ms_deform_attn_int8"] == before["ms_deform_attn_int8"] + 1
+    # f32: sums in another order; bf16: both round one f32 sum to bf16
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_score_tails_on_the_card_match_plain(cuda):
+    """``score_lowres`` (the tail kernel at the identity resize, then one
+    resize) and ``score_topq`` (the tail kernel on the kept queries): f32, sums
+    in another order. The identity resize reproduces the plain version's
+    score exactly: each pixel reads its own texel with weight 1."""
+    rng = np.random.RandomState(23)
+    cls = torch.from_numpy(rng.randn(2, 10, 20).astype(np.float32)).to(cuda)
+    masks = torch.from_numpy((3 * rng.randn(2, 10, 16, 20)).astype(np.float32)).to(cuda)
+    ident = scores.anomaly_score_upsampled(cls, masks, (16, 20))
+    ident_ref = scores.anomaly_score_upsampled_plain(cls, masks, (16, 20))
+    low = scores.anomaly_score_lowres(cls, masks, (64, 80))
+    low_ref = scores.resize_bilinear_nchw(ident_ref, (64, 80))
+    before = scores.LAUNCHES["mask_scores_anomaly"]
+    top = scores.anomaly_score_topq(cls, masks, (64, 80), 4)
+    top_ref = scores.anomaly_score_topq_plain(cls, masks, (64, 80), 4)
+    torch.cuda.synchronize()
+    assert scores.LAUNCHES["mask_scores_anomaly"] == before + 1
+    torch.testing.assert_close(ident, ident_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(low, low_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(top, top_ref, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
 # on the CPU: guards that stop a card run from silently losing gradients
 
 
@@ -504,6 +657,58 @@ def test_nearest_refuses_grad_off_the_cpu():
     value, loc, attn = _meta_requiring_grad((1, 8, 2, 4), (1, 3, 2, 1, 2, 2), (1, 3, 2, 1, 2))
     with pytest.raises(RuntimeError, match="no backward"):
         msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, "nearest")
+
+
+@pytest.mark.parametrize("mode", ["nearest_top1", "nearest_top2c", "shared", "int8"])
+def test_approximate_modes_refuse_grad_off_the_cpu(mode):
+    """Eval-only, as in JAX: no backward kernel, so under grad off the CPU
+    every approximate mode raises, before any kernel is loaded."""
+    value, loc, attn = _meta_requiring_grad((1, 8, 2, 4), (1, 3, 2, 1, 2, 2), (1, 3, 2, 1, 2))
+    kw = dict(sample_mode="bilinear", quantize_table=True) if mode == "int8" else dict(
+        sample_mode=mode)
+    with pytest.raises(RuntimeError, match="no backward"):
+        msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, **kw)
+    with torch.no_grad(), pytest.raises(RuntimeError):  # to the card route, which fails on meta
+        msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, **kw)
+
+
+@pytest.mark.parametrize("mode", ["nearest_top1", "nearest_top2c", "shared", "int8"])
+def test_approximate_modes_take_the_card_route_off_the_cpu(monkeypatch, mode):
+    """Tensors that are not on the CPU go to the new kernels (the library
+    loader, stubbed), never to the plain versions."""
+    def refuse(name):
+        raise _Sentinel(name)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    value = torch.zeros(1, 8, 2, 4, device="meta")
+    loc, attn = torch.zeros(1, 3, 2, 1, 2, 2, device="meta"), torch.zeros(1, 3, 2, 1, 2,
+                                                                          device="meta")
+    kw = dict(sample_mode="bilinear", quantize_table=True) if mode == "int8" else dict(
+        sample_mode=mode)
+    with pytest.raises(_Sentinel, match="ms_deform_attn"):
+        msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, **kw)
+
+
+def test_approximate_modes_stay_off_the_cpu(monkeypatch):
+    """CPU tensors take the plain versions in every mode and both score tails:
+    no library is loaded and no launch is counted."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    def refuse(name):
+        raise _Sentinel(name)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    reset_launch_counts()
+    value, loc, attn = (torch.from_numpy(t) for t in _msda_inputs(
+        np.random.RandomState(24), LEVEL_SETS["regular"], 8))
+    for mode in ("nearest_top2", "nearest_top2c", "shared"):
+        msda.ms_deform_attn_core(value, LEVEL_SETS["regular"], loc, attn, mode)
+    msda.ms_deform_attn_core(value, LEVEL_SETS["regular"], loc, attn, quantize_table=True)
+    masks, probs, _ = _tail_case(np.random.RandomState(25))
+    cls = torch.randn(2, 6, 20)
+    scores.anomaly_score_lowres(cls, masks, (64, 80))
+    scores.anomaly_score_topq(cls, masks, (64, 80), 3)
+    assert all(v == 0 for v in launch_counts().values())
 
 
 class _Sentinel(Exception):
@@ -575,4 +780,5 @@ def test_port_and_chip_smoke_import_no_jax():
     for f in files:
         for name in _imported_modules(f):
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "flax", "optax", "multishiftseg_tpu"), (f, name)
+            assert root not in ("jax", "jaxlib", "flax", "optax", "multishiftseg_tpu",
+                                "tools"), (f, name)

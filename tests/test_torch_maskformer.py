@@ -158,10 +158,11 @@ def test_unported_options_raise(slice_run):
         MaskFormer(backbone="swin_tiny")
     with pytest.raises(NotImplementedError):
         MaskFormer(predictor="vanilla")
-    with pytest.raises(NotImplementedError):
-        inference(slice_run["out"], (H, W), score_lowres=True)
-    with pytest.raises(NotImplementedError):
-        build_m2f_request_forward(slice_run["port"], device="cpu", sample_mode="shared")
+    # both approximate tails at once (JAX lets score_topq win), an unknown mode
+    with pytest.raises(ValueError, match="exclusive"):
+        inference(slice_run["out"], (H, W), score_lowres=True, score_topq=4)
+    with pytest.raises(ValueError, match="unknown sample_mode"):
+        build_m2f_request_forward(slice_run["port"], device="cpu", sample_mode="bicubic")
 
 
 def test_converter_round_trip_through_convert_maskformer():

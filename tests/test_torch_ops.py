@@ -93,10 +93,11 @@ def test_ms_deform_attn_core_matches_jax(rng, levels, mode):
 
 
 def test_ms_deform_attn_core_rejects_unported_mode(rng):
+    """Every mode of JAX's op is ported; one it does not know is refused."""
     value, loc, attn = _msda_inputs(rng, LEVEL_SETS["regular"])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="unknown sample_mode"):
         msda.ms_deform_attn_core(torch.from_numpy(value), LEVEL_SETS["regular"],
-                                 torch.from_numpy(loc), torch.from_numpy(attn), "shared")
+                                 torch.from_numpy(loc), torch.from_numpy(attn), "bicubic")
 
 
 def _perturbed(variables, seed):
