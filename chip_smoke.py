@@ -382,11 +382,14 @@ def near_rounding_boundary(torch, loc, attn, levels, mode, margin=1e-4):
     px of a nearest-pixel boundary (c * W an integer), where f32 sums in
     another order may round to the neighbouring pixel: ``nearest_top{T}c``'s
     tail centroid of each (head, level), ``shared``'s point of each (level,
-    point) for every head. A centroid without mass is exactly 0 (or 0.5) in
-    every version and is not counted."""
+    point) for every head; none in the other modes. A centroid without mass
+    is exactly 0 (or 0.5) in every version and is not counted. The CPU tests
+    hold the port's centroid modes off the same outputs."""
     loc, a = loc.double(), attn.double()
     size = torch.tensor([[w, h] for h, w in levels], dtype=torch.float64, device=loc.device)
     n, lq, m, L, p = a.shape
+    if mode != "shared" and not mode.endswith("c"):
+        return torch.zeros((n, lq, m), dtype=torch.bool, device=loc.device)
     if mode == "shared":
         asum = a.sum(2)
         c = (loc * a[..., None]).sum(2) / asum.clamp_min(1e-12)[..., None]
@@ -412,8 +415,7 @@ def check_off_boundaries(torch, checks, name, got, want, loc, attn, levels, mode
     n, lq, m = attn.shape[:3]
     err = (got.float() - want.float()).abs().view(n, lq, m, -1)
     bad = (err > atol + rtol * want.float().abs().view(n, lq, m, -1)).any(-1)
-    near = (near_rounding_boundary(torch, loc, attn.float(), levels, mode)
-            if mode == "shared" or mode.endswith("c") else torch.zeros_like(bad))
+    near = near_rounding_boundary(torch, loc, attn.float(), levels, mode)
     held = err[~near]
     max_err = float(held.max()) if held.numel() else 0.0
     flips = int((bad & near).sum())
@@ -1268,20 +1270,18 @@ def tail_launch_shapes(scores):
         scores._mask_scores_cuda = orig
 
 
-def phase_serve(torch, requests=3, settings=tuple(SERVE_SETTINGS), model=None, hw=(H, W),
-                device="cuda"):
-    """``build_m2f_request_forward`` in every setting of ``settings``: launch
-    counts per request (the setting's deformable entries, one anomaly and one
-    semantic tail, nothing else; the anomaly tail at the identity resize for
-    ``score_lowres`` and on 32 queries for ``score_topq``), finite outputs of
-    the input's shape, latency, and one profiled request. ``device="cpu"``
-    with a small model rehearses the control flow (no counts, no profile)."""
+def phase_serve(torch, requests=3):
+    """``build_m2f_request_forward`` in every setting of ``SERVE_SETTINGS``:
+    launch counts per request (the setting's deformable entries, one anomaly
+    and one semantic tail, nothing else; the anomaly tail at the identity
+    resize for ``score_lowres`` and on 32 queries for ``score_topq``), finite
+    outputs of the input's shape, latency, and one profiled request."""
     from multishiftseg_torch.evals.ood_metrics import eval_ood_measure
     from multishiftseg_torch.ops import launch_counts, reset_launch_counts, scores
     from multishiftseg_torch.train.test_runner import build_m2f_request_forward
 
-    model = model or seeded_model(torch, SEED + 5).to(torch.bfloat16)
-    h, w = hw
+    model = seeded_model(torch, SEED + 5).to(torch.bfloat16)
+    h, w = H, W
     g = np.random.RandomState(SEED + 6)
     images = [g.randint(0, 256, (1, h, w, 3)).astype(np.uint8) for _ in range(requests)]
     label = np.zeros((h, w), np.int64)
@@ -1292,25 +1292,21 @@ def phase_serve(torch, requests=3, settings=tuple(SERVE_SETTINGS), model=None, h
            "dtype": "bfloat16", "image_hw": [h, w], "batch": 1, "modes": {}}
     totals = {}
     ok = True
-    card = device != "cpu"
-    sync = torch.cuda.synchronize if card else (lambda: None)
     n_queries = model.sem_seg_head.predictor.num_queries
-    for name in settings:
-        (mode, lowres, topq), deform = SERVE_SETTINGS[name]
-        fwd = build_m2f_request_forward(model, device=device, sample_mode=mode,
+    for name, ((mode, lowres, topq), deform) in SERVE_SETTINGS.items():
+        fwd = build_m2f_request_forward(model, sample_mode=mode,
                                         score_lowres=lowres, score_topq=topq)
         for im in images[:2]:  # warm-up
             fwd(im)
-        sync()
-        if card:
-            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         latencies, outs = [], []
         with tail_launch_shapes(scores) as tails:
             for im in images:
                 t0 = time.perf_counter()
                 anomaly, sem = fwd(im)
-                sync()
+                torch.cuda.synchronize()
                 latencies.append((time.perf_counter() - t0) * 1e3)
                 outs.append((anomaly, sem))
         counts = launch_counts()
@@ -1330,7 +1326,7 @@ def phase_serve(torch, requests=3, settings=tuple(SERVE_SETTINGS), model=None, h
         out_hw = mask_hw if lowres else (-(-h // 32) * 32, -(-w // 32) * 32)
         tails_ok = len(tails) == requests and all(
             t == (topq or n_queries, *mask_hw, *out_hw) for t in tails)
-        counts_ok = not card or (counts == want and tails_ok)
+        counts_ok = counts == want and tails_ok
         metrics = eval_ood_measure(anomaly[0].float().cpu().numpy(), label)
         mode_ok = finite and shapes_ok and counts_ok and metrics is not None
         ok &= mode_ok
@@ -1340,9 +1336,9 @@ def phase_serve(torch, requests=3, settings=tuple(SERVE_SETTINGS), model=None, h
             "launches": {k: v for k, v in counts.items() if v}, "launches_per_image_ok": counts_ok,
             "anomaly_tail_launches_q_h_w_H_W": [list(t) for t in tails[:1]],
             "finite": finite, "shapes_ok": shapes_ok,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30 if card else None,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "auroc_auprc_fpr95_random_weights": metrics, "ok": mode_ok,
-            "profiled_request": profile_request(torch, fwd, images[0]) if card else None}
+            "profiled_request": profile_request(torch, fwd, images[0])}
     res["ok"] = ok
     return res, totals
 

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own into
 ``build/lib<name>-<hash>.so`` (the directory is git-ignored). The hash covers the
-source and the flags, so an edited source is rebuilt and a stale library is never
-loaded. :func:`build` starts one ``nvcc`` per source, all at once, and waits for
-all of them. A failed build raises with the compiler's output.
+source, the headers it may include (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. :func:`build`
+starts one ``nvcc`` per source, all at once, and waits for all of them. A failed
+build raises with the compiler's output.
 
 Nothing is compiled at import time: the first wrapper that launches a kernel calls
 :func:`load`, which builds that source if its library is missing.
@@ -50,6 +51,8 @@ def nvcc_path() -> str:
 
 def _library_path(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     return BUILD_DIR / f"lib{src.stem}-{digest.hexdigest()[:12]}.so"
 
 

@@ -33,78 +33,9 @@
 // (16.5 M rows of 64 B, about 1 GB) come from the 22 MB value table, which fits
 // in the 50 MB L2, so in practice L2 bandwidth is the nearer limit.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
 #include <type_traits>
 
-#define MSDA_MAX_LEVELS 8
-
-struct MsdaLevels {
-  int n;
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int start[MSDA_MAX_LEVELS];
-};
-
-__device__ __forceinline__ float msda_to_float(float v) { return v; }
-__device__ __forceinline__ float msda_to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float msda_to_float(int8_t v) { return (float)v; }
-
-// V consecutive channels <-> f32 registers
-template <typename T>
-__device__ __forceinline__ void msda_load(const T* p, float (&v)[1]) { v[0] = msda_to_float(*p); }
-__device__ __forceinline__ void msda_load(const float* p, float (&v)[4]) {
-  const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-__device__ __forceinline__ void msda_load(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-// the int8 table: 8 channels as one 8-byte load (bf16 output), 4 as one
-// 4-byte load (f32 output)
-__device__ __forceinline__ void msda_load(const int8_t* p, float (&v)[8]) {
-  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-  const char4 a = *reinterpret_cast<const char4*>(&r.x);
-  const char4 b = *reinterpret_cast<const char4*>(&r.y);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-__device__ __forceinline__ void msda_load(const int8_t* p, float (&v)[4]) {
-  const int r = __ldg(reinterpret_cast<const int*>(p));
-  const char4 a = *reinterpret_cast<const char4*>(&r);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-}
-__device__ __forceinline__ void msda_store(float* p, const float (&v)[1]) { *p = v[0]; }
-__device__ __forceinline__ void msda_store(__nv_bfloat16* p, const float (&v)[1]) {
-  *p = __float2bfloat16(v[0]);
-}
-__device__ __forceinline__ void msda_store(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void msda_store(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 r;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = r;
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void msda_fma(const T* p, float w, float (&acc)[V]) {
-  float v[V];
-  msda_load(p, v);
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = fmaf(w, v[i], acc[i]);
-}
+#include "msda_common.cuh"
 
 // a corner of the int8 table: the channel's scale folded into the corner weight
 template <int V>
@@ -243,19 +174,10 @@ extern "C" int msda_forward(const void* value, const void* loc, const void* attn
                             void* out, int n, int s, int m, int d, int lq,
                             int n_levels, int n_points, const int* shapes_hw,
                             int dtype, int nearest, void* stream) {
-  if (n_levels < 1 || n_levels > MSDA_MAX_LEVELS || n_points < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (n_points < 1) return (int)cudaErrorInvalidValue;
   MsdaLevels lv;
-  lv.n = n_levels;
-  int64_t start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = shapes_hw[2 * l];
-    lv.w[l] = shapes_hw[2 * l + 1];
-    lv.start[l] = (int)start;
-    start += (int64_t)lv.h[l] * lv.w[l];
-  }
-  if (start != s) return (int)cudaErrorInvalidValue;
+  const int rc = msda_levels(&lv, n_levels, shapes_hw, s);
+  if (rc != 0) return rc;
   if (((uintptr_t)loc & 7) != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
@@ -413,20 +335,10 @@ extern "C" int msda_backward(const void* value, const void* loc, const void* att
                              void* grad_attn, int n, int s, int m, int d, int lq,
                              int n_levels, int n_points, const int* shapes_hw,
                              int dtype, void* stream) {
-  if (n_levels < 1 || n_levels > MSDA_MAX_LEVELS || n_points < 1 || d < 1 ||
-      d > 32 * MSDA_BWD_MAX_CHUNKS) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (n_points < 1 || d < 1 || d > 32 * MSDA_BWD_MAX_CHUNKS) return (int)cudaErrorInvalidValue;
   MsdaLevels lv;
-  lv.n = n_levels;
-  int64_t start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = shapes_hw[2 * l];
-    lv.w[l] = shapes_hw[2 * l + 1];
-    lv.start[l] = (int)start;
-    start += (int64_t)lv.h[l] * lv.w[l];
-  }
-  if (start != s) return (int)cudaErrorInvalidValue;
+  const int rc = msda_levels(&lv, n_levels, shapes_hw, s);
+  if (rc != 0) return rc;
   if (((uintptr_t)loc & 7) != 0) return (int)cudaErrorMisalignedAddress;
   const int64_t total = (int64_t)n * lq * m;
   if (total == 0) return (int)cudaSuccess;
@@ -461,13 +373,16 @@ extern "C" int msda_backward(const void* value, const void* loc, const void* att
 // msda_quantize, two kernels:
 //   1. the per-channel absolute max. A block's threads own fixed channels of
 //      consecutive rows of the [N*S*M, D] view and walk the rows grid-strided;
-//      the block reduces its rows in shared memory and issues one atomicMax a
-//      channel on the max's bits (non-negative floats order as their bits), so
-//      the result is exact whatever the order.
+//      the max runs on the bits of |v| (non-negative floats order as their
+//      bits, and a NaN's bits above +inf's), and the block reduces its rows in
+//      shared memory and issues one atomicMax a channel, so the result is exact
+//      whatever the order and a NaN propagates, as in jnp.max and torch.amax.
 //   2. one pass that writes the table: rintf(__fdiv_rn(v, scale)) clamped to
 //      +-127 (round half to even and IEEE division, as jnp.round and the plain
-//      version's true division; no fast math); then a small kernel writes the
-//      scale over the max, after the table pass in stream order.
+//      version's true division; no fast math), 0 where the quotient is NaN (as
+//      XLA's float-to-int conversion); then a small kernel writes the scale
+//      over the max, after the table pass in stream order. A channel holding a
+//      NaN gets a NaN scale, so the forward's outputs from it are NaN.
 // The table equals the plain version's bit for bit.
 // msda_forward_int8: the bilinear kernel above reading int8 corners
 // (msda_forward_kernel<T, int8_t, ...>), with each channel's scale multiplied
@@ -484,26 +399,28 @@ extern "C" int msda_backward(const void* value, const void* loc, const void* att
 template <typename T>
 __global__ void msda_absmax_kernel(const T* __restrict__ value, int64_t rows, int D,
                                    int rows_per_step, unsigned int* __restrict__ amax) {
-  __shared__ float smax[MSDA_Q_THREADS];
+  __shared__ unsigned int smax[MSDA_Q_THREADS];
   const int d = threadIdx.x % D;
   const int r0 = threadIdx.x / D;
-  float mx = 0.f;
+  unsigned int mx = 0u;  // the bits of max |v|
   if (r0 < rows_per_step) {
     for (int64_t r = (int64_t)blockIdx.x * rows_per_step + r0; r < rows;
          r += (int64_t)gridDim.x * rows_per_step) {
-      mx = fmaxf(mx, fabsf(msda_to_float(value[r * D + d])));
+      mx = max(mx, __float_as_uint(fabsf(msda_to_float(value[r * D + d]))));
     }
   }
   smax[threadIdx.x] = mx;
   __syncthreads();
   if (threadIdx.x < D) {
-    for (int k = 1; k < rows_per_step; ++k) mx = fmaxf(mx, smax[k * D + threadIdx.x]);
-    atomicMax(amax + threadIdx.x, __float_as_uint(mx));
+    for (int k = 1; k < rows_per_step; ++k) mx = max(mx, smax[k * D + threadIdx.x]);
+    atomicMax(amax + threadIdx.x, mx);
   }
 }
 
+// max |v| / 127 floored at 1e-12; NaN stays NaN (fmaxf would drop it)
 __device__ __forceinline__ float msda_scale(unsigned int amax_bits) {
-  return fmaxf(__fdiv_rn(__uint_as_float(amax_bits), 127.f), 1e-12f);
+  const float s = __fdiv_rn(__uint_as_float(amax_bits), 127.f);
+  return isnan(s) ? s : fmaxf(s, 1e-12f);
 }
 
 template <typename T>
@@ -514,7 +431,7 @@ __global__ void msda_quantize_kernel(const T* __restrict__ value, int64_t total,
   if (i >= total) return;
   const float s = msda_scale(amax_scale[i % D]);
   const float v = rintf(__fdiv_rn(msda_to_float(value[i]), s));
-  q[i] = (int8_t)fminf(fmaxf(v, -127.f), 127.f);
+  q[i] = isnan(v) ? (int8_t)0 : (int8_t)fminf(fmaxf(v, -127.f), 127.f);
 }
 
 __global__ void msda_scale_kernel(unsigned int* __restrict__ amax_scale, int D) {
@@ -603,19 +520,10 @@ extern "C" int msda_forward_int8(const void* qvalue, const void* scale, const vo
                                  const void* attn, void* out, int n, int s, int m, int d,
                                  int lq, int n_levels, int n_points, const int* shapes_hw,
                                  int dtype, void* stream) {
-  if (n_levels < 1 || n_levels > MSDA_MAX_LEVELS || n_points < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (n_points < 1) return (int)cudaErrorInvalidValue;
   MsdaLevels lv;
-  lv.n = n_levels;
-  int64_t start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    lv.h[l] = shapes_hw[2 * l];
-    lv.w[l] = shapes_hw[2 * l + 1];
-    lv.start[l] = (int)start;
-    start += (int64_t)lv.h[l] * lv.w[l];
-  }
-  if (start != s) return (int)cudaErrorInvalidValue;
+  const int rc = msda_levels(&lv, n_levels, shapes_hw, s);
+  if (rc != 0) return rc;
   if (((uintptr_t)loc & 7) != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {

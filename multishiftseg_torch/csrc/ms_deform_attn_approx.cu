@@ -48,62 +48,9 @@
 // below the byte time. So bytes bound it; the rows come from the 22 MB value
 // table, which fits in the 50 MB L2.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "msda_common.cuh"
 
-#define MSDA_MAX_LEVELS 8
 #define MSDA_THREADS 256
-
-struct MsdaLevels {
-  int n;
-  int h[MSDA_MAX_LEVELS];
-  int w[MSDA_MAX_LEVELS];
-  int start[MSDA_MAX_LEVELS];
-};
-
-__device__ __forceinline__ float msda_to_float(float v) { return v; }
-__device__ __forceinline__ float msda_to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// V consecutive channels <-> f32 registers (as csrc/ms_deform_attn.cu)
-template <typename T>
-__device__ __forceinline__ void msda_load(const T* p, float (&v)[1]) { v[0] = msda_to_float(*p); }
-__device__ __forceinline__ void msda_load(const float* p, float (&v)[4]) {
-  const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-__device__ __forceinline__ void msda_load(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void msda_store(float* p, const float (&v)[1]) { *p = v[0]; }
-__device__ __forceinline__ void msda_store(__nv_bfloat16* p, const float (&v)[1]) {
-  *p = __float2bfloat16(v[0]);
-}
-__device__ __forceinline__ void msda_store(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void msda_store(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 r;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = r;
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void msda_fma(const T* p, float w, float (&acc)[V]) {
-  float v[V];
-  msda_load(p, v);
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = fmaf(w, v[i], acc[i]);
-}
 
 // The nearest pixel of normalised (nx, ny) on a W x H level: its offset in
 // the level (iy * W + ix), or -1 outside the half-pixel border.
@@ -267,19 +214,6 @@ __global__ void msda_shared_kernel(const T* __restrict__ value, const float* __r
     if (pix >= 0) msda_fma<T, V>(vb + (int64_t)pix * row, msda_to_float(ap[j]), acc);
   }
   msda_store(out + nqm * D + d0, acc);
-}
-
-static int msda_levels(MsdaLevels* lv, int n_levels, const int* shapes_hw, int s) {
-  if (n_levels < 1 || n_levels > MSDA_MAX_LEVELS) return (int)cudaErrorInvalidValue;
-  lv->n = n_levels;
-  int64_t start = 0;
-  for (int l = 0; l < n_levels; ++l) {
-    lv->h[l] = shapes_hw[2 * l];
-    lv->w[l] = shapes_hw[2 * l + 1];
-    lv->start[l] = (int)start;
-    start += (int64_t)lv->h[l] * lv->w[l];
-  }
-  return start == s ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }
 
 // Channel groups of VEC (16 bytes) when D and the addresses allow it, else 1.

@@ -394,7 +394,10 @@ def quantize_value_table_plain(value):
     # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
     # by its reciprocal, which is not the IEEE quotient
     scale = (amax / torch.full_like(amax, 127.0)).clamp_min(1e-12)
-    return torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8), scale
+    # a NaN propagates to its channel's scale and quotients; NaN -> 0 in the
+    # table, as XLA converts it (a cast alone leaves it undefined)
+    q = torch.clamp(torch.round(v / scale), -127, 127).nan_to_num(0.0)
+    return q.to(torch.int8), scale
 
 
 def _bilinear_int8_plain(qvalue, scale, spatial_shapes, loc, attn):

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from multishiftseg_torch import _build
 from multishiftseg_torch.evals import ood_metrics
 from multishiftseg_torch.losses import criterion, matcher, rcl
@@ -478,38 +479,11 @@ def test_new_wrappers_raise_when_the_build_fails(cuda, monkeypatch):
 # the int8 table and the approximate deformable modes
 
 
-def near_rounding_boundary(loc, attn, shapes, mode, margin=1e-4):
-    """[N, Lq, M] bool: outputs whose centroid (float64) lies within ``margin``
-    px of a nearest-pixel boundary (c * W an integer), where f32 sums in
-    another order may round to the neighbouring pixel. ``nearest_top{T}c``:
-    each (head, level)'s tail centroid; ``shared``: each (level, point)'s
-    shared point, for every head. A centroid without mass sits at exactly 0 (or
-    0.5) in every version and is not counted."""
-    loc = loc.astype(np.float64)
-    a = attn.astype(np.float64)
-    size = np.array([[w, h] for h, w in shapes], np.float64)  # [L, 2]
-    n, lq, m, L, p = a.shape
-    if mode == "shared":
-        asum = a.sum(2)
-        c = (loc * a[..., None]).sum(2) / np.maximum(asum, 1e-12)[..., None]
-        px = c * size[None, None, :, None, :]
-        near = (np.abs(px - np.round(px)) < margin).any(-1) & (asum > 1e-12)
-        return np.broadcast_to(near.reshape(n, lq, -1).any(-1)[:, :, None], (n, lq, m))
-    if not mode.endswith("c"):
-        return np.zeros((n, lq, m), bool)
-    top = int(mode[len("nearest_top"):-1])
-    x = loc * size[None, None, None, :, None, :] - 0.5
-    inb = ((x > -0.5) & (x < size[None, None, None, :, None, :] - 0.5)).all(-1)
-    w = np.where(inb, a, 0.0).reshape(n, lq, m, L * p)
-    order = np.argsort(-w, axis=-1, kind="stable")[..., :top]
-    tail = w.copy()
-    np.put_along_axis(tail, order, 0.0, axis=-1)
-    tail = tail.reshape(n, lq, m, L, p)
-    mass = tail.sum(-1)
-    c = (tail[..., None] * loc).sum(-2) / np.maximum(mass, 1e-12)[..., None]
-    px = c * size[None, None, None, :, :]
-    near = (np.abs(px - np.round(px)) < margin).any(-1) & (mass > 1e-12)
-    return near.any(-1)
+def near_rounding_boundary(loc, attn, shapes, mode):
+    """``chip_smoke.near_rounding_boundary`` on numpy arrays: [N, Lq, M] bool,
+    the outputs whose centroid lies within 1e-4 px of a rounding boundary."""
+    return chip_smoke.near_rounding_boundary(torch, torch.from_numpy(loc),
+                                             torch.from_numpy(attn), shapes, mode).numpy()
 
 
 def _approx_inputs(rng, shapes, d, weights):
@@ -566,20 +540,30 @@ def test_approximate_kernels_match_plain(cuda, levels, mode, dtype, d, weights):
 @pytest.mark.parametrize("case", [(2, 300, 4, 32), (1, 977, 8, 30), (3, 50, 2, 256),
                                   (1, 43008, 8, 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_quantize_kernel_equals_plain_bit_for_bit(cuda, dtype, case):
+@pytest.mark.parametrize("nan", [False, True])
+def test_quantize_kernel_equals_plain_bit_for_bit(cuda, dtype, case, nan):
     """The int8 table and its scale, bit for bit: the max is order-free, the
     division IEEE and the rounding half to even on both sides. An all-zero
-    channel floors its scale at 1e-12; exact half steps round to even."""
+    channel floors its scale at 1e-12; exact half steps round to even. A NaN
+    propagates to its channel's scale (any NaN's bits), whose table entries
+    are 0."""
     rng = np.random.RandomState(21)
     value = (rng.randn(*case) * rng.rand(1, 1, 1, case[-1]) * 4).astype(np.float32)
     value[..., 1] = 0.0
     value[0, 0, 0, 2:6] = [0.5, 1.5, -2.5, 127.0]
+    if nan:
+        value[-1, -1, -1, 3] = np.nan
     v = torch.from_numpy(value).to(cuda, dtype)
     q, scale = msda.quantize_value_table(v)
     qp, sp = msda.quantize_value_table_plain(v)
     torch.cuda.synchronize()
     assert q.dtype == torch.int8 and scale.shape == (case[-1],)
-    assert torch.equal(q, qp) and torch.equal(scale.view(torch.int32), sp.view(torch.int32))
+    assert torch.equal(q, qp)
+    assert torch.equal(scale.isnan(), sp.isnan()) and bool(scale.isnan().any()) == nan
+    held = ~sp.isnan()
+    assert torch.equal(scale[held].view(torch.int32), sp[held].view(torch.int32))
+    if nan:
+        assert not q[..., 3].any()
 
 
 @pytest.mark.cuda

@@ -148,6 +148,25 @@ def test_int8_table_equals_jax_bit_for_bit(dtype):
         compiled[amax > 0], (amax * np.float32(1 / np.float32(127)))[amax > 0])
 
 
+def test_nan_in_the_table_as_jax():
+    """A NaN in value: its channel's scale is NaN and that channel's table 0,
+    as JAX's expression gives (``jnp.max`` propagates it, XLA converts NaN to
+    0); the other channels keep their scales and entries."""
+    rng = np.random.RandomState(3)
+    value = rng.randn(2, 30, 4, 8).astype(np.float32)
+    value[1, 7, 2, 5] = np.nan
+    jv = jnp.asarray(value)
+    jscale = jnp.maximum(jnp.max(jnp.abs(jv), axis=(0, 1, 2)) / 127.0, 1e-12)
+    jq = np.asarray(jnp.clip(jnp.round(jv / jscale), -127, 127).astype(jnp.int8))
+    q, scale = msda.quantize_value_table_plain(torch.from_numpy(value))
+    np.testing.assert_array_equal(q.numpy(), jq)
+    assert not jq[..., 5].any()
+    scale, jscale = scale.numpy(), np.asarray(jscale)
+    np.testing.assert_array_equal(np.isnan(scale), np.arange(8) == 5)
+    np.testing.assert_array_equal(scale[:5].view(np.uint32), jscale[:5].view(np.uint32))
+    np.testing.assert_array_equal(scale[6:].view(np.uint32), jscale[6:].view(np.uint32))
+
+
 def test_round_half_to_even_in_the_table():
     """A value at an exact half step rounds to the even integer, as jnp.round."""
     v = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5, 126.5]).view(1, 7, 1, 1).expand(
