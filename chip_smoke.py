@@ -86,10 +86,13 @@ The ``kernels`` phase also holds the training slice's kernels at its shapes
 assignment (and scipy's optimum on the valid rows) and the label points; and
 DeepLab's: the ASPP's dilated conv at the eval shapes (its three rates timed
 together, beside cuDNN's dilated ``conv2d`` in benchmark mode, channels-last
-and NCHW) and checked at the training shapes too, its weight gradient at the
-training shapes (beside cuDNN's) and the pixel selection, forward and
-backward, over 8 x 700 x 700 values, their bounds at the bf16 tensor-core peak (989 TFLOP/s) where the
-tensor cores do the work; stage 1's and validation's: the two forward score tails at
+and NCHW) and at the training shapes (a row of its own, beside cuDNN's), its
+weight gradient at the training shapes (beside cuDNN's), each with its
+achieved TFLOP/s (the build line carries their registers and spills), and
+the pixel selection, forward and backward, over 8 x 700 x 700 values, their
+bounds at the bf16 tensor-core peak (989 TFLOP/s) where the tensor cores do
+the work (the DeepLab profiles give the dilated conv's device time); stage
+1's and validation's: the two forward score tails at
 stage 1's shapes (the anomaly score, and the K class channels alone), the
 anomaly tail's backward there (d probs alone, and with d masks) and with
 forced ties, and
@@ -102,8 +105,9 @@ held off their rounding boundaries, flips counted), with f32 edge cases
 weights, T = J against ``nearest``). A kernel's ``launches``
 are those of the main paths: ``serve``, ``deeplab_serve``, ``validate`` and
 ``evaluate`` for the eval kernels, the timed steps of ``train``,
-``deeplab_train`` and ``stage1_train`` for the training kernels, each path
-run with the counts set to 0 just before it and read just after.
+``deeplab_train`` and ``stage1_train`` for the training kernels (the dilated
+conv's forward rows split them: eval paths, training steps), each path run
+with the counts set to 0 just before it and read just after.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device": ...}``
@@ -216,17 +220,15 @@ def msda_inputs(torch, levels, lq, dtype, device, seed, d=HEAD_DIM, avoid_ties=T
     value = torch.from_numpy(g.randn(batch, s, N_HEADS, d).astype(np.float32))
     loc = g.rand(batch, lq, N_HEADS, len(levels), N_POINTS, 2).astype(np.float32) * 1.2 - 0.1
     if avoid_ties:
-        # nudge points 1e-3 px off the half-pixel rounding boundaries, where the
-        # nearest plain version (grid_sample, round half to even) and the kernel
-        # (floor(x + 0.5)) may disagree on a tie, and off the integer pixel
-        # positions, where the bilinear backward's location slope is one-sided
-        # and the two versions' rounding may pick other sides
+        # nudge points 1e-3 px off the integer pixel positions, where the
+        # bilinear backward's location slope is one-sided and the two versions'
+        # rounding may pick other sides (the nearest mode's half-pixel ties need
+        # no nudge: kernel and plain version round x * W - 0.5 op by op)
         size = np.array([[w, h] for h, w in levels], np.float32)[None, None, None, :, None, :]
-        for edge in (0.5, 0.0):
-            px = loc * size - 0.5
-            frac = px - np.floor(px)
-            near = np.minimum(np.abs(frac - edge), 1 - np.abs(frac - edge)) < 1e-3
-            loc = np.where(near, (px + 2e-3 + 0.5) / size, loc).astype(np.float32)
+        px = loc * size - 0.5
+        frac = px - np.floor(px)
+        near = np.minimum(frac, 1 - frac) < 1e-3
+        loc = np.where(near, (px + 2e-3 + 0.5) / size, loc).astype(np.float32)
     logits = torch.from_numpy(g.randn(batch, lq, N_HEADS, len(levels) * N_POINTS).astype(
         np.float32))
     attn = torch.softmax(logits, -1).view(batch, lq, N_HEADS, len(levels), N_POINTS)
@@ -283,7 +285,8 @@ def phase_build():
     t0 = time.perf_counter()
     report = _build.build()
     return {"phase": "build", "ok": True, "seconds": time.perf_counter() - t0,
-            "sources": {k: {"seconds": v["seconds"], "ptxas": v["ptxas"][:6]}
+            "sources": {k: {"seconds": v["seconds"],
+                            "ptxas": v["ptxas"] if k == "dilated_conv" else v["ptxas"][:6]}
                         for k, v in report.items()},
             "nvidia_smi": nvidia_smi()}
 
@@ -335,6 +338,24 @@ def phase_kernels(torch):
               msda.ms_deform_attn_core_plain(v32, edge, l32, a32, mode), 1e-5, 1e-5)
         outside = (l32 < 0) | (l32 > 1)
         checks[-1]["points_outside_map"] = int(outside.any(-1).sum())
+    # nearest on exact pixel boundaries (x = j / W_l, y = j / H_l), main-path
+    # shapes: the last bit of x * W - 0.5 picks the pixel, so kernel and plain
+    # version must round alike. Integer values and weights of 1/16 keep every
+    # sum exact in any order: bit for bit
+    gb = np.random.RandomState(SEED + 3)
+    vb = gb.randint(-8, 9, (1, lq, N_HEADS, HEAD_DIM)).astype(np.float32)
+    lb = np.empty((1, lq, N_HEADS, len(LEVELS), N_POINTS, 2), np.float32)
+    for lid, (h, w) in enumerate(LEVELS):
+        for axis, size in ((0, w), (1, h)):
+            j = gb.randint(0, size + 1, lb.shape[:3] + (N_POINTS,)).astype(np.float32)
+            lb[:, :, :, lid, :, axis] = j / np.float32(size)
+    vb, lb = torch.from_numpy(vb).to(dev, torch.bfloat16), torch.from_numpy(lb).to(dev)
+    ab = torch.full(lb.shape[:-1], 1 / 16, dtype=torch.bfloat16, device=dev)
+    out = msda.ms_deform_attn_core(vb, LEVELS, lb, ab, "nearest")
+    ref = msda.ms_deform_attn_core_plain(vb, LEVELS, lb, ab, "nearest")
+    torch.cuda.synchronize()
+    check("ms_deform_attn_nearest_pixel_boundaries", out, ref, 0.0, 0.0)
+    del vb, lb, ab, out, ref
 
     # score tail at the main-path shapes: f32 stride-4 masks to 1024x2048; the
     # sums over 100 queries differ only in order (f32)
@@ -666,8 +687,9 @@ def in_map_taps(n, hw, rate):
 
 def deeplab_kernel_rows(torch, dev, rows, check, checks):
     """DeepLab's kernels at its main-path shapes: the ASPP's dilated conv at the
-    eval shapes (its three rates timed together), its weight gradient at the
-    training shapes, and the pixel selection over 8 x 700 x 700 CE values;
+    eval shapes (its three rates timed together), its weight gradient and
+    forward at the training shapes, and the pixel selection over 8 x 700 x 700
+    CE values;
     then small and odd shapes. The conv bounds count in-map taps only, at the
     bf16 tensor-core peak."""
     import torch.nn.functional as F
@@ -715,18 +737,21 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
         del xc, wc
     best = min(cudnn, key=lambda k: cudnn[k]["ms"])
     taps = sum(in_map_taps(1, DL_EVAL_MAP, r) for r in DL_RATES)
-    b_ms, b_by = bound(nbytes(x, *outs) + sum(k.numel() * 2 for k in ks),
-                       2 * taps * DL_CIN * DL_COUT, BF16_TC_OPS_PER_S)
+    flop = 2 * taps * DL_CIN * DL_COUT
+    b_ms, b_by = bound(nbytes(x, *outs) + sum(k.numel() * 2 for k in ks), flop,
+                       BF16_TC_OPS_PER_S)
     rows["dilated_conv3x3"] = {
         "name": "dilated_conv3x3", "route": "cuda",
         "source": "multishiftseg_torch/csrc/dilated_conv.cu",
         "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
+        "paths": ("deeplab_serve", "validate", "evaluate"),
         "max_abs_err": err, "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
         "bound_by": b_by,
         # cuDNN's dilated conv2d, bf16, the faster layout: the same function
         "library_ms": cudnn[best]["ms"]}
     checks.append({"check": "dilated_conv3x3_eval_work", "in_map_pixel_taps": taps,
-                   "tflop": 2 * taps * DL_CIN * DL_COUT / 1e12,
+                   "tflop": flop / 1e12, "kernel_tflop_per_s": flop / times[0] / 1e9,
+                   "library_tflop_per_s": flop / cudnn[best]["ms"] / 1e9,
                    "peak": "bf16 tensor cores, 989 TFLOP/s", "library": cudnn,
                    "library_layout": best, "ok": True})
     del x, outs
@@ -751,8 +776,9 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
     times = (median_ms(torch, run, 5), median_ms(torch, plain, 1), median_ms(torch, library, 3))
     torch.backends.cudnn.benchmark = False
     taps = sum(in_map_taps(b, DL_TRAIN_MAP, r) for r in DL_RATES)
-    b_ms, b_by = bound(nbytes(xt, gt) + len(DL_RATES) * 9 * DL_COUT * DL_CIN * 4,
-                       2 * taps * DL_CIN * DL_COUT, BF16_TC_OPS_PER_S)
+    flop = 2 * taps * DL_CIN * DL_COUT
+    b_ms, b_by = bound(nbytes(xt, gt) + len(DL_RATES) * 9 * DL_COUT * DL_CIN * 4, flop,
+                       BF16_TC_OPS_PER_S)
     rows["dilated_conv3x3_wgrad"] = {
         "name": "dilated_conv3x3_wgrad", "route": "cuda",
         "source": "multishiftseg_torch/csrc/dilated_conv.cu",
@@ -762,18 +788,47 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
         # cuDNN's weight gradient of the dilated conv2d, bf16 channels-last
         "library_ms": times[2]}
     checks.append({"check": "dilated_conv3x3_wgrad_train_work", "in_map_pixel_taps": taps,
-                   "tflop": 2 * taps * DL_CIN * DL_COUT / 1e12, "ok": True})
+                   "tflop": flop / 1e12, "kernel_tflop_per_s": flop / times[0] / 1e9,
+                   "library_tflop_per_s": flop / times[2] / 1e9, "ok": True})
     del xc, gc
-    # the forward at the training shapes too, where a 128-pixel tile spans
-    # rows and images; the eval check's tolerance
+    # the forward at the training shapes, 3 launches a step (the tiles' 16
+    # columns do not divide the 88-wide map); the eval check's tolerance, and
+    # timed beside cuDNN's conv2d there (channels-last, benchmark mode)
+    errs = []
     with torch.no_grad():
         for k, r in zip(ks, DL_RATES):
             out, ref = dconv.dilated_conv3x3(xt, k, r), dconv.dilated_conv3x3_plain(xt, k, r)
             torch.cuda.synchronize()
-            check(f"dilated_conv3x3_rate{r}_train_shapes", out, ref,
-                  1e-3 * float(ref.float().abs().max()), 2 ** -7)
+            errs.append(check(f"dilated_conv3x3_rate{r}_train_shapes", out, ref,
+                              1e-3 * float(ref.float().abs().max()), 2 ** -7))
             del out, ref
-    del xt, gt, ks
+        run = lambda: [dconv.dilated_conv3x3(xt, k, r) for k, r in zip(ks, DL_RATES)]
+        plain = lambda: [dconv.dilated_conv3x3_plain(xt, k, r) for k, r in zip(ks, DL_RATES)]
+        xc = xt.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        wc = [k.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+              for k in ks]
+        library = lambda: [F.conv2d(xc, w, padding=r, dilation=r) for w, r in zip(wc, DL_RATES)]
+        torch.backends.cudnn.benchmark = True
+        times = (median_ms(torch, run, 5), median_ms(torch, plain, 1), median_ms(torch, library, 3))
+        torch.backends.cudnn.benchmark = False
+    taps = sum(in_map_taps(b, DL_TRAIN_MAP, r) for r in DL_RATES)
+    flop = 2 * taps * DL_CIN * DL_COUT
+    out_bytes = b * DL_TRAIN_MAP[0] * DL_TRAIN_MAP[1] * DL_COUT * 2
+    b_ms, b_by = bound(nbytes(xt) + len(DL_RATES) * (out_bytes + 9 * DL_COUT * DL_CIN * 2),
+                       flop, BF16_TC_OPS_PER_S)
+    rows["dilated_conv3x3_train"] = {
+        "name": "dilated_conv3x3_train", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/dilated_conv.cu",
+        "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
+        "counter": "dilated_conv3x3", "paths": ("deeplab_train",),
+        "max_abs_err": max(errs), "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
+        "bound_by": b_by,
+        # cuDNN's dilated conv2d, bf16 channels-last: the same function
+        "library_ms": times[2]}
+    checks.append({"check": "dilated_conv3x3_train_work", "in_map_pixel_taps": taps,
+                   "tflop": flop / 1e12, "kernel_tflop_per_s": flop / times[0] / 1e9,
+                   "library_tflop_per_s": flop / times[2] / 1e9, "ok": True})
+    del xt, gt, ks, xc, wc
 
     # pixel selection over the augmented half's CE values (8 x 700 x 700),
     # a fifth of them invalid (+inf keys); the threshold must equal the k-th
@@ -1198,10 +1253,11 @@ def phase_slice_parity(torch, hw=(256, 512)):
     return res
 
 
-def profile_request(torch, fwd, image):
+def profile_request(torch, fwd, image, focus=None):
     """``fwd(image)`` (a request, or a training step) once under torch.profiler:
-    device time by kernel name (top 12) and the device's busy share of the wall
-    time."""
+    device time by kernel name (top 12), the device's busy share of the wall
+    time and, with ``focus``, the device time of the kernels whose name holds
+    that string."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1230,10 +1286,15 @@ def profile_request(torch, fwd, image):
             busy += end - last
             last = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
-            "device_busy_share": busy / 1e3 / wall_ms if wall_ms else None,
-            "device_events": len(spans), "device_kernel_ms_total": sum(v[0] for v in by_name.values()),
-            "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]} for k, v in top]}
+    res = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / 1e3 / wall_ms if wall_ms else None,
+           "device_events": len(spans), "device_kernel_ms_total": sum(v[0] for v in by_name.values()),
+           "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]} for k, v in top]}
+    if focus:
+        ms = sum(v[0] for k, v in by_name.items() if focus in k)
+        res[f"{focus}_ms"] = ms
+        res[f"{focus}_share_of_busy"] = ms * 1e3 / busy if busy else None
+    return res
 
 
 # the serve phase's settings: (sample_mode, score_lowres, score_topq), and the
@@ -1611,7 +1672,7 @@ def phase_deeplab_serve(torch, requests=3):
            "launches": counts, "launches_per_image_ok": counts_ok, "finite": finite,
            "shapes_ok": shapes_ok, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
            "auroc_auprc_fpr95_random_weights": metrics,
-           "profiled_request": profile_request(torch, fwd, images[0])}
+           "profiled_request": profile_request(torch, fwd, images[0], focus="dconv")}
     res["ok"] = bool(finite and shapes_ok and counts_ok and metrics is not None)
     return res, counts
 
@@ -1829,7 +1890,8 @@ def phase_deeplab_train(torch, pairs=DL_TRAIN_PAIRS, warmup=2, timed=3):
               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "steps": steps,
               "losses_all_steps": losses, "losses_falling": losses[-1] < losses[0],
               "launches": counts, "launches_per_step": per_step,
-              "profiled_step": profile_request(torch, lambda _: trainer.step(*batch), None)}
+              "profiled_step": profile_request(torch, lambda _: trainer.step(*batch), None,
+                                               focus="dconv")}
         st["checks"] = {"finite": finite, "launches_ok": launches_ok}
         st["ok"] = bool(all(st["checks"].values()))
         ok &= st["ok"]
@@ -2314,11 +2376,14 @@ def main():
     emit(evaluate)
     phases.append(evaluate)
 
-    # each main path was run with the counts set to 0 just before it
+    # each main path was run with the counts set to 0 just before it; a row
+    # counts its counter over its paths (default: every path)
+    paths = {"serve": launches, "train": train_launches, "deeplab_serve": dl_launches,
+             "deeplab_train": dl_train_launches, "stage1_train": s1_launches,
+             "validate": val_launches, "evaluate": eval_launches}
     for name, row in rows.items():
-        row["launches"] = sum(path.get(row.get("counter", name), 0) for path in (
-            launches, train_launches, dl_launches, dl_train_launches, s1_launches,
-            val_launches, eval_launches))
+        row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
+                              for p in row.get("paths", paths))
     ok = all(p["ok"] for p in phases) and all(r["launches"] > 0 for r in rows.values())
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")

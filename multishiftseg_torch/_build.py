@@ -59,8 +59,9 @@ def _library_path(src: Path) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the named kernels (default: all) in parallel.
 
-    Returns ``{name: {"seconds": wall time, "library": path, "ptxas": [...]}}``;
-    an up-to-date library is not rebuilt and reports 0 seconds.
+    Returns ``{name: {"seconds": wall time, "library": path, "ptxas": [...]}}``
+    (``ptxas``: each kernel's entry line, registers and spills); an up-to-date
+    library is not rebuilt and reports 0 seconds.
     """
     srcs = sources()
     names = list(srcs) if names is None else list(names)
@@ -94,7 +95,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         report[name] = {
             "seconds": seconds, "library": str(lib),
             "ptxas": [ln.strip() for ln in out.splitlines()
-                      if "registers" in ln or "spill" in ln],
+                      if "entry function" in ln or "registers" in ln or "spill" in ln],
         }
     if failed:
         msg = "\n".join(f"--- {n} ---\n{o}" for n, o in failed.items())

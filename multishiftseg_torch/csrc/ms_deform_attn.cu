@@ -101,12 +101,10 @@ __global__ void msda_forward_kernel(const TV* __restrict__ value,
       const float a = msda_to_float(ap[j]);
       if (NEAREST) {
         // _core_forward_nearest: the sample counts only inside the half-pixel
-        // border, at clamp(floor(x + 0.5)).
-        if (x > -0.5f && x < (float)W - 0.5f && y > -0.5f && y < (float)H - 0.5f) {
-          const int ix = min(max((int)floorf(x + 0.5f), 0), W - 1);
-          const int iy = min(max((int)floorf(y + 0.5f), 0), H - 1);
-          msda_corner<TV, V>(vl + ((int64_t)iy * W + ix) * row, a, sc, acc);
-        }
+        // border, at clamp(floor(x + 0.5)), its coordinates rounded op by op
+        // (x and y above, which may be fused, serve bilinear only)
+        const int off = msda_nearest(xy.x, xy.y, W, H);
+        if (off >= 0) msda_corner<TV, V>(vl + (int64_t)off * row, a, sc, acc);
       } else if (x > -1.f && x < (float)W && y > -1.f && y < (float)H) {
         // All four corners lie outside unless -1 < x < W and -1 < y < H; the
         // test also keeps the integer casts in range. An outside corner is

@@ -52,17 +52,6 @@
 
 #define MSDA_THREADS 256
 
-// The nearest pixel of normalised (nx, ny) on a W x H level: its offset in
-// the level (iy * W + ix), or -1 outside the half-pixel border.
-__device__ __forceinline__ int msda_nearest(float nx, float ny, int W, int H) {
-  const float x = __fsub_rn(__fmul_rn(nx, (float)W), 0.5f);
-  const float y = __fsub_rn(__fmul_rn(ny, (float)H), 0.5f);
-  if (!(x > -0.5f && x < (float)W - 0.5f && y > -0.5f && y < (float)H - 0.5f)) return -1;
-  const int ix = min(max((int)floorf(__fadd_rn(x, 0.5f)), 0), W - 1);
-  const int iy = min(max((int)floorf(__fadd_rn(y, 0.5f)), 0), H - 1);
-  return iy * W + ix;
-}
-
 template <typename T, int V, int MAXJ, bool CENTROID>
 __global__ void msda_topk_kernel(const T* __restrict__ value, const float* __restrict__ loc,
                                  const T* __restrict__ attn, T* __restrict__ out,

@@ -1,7 +1,7 @@
 // Device helpers shared by the deformable-attention kernels
 // (csrc/ms_deform_attn.cu, csrc/ms_deform_attn_approx.cu): the level table, the
-// conversions of bf16 / f32 / int8 channels to f32 registers and back, and the
-// weighted accumulation of one row of V channels.
+// nearest pixel of a point, the conversions of bf16 / f32 / int8 channels to f32
+// registers and back, and the weighted accumulation of one row of V channels.
 
 #pragma once
 
@@ -32,6 +32,20 @@ static inline int msda_levels(MsdaLevels* lv, int n_levels, const int* shapes_hw
     start += (int64_t)lv->h[l] * lv->w[l];
   }
   return start == s ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+// The nearest pixel of normalised (nx, ny) on a W x H level: its offset in
+// the level (iy * W + ix), or -1 outside the half-pixel border. x = nx * W - 0.5
+// rounds the product before the subtraction (no fused multiply-add, as the
+// plain versions and JAX take it): a point exactly on a pixel boundary then
+// picks the same pixel on every side.
+__device__ __forceinline__ int msda_nearest(float nx, float ny, int W, int H) {
+  const float x = __fsub_rn(__fmul_rn(nx, (float)W), 0.5f);
+  const float y = __fsub_rn(__fmul_rn(ny, (float)H), 0.5f);
+  if (!(x > -0.5f && x < (float)W - 0.5f && y > -0.5f && y < (float)H - 0.5f)) return -1;
+  const int ix = min(max((int)floorf(__fadd_rn(x, 0.5f)), 0), W - 1);
+  const int iy = min(max((int)floorf(__fadd_rn(y, 0.5f)), 0), H - 1);
+  return iy * W + ix;
 }
 
 __device__ __forceinline__ float msda_to_float(float v) { return v; }

@@ -22,10 +22,12 @@ Sample modes (:func:`parse_sample_mode`):
 * ``shared``: per (query, level, point) one location for all heads, the heads'
   attention-weighted centroid; each head keeps its own weights.
 
-Only ``bilinear`` without the int8 table has a backward kernel, joined to the
-forward by a ``torch.autograd.Function`` that saves (value, loc, attn) as the
-JAX VJP does. The other modes are eval-only, as in JAX: on the card they raise
-when an input requires grad.
+``bilinear`` has a backward kernel, joined to the forward by a
+``torch.autograd.Function`` that saves (value, loc, attn) as the JAX VJP does.
+With the int8 table too: JAX's custom VJP saves the exact value whatever
+``quantize_table`` is (``_core_vjp_fwd``, :565-569), so the table's gradients
+are the exact bilinear ones, on the card and on the CPU. The other modes are
+eval-only, as in JAX: on the card they raise when an input requires grad.
 
 The plain versions run on the CPU and hold the kernels on the card:
 ``bilinear`` is the reference's per-level ``grid_sample`` formula
@@ -118,23 +120,21 @@ def ms_deform_attn_core(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
     spatial_shapes = _shapes(spatial_shapes)
     L, P = sampling_locations.shape[3:5]
     kind, top = parse_sample_mode(sample_mode, L * P)
-    if quantize_table and kind != "bilinear":
-        raise ValueError(f"quantize_table applies to the bilinear mode, not {sample_mode!r}")
+    if quantize_table:
+        if kind != "bilinear":
+            raise ValueError(f"quantize_table applies to the bilinear mode, not {sample_mode!r}")
+        return _MSDeformAttnInt8.apply(value, sampling_locations, attention_weights,
+                                       spatial_shapes)
     if value.device.type == "cpu":
         return ms_deform_attn_core_plain(value, spatial_shapes, sampling_locations,
-                                         attention_weights, sample_mode, quantize_table)
-    if kind == "bilinear" and not quantize_table:
+                                         attention_weights, sample_mode)
+    if kind == "bilinear":
         return _MSDeformAttnCore.apply(value, sampling_locations, attention_weights,
                                        spatial_shapes)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (value, sampling_locations, attention_weights)):
-        name = "int8" if quantize_table else sample_mode
-        raise RuntimeError(f"ms_deform_attn_core: {name!r} has no backward kernel; "
+        raise RuntimeError(f"ms_deform_attn_core: {sample_mode!r} has no backward kernel; "
                            "train with 'bilinear' or run under torch.no_grad()")
-    if quantize_table:
-        qvalue, scale = quantize_value_table(value)
-        return _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, sampling_locations,
-                                         attention_weights)
     if kind == "nearest":
         return _ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
                                     attention_weights, sample_mode)
@@ -159,6 +159,22 @@ class _MSDeformAttnCore(torch.autograd.Function):
         dvalue, dloc, dattn = ms_deform_attn_backward(value, ctx.spatial_shapes, loc,
                                                       attn, grad_out)
         return dvalue, dloc, dattn, None
+
+
+class _MSDeformAttnInt8(_MSDeformAttnCore):
+    """``bilinear`` over the int8 table, on the card (the quantize and int8
+    kernels) and on the CPU (their plain versions). The backward is the exact
+    bilinear one on the saved exact value, as JAX's custom VJP takes it."""
+
+    @staticmethod
+    def forward(ctx, value, loc, attn, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, loc, attn)
+        if value.device.type == "cpu":
+            return ms_deform_attn_core_plain(value, spatial_shapes, loc, attn, "bilinear",
+                                             quantize_table=True)
+        qvalue, scale = quantize_value_table(value)
+        return _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, loc, attn)
 
 
 def ms_deform_attn_backward(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],

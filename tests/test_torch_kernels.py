@@ -43,13 +43,10 @@ def _msda_inputs(rng, shapes, d):
     s = sum(h * w for h, w in shapes)
     value = rng.randn(N, s, M, d).astype(np.float32)
     # locations in [-0.1, 1.1]: some points fall outside the map
+    # (no point is kept off the nearest mode's half-pixel rounding boundaries:
+    # kernel and plain version round x * W - 0.5 op by op and take the same
+    # pixel there, see test_nearest_kernel_on_pixel_boundaries_equals_plain)
     loc = rng.rand(N, LQ, M, len(shapes), P, 2).astype(np.float32) * 1.2 - 0.1
-    # keep points 1e-3 px away from the half-pixel rounding boundaries, where
-    # grid_sample's round-half-even and the kernel's floor(x + 0.5) may disagree
-    size = np.array([[w, h] for h, w in shapes], np.float32)[None, None, None, :, None, :]
-    px = loc * size - 0.5
-    near = np.abs(px - np.floor(px) - 0.5) < 1e-3
-    loc = np.where(near, (px + 2e-3 + 0.5) / size, loc).astype(np.float32)
     attn = rng.rand(N, LQ, M, len(shapes), P).astype(np.float32)
     attn /= attn.reshape(N, LQ, M, -1).sum(-1).reshape(N, LQ, M, 1, 1)
     return value, loc, attn
@@ -92,6 +89,67 @@ def test_mask_scores_kernel_matches_plain(cuda, out_hw, classes):
     # f32 throughout; sums over Q taken in another order
     torch.testing.assert_close(sem, sem_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(anomaly, anomaly_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("levels", ["regular", "degenerate", "main_path"])
+def test_nearest_kernel_on_pixel_boundaries_equals_plain(cuda, dtype, levels):
+    """Points exactly on pixel boundaries (x = j / W_l, y = j / H_l for every
+    level): ``x * W - 0.5`` is then a half-pixel tie whose last bit picks the
+    pixel, so the kernel must round the product before the subtraction, as the
+    plain version and JAX do. Small integer values and weights of 1/16 make
+    every sum exact in any order, so the outputs are equal bit for bit exactly
+    when every point took the same pixel."""
+    shapes = [(32, 64), (64, 128), (128, 256)] if levels == "main_path" else LEVEL_SETS[levels]
+    rng = np.random.RandomState(30)
+    lq, n_lev = 512, len(shapes)
+    value = rng.randint(-8, 9, (1, sum(h * w for h, w in shapes), M, 8)).astype(np.float32)
+    loc = np.empty((1, lq, M, n_lev, P, 2), np.float32)
+    for lid, (h, w) in enumerate(shapes):
+        for axis, size in ((0, w), (1, h)):
+            j = rng.randint(0, size + 1, loc.shape[:3] + (P,)).astype(np.float32)
+            loc[:, :, :, lid, :, axis] = j / np.float32(size)
+    attn = np.full((1, lq, M, n_lev, P), 1 / 16, np.float32)
+    v = torch.from_numpy(value).to(cuda, dtype)
+    lo = torch.from_numpy(loc).to(cuda)
+    a = torch.from_numpy(attn).to(cuda, dtype)
+    before = msda.LAUNCHES["ms_deform_attn_nearest"]
+    out = msda.ms_deform_attn_core(v, shapes, lo, a, "nearest")
+    ref = msda.ms_deform_attn_core_plain(v, shapes, lo, a, "nearest")
+    torch.cuda.synchronize()
+    assert msda.LAUNCHES["ms_deform_attn_nearest"] == before + 1
+    assert float(ref.float().abs().max()) > 0
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_backward_on_the_card_is_the_exact_one(cuda, dtype):
+    """Under grad the int8 table's forward runs the quantize and int8 kernels
+    and its backward the bilinear backward kernel on the saved exact value:
+    the gradients equal ``ms_deform_attn_backward`` on the same inputs. d value
+    sums by atomics in a run-dependent order: f32 1e-5 of scale; bf16 one
+    rounding of that sum, 1e-2."""
+    rng = np.random.RandomState(31)
+    shapes = LEVEL_SETS["regular"]
+    value, loc, attn = _msda_inputs(rng, shapes, 32)
+    g = torch.from_numpy(rng.randn(N, LQ, M * 32).astype(np.float32)).to(cuda, dtype)
+    v, lo, a = (torch.from_numpy(t).to(cuda) for t in (value, loc, attn))
+    v, a = v.to(dtype).requires_grad_(), a.to(dtype).requires_grad_()
+    lo.requires_grad_()
+    before = dict(msda.LAUNCHES)
+    msda.ms_deform_attn_core(v, shapes, lo, a, quantize_table=True).backward(g)
+    want = msda.ms_deform_attn_backward(v.detach(), shapes, lo.detach(), a.detach(), g)
+    torch.cuda.synchronize()
+    for name, more in (("ms_deform_attn_quantize", 1), ("ms_deform_attn_int8", 1),
+                       ("ms_deform_attn_bilinear_backward", 2), ("ms_deform_attn_bilinear", 0)):
+        assert msda.LAUNCHES[name] == before[name] + more, name
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, ref in zip((v.grad, lo.grad, a.grad), want):
+        assert got.dtype == ref.dtype
+        torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
+                                   atol=tol * float(ref.float().abs().max()))
 
 
 def _off_kinks(loc, shapes, margin=1e-3):
@@ -194,9 +252,13 @@ def test_label_points_kernel_matches_plain(cuda):
 
 
 # (N, H, W, Cin, Cout, rate): maps smaller and larger than the rate, H < rate <
-# W, odd sizes, channel counts off the 8 / 32 / 128 tiles, taps wholly outside
+# W, odd sizes, channel counts off the 8 / 64 / 128 / 256 tiles, taps wholly
+# outside; the training map's width (88, not a multiple of the forward's 16-px
+# tile columns) with Cin over four 64-channel blocks, the last partial; Cout
+# above 256 and not a multiple of 8 (two 256-wide column tiles in the forward)
 DCONV_CASES = [(2, 9, 30, 40, 24, 12), (1, 5, 7, 16, 8, 12), (2, 13, 29, 20, 5, 24),
-               (1, 40, 70, 136, 136, 12), (3, 20, 20, 8, 16, 36), (1, 33, 17, 264, 256, 24)]
+               (1, 40, 70, 136, 136, 12), (3, 20, 20, 8, 16, 36), (1, 33, 17, 264, 256, 24),
+               (2, 20, 88, 200, 48, 12), (1, 19, 37, 72, 300, 24)]
 
 
 @pytest.mark.cuda
@@ -643,17 +705,28 @@ def test_nearest_refuses_grad_off_the_cpu():
         msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, "nearest")
 
 
-@pytest.mark.parametrize("mode", ["nearest_top1", "nearest_top2c", "shared", "int8"])
+@pytest.mark.parametrize("mode", ["nearest_top1", "nearest_top2c", "shared"])
 def test_approximate_modes_refuse_grad_off_the_cpu(mode):
     """Eval-only, as in JAX: no backward kernel, so under grad off the CPU
     every approximate mode raises, before any kernel is loaded."""
     value, loc, attn = _meta_requiring_grad((1, 8, 2, 4), (1, 3, 2, 1, 2, 2), (1, 3, 2, 1, 2))
-    kw = dict(sample_mode="bilinear", quantize_table=True) if mode == "int8" else dict(
-        sample_mode=mode)
     with pytest.raises(RuntimeError, match="no backward"):
-        msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, **kw)
+        msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, sample_mode=mode)
     with torch.no_grad(), pytest.raises(RuntimeError):  # to the card route, which fails on meta
-        msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, **kw)
+        msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, sample_mode=mode)
+
+
+def test_int8_under_grad_reaches_its_function_off_the_cpu(monkeypatch):
+    """The int8 table trains as JAX's does (the exact bilinear backward on the
+    saved value): under grad off the CPU it is not refused but goes through its
+    autograd Function to the quantize kernel (the library loader, stubbed)."""
+    def refuse(name):
+        raise _Sentinel(name)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    value, loc, attn = _meta_requiring_grad((1, 8, 2, 4), (1, 3, 2, 1, 2, 2), (1, 3, 2, 1, 2))
+    with pytest.raises(_Sentinel, match="ms_deform_attn"):
+        msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, quantize_table=True)
 
 
 @pytest.mark.parametrize("mode", ["nearest_top1", "nearest_top2c", "shared", "int8"])

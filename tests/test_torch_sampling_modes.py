@@ -115,6 +115,30 @@ def test_top_all_points_is_nearest(levels):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("levels", sorted(LEVEL_SETS))
+def test_int8_gradients_match_jax_vjp(levels):
+    """Under grad the int8 table goes through its autograd Function: d value,
+    d loc and d attn equal ``jax.vjp`` of JAX's op with ``quantize_table``,
+    whose custom VJP takes the exact bilinear gradients on the saved exact
+    value. Tolerance 1e-5 of each gradient's scale: f32 sums of the same
+    products in another order."""
+    shapes = LEVEL_SETS[levels]
+    value, loc, attn = _inputs(5, shapes, "random")
+    g = np.random.RandomState(6).randn(N, LQ, M * D).astype(np.float32)
+    tv, tl, ta = (torch.from_numpy(t).requires_grad_() for t in (value, loc, attn))
+    out = msda.ms_deform_attn_core(tv, shapes, tl, ta, "bilinear", quantize_table=True)
+    assert type(out.grad_fn).__name__ == "_MSDeformAttnInt8Backward"
+    out.backward(torch.from_numpy(g))
+    ref, vjp = jax.vjp(lambda v, l, a: jax_msda.ms_deform_attn_core(
+        v, shapes, l, a, quantize_table=True), jnp.asarray(value), jnp.asarray(loc),
+        jnp.asarray(attn))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    for ours, want in zip((tv.grad, tl.grad, ta.grad), vjp(jnp.asarray(g))):
+        want = np.asarray(want)
+        np.testing.assert_allclose(ours.numpy(), want, rtol=0,
+                                   atol=1e-5 * float(np.abs(want).max()))
+
+
 @pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
 def test_int8_table_equals_jax_bit_for_bit(dtype):
     """The table and the scale of the expression at ``ms_deform_attn.py:135-139``,
