@@ -82,7 +82,8 @@ exits non-zero and prints no result. Phases, one JSON line each:
 attention masks, and hold every bit that differs to a logit within rounding of 0.
 
 The ``kernels`` phase also holds the training slice's kernels at its shapes
-(16 images at 704x704): the deformable-attention backward, the batched
+(16 images at 704x704): the deformable-attention backward and the bilinear
+forward (a row of its own beside the eval shapes'), the batched
 assignment (and scipy's optimum on the valid rows) and the label points; and
 DeepLab's: the ASPP's dilated conv at the eval shapes (its three rates timed
 together, beside cuDNN's dilated ``conv2d`` in benchmark mode, channels-last
@@ -106,7 +107,8 @@ weights, T = J against ``nearest``). A kernel's ``launches``
 are those of the main paths: ``serve``, ``deeplab_serve``, ``validate`` and
 ``evaluate`` for the eval kernels, the timed steps of ``train``,
 ``deeplab_train`` and ``stage1_train`` for the training kernels (the dilated
-conv's forward rows split them: eval paths, training steps), each path run
+conv's and the bilinear deformable forward's rows split them: eval paths,
+training steps), each path run
 with the counts set to 0 just before it and read just after.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
@@ -325,7 +327,10 @@ def phase_kernels(torch):
             "name": f"ms_deform_attn_{mode}", "route": "cuda",
             "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
             "replaces": f"multishiftseg_tpu/ops/ms_deform_attn.py:{line}",
-            "max_abs_err": err, "ms": median_ms(torch, run, 50),
+            # the eval paths; the training steps' launches are the
+            # training-shape row's
+            "paths": ("serve", "validate", "evaluate"), "max_abs_err": err,
+            "ms": median_ms(torch, run, 50),
             "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
         # f32 edge cases: a degenerate h == 1 / w == 1 pyramid (a 32-px side)
@@ -605,7 +610,24 @@ def train_kernel_rows(torch, dev, rows, check, checks):
         # no single PyTorch call computes this function (grid_sample's backward
         # works per level on another layout and leaves the sum over points)
         "library_ms": None}
-    del value, loc, attn, g
+    # the bilinear forward at the same shapes, 6 launches in every M2F step;
+    # tolerance as at the eval shapes (one bf16 step plus f32 order noise)
+    run = lambda: msda.ms_deform_attn_core(value, TRAIN_LEVELS, loc, attn, "bilinear")
+    plain = lambda: msda.ms_deform_attn_core_plain(value, TRAIN_LEVELS, loc, attn, "bilinear")
+    with torch.no_grad():
+        out = run()
+        err = check("ms_deform_attn_bilinear_train_shapes", out, plain(), 1e-3, 1e-2)
+        b_ms, b_by = bound(nbytes(value, loc, attn, out),
+                           msda_ops(torch, loc, TRAIN_LEVELS, "bilinear"))
+        rows["ms_deform_attn_bilinear_train_shapes"] = {
+            "name": "ms_deform_attn_bilinear_train_shapes", "route": "cuda",
+            "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
+            "replaces": "multishiftseg_tpu/ops/ms_deform_attn.py:93",
+            "counter": "ms_deform_attn_bilinear", "paths": ("train", "stage1_train"),
+            "max_abs_err": err, "ms": median_ms(torch, run, 50),
+            "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+    del value, loc, attn, g, out
 
     # batched assignment: 16 problems of 19 targets x 100 queries, about half
     # the rows at BIG (classes absent from the image); exact equality
@@ -990,6 +1012,7 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
     run_m = lambda: scores.mask_scores_backward(masks, probs, grad, TRAIN_HW, dmask=True)
     plain = lambda: scores.mask_scores_backward_plain(masks, probs, grad, TRAIN_HW)
     dp, _ = run()
+    again, _ = run()
     dp2, dm = run_m()
     want_p, want_m = scores.mask_scores_backward_plain(masks, probs, grad, TRAIN_HW, dmask=True)
     abs_p, abs_m = scores.mask_scores_backward_plain(masks, probs, grad.abs(), TRAIN_HW,
@@ -997,11 +1020,13 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
     torch.cuda.synchronize()
     err = check_per_entry(checks, "mask_scores_backward_dprobs_stage1_shapes", dp, want_p,
                           abs_p.abs(), 1e-5)
+    same = bool(torch.equal(dp, dp2)) and bool(torch.equal(dp, again))
     checks[-1].update(pixels_zeroed_near_ties=zeroed, same_as_with_dmask=bool(torch.equal(dp, dp2)),
-                      ok=checks[-1]["ok"] and bool(torch.equal(dp, dp2)))
+                      two_runs_bit_for_bit=bool(torch.equal(dp, again)),
+                      ok=checks[-1]["ok"] and same)
     check_per_entry(checks, "mask_scores_backward_dmask_stage1_shapes", dm, want_m, abs_m.abs(),
                     1e-5)
-    del want_p, want_m, abs_p, abs_m, dm, dp2
+    del want_p, want_m, abs_p, abs_m, dm, dp2, again
     times = {"ms": median_ms(torch, run, 10), "dmask_ms": median_ms(torch, run_m, 5),
              "plain_ms": median_ms(torch, plain, 3)}
     checks.append({"check": "mask_scores_backward_stage1_times", **times, "ok": True})
@@ -1256,8 +1281,8 @@ def phase_slice_parity(torch, hw=(256, 512)):
 def profile_request(torch, fwd, image, focus=None):
     """``fwd(image)`` (a request, or a training step) once under torch.profiler:
     device time by kernel name (top 12), the device's busy share of the wall
-    time and, with ``focus``, the device time of the kernels whose name holds
-    that string."""
+    time and, with ``focus`` (a string or several), the device time of the
+    kernels whose name holds each string and its share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1290,11 +1315,16 @@ def profile_request(torch, fwd, image, focus=None):
            "device_busy_share": busy / 1e3 / wall_ms if wall_ms else None,
            "device_events": len(spans), "device_kernel_ms_total": sum(v[0] for v in by_name.values()),
            "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]} for k, v in top]}
-    if focus:
-        ms = sum(v[0] for k, v in by_name.items() if focus in k)
-        res[f"{focus}_ms"] = ms
-        res[f"{focus}_share_of_busy"] = ms * 1e3 / busy if busy else None
+    for name in (focus,) if isinstance(focus, str) else focus or ():
+        ms = sum(v[0] for k, v in by_name.items() if name in k)
+        res[f"{name}_ms"] = ms
+        res[f"{name}_share_of_busy"] = ms * 1e3 / busy if busy else None
     return res
+
+
+# the M2F steps' profiles: the device time of the deformable backward (stage 2)
+# and of the anomaly tail's d-probs backward (stage 1), by kernel name
+STEP_FOCUS = ("msda_backward_kernel", "mask_scores_bwd_dp_kernel")
 
 
 # the serve phase's settings: (sample_mode, score_lowres, score_topq), and the
@@ -1586,7 +1616,8 @@ def phase_train(torch, pairs=TRAIN_PAIRS, warmup=2, timed=3):
                    and counts["ms_deform_attn_nearest"] == 0
                    and counts["mask_scores_anomaly"] + counts["mask_scores_semantic"]
                    + counts["mask_scores_semantic_classes"] == 0)
-    res["profiled_step"] = profile_request(torch, lambda _: trainer.stage2_step(*batch), None)
+    res["profiled_step"] = profile_request(torch, lambda _: trainer.stage2_step(*batch), None,
+                                           focus=STEP_FOCUS)
     res["checks"] = {"finite": finite, "launches_ok": launches_ok}
     res["ok"] = bool(all(res["checks"].values()))
     return res, counts
@@ -2020,7 +2051,8 @@ def phase_stage1_train(torch, pairs=TRAIN_PAIRS, warmup=2, timed=3):
     counts = launch_counts()
     per_step = {k: v / timed for k, v in counts.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    profiled = profile_request(torch, lambda _: trainer.stage1_step(*batch), None)
+    profiled = profile_request(torch, lambda _: trainer.stage1_step(*batch), None,
+                               focus=STEP_FOCUS)
     moved = {n: float((params[n].detach() - v).abs().max()) for n, v in start.items()}
     trainer.set_stage(1)
     reset_launch_counts()

@@ -193,20 +193,33 @@ extern "C" int msda_forward(const void* value, const void* loc, const void* attn
 // Replaces _core_vjp_bwd (multishiftseg_tpu/ops/ms_deform_attn.py:587, with its
 // _col2im / _im2col_table / _flat_row_gather helpers), which regathers 2x2 windows
 // of an im2col table and scatters one corner-grad row per sample point because
-// the TPU's scatter cost is per index. Here one warp owns one (n, q, m); its lanes
-// own channels d = lane, lane + 32, ... For each sample point the warp recomputes
-// the four bilinear corners, then
-//   * d value: each in-map corner gets attn * corner weight * g[d] by atomicAdd
-//     into an f32 buffer (the wrapper zeroes it first and casts it once to
-//     value's type afterwards);
-//   * d attn = <g, sampled value> and d loc = attn * (W, H) * <g, d sample / d
-//     (x, y)>: per-lane partial sums reduced over the warp by shuffles; lane 0
-//     writes them. A point with no in-map corner writes zeros.
+// the TPU's scatter cost is per index.
+//
+// Design: the forward's thread layout, with groups sized for the atomics. GP
+// threads (a power of two dividing 32) own one (n, q, m); thread g of them
+// owns channels 4g .. 4g + 3 (V = 4; V = 1, single channels, when D or an
+// address does not allow it), so at D = 32 a head has 8 threads. For each
+// sample point (its location and weight loaded one point ahead) the group
+// computes the corner weights once, then each thread
+//   * reads its 4 channels of each in-map corner (one 8-byte bf16 or 16-byte
+//     f32 load) and takes four partial dot products <g, corner>; d attn =
+//     sum_c w_c <g, c> and d loc = attn * (W, H) * the bilinear slopes of those
+//     dots, reduced over the group by log2(GP) shuffle steps; thread 0 writes;
+//   * adds attn * w_c * g into d value, an f32 buffer the wrapper zeroes first
+//     and casts once afterwards, by one float4 atomic a corner
+//     (red.global.add.v4.f32), so one atomic instruction of a group covers the
+//     head's whole 128-byte f32 row: one L2 request a corner. Out-of-map
+//     corners are skipped, never added at a clamped address; a point with no
+//     in-map corner writes zeros.
+// Why not 16-byte bf16 groups (4 threads a head, 2 float4 atomics a corner):
+// each atomic instruction then covers half a row, two L2 requests a corner,
+// and that layout ran slower on the card (PERF.md, PR 7).
 // The location derivative is one-sided at integer pixel positions (fx == 0
 // takes the right-hand slope, as grid_sample's backward does); the JAX adjoint's
 // -sign(0) gives 0 there, so the two agree everywhere except on those kinks.
 // Degenerate h == 1 / w == 1 levels need nothing special: the missing corner
-// row or column is simply out of the map.
+// row or column is simply out of the map. The sums in d value run in an order
+// that changes from run to run (atomics), exactly as before.
 //
 // Bound at the stage-2 shapes (16 images at 704x704: S = Lq = 10164, M = 8,
 // D = 32, L = 3, P = 4, bf16): it must read value 83 MB, loc 125 MB, attn 31 MB
@@ -215,11 +228,14 @@ extern "C" int msda_forward(const void* value, const void* loc, const void* attn
 // in-map corner (a multiply-add of <g, corner value>, from which d attn and
 // d loc follow per corner, and a multiply and an add into d value), 5.6 GFLOP
 // or 0.08 ms at 67 TFLOP/s for chip_smoke.py's seeded points. So bytes bound
-// it; in practice the 1.4 G f32 atomics (one per channel and in-map corner) into
-// the 166 MB f32 d value buffer are the nearer limit, and a later PR would
-// accumulate per block in shared memory first.
+// it. The L2 is the nearer limit: about 44 M in-map (head, corner) pairs, each
+// a 64-byte corner read and a 128-byte read-modify-write of f32 d value (one
+// image's 10 MB stays in the 50 MB L2 while its queries run), some 8 GB of L2
+// traffic; the atomics take more than half of the kernel's time.
+// Staging d value in shared memory would pay only where a block's points
+// share corners, which uniformly random points (chip_smoke.py) do not.
 
-#define MSDA_BWD_MAX_CHUNKS 4  // D <= 128: up to 4 channels per lane
+#define MSDA_BWD_MAX_CHUNKS 4  // V == 1: D <= 128, up to 4 channels a thread
 
 template <typename T>
 __device__ __forceinline__ void msda_store1(T* p, float v);
@@ -230,42 +246,70 @@ __device__ __forceinline__ void msda_store1<__nv_bfloat16>(__nv_bfloat16* p, flo
   *p = __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float msda_warp_sum(float v) {
+// <g, the V channels at p>
+template <typename T, int V>
+__device__ __forceinline__ float msda_dot(const T* p, const float (&g)[V]) {
+  float v[V];
+  msda_load(p, v);
+  float s = 0.f;
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+  for (int i = 0; i < V; ++i) s = fmaf(g[i], v[i], s);
+  return s;
 }
 
-template <typename T>
-__global__ void msda_backward_kernel(const T* __restrict__ value,
-                                     const float* __restrict__ loc,
-                                     const T* __restrict__ attn,
-                                     const T* __restrict__ grad_out,
-                                     float* __restrict__ grad_value,
-                                     float* __restrict__ grad_loc,
-                                     T* __restrict__ grad_attn,
-                                     int64_t total, int S, int M, int D, int Lq,
-                                     int P, MsdaLevels lv) {
-  const int lane = threadIdx.x & 31;
-  const int64_t nqm = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (nqm >= total) return;  // uniform over the warp
-  const int m = (int)(nqm % M);
-  const int n = (int)(nqm / ((int64_t)M * Lq));
+// The lanes of this thread's group of GP (a power of two dividing 32).
+__device__ __forceinline__ unsigned msda_group_mask(int GP) {
+  const unsigned lane = threadIdx.x & 31u;
+  return GP == 32 ? 0xffffffffu : ((1u << GP) - 1u) << (lane & ~(unsigned)(GP - 1));
+}
+
+// G units of V channels a head (V == 4: one unit a thread, G <= GP; V == 1:
+// unit g + c * GP is chunk c of thread g).
+template <typename T, int V>
+__global__ void __launch_bounds__(256)
+msda_backward_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                     const T* __restrict__ attn, const T* __restrict__ grad_out,
+                     float* __restrict__ grad_value, float* __restrict__ grad_loc,
+                     T* __restrict__ grad_attn, int heads, int S, int M, int D,
+                     int Lq, int P, int G, int log2_gp, MsdaLevels lv) {
+  constexpr int CH = V == 1 ? MSDA_BWD_MAX_CHUNKS : 1;
+  // 32-bit index arithmetic: the launcher keeps heads * GP below 2^31
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int nqm = tid >> log2_gp;  // (n * Lq + q) * M + m
+  if (nqm >= heads) return;        // whole groups: GP divides the block
+  const int GP = 1 << log2_gp;
+  const unsigned gmask = msda_group_mask(GP);
+  const int g = tid & (GP - 1);
+  const int m = nqm % M;
+  const int n = nqm / (M * Lq);
   const int J = lv.n * P;
-  const float2* lp = reinterpret_cast<const float2*>(loc) + nqm * J;
-  const T* ap = attn + nqm * J;
+  const float2* lp = reinterpret_cast<const float2*>(loc) + (int64_t)nqm * J;
+  const T* ap = attn + (int64_t)nqm * J;
   const int64_t row = (int64_t)M * D;
   const int64_t base = (int64_t)n * S * row + (int64_t)m * D;
   const T* vb = value + base;
   float* gvb = grad_value + base;
+  const T* gp = grad_out + (int64_t)nqm * D;
 
-  float g[MSDA_BWD_MAX_CHUNKS];
+  // grad_out at this thread's channels: they are read from value and added
+  // into d value
+  float gl[CH][V];
+  bool has[CH];
 #pragma unroll
-  for (int c = 0; c < MSDA_BWD_MAX_CHUNKS; ++c) {
-    const int d = lane + 32 * c;
-    g[c] = d < D ? msda_to_float(grad_out[nqm * D + d]) : 0.f;
+  for (int c = 0; c < CH; ++c) {
+    const int u = g + c * GP;
+    has[c] = u < G;
+    if (has[c]) {
+      msda_load(gp + V * u, gl[c]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) gl[c][i] = 0.f;
+    }
   }
 
+  // the next point's location and weight are loaded one point ahead
+  float2 xy_next = __ldg(lp);
+  float a_next = msda_to_float(ap[0]);
 #pragma unroll
   for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
     if (l >= lv.n) break;
@@ -274,55 +318,107 @@ __global__ void msda_backward_kernel(const T* __restrict__ value,
     const int64_t lstart = (int64_t)lv.start[l];
     for (int p = 0; p < P; ++p) {
       const int j = l * P + p;
-      const float2 xy = __ldg(lp + j);
+      const float2 xy = xy_next;
+      const float a = a_next;
+      if (j + 1 < J) {
+        xy_next = __ldg(lp + j + 1);
+        a_next = msda_to_float(ap[j + 1]);
+      }
       const float x = xy.x * (float)W - 0.5f;
       const float y = xy.y * (float)H - 0.5f;
-      const float a = msda_to_float(ap[j]);
       float s_attn = 0.f, s_dx = 0.f, s_dy = 0.f;
-      if (x > -1.f && x < (float)W && y > -1.f && y < (float)H) {
+      if (x > -1.f && x < (float)W && y > -1.f && y < (float)H) {  // same for the group
         const float x0f = floorf(x);
         const float y0f = floorf(y);
         const int x0 = (int)x0f, y0 = (int)y0f;
         const float fx = x - x0f, fy = y - y0f;
         const bool vx0 = x0 >= 0, vx1 = x0 + 1 < W;
         const bool vy0 = y0 >= 0, vy1 = y0 + 1 < H;
-        const bool v00 = vy0 && vx0, v01 = vy0 && vx1, v10 = vy1 && vx0, v11 = vy1 && vx1;
-        const float w00 = (1.f - fy) * (1.f - fx), w01 = (1.f - fy) * fx;
-        const float w10 = fy * (1.f - fx), w11 = fy * fx;
+        const bool vc[4] = {vy0 && vx0, vy0 && vx1, vy1 && vx0, vy1 && vx1};
+        const float wc[4] = {(1.f - fy) * (1.f - fx), (1.f - fy) * fx, fy * (1.f - fx),
+                             fy * fx};
         const int64_t o00 = (lstart + (int64_t)y0 * W + x0) * row;
-        const int64_t o01 = o00 + row;
-        const int64_t o10 = o00 + (int64_t)W * row;
-        const int64_t o11 = o10 + row;
+        const int64_t oc[4] = {o00, o00 + row, o00 + (int64_t)W * row,
+                               o00 + (int64_t)W * row + row};
+        float dc[4] = {0.f, 0.f, 0.f, 0.f};  // <g, corner> over this thread's channels
 #pragma unroll
-        for (int c = 0; c < MSDA_BWD_MAX_CHUNKS; ++c) {
-          const int d = lane + 32 * c;
-          if (d < D) {
-            const float c00 = v00 ? msda_to_float(vb[o00 + d]) : 0.f;
-            const float c01 = v01 ? msda_to_float(vb[o01 + d]) : 0.f;
-            const float c10 = v10 ? msda_to_float(vb[o10 + d]) : 0.f;
-            const float c11 = v11 ? msda_to_float(vb[o11 + d]) : 0.f;
-            const float gd = g[c];
-            s_attn += gd * (w00 * c00 + w01 * c01 + w10 * c10 + w11 * c11);
-            s_dx += gd * ((1.f - fy) * (c01 - c00) + fy * (c11 - c10));
-            s_dy += gd * ((1.f - fx) * (c10 - c00) + fx * (c11 - c01));
-            const float ag = a * gd;
-            if (v00) atomicAdd(gvb + o00 + d, ag * w00);
-            if (v01) atomicAdd(gvb + o01 + d, ag * w01);
-            if (v10) atomicAdd(gvb + o10 + d, ag * w10);
-            if (v11) atomicAdd(gvb + o11 + d, ag * w11);
+        for (int c = 0; c < CH; ++c) {
+          if (has[c]) {
+            const int d = V * (g + c * GP);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              if (vc[k]) dc[k] += msda_dot<T, V>(vb + oc[k] + d, gl[c]);
+            }
+          }
+        }
+        s_attn = wc[0] * dc[0] + wc[1] * dc[1] + wc[2] * dc[2] + wc[3] * dc[3];
+        s_dx = (1.f - fy) * (dc[1] - dc[0]) + fy * (dc[3] - dc[2]);
+        s_dy = (1.f - fx) * (dc[2] - dc[0]) + fx * (dc[3] - dc[1]);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (!vc[k]) continue;
+          const float s = a * wc[k];
+#pragma unroll
+          for (int c = 0; c < CH; ++c) {
+            if (!has[c]) continue;
+            float* dst = gvb + oc[k] + V * (g + c * GP);
+            if constexpr (V == 4) {
+              atomicAdd(reinterpret_cast<float4*>(dst),
+                        make_float4(s * gl[c][0], s * gl[c][1], s * gl[c][2], s * gl[c][3]));
+            } else {
+              atomicAdd(dst, s * gl[c][0]);
+            }
           }
         }
       }
-      s_attn = msda_warp_sum(s_attn);
-      s_dx = msda_warp_sum(s_dx);
-      s_dy = msda_warp_sum(s_dy);
-      if (lane == 0) {
-        msda_store1<T>(grad_attn + nqm * J + j, s_attn);
-        grad_loc[(nqm * J + j) * 2] = a * (float)W * s_dx;
-        grad_loc[(nqm * J + j) * 2 + 1] = a * (float)H * s_dy;
+      for (int o = GP >> 1; o > 0; o >>= 1) {
+        s_attn += __shfl_xor_sync(gmask, s_attn, o);
+        s_dx += __shfl_xor_sync(gmask, s_dx, o);
+        s_dy += __shfl_xor_sync(gmask, s_dy, o);
+      }
+      if (g == 0) {
+        msda_store1<T>(grad_attn + (int64_t)nqm * J + j, s_attn);
+        reinterpret_cast<float2*>(grad_loc)[(int64_t)nqm * J + j] =
+            make_float2(a * (float)W * s_dx, a * (float)H * s_dy);
       }
     }
   }
+}
+
+template <typename T, int V>
+static int msda_backward_launch(const void* value, const void* loc, const void* attn,
+                                const void* grad_out, void* grad_value, void* grad_loc,
+                                void* grad_attn, int64_t heads, int S, int M, int D,
+                                int Lq, int P, int G, const MsdaLevels& lv,
+                                cudaStream_t st) {
+  int log2_gp = 0;
+  while ((1 << log2_gp) < G && log2_gp < 5) ++log2_gp;
+  const int GP = 1 << log2_gp;
+  if ((G + GP - 1) / GP > (V == 1 ? MSDA_BWD_MAX_CHUNKS : 1)) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  if (heads * GP > 0x7fffffffLL - threads) return (int)cudaErrorInvalidValue;
+  const int blocks = (int)((heads * GP + threads - 1) / threads);
+  msda_backward_kernel<T, V><<<blocks, threads, 0, st>>>(
+      (const T*)value, (const float*)loc, (const T*)attn, (const T*)grad_out,
+      (float*)grad_value, (float*)grad_loc, (T*)grad_attn, (int)heads, S, M, D, Lq, P, G,
+      log2_gp, lv);
+  return (int)cudaGetLastError();
+}
+
+// Groups of 4 channels when D and the addresses allow it, else single channels.
+template <typename T>
+static int msda_backward_dispatch(const void* value, const void* loc, const void* attn,
+                                  const void* grad_out, void* grad_value, void* grad_loc,
+                                  void* grad_attn, int64_t heads, int S, int M, int D,
+                                  int Lq, int P, const MsdaLevels& lv, cudaStream_t st) {
+  const bool vec = D % 4 == 0 && ((uintptr_t)value & 15) == 0 &&
+                   ((uintptr_t)grad_out & 15) == 0 && ((uintptr_t)grad_value & 15) == 0;
+  if (vec) {
+    return msda_backward_launch<T, 4>(value, loc, attn, grad_out, grad_value, grad_loc,
+                                      grad_attn, heads, S, M, D, Lq, P, D / 4, lv, st);
+  }
+  return msda_backward_launch<T, 1>(value, loc, attn, grad_out, grad_value, grad_loc,
+                                    grad_attn, heads, S, M, D, Lq, P, D, lv, st);
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (value, attn, grad_out and grad_attn); loc and
@@ -337,27 +433,22 @@ extern "C" int msda_backward(const void* value, const void* loc, const void* att
   MsdaLevels lv;
   const int rc = msda_levels(&lv, n_levels, shapes_hw, s);
   if (rc != 0) return rc;
-  if (((uintptr_t)loc & 7) != 0) return (int)cudaErrorMisalignedAddress;
-  const int64_t total = (int64_t)n * lq * m;
-  if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;  // 8 warps, one (n, q, m) each
-  const int64_t blocks = (total * 32 + threads - 1) / threads;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)loc & 7) != 0 || ((uintptr_t)grad_loc & 7) != 0) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  const int64_t heads = (int64_t)n * lq * m;
+  if (heads == 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    msda_backward_kernel<float><<<(unsigned int)blocks, threads, 0, st>>>(
-        (const float*)value, (const float*)loc, (const float*)attn,
-        (const float*)grad_out, (float*)grad_value, (float*)grad_loc,
-        (float*)grad_attn, total, s, m, d, lq, n_points, lv);
-  } else if (dtype == 1) {
-    msda_backward_kernel<__nv_bfloat16><<<(unsigned int)blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)value, (const float*)loc, (const __nv_bfloat16*)attn,
-        (const __nv_bfloat16*)grad_out, (float*)grad_value, (float*)grad_loc,
-        (__nv_bfloat16*)grad_attn, total, s, m, d, lq, n_points, lv);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return msda_backward_dispatch<float>(value, loc, attn, grad_out, grad_value, grad_loc,
+                                         grad_attn, heads, s, m, d, lq, n_points, lv, st);
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1) {
+    return msda_backward_dispatch<__nv_bfloat16>(value, loc, attn, grad_out, grad_value,
+                                                 grad_loc, grad_attn, heads, s, m, d, lq,
+                                                 n_points, lv, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------

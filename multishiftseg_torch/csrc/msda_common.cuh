@@ -69,6 +69,12 @@ __device__ __forceinline__ void msda_load(const __nv_bfloat16* p, float (&v)[8])
     v[2 * i + 1] = f.y;
   }
 }
+__device__ __forceinline__ void msda_load(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
+  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
 // the int8 table: 8 channels as one 8-byte load (bf16 output), 4 as one
 // 4-byte load (f32 output)
 __device__ __forceinline__ void msda_load(const int8_t* p, float (&v)[8]) {

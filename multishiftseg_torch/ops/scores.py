@@ -33,11 +33,8 @@ LAUNCHES = {"mask_scores_anomaly": 0, "mask_scores_semantic": 0,
             "mask_scores_semantic_classes": 0, "mask_scores_backward": 0}
 
 MAX_CLASSES = 32  # K accumulators per thread in the kernel
-# the backward's shared memory: the probabilities (rows padded to 4 classes),
-# d probs (Q * K floats), a [Q, 128 + 1] tile of sigmoids and 2 x 128
-# per-pixel words, in one block's 227 KB
-_BWD_TILE = 128
-_MAX_SHARED_BYTES = 232448
+# the backward's pass 2 gives each query one or two of a block's 256 threads
+MAX_BACKWARD_QUERIES = 256
 # forward kernel modes (csrc/mask_scores.cu), each with its launch counter
 _ANOMALY, _SEMANTIC, _SEMANTIC_CLASSES = 0, 1, 2
 _COUNTER = {_ANOMALY: "mask_scores_anomaly", _SEMANTIC: "mask_scores_semantic",
@@ -287,10 +284,9 @@ def _mask_scores_cuda(masks, probs, keep, out_hw, mode):
 def _mask_scores_backward_cuda(masks, probs, grad, out_hw, want_dmask):
     n, q, k, h, w = _check_tail_args(masks, probs)
     H, W = (int(v) for v in out_hw)
-    kp = (k + 3) // 4 * 4  # probability rows padded to float4s
-    if (q * (kp + k + _BWD_TILE + 1) + 2 * _BWD_TILE) * 4 > _MAX_SHARED_BYTES:
-        raise ValueError(f"the backward kernel's shared memory does not hold {q} queries "
-                         f"x {k} classes")
+    if q > MAX_BACKWARD_QUERIES:
+        raise ValueError(f"the backward kernel takes at most {MAX_BACKWARD_QUERIES} "
+                         f"queries, got {q}")
     probs = probs.float().contiguous()
     grad = grad.float().contiguous()
     if tuple(grad.shape) != (n, H, W) or any(
@@ -301,17 +297,18 @@ def _mask_scores_backward_cuda(masks, probs, grad, out_hw, want_dmask):
                          [ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
                          + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     occupancy = _build.function("mask_scores", "mask_scores_backward_blocks_per_sm",
-                                [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)])
+                                [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)])
     dev = masks.device
     per_sm = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        rc = occupancy(q, k, ctypes.byref(per_sm))
+        rc = occupancy(q, k, h, w, H, W, ctypes.byref(per_sm))
     if rc != 0 or per_sm.value < 1:
         raise RuntimeError(f"mask_scores_backward: no block fits on an SM (cudaError {rc})")
     # the images share one wave of blocks, each image's pixels split in chunks
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     chunks = max(1, per_sm.value * sms // max(n, 1))
-    partial = torch.empty((n, chunks, q, k), dtype=torch.float32, device=dev)
+    # each block's sums, per query in up to two halves of its class lists
+    partial = torch.empty((n, chunks, 2, q, k), dtype=torch.float32, device=dev)
     dprobs = torch.empty((n, q, k), dtype=torch.float32, device=dev)
     dmask = tie = share = None
     if want_dmask:

@@ -162,16 +162,39 @@ def _off_kinks(loc, shapes, margin=1e-3):
     return np.where(near, (px + 2 * margin + 0.5) / size, loc).astype(np.float32)
 
 
+def _one_cell_locations(rng, shapes, lq):
+    """Every query's points of a level inside one pixel cell (fractions 0.3 to
+    0.7, off the integer positions), so that they all share its four corners;
+    on an h == 1 or w == 1 level two of them lie outside the map."""
+    loc = np.empty((N, lq, M, len(shapes), P, 2), np.float32)
+    for lid, (h, w) in enumerate(shapes):
+        for axis, size in ((0, w), (1, h)):
+            px = size // 2 + 0.3 + 0.4 * rng.rand(N, lq, M, P)
+            loc[:, :, :, lid, :, axis] = (px + 0.5) / size
+    return loc
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 6, 40])  # one channel a lane; partial lanes; 2 chunks
+@pytest.mark.parametrize("points", ["random", "one_cell"])
+@pytest.mark.parametrize("d", [32, 6, 40])  # 4-channel groups; single channels; 10 groups of 16
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("levels", sorted(LEVEL_SETS))
-def test_ms_deform_attn_backward_kernel_matches_plain(cuda, dtype, levels, d):
+def test_ms_deform_attn_backward_kernel_matches_plain(cuda, dtype, levels, d, points):
+    """``one_cell``: 512 queries put all their points of a level in one pixel
+    cell, so each head's d value row at those corners takes 1536 atomic adds
+    from many thread groups at once."""
     rng = np.random.RandomState(2)
     shapes = LEVEL_SETS[levels]
-    value, loc, attn = _msda_inputs(rng, shapes, d)
-    loc = _off_kinks(loc, shapes)
-    g = rng.randn(N, LQ, M * d).astype(np.float32)
+    if points == "random":
+        lq = LQ
+        value, loc, attn = _msda_inputs(rng, shapes, d)
+        loc = _off_kinks(loc, shapes)
+    else:
+        lq = 512
+        value = rng.randn(N, sum(h * w for h, w in shapes), M, d).astype(np.float32)
+        loc = _one_cell_locations(rng, shapes, lq)
+        attn = rng.rand(N, lq, M, len(shapes), P).astype(np.float32)
+    g = rng.randn(N, lq, M * d).astype(np.float32)
     v = torch.from_numpy(value).to(cuda, dtype)
     lo = torch.from_numpy(loc).to(cuda)
     a = torch.from_numpy(attn).to(cuda, dtype)
@@ -381,13 +404,17 @@ def test_tiny_deeplab_step_on_the_card_matches_cpu(cuda):
         assert err <= 1e-3, (name, err)
 
 
-def _tail_case(rng, n=2, q=6, k=19, hw=(16, 20), out_hw=(64, 80), tie=False):
+def _tail_case(rng, n=2, q=6, k=19, hw=(16, 20), out_hw=(64, 80), tie=False, ties=2,
+               crop=None):
     logits = rng.randn(n, q, k + 1).astype(np.float32)
-    if tie:  # classes 0 and 1 equal and leading: their sums tie where they lead
-        logits[..., 1] = logits[..., 0] = 3.0 + rng.rand(n, q).astype(np.float32)
+    if tie:  # the first `ties` classes equal and leading: their sums tie where they lead
+        logits[..., :ties] = (3.0 + rng.rand(n, q).astype(np.float32))[..., None]
     probs = torch.softmax(torch.from_numpy(logits), -1)[..., :-1].contiguous()
     masks = torch.from_numpy((3 * rng.randn(n, q, *hw)).astype(np.float32))
     g = torch.from_numpy(rng.randn(n, *out_hw).astype(np.float32))
+    if crop is not None:  # no gradient outside the crop: whole tiles without one
+        g[:, crop[0]:] = 0
+        g[:, :, crop[1]:] = 0
     if not tie:
         # zero the gradient where the top two class sums lie within f32 rounding
         # of each other: there the sum order decides which class gets it
@@ -399,32 +426,42 @@ def _tail_case(rng, n=2, q=6, k=19, hw=(16, 20), out_hw=(64, 80), tie=False):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dmask", [False, True])
-@pytest.mark.parametrize("case", ["k19", "k25_odd_shapes", "tie"])
+@pytest.mark.parametrize("case", ["k19", "k25_odd_shapes", "tie", "three_way_tie",
+                                  "ragged_tiles_crop", "downsample_unstaged"])
 def test_mask_scores_backward_kernel_matches_plain(cuda, case, dmask):
     """d probs (and d masks) of the anomaly tail: kernel against autograd of the
     plain version. Tolerance: 1e-5 of each entry's sum of absolute terms (the
     same backward with |g|), f32 sums in another order. The kernel's sums are
-    in a fixed order, so two runs agree bit for bit; tied classes get equal
-    shares."""
+    in a fixed order, so two runs agree bit for bit, with or without d masks;
+    tied classes get equal shares. ``three_way_tie`` ties three classes;
+    ``ragged_tiles_crop`` has 75 x 100 outputs (not a multiple of the 8 x 32
+    tile) and no gradient from row 60 or column 90 on (tiles skipped whole),
+    100 queries from staged windows; ``downsample_unstaged`` reads its taps
+    from global memory (its window does not fit in shared memory)."""
     rng = np.random.RandomState(11)
     kw = {"k19": {}, "k25_odd_shapes": dict(k=25, q=7, hw=(13, 9), out_hw=(37, 45)),
-          "tie": dict(tie=True)}[case]
+          "tie": dict(tie=True), "three_way_tie": dict(tie=True, ties=3, out_hw=(75, 100)),
+          "ragged_tiles_crop": dict(q=100, hw=(19, 25), out_hw=(75, 100), crop=(60, 90)),
+          "downsample_unstaged": dict(q=16, hw=(64, 80), out_hw=(16, 20))}[case]
     masks, probs, g = (t.to(cuda) for t in _tail_case(rng, **kw))
     out_hw = tuple(g.shape[1:])
     dp, dm = scores.mask_scores_backward(masks, probs, g, out_hw, dmask=dmask)
     dp2, dm2 = scores.mask_scores_backward(masks, probs, g, out_hw, dmask=dmask)
+    dp_other, _ = scores.mask_scores_backward(masks, probs, g, out_hw, dmask=not dmask)
     want_p, want_m = scores.mask_scores_backward_plain(masks, probs, g, out_hw, dmask=dmask)
     abs_p, abs_m = scores.mask_scores_backward_plain(masks, probs, g.abs(), out_hw, dmask=dmask)
     torch.cuda.synchronize()
-    assert torch.equal(dp, dp2)
+    assert torch.equal(dp, dp2) and torch.equal(dp, dp_other)
     assert bool(((dp - want_p).abs() <= 1e-5 * abs_p.abs() + 1e-30).all())
+    assert float(abs_p.abs().max()) > 0
     if dmask:
         assert torch.equal(dm, dm2)
         assert bool(((dm - want_m).abs() <= 1e-5 * abs_m.abs() + 1e-30).all())
     else:
         assert dm is None
-    if case == "tie":
-        assert torch.equal(dp[..., 0], dp[..., 1]) and float(dp[..., 0].abs().max()) > 0
+    ties = kw.get("ties", 2) if kw.get("tie") else 0
+    for k in range(1, ties):
+        assert torch.equal(dp[..., 0], dp[..., k]) and float(dp[..., 0].abs().max()) > 0
 
 
 @pytest.mark.cuda

@@ -231,6 +231,35 @@ def test_ms_deform_attn_backward_matches_jax_vjp(rng, levels):
     assert (loc < 0).any() and (loc > 1).any()
 
 
+@pytest.mark.parametrize("levels", sorted(LEVEL_SETS))
+def test_ms_deform_attn_backward_many_points_on_one_pixel_matches_jax_vjp(rng, levels):
+    """The oracle of the card's many-points-on-one-corner test: every query's
+    points of a level in one pixel cell (fractions 0.3 to 0.7, off the integer
+    positions), so each corner's d value sums all of them; the plain version
+    against ``jax.vjp`` of the JAX op. f32 sums in another order."""
+    shapes = LEVEL_SETS[levels]
+    lq = 32
+    value = rng.randn(N, sum(h * w for h, w in shapes), M, D).astype(np.float32)
+    loc = np.empty((N, lq, M, len(shapes), P, 2), np.float32)
+    for lid, (h, w) in enumerate(shapes):
+        for axis, size in ((0, w), (1, h)):
+            px = size // 2 + 0.3 + 0.4 * rng.rand(N, lq, M, P)
+            loc[:, :, :, lid, :, axis] = (px + 0.5) / size
+    attn = rng.rand(N, lq, M, len(shapes), P).astype(np.float32)
+    g = rng.randn(N, lq, M * D).astype(np.float32)
+    _, vjp = jax.vjp(lambda v, lo, a: jax_msda.ms_deform_attn_core(v, shapes, lo, a),
+                     jnp.asarray(value), jnp.asarray(loc), jnp.asarray(attn))
+    refs = vjp(jnp.asarray(g))
+    ours = msda.ms_deform_attn_backward(torch.from_numpy(value), shapes, torch.from_numpy(loc),
+                                        torch.from_numpy(attn), torch.from_numpy(g))
+    for got, ref in zip(ours, refs):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    # the points of a level touch one cell: at most 4 rows a head and level get d value
+    dv = ours[0].numpy().reshape(N, -1, M, D)
+    assert ((np.abs(dv).sum(-1) > 0).sum(1) <= 4 * len(shapes)).all()
+
+
 def test_ms_deform_attn_module_gradients_reach_the_projections(rng):
     """On the CPU the core is the differentiable plain version; every projection
     of the module gets a gradient."""
