@@ -107,9 +107,14 @@ weights, T = J against ``nearest``). A kernel's ``launches``
 are those of the main paths: ``serve``, ``deeplab_serve``, ``validate`` and
 ``evaluate`` for the eval kernels, the timed steps of ``train``,
 ``deeplab_train`` and ``stage1_train`` for the training kernels (the dilated
-conv's and the bilinear deformable forward's rows split them: eval paths,
-training steps), each path run
+conv's, the bilinear deformable forward's and the anomaly tail's rows split
+them: eval paths, training steps), each path run
 with the counts set to 0 just before it and read just after.
+
+The rows of the score tails' forward and of the bilinear deformable forward
+give ``ms`` as the median of 4 block medians of 25 calls issued back to back
+(each call's device time, see ``spread_ms``), and the lowest and highest of
+them as ``ms_spread``; the other rows time single synchronised calls.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device": ...}``
@@ -199,6 +204,29 @@ def median_ms(torch, fn, reps):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def spread_ms(torch, fn, blocks=4, reps=25):
+    """(median, [lowest, highest]) of ``blocks`` block medians of ``reps``
+    calls of ``fn`` each: the spread tells a small change from noise within
+    one run. A block issues its calls back to back with an event between
+    consecutive ones and no host sync, so the card runs them in a row and each
+    interval is one call's device time (the host's launch overhead, which a
+    short kernel's single timed call would include, overlaps the previous
+    call)."""
+    fn()
+    torch.cuda.synchronize()
+    meds = []
+    for _ in range(blocks):
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        events[0].record()
+        for i in range(reps):
+            fn()
+            events[i + 1].record()
+        events[-1].synchronize()
+        meds.append(statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:])))
+    meds.sort()
+    return statistics.median(meds), [meds[0], meds[-1]]
 
 
 def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
@@ -330,9 +358,14 @@ def phase_kernels(torch):
             # the eval paths; the training steps' launches are the
             # training-shape row's
             "paths": ("serve", "validate", "evaluate"), "max_abs_err": err,
-            "ms": median_ms(torch, run, 50),
             "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+        if mode == "bilinear":  # redesigned: the median with its spread
+            row = rows[f"ms_deform_attn_{mode}"]
+            row["ms"], row["ms_spread"] = spread_ms(torch, run)
+            row["staged_levels"] = msda.staged_levels(LEVELS, HEAD_DIM, value.dtype)
+        else:
+            rows[f"ms_deform_attn_{mode}"]["ms"] = median_ms(torch, run, 50)
         # f32 edge cases: a degenerate h == 1 / w == 1 pyramid (a 32-px side)
         # with points outside the map, and 30 channels a head (no 16-byte
         # channel groups: the kernel's one-channel path); f32 sums in another order
@@ -386,13 +419,16 @@ def phase_kernels(torch):
         ops = H * W * (QUERIES * per_q + (CLASSES + 1 if head == "anomaly" else QUERIES))
         in_bytes = nbytes(masks) + QUERIES * CLASSES * 4 + (QUERIES * 4 if head == "semantic" else 0)
         b_ms, b_by = bound(in_bytes + nbytes(out), ops)
+        ms, spread = spread_ms(torch, run)
         rows[f"mask_scores_{head}"] = {
             "name": f"mask_scores_{head}", "route": "cuda",
             "source": "multishiftseg_torch/csrc/mask_scores.cu",
             "replaces": f"multishiftseg_tpu/ops/{line}",
-            "max_abs_err": err, "ms": median_ms(torch, run, 20),
+            "max_abs_err": err, "ms": ms, "ms_spread": spread,
             "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
+        if head == "anomaly":  # the eval paths; stage 1's launches are its own row's
+            rows["mask_scores_anomaly"]["paths"] = ("serve", "validate", "evaluate")
         del out
     approx_kernel_rows(torch, dev, rows, check, checks)
     train_kernel_rows(torch, dev, rows, check, checks)
@@ -624,9 +660,11 @@ def train_kernel_rows(torch, dev, rows, check, checks):
             "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
             "replaces": "multishiftseg_tpu/ops/ms_deform_attn.py:93",
             "counter": "ms_deform_attn_bilinear", "paths": ("train", "stage1_train"),
-            "max_abs_err": err, "ms": median_ms(torch, run, 50),
-            "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "staged_levels": msda.staged_levels(TRAIN_LEVELS, HEAD_DIM, value.dtype)}
+        row = rows["ms_deform_attn_bilinear_train_shapes"]
+        row["ms"], row["ms_spread"] = spread_ms(torch, run)
     del value, loc, attn, g, out
 
     # batched assignment: 16 problems of 19 targets x 100 queries, about half
@@ -984,10 +1022,28 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
     g = np.random.RandomState(SEED + 33)
     fmasks = torch.from_numpy(3 * g.randn(b, QUERIES, *S1_MASK_HW).astype(np.float32)).to(dev)
     cls = torch.from_numpy(g.randn(b, QUERIES, CLASSES + 1).astype(np.float32)).to(dev)
+    # per output pixel and query: bilinear taps 7, sigmoid 4, the K sums 2K
+    ops = b * TRAIN_HW[0] * TRAIN_HW[1] * QUERIES * (11 + 2 * CLASSES)
     run_a = lambda: scores.anomaly_score_upsampled(cls, fmasks, TRAIN_HW)
     plain_a = lambda: scores.anomaly_score_upsampled_plain(cls, fmasks, TRAIN_HW)
-    check("mask_scores_anomaly_stage1_shapes", run_a(), plain_a(), 1e-5, 1e-5)
-    checks[-1].update(ms=median_ms(torch, run_a, 20))
+    with torch.no_grad():
+        out = run_a()
+        err = check("mask_scores_anomaly_stage1_shapes", out, plain_a(), 1e-5, 1e-5)
+        # and the max over K of each pixel
+        b_ms, b_by = bound(nbytes(fmasks) + b * QUERIES * CLASSES * 4 + nbytes(out),
+                           ops + b * TRAIN_HW[0] * TRAIN_HW[1] * (CLASSES + 1))
+        ms, spread = spread_ms(torch, run_a)
+        rows["mask_scores_anomaly_stage1_shapes"] = {
+            "name": "mask_scores_anomaly_stage1_shapes", "route": "cuda",
+            "source": "multishiftseg_torch/csrc/mask_scores.cu",
+            "replaces": "multishiftseg_tpu/ops/scores.py:39",
+            "counter": "mask_scores_anomaly", "paths": ("stage1_train",),
+            "max_abs_err": err, "ms": ms, "ms_spread": spread,
+            "plain_ms": median_ms(torch, plain_a, 3), "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes the fused tail (the plain version
+            # is an interpolate, a sigmoid, an einsum and an amax)
+            "library_ms": None}
+        del out
     run_c = lambda: scores.semantic_inference_upsampled(cls, fmasks, TRAIN_HW, CLASSES,
                                                         _classes_only=True)
     plain_c = lambda: scores.semantic_inference_upsampled_plain(cls, fmasks, TRAIN_HW, CLASSES,
@@ -995,14 +1051,13 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
     out = run_c()
     err = check("mask_scores_semantic_classes_stage1_shapes", out, plain_c(), 1e-5, 1e-5)
     checks[-1]["shape"] = list(out.shape)
-    # per output pixel and query: bilinear taps 7, sigmoid 4, the K sums 2K
-    ops = b * TRAIN_HW[0] * TRAIN_HW[1] * QUERIES * (11 + 2 * CLASSES)
     b_ms, b_by = bound(nbytes(fmasks) + b * QUERIES * CLASSES * 4 + nbytes(out), ops)
+    ms, spread = spread_ms(torch, run_c)
     rows["mask_scores_semantic_classes"] = {
         "name": "mask_scores_semantic_classes", "route": "cuda",
         "source": "multishiftseg_torch/csrc/mask_scores.cu",
         "replaces": "multishiftseg_tpu/ops/scores.py:25",
-        "max_abs_err": err, "ms": median_ms(torch, run_c, 20),
+        "max_abs_err": err, "ms": ms, "ms_spread": spread,
         "plain_ms": median_ms(torch, plain_c, 3), "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}
     del fmasks, cls, out
@@ -1322,9 +1377,12 @@ def profile_request(torch, fwd, image, focus=None):
     return res
 
 
-# the M2F steps' profiles: the device time of the deformable backward (stage 2)
-# and of the anomaly tail's d-probs backward (stage 1), by kernel name
-STEP_FOCUS = ("msda_backward_kernel", "mask_scores_bwd_dp_kernel")
+# device time by kernel name: the forward score tails and the bilinear
+# deformable forward (the M2F request and steps); in the M2F steps' profiles
+# also the deformable backward (stage 2) and the anomaly tail's d-probs
+# backward (stage 1)
+FWD_FOCUS = ("mask_scores_fwd_kernel", "msda_bilinear_fwd_kernel")
+STEP_FOCUS = ("msda_backward_kernel", "mask_scores_bwd_dp_kernel") + FWD_FOCUS
 
 
 # the serve phase's settings: (sample_mode, score_lowres, score_topq), and the
@@ -1429,7 +1487,7 @@ def phase_serve(torch, requests=3):
             "finite": finite, "shapes_ok": shapes_ok,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "auroc_auprc_fpr95_random_weights": metrics, "ok": mode_ok,
-            "profiled_request": profile_request(torch, fwd, images[0])}
+            "profiled_request": profile_request(torch, fwd, images[0], focus=FWD_FOCUS)}
     res["ok"] = ok
     return res, totals
 
@@ -2419,7 +2477,10 @@ def main():
     ok = all(p["ok"] for p in phases) and all(r["launches"] > 0 for r in rows.values())
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
-    emit({"kernels": [{k: r[k] for k in key_order} for r in rows.values()]})
+    # the redesigned kernels' rows also carry their spread (and the bilinear
+    # forward's, the levels it staged in shared memory)
+    emit({"kernels": [{k: r[k] for k in key_order + ("ms_spread", "staged_levels") if k in r}
+                      for r in rows.values()]})
     print(build["nvidia_smi"], flush=True)
     if not ok:
         failed = [p["phase"] for p in phases if not p["ok"]]

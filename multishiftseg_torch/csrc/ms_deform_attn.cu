@@ -16,7 +16,8 @@
 //   attn  [N, Lq, M, L, P]     same type as value
 //   out   [N, Lq, M * D]       same type as value
 //
-// Design: one thread per (n, q, m) and 16-byte group of channels (8 bf16 or
+// Design of msda_forward_kernel (nearest, and the int8 table's bilinear
+// forward): one thread per (n, q, m) and 16-byte group of channels (8 bf16 or
 // 4 f32; 1 channel when D or an address does not allow it). The thread computes
 // each point's corner weights once for its whole group and reads each corner as
 // one 16-byte vector from value[N, S, M, D]; the four threads of one (n, q, m)
@@ -24,6 +25,8 @@
 // a clamped address with weight 0, so the four loads of a point issue together.
 // The level loop is unrolled over MSDA_MAX_LEVELS so the level table stays in
 // registers. Sums run in f32; the output is written once in the value's type.
+// The exact bilinear mode has a kernel of its own, head-major with the coarse
+// levels staged in shared memory (msda_bilinear_fwd_kernel, below).
 //
 // Bound at the main-path shapes (1024x2048 image: S = Lq = 43008, M = 8, D = 32,
 // L = 3, P = 4, bf16): the function must read value 22 MB + loc 33 MB + attn
@@ -35,6 +38,7 @@
 
 #include <type_traits>
 
+#include "launch_shape.cuh"
 #include "msda_common.cuh"
 
 // a corner of the int8 table: the channel's scale folded into the corner weight
@@ -129,60 +133,349 @@ __global__ void msda_forward_kernel(const TV* __restrict__ value,
   msda_store(out + nqm * D + d0, acc);
 }
 
-template <typename T, int V>
-static void msda_launch(const void* value, const void* loc, const void* attn,
-                        void* out, int64_t total, int S, int M, int D, int Lq,
-                        int P, const MsdaLevels& lv, int nearest,
-                        cudaStream_t stream) {
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
-  if (nearest) {
-    msda_forward_kernel<T, T, V, true><<<blocks, threads, 0, stream>>>(
-        (const T*)value, nullptr, (const float*)loc, (const T*)attn, (T*)out, total,
-        S, M, D, Lq, P, lv);
+// ---------------------------------------------------------------------------
+// The bilinear forward (msda_forward with nearest = 0): head-major blocks that
+// stage the coarse levels of their head in shared memory.
+//
+// Its HBM bound (0.096 ms at the training shapes, 0.026 at eval) is far from
+// what limits it. Every corner of every point is one 16-byte read a thread
+// (64 B a head at D = 32 in bf16) from value, which fits in the 50 MB L2: at
+// the training shapes (16 images at 704x704, levels 22^2, 44^2, 88^2: 16 x
+// 10,164 queries x 8 heads x 12 points x 4 corners x 64 B) some 4.0 GB of L2
+// reads, 8.0 TB/s at the 0.50 ms of a kernel with one thread per (query,
+// head, 16-byte group), whose 256-thread blocks span 8 queries x 8 heads; at
+// the eval shapes about 1.06 GB, 7.2 TB/s at 0.147 ms (H100, PERF.md, PR 8).
+// Staging the coarse levels takes most of those reads off the L2.
+// Design:
+//   * A block of 1024 threads serves one (image, head) and a chunk of that
+//     head's queries, so its threads share the head's value planes. A query
+//     keeps its 16-byte channel groups (GP threads, 4 at D = 32 in bf16, 8 in
+//     f32).
+//   * Before the query loop the block copies the head's rows of the first
+//     `staged` levels (the coarsest: the model orders them so) to shared
+//     memory with 16-byte cp.async pieces, 64 B a row at a 512 B stride:
+//     levels 0 and 1 at the training shapes (151 KB), level 0 at the eval
+//     shapes (128 KB); the caller picks the count (ops/ms_deform_attn.py::
+//     staged_levels). Their corners are then plain shared loads (no atomics);
+//     the other levels' corners come from global memory through L1, as before.
+//     This removes 2/3 of the corner reads from L2 at the training shapes and
+//     1/3 at the eval shapes.
+//   * The grid is one wave of blocks (one an SM when staging fills shared
+//     memory), run image by image: its blocks serve the (image, head) pairs of
+//     as many images as keep their value tables within half the L2 (4 of the
+//     16 at training, 4 chunks a pair; 1 at eval, 16 chunks), so the unstaged
+//     level's corners stay in L2; the copies (blocks x staged bytes) stay under
+//     5% of the corner reads staging saves. Without staging, one pass of
+//     queries a block.
+//   * Each thread of a group loads one point's location and weight, a query's
+//     rounds of GP points at once; shuffles over the whole warp (every thread
+//     takes the same passes) hand each point to its group. Offsets are 32-bit
+//     (one image's table holds fewer than 2^31 elements), and a bf16 channel
+//     becomes an f32 by a shift or a mask.
+//   * Out-of-map corners are read at a clamped address with weight 0
+//     (grid_sample's zeros), and the sums run in f32 in the old order (point
+//     by point, corners 00, 01, 10, 11): a staged level changes where a corner
+//     is read from, not what is added.
+// On the H100 (PERF.md, PR 8) staging with one 512-thread block an SM ran
+// slower than no staging; 32 warps a block, then the image-by-image order
+// (the concurrent blocks' random points otherwise spread over all 16 images'
+// tables, more than the L2 holds) made it the faster of the two. What is
+// left is issue and latency: a group's four threads repeat each point's
+// weight arithmetic, and reading locations and weights is a large share.
+
+// The lanes of this thread's group of GP (a power of two dividing 32).
+__device__ __forceinline__ unsigned msda_group_mask(int GP) {
+  const unsigned lane = threadIdx.x & 31u;
+  return GP == 32 ? 0xffffffffu : ((1u << GP) - 1u) << (lane & ~(unsigned)(GP - 1));
+}
+
+#define MSDA_FWD_THREADS 1024
+#define MSDA_FWD_MAX_CHUNKS 4      // V == 1: up to 4 channels a thread (D <= 128)
+#define MSDA_FWD_ROUNDS 4          // rounds of a query's points loaded at once
+#define MSDA_MAX_STAGED 232448     // staged bytes a block may use (an H100's 227 KB)
+
+__device__ __forceinline__ void msda_cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// V channels at p into f32 registers: one 16-byte load of 8 bf16 (each made
+// an f32 by a shift or a mask) or 4 f32, or one channel; from shared memory
+// (SHARED) or through the read-only path
+template <bool SHARED, typename TL>
+__device__ __forceinline__ TL msda_get(const TL* p) {
+  if constexpr (SHARED) {
+    return *p;
   } else {
-    msda_forward_kernel<T, T, V, false><<<blocks, threads, 0, stream>>>(
-        (const T*)value, nullptr, (const float*)loc, (const T*)attn, (T*)out, total,
-        S, M, D, Lq, P, lv);
+    return __ldg(p);
+  }
+}
+template <bool SHARED, typename T>
+__device__ __forceinline__ void msda_read(const T* p, float (&v)[1]) {
+  v[0] = msda_to_float(*p);
+}
+template <bool SHARED>
+__device__ __forceinline__ void msda_read(const float* p, float (&v)[4]) {
+  const float4 r = msda_get<SHARED>(reinterpret_cast<const float4*>(p));
+  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
+}
+template <bool SHARED>
+__device__ __forceinline__ void msda_read(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 r = msda_get<SHARED>(reinterpret_cast<const uint4*>(p));
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
 
-// Channel groups of VEC when D and the addresses allow it, else single channels.
+// acc += w * the V channels at p
+template <typename T, int V, bool SHARED>
+__device__ __forceinline__ void msda_fma_from(const T* p, float w, float (&acc)[V]) {
+  float v[V];
+  msda_read<SHARED>(p, v);
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = fmaf(w, v[i], acc[i]);
+}
+
+// One point (nx, ny) with weight a on a W x H level whose rows lie `stride`
+// elements apart from vl: the thread's channel units g, g + GP, ... below G.
+// Offsets in 32 bits: the host keeps one image's table below 2^31 elements.
+template <typename T, int V, int CH, bool SHARED>
+__device__ __forceinline__ void msda_bilinear_point(const T* vl, int stride, int H, int W,
+                                                    float nx, float ny, float a, int g,
+                                                    int GP, int G, float (&acc)[CH][V]) {
+  const float x = nx * (float)W - 0.5f;
+  const float y = ny * (float)H - 0.5f;
+  // all four corners lie outside unless -1 < x < W and -1 < y < H; the test
+  // also keeps the integer casts in range
+  if (!(x > -1.f && x < (float)W && y > -1.f && y < (float)H)) return;
+  const float x0f = floorf(x);
+  const float y0f = floorf(y);
+  const int x0 = (int)x0f, y0 = (int)y0f;
+  const float fx = x - x0f, fy = y - y0f;
+  const float wx0 = x0 >= 0 ? 1.f - fx : 0.f;
+  const float wx1 = x0 + 1 < W ? fx : 0.f;
+  const float wy0 = y0 >= 0 ? a * (1.f - fy) : 0.f;
+  const float wy1 = y0 + 1 < H ? a * fy : 0.f;
+  const int cx0 = max(x0, 0) * stride, cx1 = min(x0 + 1, W - 1) * stride;
+  const int ry0 = max(y0, 0) * W * stride, ry1 = min(y0 + 1, H - 1) * W * stride;
+#pragma unroll
+  for (int c = 0; c < CH; ++c) {
+    const int u = g + c * GP;
+    if (u < G) {
+      const T* p = vl + V * u;
+      msda_fma_from<T, V, SHARED>(p + ry0 + cx0, wy0 * wx0, acc[c]);
+      msda_fma_from<T, V, SHARED>(p + ry0 + cx1, wy0 * wx1, acc[c]);
+      msda_fma_from<T, V, SHARED>(p + ry1 + cx0, wy1 * wx0, acc[c]);
+      msda_fma_from<T, V, SHARED>(p + ry1 + cx1, wy1 * wx1, acc[c]);
+    }
+  }
+}
+
+// gridDim = (chunks, M, N); block (chunk, m, n) serves head m of image n for
+// queries [chunk * q_chunk, (chunk + 1) * q_chunk). G units of V channels a
+// head, GP = 2^log2_gp threads a query (V > 1: one unit a thread, G <= GP;
+// V == 1: unit g + c * GP is chunk c of thread g). staged_rows: the rows of
+// the first `staged` levels, staged in shared memory.
+template <typename T, int V>
+__global__ void __launch_bounds__(MSDA_FWD_THREADS)
+msda_bilinear_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                         const T* __restrict__ attn, T* __restrict__ out, int S, int M,
+                         int D, int Lq, int P, int G, int log2_gp, int q_chunk, int staged,
+                         int staged_rows, MsdaLevels lv) {
+  constexpr int CH = V == 1 ? MSDA_FWD_MAX_CHUNKS : 1;
+  extern __shared__ uint4 msda_smem[];
+  T* sv = reinterpret_cast<T*>(msda_smem);  // [staged_rows][D]
+  const int m = blockIdx.y, n = blockIdx.z;
+  const int64_t row = (int64_t)M * D;  // stride of one s in value
+  const T* vb = value + (int64_t)n * S * row + (int64_t)m * D;
+  if (staged_rows > 0) {  // only with 16-byte rows (the host checks)
+    constexpr int E = 16 / sizeof(T);
+    const int pieces = D / E;
+    for (int i = threadIdx.x; i < staged_rows * pieces; i += MSDA_FWD_THREADS) {
+      const int s = i / pieces, k = i - s * pieces;
+      msda_cp_async16(sv + (int64_t)s * D + k * E, vb + s * row + k * E);
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int GP = 1 << log2_gp;
+  const int g = threadIdx.x & (GP - 1);
+  const int J = lv.n * P;
+  const int q_begin = (int)blockIdx.x * q_chunk;
+  const int q_end = min(Lq, q_begin + q_chunk);
+  // every thread takes the same passes, so shuffles span whole warps; a query
+  // past the chunk's end repeats the last one and writes nothing
+  for (int qb = q_begin; qb < q_end; qb += MSDA_FWD_THREADS >> log2_gp) {
+    const int q = qb + (int)(threadIdx.x >> log2_gp);
+    const int64_t nqm = ((int64_t)n * Lq + min(q, q_end - 1)) * M + m;
+    const float2* lp = reinterpret_cast<const float2*>(loc) + nqm * J;
+    const T* ap = attn + nqm * J;
+    float acc[CH][V];
+#pragma unroll
+    for (int c = 0; c < CH; ++c) {
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[c][i] = 0.f;
+    }
+    // the group's points, one a thread per round of GP; the rounds of a
+    // batch (MSDA_FWD_ROUNDS of them) are loaded at once, round 0 is in use
+    float2 xy[MSDA_FWD_ROUNDS];
+    float a[MSDA_FWD_ROUNDS];
+#pragma unroll
+    for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
+      if (l >= lv.n) break;
+      const int H = lv.h[l];
+      const int W = lv.w[l];
+      for (int p = 0; p < P; ++p) {
+        const int j = l * P + p;
+        const int t = j & (GP - 1);
+        if (t == 0) {
+          if ((j >> log2_gp) % MSDA_FWD_ROUNDS == 0) {
+#pragma unroll
+            for (int k = 0; k < MSDA_FWD_ROUNDS; ++k) {
+              const int jk = j + k * GP + g;
+              xy[k] = jk < J ? __ldg(lp + jk) : make_float2(0.f, 0.f);
+              a[k] = jk < J ? msda_to_float(ap[jk]) : 0.f;
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k + 1 < MSDA_FWD_ROUNDS; ++k) {
+              xy[k] = xy[k + 1];
+              a[k] = a[k + 1];
+            }
+          }
+        }
+        const float nx = __shfl_sync(0xffffffffu, xy[0].x, t, GP);
+        const float ny = __shfl_sync(0xffffffffu, xy[0].y, t, GP);
+        const float w = __shfl_sync(0xffffffffu, a[0], t, GP);
+        if (l < staged) {
+          msda_bilinear_point<T, V, CH, true>(sv + lv.start[l] * D, D, H, W, nx, ny, w, g, GP,
+                                              G, acc);
+        } else {
+          msda_bilinear_point<T, V, CH, false>(vb + (int64_t)lv.start[l] * row, (int)row, H,
+                                               W, nx, ny, w, g, GP, G, acc);
+        }
+      }
+    }
+    if (q < q_end) {
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int u = g + c * GP;
+        if (u < G) msda_store(out + nqm * D + V * u, acc[c]);
+      }
+    }
+  }
+}
+
+template <typename T, int V>
+static int msda_bilinear_launch(const void* value, const void* loc, const void* attn,
+                                void* out, int N, int S, int M, int D, int Lq, int P,
+                                int staged, const MsdaLevels& lv, cudaStream_t st) {
+  const int G = D / V;
+  int log2_gp = 0;
+  while ((1 << log2_gp) < G && log2_gp < 5) ++log2_gp;
+  const int GP = 1 << log2_gp;
+  if ((G + GP - 1) / GP > (V == 1 ? MSDA_FWD_MAX_CHUNKS : 1)) return (int)cudaErrorInvalidValue;
+  if ((int64_t)S * M * D > 0x7fffffff) return (int)cudaErrorInvalidValue;  // 32-bit offsets
+  int staged_rows = 0;
+  for (int l = 0; l < staged; ++l) staged_rows += lv.h[l] * lv.w[l];
+  const size_t smem = (size_t)staged_rows * D * sizeof(T);
+  if (smem > MSDA_MAX_STAGED) return (int)cudaErrorInvalidValue;
+  const auto kern = msda_bilinear_fwd_kernel<T, V>;
+  LaunchShape ls;
+  int rc = launch_shape((const void*)kern, MSDA_FWD_THREADS, smem, &ls);
+  if (rc != 0) return rc;
+  if (ls.per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t per_pass = MSDA_FWD_THREADS >> log2_gp;  // queries a block serves at once
+  const int64_t passes = (Lq + per_pass - 1) / per_pass;
+  int64_t chunks = passes;  // without staging: one pass of queries a block
+  if (staged > 0) {
+    // one wave of blocks shared by the (image, head) pairs of as many images
+    // as keep their value tables within half the L2 (blocks run image by
+    // image) ...
+    const double table = (double)S * M * D * sizeof(T);
+    int64_t images = (int64_t)(0.5 * ls.l2 / table);
+    images = images < 1 ? 1 : (images > N ? N : images);
+    chunks = (int64_t)ls.per_sm * ls.sms / (images * M);
+    // ... whose copies (staged bytes a block) stay under 5% of the corner
+    // reads that staging saves (4 corners of each staged point)
+    const double saved = (double)Lq * P * staged * 4 * D * sizeof(T);
+    const int64_t cap = (int64_t)(0.05 * saved / (double)smem);
+    chunks = chunks < cap ? chunks : cap;
+    chunks = chunks < 1 ? 1 : (chunks > passes ? passes : chunks);
+  }
+  const int64_t q_chunk = (passes + chunks - 1) / chunks * per_pass;
+  chunks = (Lq + q_chunk - 1) / q_chunk;
+  if (chunks > 0x7fffffff || M > 65535 || N > 65535) return (int)cudaErrorInvalidValue;
+  kern<<<dim3((unsigned int)chunks, M, N), MSDA_FWD_THREADS, smem, st>>>(
+      (const T*)value, (const float*)loc, (const T*)attn, (T*)out, S, M, D, Lq, P, G, log2_gp,
+      (int)q_chunk, staged, staged_rows, lv);
+  return (int)cudaGetLastError();
+}
+
+// Channel groups of VEC when D and the addresses allow it, else single
+// channels; staging needs the groups.
 template <typename T, int VEC>
 static int msda_dispatch(const void* value, const void* loc, const void* attn,
                          void* out, int n, int s, int m, int d, int lq,
-                         int n_points, const MsdaLevels& lv, int nearest,
+                         int n_points, const MsdaLevels& lv, int nearest, int staged,
                          cudaStream_t st) {
   const bool vec = d % VEC == 0 && ((uintptr_t)value & 15) == 0 &&
                    ((uintptr_t)out & 15) == 0;
+  if (staged > 0 && !vec) return (int)cudaErrorInvalidValue;
+  if ((int64_t)n * lq * m == 0) return (int)cudaSuccess;
+  if (!nearest) {
+    return vec ? msda_bilinear_launch<T, VEC>(value, loc, attn, out, n, s, m, d, lq, n_points,
+                                              staged, lv, st)
+               : msda_bilinear_launch<T, 1>(value, loc, attn, out, n, s, m, d, lq, n_points,
+                                            staged, lv, st);
+  }
   const int64_t total = (int64_t)n * lq * m * (vec ? d / VEC : d);
-  if (total == 0) return (int)cudaSuccess;
   if ((total + 255) / 256 > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const unsigned int blocks = (unsigned int)((total + 255) / 256);
   if (vec) {
-    msda_launch<T, VEC>(value, loc, attn, out, total, s, m, d, lq, n_points, lv, nearest, st);
+    msda_forward_kernel<T, T, VEC, true><<<blocks, 256, 0, st>>>(
+        (const T*)value, nullptr, (const float*)loc, (const T*)attn, (T*)out, total, s, m, d,
+        lq, n_points, lv);
   } else {
-    msda_launch<T, 1>(value, loc, attn, out, total, s, m, d, lq, n_points, lv, nearest, st);
+    msda_forward_kernel<T, T, 1, true><<<blocks, 256, 0, st>>>(
+        (const T*)value, nullptr, (const float*)loc, (const T*)attn, (T*)out, total, s, m, d,
+        lq, n_points, lv);
   }
   return (int)cudaGetLastError();
 }
 
 // dtype: 0 = float32, 1 = bfloat16. shapes_hw: host array [n_levels][2] of (H, W).
-// Returns cudaGetLastError() after the launch (0 on success).
+// staged: the bilinear mode's levels, from the first, whose rows of a head a
+// block stages in shared memory (0 .. n_levels; 0 for nearest; needs 16-byte
+// channel groups and at most 227 KB). Bilinear takes D <= 128 (16-byte groups
+// of at most 32 threads, or single channels).
+// Returns the first failed CUDA call's error, else cudaGetLastError() after
+// the launch (0 on success).
 extern "C" int msda_forward(const void* value, const void* loc, const void* attn,
                             void* out, int n, int s, int m, int d, int lq,
                             int n_levels, int n_points, const int* shapes_hw,
-                            int dtype, int nearest, void* stream) {
-  if (n_points < 1) return (int)cudaErrorInvalidValue;
+                            int dtype, int nearest, int staged, void* stream) {
+  if (n_points < 1 || d < 1 || staged < 0 || staged > n_levels || (nearest && staged > 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   MsdaLevels lv;
   const int rc = msda_levels(&lv, n_levels, shapes_hw, s);
   if (rc != 0) return rc;
   if (((uintptr_t)loc & 7) != 0) return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
-    return msda_dispatch<float, 4>(value, loc, attn, out, n, s, m, d, lq, n_points, lv, nearest, st);
+    return msda_dispatch<float, 4>(value, loc, attn, out, n, s, m, d, lq, n_points, lv,
+                                   nearest, staged, st);
   }
   if (dtype == 1) {
-    return msda_dispatch<__nv_bfloat16, 8>(value, loc, attn, out, n, s, m, d, lq, n_points, lv, nearest, st);
+    return msda_dispatch<__nv_bfloat16, 8>(value, loc, attn, out, n, s, m, d, lq, n_points,
+                                           lv, nearest, staged, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -255,12 +548,6 @@ __device__ __forceinline__ float msda_dot(const T* p, const float (&g)[V]) {
 #pragma unroll
   for (int i = 0; i < V; ++i) s = fmaf(g[i], v[i], s);
   return s;
-}
-
-// The lanes of this thread's group of GP (a power of two dividing 32).
-__device__ __forceinline__ unsigned msda_group_mask(int GP) {
-  const unsigned lane = threadIdx.x & 31u;
-  return GP == 32 ? 0xffffffffu : ((1u << GP) - 1u) << (lane & ~(unsigned)(GP - 1));
 }
 
 // G units of V channels a head (V == 4: one unit a thread, G <= GP; V == 1:

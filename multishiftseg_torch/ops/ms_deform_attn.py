@@ -6,7 +6,9 @@ custom VJP ``_core_vjp_fwd`` / ``_core_vjp_bwd`` (:565-716) and ``MSDeformAttn``
 (:795-870). The kernels are in ``csrc/ms_deform_attn.cu`` (the ``bilinear`` and
 ``nearest`` forwards, the int8 table's quantize and forward, the ``bilinear``
 backward) and ``csrc/ms_deform_attn_approx.cu`` (``nearest_top{T}``,
-``nearest_top{T}c``, ``shared``).
+``nearest_top{T}c``, ``shared``). The ``bilinear`` forward kernel serves one
+(image, head) a block and copies that head's rows of the first levels (the
+coarsest) into shared memory; :func:`staged_levels` picks how many.
 
 Sample modes (:func:`parse_sample_mode`):
 
@@ -58,6 +60,10 @@ from torch.autograd.function import once_differentiable
 
 SAMPLE_MODES = ("bilinear", "nearest", "nearest_top{T}", "nearest_top{T}c", "shared")
 MAX_POINTS = 32  # J = L * P a head: the selection's registers in the top-T kernel
+# the bilinear forward kernel: channels a head, and the shared memory a block
+# may stage (an H100's 227 KB)
+MAX_BILINEAR_CHANNELS = 128
+SMEM_BUDGET = 232448
 
 # Kernel launches per entry point (see ``ops.launch_counts``).
 LAUNCHES = {"ms_deform_attn_bilinear": 0, "ms_deform_attn_nearest": 0,
@@ -484,6 +490,25 @@ def _check_core_args(value, spatial_shapes, loc, attn, value_dtypes=tuple(_DTYPE
     return n, s, m, d, lq, L, P
 
 
+def staged_levels(spatial_shapes: Sequence[Tuple[int, int]], head_dim: int,
+                  dtype: torch.dtype, smem_budget: int = SMEM_BUDGET) -> int:
+    """How many levels, from the first (the coarsest, as the model orders
+    them), the bilinear forward kernel stages in shared memory: as many as fit
+    in ``smem_budget`` bytes with one head's rows of ``head_dim`` channels of
+    ``dtype``. Zero when a row is not a whole number of 16-byte pieces (the
+    kernel copies rows in 16-byte pieces and reads them as channel groups)."""
+    row = head_dim * torch.finfo(dtype).bits // 8
+    if row % 16:
+        return 0
+    staged, used = 0, 0
+    for h, w in spatial_shapes:
+        used += h * w * row
+        if used > smem_budget:
+            break
+        staged += 1
+    return staged
+
+
 def _levels(spatial_shapes):
     return (ctypes.c_int * (2 * len(spatial_shapes)))(*[v for hw in spatial_shapes for v in hw])
 
@@ -496,17 +521,23 @@ def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode):
     n, s, m, d, lq, L, P = _check_core_args(value, spatial_shapes, loc, attn)
     from .._build import load
 
+    nearest = sample_mode == "nearest"
+    if not nearest and d > MAX_BILINEAR_CHANNELS:
+        raise ValueError(f"the bilinear kernel takes at most {MAX_BILINEAR_CHANNELS} channels "
+                         f"a head, got {d}")
     lib = load("ms_deform_attn")
     fn = lib.msda_forward
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     out = torch.empty((n, lq, m * d), dtype=value.dtype, device=value.device)
-    nearest = sample_mode == "nearest"
+    # staging copies 16-byte pieces: an aligned table only
+    staged = 0 if nearest or value.data_ptr() % 16 else staged_levels(spatial_shapes, d,
+                                                                        value.dtype)
     with torch.cuda.device(value.device):
         rc = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
                 n, s, m, d, lq, L, P, _levels(spatial_shapes), _DTYPE_CODE[value.dtype],
-                int(nearest), _stream(value.device))
+                int(nearest), staged, _stream(value.device))
     if rc != 0:
         raise RuntimeError(f"msda_forward failed: cudaError {rc}")
     LAUNCHES["ms_deform_attn_nearest" if nearest else "ms_deform_attn_bilinear"] += 1

@@ -91,6 +91,122 @@ def test_mask_scores_kernel_matches_plain(cuda, out_hw, classes):
     torch.testing.assert_close(anomaly, anomaly_ref, rtol=1e-5, atol=1e-5)
 
 
+# mask-tail shapes of the tiled forward: (N, Q, K, masks hw, output hw)
+TAIL_FORWARD_CASES = {
+    # 100 queries from staged windows, several tiles a block (the next tile's
+    # window copied behind the current one)
+    "q100_staged": (2, 100, 19, (64, 128), (256, 512)),
+    # a downsample with 130 queries: the window does not fit, taps from global memory
+    "q130_downsample_global": (2, 130, 19, (64, 80), (16, 20)),
+    "q130_upsample": (1, 130, 19, (20, 24), (80, 96)),
+    "ragged_tiles": (2, 100, 19, (10, 12), (37, 45)),  # not a multiple of 8 x 32
+    "k1": (2, 12, 1, (16, 20), (64, 80)),
+    "k32": (2, 12, 32, (16, 20), (64, 80)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TAIL_FORWARD_CASES))
+def test_mask_scores_forward_tiles_match_plain(cuda, case):
+    """The three forward modes (anomaly, semantic, classes only) of the tiled
+    kernel against their plain versions: f32, sums over Q in another order and
+    the fast sigmoid (1e-5)."""
+    n, q, k, hw, out_hw = TAIL_FORWARD_CASES[case]
+    rng = np.random.RandomState(31)
+    logits = rng.randn(n, q, k + 1).astype(np.float32)
+    logits[:, 0, min(3, k - 1)] = 8.0  # a confident query keeps its extra channel
+    cls = torch.from_numpy(logits).to(cuda)
+    masks = torch.from_numpy(rng.randn(n, q, *hw).astype(np.float32) * 3).to(cuda)
+    got = [scores.anomaly_score_upsampled(cls, masks, out_hw),
+           scores.semantic_inference_upsampled(cls, masks, out_hw, k),
+           scores.semantic_inference_upsampled(cls, masks, out_hw, k, _classes_only=True)]
+    want = [scores.anomaly_score_upsampled_plain(cls, masks, out_hw),
+            scores.semantic_inference_upsampled_plain(cls, masks, out_hw, k),
+            scores.semantic_inference_upsampled_plain(cls, masks, out_hw, k,
+                                                      _classes_only=True)]
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_forward_kernels_alternate_shared_memory_sizes(cuda):
+    """One kernel instance launched at a large, then a small, then the large
+    shared-memory size again (the score tail at 100 and at 12 queries; the
+    bilinear forward staging 128 KB and 1 KB): each launch keeps the room it
+    needs, and each result matches its plain version."""
+    rng = np.random.RandomState(41)
+    for q in (100, 12, 100):
+        cls = torch.from_numpy(rng.randn(1, q, 20).astype(np.float32)).to(cuda)
+        masks = torch.from_numpy(3 * rng.randn(1, q, 24, 40).astype(np.float32)).to(cuda)
+        got = scores.anomaly_score_upsampled(cls, masks, (96, 160))
+        want = scores.anomaly_score_upsampled_plain(cls, masks, (96, 160))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    big, small = [(32, 64), (8, 16)], [(4, 4), (8, 16)]
+    for shapes in (big, small, big):
+        assert msda.staged_levels(shapes, 32, torch.bfloat16) >= 1
+        s = sum(h * w for h, w in shapes)
+        v = torch.from_numpy(rng.randn(1, s, 8, 32).astype(np.float32)).to(cuda, torch.bfloat16)
+        loc = torch.from_numpy(rng.rand(1, 300, 8, 2, 4, 2).astype(np.float32)).to(cuda)
+        a = torch.from_numpy(rng.rand(1, 300, 8, 2, 4).astype(np.float32) / 8).to(
+            cuda, torch.bfloat16)
+        with torch.no_grad():
+            got = msda.ms_deform_attn_core(v, shapes, loc, a)
+        want = msda.ms_deform_attn_core_plain(v, shapes, loc, a)
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+# level sets whose first 2, 1 or 0 levels a block stages (D = 32, bf16 and f32)
+STAGING_LEVELS = {2: [(12, 16), (24, 32), (96, 128)], 1: [(24, 32), (96, 128), (12, 16)],
+                  0: [(96, 128), (24, 32), (12, 16)]}
+
+
+def _edge_points(rng, loc, shapes):
+    """Put a third of the points where a staged level's rows end: on the last
+    pixel of a level, and between it and the map's right or bottom edge (one
+    corner in the map, one outside)."""
+    n, lq, m, L, p, _ = loc.shape
+    pick = rng.rand(n, lq, m, L, p) < 1 / 3
+    for lid, (h, w) in enumerate(shapes):
+        size = np.array([w, h], np.float32)
+        edge = 1 - (0.1 + 0.6 * rng.rand(n, lq, m, p, 2).astype(np.float32)) / size
+        loc[:, :, :, lid] = np.where(pick[:, :, :, lid, :, None], edge, loc[:, :, :, lid])
+    return loc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 6])  # 16-byte channel groups (staged), single channels
+@pytest.mark.parametrize("staged", sorted(STAGING_LEVELS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilinear_forward_staging_matches_plain(cuda, dtype, staged, d):
+    """The bilinear forward with 0, 1 or 2 levels staged in shared memory,
+    against the plain version: 2 images (blocks of one image must not read
+    another's table), points outside the maps and on the staged levels' last
+    rows; several query passes a block. f32: sum order; bf16: both sides round
+    the f32 sum once."""
+    shapes = STAGING_LEVELS[staged]
+    assert msda.staged_levels(shapes, d, dtype) == (staged if d == 32 else 0)
+    rng = np.random.RandomState(7 + staged)
+    n, lq, m, p = 2, 1500, 4, 3
+    s = sum(h * w for h, w in shapes)
+    value = rng.randn(n, s, m, d).astype(np.float32)
+    loc = rng.rand(n, lq, m, len(shapes), p, 2).astype(np.float32) * 1.2 - 0.1
+    loc = _edge_points(rng, loc, shapes)
+    attn = rng.rand(n, lq, m, len(shapes), p).astype(np.float32)
+    attn /= attn.reshape(n, lq, m, -1).sum(-1).reshape(n, lq, m, 1, 1)
+    v = torch.from_numpy(value).to(cuda, dtype)
+    lo = torch.from_numpy(loc).to(cuda)
+    a = torch.from_numpy(attn).to(cuda, dtype)
+    before = msda.LAUNCHES["ms_deform_attn_bilinear"]
+    with torch.no_grad():
+        out = msda.ms_deform_attn_core(v, shapes, lo, a)
+    ref = msda.ms_deform_attn_core_plain(v, shapes, lo, a)
+    torch.cuda.synchronize()
+    assert msda.LAUNCHES["ms_deform_attn_bilinear"] == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("levels", ["regular", "degenerate", "main_path"])
@@ -853,6 +969,47 @@ def test_new_kernels_stay_off_the_cpu(monkeypatch):
     meter = ood_metrics.BinnedOODMeter()
     meter.update(torch.rand(40, 30), np.random.RandomState(0).randint(0, 2, (40, 30)))
     assert meter.compute() is not None
+    assert all(v == 0 for v in launch_counts().values())
+
+
+@pytest.mark.parametrize("case", ["eval_bf16", "train_bf16", "eval_f32", "train_f32",
+                                  "d6_bf16", "tight_budget"])
+def test_staged_levels_choice(case):
+    """The bilinear forward stages, from the coarsest level, the levels whose
+    rows of one head fit in a block's shared memory: level 0 at the eval
+    shapes in bf16 (128 KB), levels 0-1 at the training shapes (151 KB), none
+    in f32 at the eval shapes (level 0 alone is 256 KB), none when a row is no
+    whole number of 16-byte pieces."""
+    eval_levels = chip_smoke.LEVELS
+    train_levels = chip_smoke.TRAIN_LEVELS
+    shapes, d, dtype, budget, want = {
+        "eval_bf16": (eval_levels, 32, torch.bfloat16, msda.SMEM_BUDGET, 1),
+        "train_bf16": (train_levels, 32, torch.bfloat16, msda.SMEM_BUDGET, 2),
+        "eval_f32": (eval_levels, 32, torch.float32, msda.SMEM_BUDGET, 0),
+        "train_f32": (train_levels, 32, torch.float32, msda.SMEM_BUDGET, 1),
+        "d6_bf16": (train_levels, 6, torch.bfloat16, msda.SMEM_BUDGET, 0),
+        "tight_budget": (train_levels, 32, torch.bfloat16, 22 * 22 * 64, 1),
+    }[case]
+    assert msda.staged_levels(shapes, d, dtype, budget) == want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_tensors_at_staged_shapes_stay_off_the_kernel(monkeypatch, dtype):
+    """At shapes whose levels the card would stage, CPU tensors still take the
+    plain bilinear version: no library is loaded and no launch is counted."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    def refuse(name):
+        raise _Sentinel(name)
+
+    monkeypatch.setattr(_build, "load", refuse)
+    reset_launch_counts()
+    shapes = STAGING_LEVELS[2]
+    assert msda.staged_levels(shapes, 32, dtype) == 2
+    value, loc, attn = (torch.from_numpy(t) for t in _msda_inputs(
+        np.random.RandomState(26), shapes, 32))
+    out = msda.ms_deform_attn_core(value.to(dtype), shapes, loc, attn.to(dtype))
+    assert out.shape == (N, LQ, M * 32) and out.dtype == dtype
     assert all(v == 0 for v in launch_counts().values())
 
 

@@ -201,6 +201,11 @@ def test_cpu_tensors_do_not_launch_kernels(rng):
     value, loc, attn = _msda_inputs(rng, LEVEL_SETS["regular"])
     msda.ms_deform_attn_core(torch.from_numpy(value), LEVEL_SETS["regular"],
                              torch.from_numpy(loc), torch.from_numpy(attn))
+    # bf16 with 32 channels a head: shapes whose levels the card's kernel stages
+    value, loc, attn = _msda_inputs(rng, LEVEL_SETS["regular"], d=32)
+    assert msda.staged_levels(LEVEL_SETS["regular"], 32, torch.bfloat16) == 2
+    msda.ms_deform_attn_core(torch.from_numpy(value).bfloat16(), LEVEL_SETS["regular"],
+                             torch.from_numpy(loc), torch.from_numpy(attn).bfloat16())
     scores.anomaly_score_upsampled(torch.from_numpy(_class_logits(rng)),
                                    torch.randn(2, 6, 4, 5), (8, 10))
     assert launch_counts() == before
