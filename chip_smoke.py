@@ -111,10 +111,13 @@ conv's, the bilinear deformable forward's and the anomaly tail's rows split
 them: eval paths, training steps), each path run
 with the counts set to 0 just before it and read just after.
 
-The rows of the score tails' forward and of the bilinear deformable forward
-give ``ms`` as the median of 4 block medians of 25 calls issued back to back
-(each call's device time, see ``spread_ms``), and the lowest and highest of
-them as ``ms_spread``; the other rows time single synchronised calls.
+Every row's ``ms`` times single synchronised calls (the wrapper's host time
+before its launch included). The rows of the score tails' forward and of the
+bilinear deformable forward give it as the median of 4 block medians of 25
+such calls, with the lowest and highest block median as ``ms_spread``, and add
+``device_ms`` and ``device_ms_spread``, the same over calls issued back to
+back (each call's device time; see ``spread_ms``), and ``host_ms``, the
+wrapper's host time a call.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device": ...}``
@@ -206,18 +209,22 @@ def median_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def spread_ms(torch, fn, blocks=4, reps=25):
+def spread_ms(torch, fn, back_to_back=False, blocks=4, reps=25):
     """(median, [lowest, highest]) of ``blocks`` block medians of ``reps``
     calls of ``fn`` each: the spread tells a small change from noise within
-    one run. A block issues its calls back to back with an event between
+    one run. By default each call is timed as ``median_ms`` times it: alone
+    and synchronised, the wrapper's host time before its launch included.
+    ``back_to_back``: a block issues its calls with an event between
     consecutive ones and no host sync, so the card runs them in a row and each
-    interval is one call's device time (the host's launch overhead, which a
-    short kernel's single timed call would include, overlaps the previous
-    call)."""
+    interval is one call's device time (the host's work for a call overlaps
+    the previous one)."""
     fn()
     torch.cuda.synchronize()
     meds = []
     for _ in range(blocks):
+        if not back_to_back:
+            meds.append(median_ms(torch, fn, reps))
+            continue
         events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
         events[0].record()
         for i in range(reps):
@@ -227,6 +234,30 @@ def spread_ms(torch, fn, blocks=4, reps=25):
         meds.append(statistics.median(a.elapsed_time(b) for a, b in zip(events, events[1:])))
     meds.sort()
     return statistics.median(meds), [meds[0], meds[-1]]
+
+
+def host_ms(torch, fn, reps=25):
+    """Median host time of one call of ``fn`` (the wrapper's work up to its
+    launch) over ``reps`` calls issued back to back: the card runs behind
+    them and no call waits for it."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def time_redesigned(torch, row, fn):
+    """A redesigned kernel's timings: ``ms`` over single synchronised calls,
+    as in every row, and ``device_ms`` over calls back to back, each with its
+    spread; and ``host_ms``, the wrapper's host time a call."""
+    row["ms"], row["ms_spread"] = spread_ms(torch, fn)
+    row["device_ms"], row["device_ms_spread"] = spread_ms(torch, fn, back_to_back=True)
+    row["host_ms"] = host_ms(torch, fn)
 
 
 def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
@@ -362,7 +393,7 @@ def phase_kernels(torch):
             "library_ms": None}
         if mode == "bilinear":  # redesigned: the median with its spread
             row = rows[f"ms_deform_attn_{mode}"]
-            row["ms"], row["ms_spread"] = spread_ms(torch, run)
+            time_redesigned(torch, row, run)
             row["staged_levels"] = msda.staged_levels(LEVELS, HEAD_DIM, value.dtype)
         else:
             rows[f"ms_deform_attn_{mode}"]["ms"] = median_ms(torch, run, 50)
@@ -419,14 +450,13 @@ def phase_kernels(torch):
         ops = H * W * (QUERIES * per_q + (CLASSES + 1 if head == "anomaly" else QUERIES))
         in_bytes = nbytes(masks) + QUERIES * CLASSES * 4 + (QUERIES * 4 if head == "semantic" else 0)
         b_ms, b_by = bound(in_bytes + nbytes(out), ops)
-        ms, spread = spread_ms(torch, run)
         rows[f"mask_scores_{head}"] = {
             "name": f"mask_scores_{head}", "route": "cuda",
             "source": "multishiftseg_torch/csrc/mask_scores.cu",
             "replaces": f"multishiftseg_tpu/ops/{line}",
-            "max_abs_err": err, "ms": ms, "ms_spread": spread,
-            "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": None}
+            "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+        time_redesigned(torch, rows[f"mask_scores_{head}"], run)
         if head == "anomaly":  # the eval paths; stage 1's launches are its own row's
             rows["mask_scores_anomaly"]["paths"] = ("serve", "validate", "evaluate")
         del out
@@ -664,7 +694,7 @@ def train_kernel_rows(torch, dev, rows, check, checks):
             "bound_by": b_by, "library_ms": None,
             "staged_levels": msda.staged_levels(TRAIN_LEVELS, HEAD_DIM, value.dtype)}
         row = rows["ms_deform_attn_bilinear_train_shapes"]
-        row["ms"], row["ms_spread"] = spread_ms(torch, run)
+        time_redesigned(torch, row, run)
     del value, loc, attn, g, out
 
     # batched assignment: 16 problems of 19 targets x 100 queries, about half
@@ -1032,17 +1062,17 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
         # and the max over K of each pixel
         b_ms, b_by = bound(nbytes(fmasks) + b * QUERIES * CLASSES * 4 + nbytes(out),
                            ops + b * TRAIN_HW[0] * TRAIN_HW[1] * (CLASSES + 1))
-        ms, spread = spread_ms(torch, run_a)
         rows["mask_scores_anomaly_stage1_shapes"] = {
             "name": "mask_scores_anomaly_stage1_shapes", "route": "cuda",
             "source": "multishiftseg_torch/csrc/mask_scores.cu",
             "replaces": "multishiftseg_tpu/ops/scores.py:39",
             "counter": "mask_scores_anomaly", "paths": ("stage1_train",),
-            "max_abs_err": err, "ms": ms, "ms_spread": spread,
-            "plain_ms": median_ms(torch, plain_a, 3), "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err, "plain_ms": median_ms(torch, plain_a, 3), "bound_ms": b_ms,
+            "bound_by": b_by,
             # no single PyTorch call computes the fused tail (the plain version
             # is an interpolate, a sigmoid, an einsum and an amax)
             "library_ms": None}
+        time_redesigned(torch, rows["mask_scores_anomaly_stage1_shapes"], run_a)
         del out
     run_c = lambda: scores.semantic_inference_upsampled(cls, fmasks, TRAIN_HW, CLASSES,
                                                         _classes_only=True)
@@ -1052,14 +1082,13 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
     err = check("mask_scores_semantic_classes_stage1_shapes", out, plain_c(), 1e-5, 1e-5)
     checks[-1]["shape"] = list(out.shape)
     b_ms, b_by = bound(nbytes(fmasks) + b * QUERIES * CLASSES * 4 + nbytes(out), ops)
-    ms, spread = spread_ms(torch, run_c)
     rows["mask_scores_semantic_classes"] = {
         "name": "mask_scores_semantic_classes", "route": "cuda",
         "source": "multishiftseg_torch/csrc/mask_scores.cu",
         "replaces": "multishiftseg_tpu/ops/scores.py:25",
-        "max_abs_err": err, "ms": ms, "ms_spread": spread,
-        "plain_ms": median_ms(torch, plain_c, 3), "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}
+        "max_abs_err": err, "plain_ms": median_ms(torch, plain_c, 3), "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None}
+    time_redesigned(torch, rows["mask_scores_semantic_classes"], run_c)
     del fmasks, cls, out
     masks, probs, grad, zeroed = tail_backward_inputs(torch, dev, SEED + 30, b, S1_MASK_HW,
                                                       TRAIN_HW, crop=CROP)
@@ -2477,9 +2506,10 @@ def main():
     ok = all(p["ok"] for p in phases) and all(r["launches"] > 0 for r in rows.values())
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # the redesigned kernels' rows also carry their spread (and the bilinear
-    # forward's, the levels it staged in shared memory)
-    emit({"kernels": [{k: r[k] for k in key_order + ("ms_spread", "staged_levels") if k in r}
+    # the redesigned kernels' rows also carry their spreads and device times
+    # (and the bilinear forward's, the levels it staged in shared memory)
+    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels")
+    emit({"kernels": [{k: r[k] for k in key_order + extra if k in r}
                       for r in rows.values()]})
     print(build["nvidia_smi"], flush=True)
     if not ok:

@@ -109,8 +109,6 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "launch_shape.cuh"
-
 #define MASK_SCORES_MAX_K 32
 // output tiles of both kernels: TILE_Y x TILE_X pixels, a thread each
 #define TILE_Y 8
@@ -529,14 +527,19 @@ extern "C" int mask_scores_forward(const void* masks, const void* probs,
   if (rc != 0) return rc;
   const FwdKernel kern = mode == 0 ? fwd_kernel_of<0>(p)
                          : mode == 1 ? fwd_kernel_of<1>(p) : fwd_kernel_of<2>(p);
-  LaunchShape ls;
-  rc = launch_shape((const void*)kern, TILE_THREADS, p.smem, &ls);
+  // this launch's shared memory, and the blocks of it that the SMs hold
+  int per_sm = 0, dev = 0, sms = 0;
+  rc = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  if (rc == 0) rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, TILE_THREADS,
+                                                                       p.smem);
+  if (rc == 0) rc = (int)cudaGetDevice(&dev);
+  if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (rc != 0) return rc;
-  if (ls.per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   // one wave of blocks shared by the images, each image's tiles split in chunks
   const int64_t tiles =
       (int64_t)((H + FWD_ROWS * TILE_Y - 1) / (FWD_ROWS * TILE_Y)) * ((W + TILE_X - 1) / TILE_X);
-  int64_t chunks = (int64_t)ls.per_sm * ls.sms / n;
+  int64_t chunks = (int64_t)per_sm * sms / n;
   chunks = chunks < 1 ? 1 : (chunks > tiles ? tiles : chunks);
   kern<<<dim3((unsigned int)chunks, (unsigned int)n), TILE_THREADS, p.smem,
          (cudaStream_t)stream>>>((const float*)masks, (const float*)probs,

@@ -38,7 +38,6 @@
 
 #include <type_traits>
 
-#include "launch_shape.cuh"
 #include "msda_common.cuh"
 
 // a corner of the int8 table: the channel's scale folded into the corner weight
@@ -190,7 +189,7 @@ __device__ __forceinline__ unsigned msda_group_mask(int GP) {
 }
 
 #define MSDA_FWD_THREADS 1024
-#define MSDA_FWD_MAX_CHUNKS 4      // V == 1: up to 4 channels a thread (D <= 128)
+#define MSDA_FWD_MAX_CHUNKS 4      // V == 1: 4 channels a thread in each channel pass
 #define MSDA_FWD_ROUNDS 4          // rounds of a query's points loaded at once
 #define MSDA_MAX_STAGED 232448     // staged bytes a block may use (an H100's 227 KB)
 
@@ -242,12 +241,14 @@ __device__ __forceinline__ void msda_fma_from(const T* p, float w, float (&acc)[
 }
 
 // One point (nx, ny) with weight a on a W x H level whose rows lie `stride`
-// elements apart from vl: the thread's channel units g, g + GP, ... below G.
+// elements apart from vl: the thread's channel units u0 + g + c * GP (c < CH)
+// below G.
 // Offsets in 32 bits: the host keeps one image's table below 2^31 elements.
 template <typename T, int V, int CH, bool SHARED>
 __device__ __forceinline__ void msda_bilinear_point(const T* vl, int stride, int H, int W,
-                                                    float nx, float ny, float a, int g,
-                                                    int GP, int G, float (&acc)[CH][V]) {
+                                                    float nx, float ny, float a, int u0,
+                                                    int g, int GP, int G,
+                                                    float (&acc)[CH][V]) {
   const float x = nx * (float)W - 0.5f;
   const float y = ny * (float)H - 0.5f;
   // all four corners lie outside unless -1 < x < W and -1 < y < H; the test
@@ -265,7 +266,7 @@ __device__ __forceinline__ void msda_bilinear_point(const T* vl, int stride, int
   const int ry0 = max(y0, 0) * W * stride, ry1 = min(y0 + 1, H - 1) * W * stride;
 #pragma unroll
   for (int c = 0; c < CH; ++c) {
-    const int u = g + c * GP;
+    const int u = u0 + g + c * GP;
     if (u < G) {
       const T* p = vl + V * u;
       msda_fma_from<T, V, SHARED>(p + ry0 + cx0, wy0 * wx0, acc[c]);
@@ -278,9 +279,12 @@ __device__ __forceinline__ void msda_bilinear_point(const T* vl, int stride, int
 
 // gridDim = (chunks, M, N); block (chunk, m, n) serves head m of image n for
 // queries [chunk * q_chunk, (chunk + 1) * q_chunk). G units of V channels a
-// head, GP = 2^log2_gp threads a query (V > 1: one unit a thread, G <= GP;
-// V == 1: unit g + c * GP is chunk c of thread g). staged_rows: the rows of
-// the first `staged` levels, staged in shared memory.
+// head, GP = 2^log2_gp threads a query (at most 32). Thread g serves units
+// u0 + g + c * GP, c < CH (one unit for V > 1, MSDA_FWD_MAX_CHUNKS for
+// V == 1), in channel passes u0 = 0, CH * GP, ... below G: one pass unless a
+// head has more than CH * GP units (D > 256 in bf16, 128 in f32 or single
+// channels). staged_rows: the rows of the first `staged` levels, staged in
+// shared memory.
 template <typename T, int V>
 __global__ void __launch_bounds__(MSDA_FWD_THREADS)
 msda_bilinear_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
@@ -316,57 +320,59 @@ msda_bilinear_fwd_kernel(const T* __restrict__ value, const float* __restrict__ 
     const int64_t nqm = ((int64_t)n * Lq + min(q, q_end - 1)) * M + m;
     const float2* lp = reinterpret_cast<const float2*>(loc) + nqm * J;
     const T* ap = attn + nqm * J;
-    float acc[CH][V];
-#pragma unroll
-    for (int c = 0; c < CH; ++c) {
-#pragma unroll
-      for (int i = 0; i < V; ++i) acc[c][i] = 0.f;
-    }
-    // the group's points, one a thread per round of GP; the rounds of a
-    // batch (MSDA_FWD_ROUNDS of them) are loaded at once, round 0 is in use
-    float2 xy[MSDA_FWD_ROUNDS];
-    float a[MSDA_FWD_ROUNDS];
-#pragma unroll
-    for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
-      if (l >= lv.n) break;
-      const int H = lv.h[l];
-      const int W = lv.w[l];
-      for (int p = 0; p < P; ++p) {
-        const int j = l * P + p;
-        const int t = j & (GP - 1);
-        if (t == 0) {
-          if ((j >> log2_gp) % MSDA_FWD_ROUNDS == 0) {
-#pragma unroll
-            for (int k = 0; k < MSDA_FWD_ROUNDS; ++k) {
-              const int jk = j + k * GP + g;
-              xy[k] = jk < J ? __ldg(lp + jk) : make_float2(0.f, 0.f);
-              a[k] = jk < J ? msda_to_float(ap[jk]) : 0.f;
-            }
-          } else {
-#pragma unroll
-            for (int k = 0; k + 1 < MSDA_FWD_ROUNDS; ++k) {
-              xy[k] = xy[k + 1];
-              a[k] = a[k + 1];
-            }
-          }
-        }
-        const float nx = __shfl_sync(0xffffffffu, xy[0].x, t, GP);
-        const float ny = __shfl_sync(0xffffffffu, xy[0].y, t, GP);
-        const float w = __shfl_sync(0xffffffffu, a[0], t, GP);
-        if (l < staged) {
-          msda_bilinear_point<T, V, CH, true>(sv + lv.start[l] * D, D, H, W, nx, ny, w, g, GP,
-                                              G, acc);
-        } else {
-          msda_bilinear_point<T, V, CH, false>(vb + (int64_t)lv.start[l] * row, (int)row, H,
-                                               W, nx, ny, w, g, GP, G, acc);
-        }
-      }
-    }
-    if (q < q_end) {
+    for (int u0 = 0; u0 < G; u0 += CH * GP) {  // channel passes, all threads alike
+      float acc[CH][V];
 #pragma unroll
       for (int c = 0; c < CH; ++c) {
-        const int u = g + c * GP;
-        if (u < G) msda_store(out + nqm * D + V * u, acc[c]);
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[c][i] = 0.f;
+      }
+      // the group's points, one a thread per round of GP; the rounds of a
+      // batch (MSDA_FWD_ROUNDS of them) are loaded at once, round 0 is in use
+      float2 xy[MSDA_FWD_ROUNDS];
+      float a[MSDA_FWD_ROUNDS];
+#pragma unroll
+      for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
+        if (l >= lv.n) break;
+        const int H = lv.h[l];
+        const int W = lv.w[l];
+        for (int p = 0; p < P; ++p) {
+          const int j = l * P + p;
+          const int t = j & (GP - 1);
+          if (t == 0) {
+            if ((j >> log2_gp) % MSDA_FWD_ROUNDS == 0) {
+#pragma unroll
+              for (int k = 0; k < MSDA_FWD_ROUNDS; ++k) {
+                const int jk = j + k * GP + g;
+                xy[k] = jk < J ? __ldg(lp + jk) : make_float2(0.f, 0.f);
+                a[k] = jk < J ? msda_to_float(ap[jk]) : 0.f;
+              }
+            } else {
+#pragma unroll
+              for (int k = 0; k + 1 < MSDA_FWD_ROUNDS; ++k) {
+                xy[k] = xy[k + 1];
+                a[k] = a[k + 1];
+              }
+            }
+          }
+          const float nx = __shfl_sync(0xffffffffu, xy[0].x, t, GP);
+          const float ny = __shfl_sync(0xffffffffu, xy[0].y, t, GP);
+          const float w = __shfl_sync(0xffffffffu, a[0], t, GP);
+          if (l < staged) {
+            msda_bilinear_point<T, V, CH, true>(sv + lv.start[l] * D, D, H, W, nx, ny, w, u0, g,
+                                                GP, G, acc);
+          } else {
+            msda_bilinear_point<T, V, CH, false>(vb + (int64_t)lv.start[l] * row, (int)row, H,
+                                                 W, nx, ny, w, u0, g, GP, G, acc);
+          }
+        }
+      }
+      if (q < q_end) {
+#pragma unroll
+        for (int c = 0; c < CH; ++c) {
+          const int u = u0 + g + c * GP;
+          if (u < G) msda_store(out + nqm * D + V * u, acc[c]);
+        }
       }
     }
   }
@@ -380,17 +386,24 @@ static int msda_bilinear_launch(const void* value, const void* loc, const void* 
   int log2_gp = 0;
   while ((1 << log2_gp) < G && log2_gp < 5) ++log2_gp;
   const int GP = 1 << log2_gp;
-  if ((G + GP - 1) / GP > (V == 1 ? MSDA_FWD_MAX_CHUNKS : 1)) return (int)cudaErrorInvalidValue;
   if ((int64_t)S * M * D > 0x7fffffff) return (int)cudaErrorInvalidValue;  // 32-bit offsets
   int staged_rows = 0;
   for (int l = 0; l < staged; ++l) staged_rows += lv.h[l] * lv.w[l];
   const size_t smem = (size_t)staged_rows * D * sizeof(T);
   if (smem > MSDA_MAX_STAGED) return (int)cudaErrorInvalidValue;
   const auto kern = msda_bilinear_fwd_kernel<T, V>;
-  LaunchShape ls;
-  int rc = launch_shape((const void*)kern, MSDA_FWD_THREADS, smem, &ls);
+  // this launch's shared memory, the blocks of it that an SM holds, the
+  // device's SMs and L2
+  int per_sm = 0, dev = 0, sms = 0, l2 = 0;
+  int rc = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                     (int)smem);
+  if (rc == 0) rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                                       MSDA_FWD_THREADS, smem);
+  if (rc == 0) rc = (int)cudaGetDevice(&dev);
+  if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == 0) rc = (int)cudaDeviceGetAttribute(&l2, cudaDevAttrL2CacheSize, dev);
   if (rc != 0) return rc;
-  if (ls.per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int64_t per_pass = MSDA_FWD_THREADS >> log2_gp;  // queries a block serves at once
   const int64_t passes = (Lq + per_pass - 1) / per_pass;
   int64_t chunks = passes;  // without staging: one pass of queries a block
@@ -399,9 +412,9 @@ static int msda_bilinear_launch(const void* value, const void* loc, const void* 
     // as keep their value tables within half the L2 (blocks run image by
     // image) ...
     const double table = (double)S * M * D * sizeof(T);
-    int64_t images = (int64_t)(0.5 * ls.l2 / table);
+    int64_t images = (int64_t)(0.5 * l2 / table);
     images = images < 1 ? 1 : (images > N ? N : images);
-    chunks = (int64_t)ls.per_sm * ls.sms / (images * M);
+    chunks = (int64_t)per_sm * sms / (images * M);
     // ... whose copies (staged bytes a block) stay under 5% of the corner
     // reads that staging saves (4 corners of each staged point)
     const double saved = (double)Lq * P * staged * 4 * D * sizeof(T);
@@ -453,8 +466,7 @@ static int msda_dispatch(const void* value, const void* loc, const void* attn,
 // dtype: 0 = float32, 1 = bfloat16. shapes_hw: host array [n_levels][2] of (H, W).
 // staged: the bilinear mode's levels, from the first, whose rows of a head a
 // block stages in shared memory (0 .. n_levels; 0 for nearest; needs 16-byte
-// channel groups and at most 227 KB). Bilinear takes D <= 128 (16-byte groups
-// of at most 32 threads, or single channels).
+// channel groups and at most 227 KB).
 // Returns the first failed CUDA call's error, else cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int msda_forward(const void* value, const void* loc, const void* attn,

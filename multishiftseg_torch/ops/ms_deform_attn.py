@@ -60,9 +60,8 @@ from torch.autograd.function import once_differentiable
 
 SAMPLE_MODES = ("bilinear", "nearest", "nearest_top{T}", "nearest_top{T}c", "shared")
 MAX_POINTS = 32  # J = L * P a head: the selection's registers in the top-T kernel
-# the bilinear forward kernel: channels a head, and the shared memory a block
-# may stage (an H100's 227 KB)
-MAX_BILINEAR_CHANNELS = 128
+# the shared memory a block of the bilinear forward kernel may stage (an
+# H100's 227 KB)
 SMEM_BUDGET = 232448
 
 # Kernel launches per entry point (see ``ops.launch_counts``).
@@ -522,9 +521,6 @@ def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode):
     from .._build import load
 
     nearest = sample_mode == "nearest"
-    if not nearest and d > MAX_BILINEAR_CHANNELS:
-        raise ValueError(f"the bilinear kernel takes at most {MAX_BILINEAR_CHANNELS} channels "
-                         f"a head, got {d}")
     lib = load("ms_deform_attn")
     fn = lib.msda_forward
     fn.restype = ctypes.c_int

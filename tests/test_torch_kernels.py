@@ -208,6 +208,36 @@ def test_bilinear_forward_staging_matches_plain(cuda, dtype, staged, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [130, 160, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilinear_forward_wide_heads_match_plain(cuda, dtype, d):
+    """Heads wider than one pass of a query's threads covers (32 groups of 16
+    bytes, or 128 single channels) take more channel passes: 130 channels
+    (single channels, two passes), 160 and 256 (two passes in f32, one in
+    bf16), level 0 staged where the rows are 16-byte pieces; against the
+    plain version."""
+    shapes = [(12, 16), (24, 32), (48, 64)]
+    assert msda.staged_levels(shapes, d, dtype) == (0 if d == 130 else 1)
+    rng = np.random.RandomState(d)
+    n, lq, m, p = 2, 600, 2, 3
+    s = sum(h * w for h, w in shapes)
+    loc = rng.rand(n, lq, m, len(shapes), p, 2).astype(np.float32) * 1.2 - 0.1
+    loc = _edge_points(rng, loc, shapes)
+    attn = rng.rand(n, lq, m, len(shapes), p).astype(np.float32) / (len(shapes) * p)
+    v = torch.from_numpy(rng.randn(n, s, m, d).astype(np.float32)).to(cuda, dtype)
+    lo = torch.from_numpy(loc).to(cuda)
+    a = torch.from_numpy(attn).to(cuda, dtype)
+    before = msda.LAUNCHES["ms_deform_attn_bilinear"]
+    with torch.no_grad():
+        out = msda.ms_deform_attn_core(v, shapes, lo, a)
+    ref = msda.ms_deform_attn_core_plain(v, shapes, lo, a)
+    torch.cuda.synchronize()
+    assert msda.LAUNCHES["ms_deform_attn_bilinear"] == before + 1
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("levels", ["regular", "degenerate", "main_path"])
 def test_nearest_kernel_on_pixel_boundaries_equals_plain(cuda, dtype, levels):
