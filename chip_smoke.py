@@ -112,16 +112,27 @@ them: eval paths, training steps), each path run
 with the counts set to 0 just before it and read just after.
 
 Every row's ``ms`` times single synchronised calls (the wrapper's host time
-before its launch included). The rows of the score tails' forward and of the
-bilinear deformable forward give it as the median of 4 block medians of 25
-such calls, with the lowest and highest block median as ``ms_spread``, and add
-``device_ms`` and ``device_ms_spread``, the same over calls issued back to
-back (each call's device time; see ``spread_ms``), and ``host_ms``, the
-wrapper's host time a call.
+before its launch included). The rows of the score tails' forward and of every
+deformable forward at the eval shapes (``bilinear``, ``nearest``, the int8
+quantize and forward, ``nearest_top6``, ``nearest_top6c``, ``shared``) and the
+bilinear forward at the training shapes give it as the median of 4 block
+medians of 25 such calls, with the lowest and highest block median as
+``ms_spread``, and add ``device_ms`` and ``device_ms_spread``, the same over
+calls issued back to back (each call's device time; see ``spread_ms``), and
+``host_ms``, the wrapper's host time a call. The rows of the forward kernel
+(``bilinear``, ``nearest``, int8) add ``staged_levels``, the levels it staged
+in shared memory, and its device time with the other choice:
+``device_ms_unstaged`` with none, or ``device_ms_staged`` with the levels that
+fit.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device": ...}``
 when every check passed. Any failed check exits 1 without that line.
+
+``--phases kernels,serve`` runs the build and the named phases only, and
+``--root DIR`` runs the package of another checkout under this harness: an
+A/B of two trees on one card is ``python3 chip_smoke.py --root A --phases
+kernels,serve`` for A, B, B, A in one call.
 """
 
 import contextlib
@@ -260,6 +271,25 @@ def time_redesigned(torch, row, fn):
     row["host_ms"] = host_ms(torch, fn)
 
 
+def staging_fields(torch, row, msda, table, nearest, run_staged):
+    """The levels the forward kernel staged at the main-path shapes
+    (``staged_levels``), and its device time with the other choice: with none
+    staged where it staged some (``device_ms_unstaged``), with the levels that
+    fit (``staged_levels`` of the table) where it staged none
+    (``device_ms_staged``): whether staging pays. A tree without
+    ``forward_staged_levels`` (an A/B run of an older one) reports neither."""
+    if not hasattr(msda, "forward_staged_levels"):
+        return
+    row["staged_levels"] = msda.forward_staged_levels(table, LEVELS, nearest)
+    if row["staged_levels"]:
+        row["device_ms_unstaged"] = spread_ms(torch, lambda: run_staged(0),
+                                              back_to_back=True)[0]
+    else:
+        fit = msda.staged_levels(LEVELS, table.shape[-1], table.dtype)
+        row["device_ms_staged"] = spread_ms(torch, lambda: run_staged(fit),
+                                            back_to_back=True)[0]
+
+
 def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
     """The least time for ``nbytes`` at HBM rate and ``ops`` at ``ops_per_s``
     (default f32 outside the tensor cores), ms, and which of the two binds."""
@@ -391,12 +421,11 @@ def phase_kernels(torch):
             "paths": ("serve", "validate", "evaluate"), "max_abs_err": err,
             "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
-        if mode == "bilinear":  # redesigned: the median with its spread
-            row = rows[f"ms_deform_attn_{mode}"]
-            time_redesigned(torch, row, run)
-            row["staged_levels"] = msda.staged_levels(LEVELS, HEAD_DIM, value.dtype)
-        else:
-            rows[f"ms_deform_attn_{mode}"]["ms"] = median_ms(torch, run, 50)
+        row = rows[f"ms_deform_attn_{mode}"]
+        time_redesigned(torch, row, run)
+        staging_fields(torch, row, msda, value, mode == "nearest",
+                       lambda k: msda._ms_deform_attn_cuda(value, LEVELS, loc, attn, mode,
+                                                           staged=k))
         # f32 edge cases: a degenerate h == 1 / w == 1 pyramid (a 32-px side)
         # with points outside the map, and 30 channels a head (no 16-byte
         # channel groups: the kernel's one-channel path); f32 sums in another order
@@ -567,9 +596,10 @@ def approx_kernel_rows(torch, dev, rows, check, checks):
     rows["ms_deform_attn_quantize"] = {
         "name": "ms_deform_attn_quantize", "route": "cuda", "source": src,
         "replaces": replaces + "130", "counter": "ms_deform_attn_quantize",
-        "max_abs_err": float((q.int() - qp.int()).abs().max()), "ms": median_ms(torch, run_q, 50),
+        "max_abs_err": float((q.int() - qp.int()).abs().max()),
         "plain_ms": median_ms(torch, plain_q, 10), "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}
+    time_redesigned(torch, rows["ms_deform_attn_quantize"], run_q)
     del qp, sp
 
     run_i = lambda: msda._ms_deform_attn_int8_cuda(q, scale, LEVELS, loc, attn)
@@ -587,9 +617,12 @@ def approx_kernel_rows(torch, dev, rows, check, checks):
     rows["ms_deform_attn_int8"] = {
         "name": "ms_deform_attn_int8", "route": "cuda", "source": src,
         "replaces": replaces + "221", "counter": "ms_deform_attn_int8",
-        "max_abs_err": err, "ms": median_ms(torch, run_i, 50),
-        "plain_ms": median_ms(torch, plain_i, 10), "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}
+        "max_abs_err": err, "plain_ms": median_ms(torch, plain_i, 10), "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None}
+    time_redesigned(torch, rows["ms_deform_attn_int8"], run_i)
+    staging_fields(torch, rows["ms_deform_attn_int8"], msda, q, False,
+                   lambda k: msda._ms_deform_attn_int8_cuda(q, scale, LEVELS, loc, attn,
+                                                            staged=k))
     del q, scale, out
 
     for mode, line, counter in (("nearest_top6", 304, "ms_deform_attn_nearest_top"),
@@ -608,8 +641,9 @@ def approx_kernel_rows(torch, dev, rows, check, checks):
         rows[f"ms_deform_attn_{mode}"] = {
             "name": f"ms_deform_attn_{mode}", "route": "cuda", "source": approx_src,
             "replaces": replaces + str(line), "counter": counter, "max_abs_err": err,
-            "ms": median_ms(torch, run, 50), "plain_ms": median_ms(torch, plain, 10),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+        time_redesigned(torch, rows[f"ms_deform_attn_{mode}"], run)
         del out
     del value, loc, attn
 
@@ -1406,12 +1440,13 @@ def profile_request(torch, fwd, image, focus=None):
     return res
 
 
-# device time by kernel name: the forward score tails and the bilinear
-# deformable forward (the M2F request and steps); in the M2F steps' profiles
-# also the deformable backward (stage 2) and the anomaly tail's d-probs
-# backward (stage 1)
-FWD_FOCUS = ("mask_scores_fwd_kernel", "msda_bilinear_fwd_kernel")
-STEP_FOCUS = ("msda_backward_kernel", "mask_scores_bwd_dp_kernel") + FWD_FOCUS
+# device time by kernel name: in the M2F request's profile the forward score
+# tails and every deformable-attention kernel (the setting's forward, the int8
+# quantize); in the M2F steps' the score tails, the deformable forward, the
+# deformable backward (stage 2) and the anomaly tail's d-probs backward (stage 1)
+FWD_FOCUS = ("mask_scores_fwd_kernel", "msda")
+STEP_FOCUS = ("msda_backward_kernel", "mask_scores_bwd_dp_kernel", "mask_scores_fwd_kernel",
+              "msda_fwd_kernel")
 
 
 # the serve phase's settings: (sample_mode, score_lowres, score_topq), and the
@@ -2432,7 +2467,34 @@ def evaluate_approximate(torch, device, tmp, root, cfg_path, weights, bilinear):
     return res, totals
 
 
-def main():
+PHASES = ("kernels", "slice_parity", "serve", "train_parity", "train", "deeplab_parity",
+          "deeplab_serve", "deeplab_train_parity", "deeplab_train", "stage1_parity",
+          "stage1_train", "validate", "evaluate")
+
+
+def parse_args(argv):
+    """No arguments: every phase, as the smoke test runs. ``--phases a,b``
+    runs the build and those phases only (for A/B timing) and ends with
+    ``{"ok": ..., "phases": [...]}`` instead of the device line; ``--root DIR``
+    imports ``multishiftseg_torch`` from DIR instead of this script's
+    checkout (another tree under the same harness)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parent),
+                    help="the checkout whose multishiftseg_torch to run")
+    args = ap.parse_args(argv)
+    args.phases = [p for p in args.phases.split(",") if p]
+    unknown = set(args.phases) - set(PHASES)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}")
+    return args
+
+
+def main(argv=None):
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     try:
         import torch
     except ImportError:
@@ -2442,7 +2504,7 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    sys.path.insert(0, str(Path(args.root).resolve()))
     try:
         import multishiftseg_torch  # noqa: F401
     except ImportError as e:
@@ -2450,50 +2512,40 @@ def main():
         return 2
 
     phases = []
+
+    def run(name, fn, *a):
+        """Run phase ``name`` if selected: its JSON line, and its launch
+        counts where it returns them ({} when not run)."""
+        if name not in args.phases:
+            return {}
+        out = fn(torch, *a)
+        res, counts = out if isinstance(out, tuple) else (out, {})
+        emit(res)
+        phases.append(res)
+        return counts
+
     build = phase_build()
     emit(build)
     phases.append(build)
-    rows, kernels = phase_kernels(torch)
-    emit(kernels)
-    phases.append(kernels)
-    parity = phase_slice_parity(torch)
-    emit(parity)
-    phases.append(parity)
-    serve, launches = phase_serve(torch)
-    emit(serve)
-    phases.append(serve)
+    rows = {}
+    if "kernels" in args.phases:
+        rows, kernels = phase_kernels(torch)
+        emit(kernels)
+        phases.append(kernels)
+    run("slice_parity", phase_slice_parity)
+    launches = run("serve", phase_serve)
     for seed in TRAIN_PARITY_SEEDS:
-        train_parity = phase_train_parity(torch, seed)
-        emit(train_parity)
-        phases.append(train_parity)
-    train, train_launches = phase_train(torch)
-    emit(train)
-    phases.append(train)
-    dl_parity = phase_deeplab_parity(torch)
-    emit(dl_parity)
-    phases.append(dl_parity)
-    dl_serve, dl_launches = phase_deeplab_serve(torch)
-    emit(dl_serve)
-    phases.append(dl_serve)
+        run("train_parity", phase_train_parity, seed)
+    train_launches = run("train", phase_train)
+    run("deeplab_parity", phase_deeplab_parity)
+    dl_launches = run("deeplab_serve", phase_deeplab_serve)
     for seed in DL_TRAIN_PARITY_SEEDS:
-        dl_train_parity = phase_deeplab_train_parity(torch, seed)
-        emit(dl_train_parity)
-        phases.append(dl_train_parity)
-    dl_train, dl_train_launches = phase_deeplab_train(torch)
-    emit(dl_train)
-    phases.append(dl_train)
-    s1_parity = phase_stage1_parity(torch)
-    emit(s1_parity)
-    phases.append(s1_parity)
-    s1_train, s1_launches = phase_stage1_train(torch)
-    emit(s1_train)
-    phases.append(s1_train)
-    validate, val_launches = phase_validate(torch)
-    emit(validate)
-    phases.append(validate)
-    evaluate, eval_launches = phase_evaluate(torch)
-    emit(evaluate)
-    phases.append(evaluate)
+        run("deeplab_train_parity", phase_deeplab_train_parity, seed)
+    dl_train_launches = run("deeplab_train", phase_deeplab_train)
+    run("stage1_parity", phase_stage1_parity)
+    s1_launches = run("stage1_train", phase_stage1_train)
+    val_launches = run("validate", phase_validate)
+    eval_launches = run("evaluate", phase_evaluate)
 
     # each main path was run with the counts set to 0 just before it; a row
     # counts its counter over its paths (default: every path)
@@ -2503,19 +2555,26 @@ def main():
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))
-    ok = all(p["ok"] for p in phases) and all(r["launches"] > 0 for r in rows.values())
+    everything = set(args.phases) == set(PHASES)
+    ok = all(p["ok"] for p in phases) and (
+        not everything or all(r["launches"] > 0 for r in rows.values()))
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the redesigned kernels' rows also carry their spreads and device times
-    # (and the bilinear forward's, the levels it staged in shared memory)
-    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels")
-    emit({"kernels": [{k: r[k] for k in key_order + extra if k in r}
-                      for r in rows.values()]})
+    # (and the forward's, the levels it staged in shared memory)
+    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels",
+             "device_ms_unstaged", "device_ms_staged")
+    if rows:
+        emit({"kernels": [{k: r[k] for k in key_order + extra if k in r}
+                          for r in rows.values()]})
     print(build["nvidia_smi"], flush=True)
     if not ok:
         failed = [p["phase"] for p in phases if not p["ok"]]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)
         return 1
+    if not everything:
+        emit({"ok": True, "phases": args.phases})
+        return 0
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -16,17 +16,9 @@
 //   attn  [N, Lq, M, L, P]     same type as value
 //   out   [N, Lq, M * D]       same type as value
 //
-// Design of msda_forward_kernel (nearest, and the int8 table's bilinear
-// forward): one thread per (n, q, m) and 16-byte group of channels (8 bf16 or
-// 4 f32; 1 channel when D or an address does not allow it). The thread computes
-// each point's corner weights once for its whole group and reads each corner as
-// one 16-byte vector from value[N, S, M, D]; the four threads of one (n, q, m)
-// read one contiguous 64-byte row (bf16, D = 32). Out-of-map corners are read at
-// a clamped address with weight 0, so the four loads of a point issue together.
-// The level loop is unrolled over MSDA_MAX_LEVELS so the level table stays in
-// registers. Sums run in f32; the output is written once in the value's type.
-// The exact bilinear mode has a kernel of its own, head-major with the coarse
-// levels staged in shared memory (msda_bilinear_fwd_kernel, below).
+// All three modes run one head-major kernel, msda_fwd_kernel (below),
+// templated on the value table's type (bf16 / f32, or int8 with a per-channel
+// scale) and on the sampling (the four bilinear corners, or the nearest pixel).
 //
 // Bound at the main-path shapes (1024x2048 image: S = Lq = 43008, M = 8, D = 32,
 // L = 3, P = 4, bf16): the function must read value 22 MB + loc 33 MB + attn
@@ -40,147 +32,70 @@
 
 #include "msda_common.cuh"
 
-// a corner of the int8 table: the channel's scale folded into the corner weight
-template <int V>
-__device__ __forceinline__ void msda_fma_scaled(const int8_t* p, float w,
-                                                const float (&sc)[V], float (&acc)[V]) {
-  float v[V];
-  msda_load(p, v);
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = fmaf(w * sc[i], v[i], acc[i]);
-}
-
-// One corner read: TV = T, or int8_t with the per-channel scale sc.
-template <typename TV, int V>
-__device__ __forceinline__ void msda_corner(const TV* p, float w, const float (&sc)[V],
-                                            float (&acc)[V]) {
-  if constexpr (std::is_same<TV, int8_t>::value) {
-    msda_fma_scaled<V>(p, w, sc, acc);
-  } else {
-    msda_fma<TV, V>(p, w, acc);
-  }
-}
-
-// TV: the value table's type, T (bf16 or f32) or int8_t (scale [D] given)
-template <typename T, typename TV, int V, bool NEAREST>
-__global__ void msda_forward_kernel(const TV* __restrict__ value,
-                                    const float* __restrict__ scale,
-                                    const float* __restrict__ loc,
-                                    const T* __restrict__ attn,
-                                    T* __restrict__ out,
-                                    int64_t total, int S, int M, int D, int Lq,
-                                    int P, MsdaLevels lv) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int groups = D / V;
-  const int d0 = (int)(idx % groups) * V;
-  const int64_t nqm = idx / groups;      // (n * Lq + q) * M + m
-  const int m = (int)(nqm % M);
-  const int n = (int)(nqm / ((int64_t)M * Lq));
-  const int J = lv.n * P;
-  const float2* lp = reinterpret_cast<const float2*>(loc) + nqm * J;
-  const T* ap = attn + nqm * J;
-  const int64_t row = (int64_t)M * D;    // stride of one s in value
-  const TV* vb = value + (int64_t)n * S * row + (int64_t)m * D + d0;
-
-  float acc[V];
-  float sc[V];
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    acc[i] = 0.f;
-    sc[i] = std::is_same<TV, int8_t>::value ? __ldg(scale + d0 + i) : 1.f;
-  }
-#pragma unroll
-  for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
-    if (l >= lv.n) break;
-    const int H = lv.h[l];
-    const int W = lv.w[l];
-    const TV* vl = vb + (int64_t)lv.start[l] * row;
-    for (int p = 0; p < P; ++p) {
-      const int j = l * P + p;
-      const float2 xy = __ldg(lp + j);
-      const float x = xy.x * (float)W - 0.5f;
-      const float y = xy.y * (float)H - 0.5f;
-      const float a = msda_to_float(ap[j]);
-      if (NEAREST) {
-        // _core_forward_nearest: the sample counts only inside the half-pixel
-        // border, at clamp(floor(x + 0.5)), its coordinates rounded op by op
-        // (x and y above, which may be fused, serve bilinear only)
-        const int off = msda_nearest(xy.x, xy.y, W, H);
-        if (off >= 0) msda_corner<TV, V>(vl + (int64_t)off * row, a, sc, acc);
-      } else if (x > -1.f && x < (float)W && y > -1.f && y < (float)H) {
-        // All four corners lie outside unless -1 < x < W and -1 < y < H; the
-        // test also keeps the integer casts in range. An outside corner is
-        // read at the clamped address with weight 0 (grid_sample's zeros).
-        const float x0f = floorf(x);
-        const float y0f = floorf(y);
-        const int x0 = (int)x0f, y0 = (int)y0f;
-        const float fx = x - x0f, fy = y - y0f;
-        const float wx0 = x0 >= 0 ? 1.f - fx : 0.f;
-        const float wx1 = x0 + 1 < W ? fx : 0.f;
-        const float wy0 = y0 >= 0 ? a * (1.f - fy) : 0.f;
-        const float wy1 = y0 + 1 < H ? a * fy : 0.f;
-        const int64_t cx0 = max(x0, 0), cx1 = min(x0 + 1, W - 1);
-        const int64_t ry0 = (int64_t)max(y0, 0) * W, ry1 = (int64_t)min(y0 + 1, H - 1) * W;
-        msda_corner<TV, V>(vl + (ry0 + cx0) * row, wy0 * wx0, sc, acc);
-        msda_corner<TV, V>(vl + (ry0 + cx1) * row, wy0 * wx1, sc, acc);
-        msda_corner<TV, V>(vl + (ry1 + cx0) * row, wy1 * wx0, sc, acc);
-        msda_corner<TV, V>(vl + (ry1 + cx1) * row, wy1 * wx1, sc, acc);
-      }
-    }
-  }
-  msda_store(out + nqm * D + d0, acc);
-}
-
 // ---------------------------------------------------------------------------
-// The bilinear forward (msda_forward with nearest = 0): head-major blocks that
-// stage the coarse levels of their head in shared memory.
+// The forward of all three modes (msda_forward, msda_forward_int8): head-major
+// blocks that stage the coarse levels of their head in shared memory.
 //
-// Its HBM bound (0.096 ms at the training shapes, 0.026 at eval) is far from
-// what limits it. Every corner of every point is one 16-byte read a thread
-// (64 B a head at D = 32 in bf16) from value, which fits in the 50 MB L2: at
-// the training shapes (16 images at 704x704, levels 22^2, 44^2, 88^2: 16 x
-// 10,164 queries x 8 heads x 12 points x 4 corners x 64 B) some 4.0 GB of L2
-// reads, 8.0 TB/s at the 0.50 ms of a kernel with one thread per (query,
+// Its HBM bound (bilinear: 0.096 ms at the training shapes, 0.026 at eval) is
+// far from what limits it. Every corner of every point is one 16-byte read a
+// thread (64 B a head at D = 32 in bf16) from value, which fits in the 50 MB
+// L2: at the training shapes (16 images at 704x704, levels 22^2, 44^2, 88^2:
+// 16 x 10,164 queries x 8 heads x 12 points x 4 corners x 64 B) some 4.0 GB of
+// L2 reads, 8.0 TB/s at the 0.50 ms of a kernel with one thread per (query,
 // head, 16-byte group), whose 256-thread blocks span 8 queries x 8 heads; at
-// the eval shapes about 1.06 GB, 7.2 TB/s at 0.147 ms (H100, PERF.md, PR 8).
+// the eval shapes about 1.06 GB, 7.2 TB/s at 0.147 ms (H100, PERF.md).
 // Staging the coarse levels takes most of those reads off the L2.
 // Design:
 //   * A block of 1024 threads serves one (image, head) and a chunk of that
 //     head's queries, so its threads share the head's value planes. A query
-//     keeps its 16-byte channel groups (GP threads, 4 at D = 32 in bf16, 8 in
-//     f32).
+//     keeps its channel units of V channels (GP threads, 4 at D = 32 in bf16,
+//     8 in f32): 16 bytes of a bf16 / f32 table; V bytes of the int8 table,
+//     whose V channels make one 16-byte store of the output.
 //   * Before the query loop the block copies the head's rows of the first
 //     `staged` levels (the coarsest: the model orders them so) to shared
 //     memory with 16-byte cp.async pieces, 64 B a row at a 512 B stride:
 //     levels 0 and 1 at the training shapes (151 KB), level 0 at the eval
-//     shapes (128 KB); the caller picks the count (ops/ms_deform_attn.py::
-//     staged_levels). Their corners are then plain shared loads (no atomics);
-//     the other levels' corners come from global memory through L1, as before.
-//     This removes 2/3 of the corner reads from L2 at the training shapes and
-//     1/3 at the eval shapes.
-//   * The grid is one wave of blocks (one an SM when staging fills shared
-//     memory), run image by image: its blocks serve the (image, head) pairs of
-//     as many images as keep their value tables within half the L2 (4 of the
-//     16 at training, 4 chunks a pair; 1 at eval, 16 chunks), so the unstaged
-//     level's corners stay in L2; the copies (blocks x staged bytes) stay under
-//     5% of the corner reads staging saves. Without staging, one pass of
-//     queries a block.
-//   * Each thread of a group loads one point's location and weight, a query's
-//     rounds of GP points at once; shuffles over the whole warp (every thread
-//     takes the same passes) hand each point to its group. Offsets are 32-bit
-//     (one image's table holds fewer than 2^31 elements), and a bf16 channel
-//     becomes an f32 by a shift or a mask.
+//     shapes (128 KB; 64 KB of int8 rows); the caller picks the count
+//     (ops/ms_deform_attn.py::staged_levels). Their rows are then plain
+//     shared loads; the other levels' rows come from global memory through
+//     L1. This removes 2/3 of the bilinear corner reads from L2 at the
+//     training shapes and 1/3 at the eval shapes.
+//   * The grid is one wave of blocks (one an SM at 1024 threads), run image
+//     by image: its blocks serve the (image, head) pairs of as many images as
+//     keep their value tables within half the L2 (4 of the 16 at training, 4
+//     chunks a pair; 1 at eval, 16 chunks), so the unstaged levels' rows stay
+//     in L2; staged, the copies (blocks x staged bytes) stay under a quarter
+//     of the row reads staging saves.
+//   * Each point's location and weight is loaded once for its group, one
+//     point a thread, a query's rounds of GP points at once; shuffles over
+//     the whole warp (every thread takes the same passes) hand it out.
+//     Bilinear hands out (x, y, weight) and each thread of the group takes the
+//     corner weights. Nearest rounds the point to its pixel in the thread
+//     that loaded it (its level's W, H and first row from a table of the
+//     points in shared memory; msda_nearest rounds op by op, as the plain
+//     version) and hands out (row, weight): two shuffles and one row a point,
+//     the coordinate arithmetic done once; a thread requests the rows of
+//     MSDA_NEAR_BATCH points before it adds any. Offsets are 32-bit (one
+//     image's table holds fewer than 2^31 elements), and a bf16 channel
+//     becomes an f32 by a shift or a mask, an int8 one by a byte permute and
+//     a subtraction (msda_unpack).
+//   * The int8 table's per-channel scale multiplies each channel's sum once,
+//     before the store, not every corner weight.
 //   * Out-of-map corners are read at a clamped address with weight 0
-//     (grid_sample's zeros), and the sums run in f32 in the old order (point
-//     by point, corners 00, 01, 10, 11): a staged level changes where a corner
-//     is read from, not what is added.
-// On the H100 (PERF.md, PR 8) staging with one 512-thread block an SM ran
-// slower than no staging; 32 warps a block, then the image-by-image order
-// (the concurrent blocks' random points otherwise spread over all 16 images'
-// tables, more than the L2 holds) made it the faster of the two. What is
-// left is issue and latency: a group's four threads repeat each point's
-// weight arithmetic, and reading locations and weights is a large share.
+//     (grid_sample's zeros); a nearest point outside the half-pixel border is
+//     skipped. Sums run in f32 point by point (bilinear corners 00, 01, 10,
+//     11): a staged level changes where a row is read from, not what is added.
+// On the H100 (PERF.md) staging with one 512-thread block an SM ran slower
+// than no staging; 32 warps a block, then the image-by-image order (the
+// concurrent blocks' random points otherwise spread over all 16 images'
+// tables, more than the L2 holds) made it the faster of the two for bilinear
+// and the int8 table. Nearest reads one row a point, and staging level 0 ran
+// no faster than none: the caller stages nothing for it. What bounds the
+// nearest kernel is the latency of each pass's location and weight loads
+// and of its row loads, not bytes or instructions: with the row loads
+// removed it still took most of its time. Prefetching the next pass's
+// points (into L2, or into registers, which spill at the 64 a thread that
+// 1024-thread blocks allow) and smaller blocks ran slower.
 
 // The lanes of this thread's group of GP (a power of two dividing 32).
 __device__ __forceinline__ unsigned msda_group_mask(int GP) {
@@ -191,7 +106,8 @@ __device__ __forceinline__ unsigned msda_group_mask(int GP) {
 #define MSDA_FWD_THREADS 1024
 #define MSDA_FWD_MAX_CHUNKS 4      // V == 1: 4 channels a thread in each channel pass
 #define MSDA_FWD_ROUNDS 4          // rounds of a query's points loaded at once
-#define MSDA_MAX_STAGED 232448     // staged bytes a block may use (an H100's 227 KB)
+#define MSDA_NEAR_BATCH 4          // nearest rows a thread requests before adding them
+#define MSDA_MAX_STAGED 232448     // shared bytes a block may use (an H100's 227 KB)
 
 __device__ __forceinline__ void msda_cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -200,42 +116,11 @@ __device__ __forceinline__ void msda_cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-// V channels at p into f32 registers: one 16-byte load of 8 bf16 (each made
-// an f32 by a shift or a mask) or 4 f32, or one channel; from shared memory
-// (SHARED) or through the read-only path
-template <bool SHARED, typename TL>
-__device__ __forceinline__ TL msda_get(const TL* p) {
-  if constexpr (SHARED) {
-    return *p;
-  } else {
-    return __ldg(p);
-  }
-}
-template <bool SHARED, typename T>
-__device__ __forceinline__ void msda_read(const T* p, float (&v)[1]) {
-  v[0] = msda_to_float(*p);
-}
-template <bool SHARED>
-__device__ __forceinline__ void msda_read(const float* p, float (&v)[4]) {
-  const float4 r = msda_get<SHARED>(reinterpret_cast<const float4*>(p));
-  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-template <bool SHARED>
-__device__ __forceinline__ void msda_read(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 r = msda_get<SHARED>(reinterpret_cast<const uint4*>(p));
-  const unsigned w[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-
 // acc += w * the V channels at p
-template <typename T, int V, bool SHARED>
-__device__ __forceinline__ void msda_fma_from(const T* p, float w, float (&acc)[V]) {
+template <typename TV, int V, bool SHARED>
+__device__ __forceinline__ void msda_fma_from(const TV* p, float w, float (&acc)[V]) {
   float v[V];
-  msda_read<SHARED>(p, v);
+  msda_unpack(msda_fetch<SHARED, TV, V>(p), v);
 #pragma unroll
   for (int i = 0; i < V; ++i) acc[i] = fmaf(w, v[i], acc[i]);
 }
@@ -244,8 +129,8 @@ __device__ __forceinline__ void msda_fma_from(const T* p, float w, float (&acc)[
 // elements apart from vl: the thread's channel units u0 + g + c * GP (c < CH)
 // below G.
 // Offsets in 32 bits: the host keeps one image's table below 2^31 elements.
-template <typename T, int V, int CH, bool SHARED>
-__device__ __forceinline__ void msda_bilinear_point(const T* vl, int stride, int H, int W,
+template <typename TV, int V, int CH, bool SHARED>
+__device__ __forceinline__ void msda_bilinear_point(const TV* vl, int stride, int H, int W,
                                                     float nx, float ny, float a, int u0,
                                                     int g, int GP, int G,
                                                     float (&acc)[CH][V]) {
@@ -268,37 +153,41 @@ __device__ __forceinline__ void msda_bilinear_point(const T* vl, int stride, int
   for (int c = 0; c < CH; ++c) {
     const int u = u0 + g + c * GP;
     if (u < G) {
-      const T* p = vl + V * u;
-      msda_fma_from<T, V, SHARED>(p + ry0 + cx0, wy0 * wx0, acc[c]);
-      msda_fma_from<T, V, SHARED>(p + ry0 + cx1, wy0 * wx1, acc[c]);
-      msda_fma_from<T, V, SHARED>(p + ry1 + cx0, wy1 * wx0, acc[c]);
-      msda_fma_from<T, V, SHARED>(p + ry1 + cx1, wy1 * wx1, acc[c]);
+      const TV* p = vl + V * u;
+      msda_fma_from<TV, V, SHARED>(p + ry0 + cx0, wy0 * wx0, acc[c]);
+      msda_fma_from<TV, V, SHARED>(p + ry0 + cx1, wy0 * wx1, acc[c]);
+      msda_fma_from<TV, V, SHARED>(p + ry1 + cx0, wy1 * wx0, acc[c]);
+      msda_fma_from<TV, V, SHARED>(p + ry1 + cx1, wy1 * wx1, acc[c]);
     }
   }
 }
 
 // gridDim = (chunks, M, N); block (chunk, m, n) serves head m of image n for
-// queries [chunk * q_chunk, (chunk + 1) * q_chunk). G units of V channels a
+// queries [chunk * q_chunk, (chunk + 1) * q_chunk). T: attn's and out's type;
+// TV: the table's, T or int8_t (scale [D] given). G units of V channels a
 // head, GP = 2^log2_gp threads a query (at most 32). Thread g serves units
 // u0 + g + c * GP, c < CH (one unit for V > 1, MSDA_FWD_MAX_CHUNKS for
 // V == 1), in channel passes u0 = 0, CH * GP, ... below G: one pass unless a
 // head has more than CH * GP units (D > 256 in bf16, 128 in f32 or single
 // channels). staged_rows: the rows of the first `staged` levels, staged in
 // shared memory.
-template <typename T, int V>
+template <typename T, typename TV, int V, bool NEAREST>
 __global__ void __launch_bounds__(MSDA_FWD_THREADS)
-msda_bilinear_fwd_kernel(const T* __restrict__ value, const float* __restrict__ loc,
-                         const T* __restrict__ attn, T* __restrict__ out, int S, int M,
-                         int D, int Lq, int P, int G, int log2_gp, int q_chunk, int staged,
-                         int staged_rows, MsdaLevels lv) {
+msda_fwd_kernel(const TV* __restrict__ value, const float* __restrict__ scale,
+                const float* __restrict__ loc, const T* __restrict__ attn, T* __restrict__ out,
+                int S, int M, int D, int Lq, int P, int G, int log2_gp, int q_chunk,
+                int staged, int staged_rows, MsdaLevels lv) {
   constexpr int CH = V == 1 ? MSDA_FWD_MAX_CHUNKS : 1;
   extern __shared__ uint4 msda_smem[];
-  T* sv = reinterpret_cast<T*>(msda_smem);  // [staged_rows][D]
+  TV* sv = reinterpret_cast<TV*>(msda_smem);  // [staged_rows][D]
+  // nearest: (W, H, first row) of each point's level, after the staged rows
+  int4* spt = reinterpret_cast<int4*>(sv + staged_rows * D);
   const int m = blockIdx.y, n = blockIdx.z;
   const int64_t row = (int64_t)M * D;  // stride of one s in value
-  const T* vb = value + (int64_t)n * S * row + (int64_t)m * D;
-  if (staged_rows > 0) {  // only with 16-byte rows (the host checks)
-    constexpr int E = 16 / sizeof(T);
+  const TV* vb = value + (int64_t)n * S * row + (int64_t)m * D;
+  const int J = lv.n * P;
+  if (staged_rows > 0) {  // only with 16-byte pieces of rows (the host checks)
+    constexpr int E = 16 / sizeof(TV);
     const int pieces = D / E;
     for (int i = threadIdx.x; i < staged_rows * pieces; i += MSDA_FWD_THREADS) {
       const int s = i / pieces, k = i - s * pieces;
@@ -306,16 +195,27 @@ msda_bilinear_fwd_kernel(const T* __restrict__ value, const float* __restrict__ 
     }
     asm volatile("cp.async.wait_all;\n" ::: "memory");
   }
+  if constexpr (NEAREST) {
+    for (int j = threadIdx.x; j < J; j += MSDA_FWD_THREADS) {
+      const int l = j / P;
+      int4 e = make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int k = 0; k < MSDA_MAX_LEVELS; ++k) {
+        if (k == l) e = make_int4(lv.w[k], lv.h[k], lv.start[k], 0);
+      }
+      spt[j] = e;
+    }
+  }
   __syncthreads();
 
   const int GP = 1 << log2_gp;
   const int g = threadIdx.x & (GP - 1);
-  const int J = lv.n * P;
+  const int per_pass = MSDA_FWD_THREADS >> log2_gp;  // queries a block serves at once
   const int q_begin = (int)blockIdx.x * q_chunk;
   const int q_end = min(Lq, q_begin + q_chunk);
   // every thread takes the same passes, so shuffles span whole warps; a query
   // past the chunk's end repeats the last one and writes nothing
-  for (int qb = q_begin; qb < q_end; qb += MSDA_FWD_THREADS >> log2_gp) {
+  for (int qb = q_begin; qb < q_end; qb += per_pass) {
     const int q = qb + (int)(threadIdx.x >> log2_gp);
     const int64_t nqm = ((int64_t)n * Lq + min(q, q_end - 1)) * M + m;
     const float2* lp = reinterpret_cast<const float2*>(loc) + nqm * J;
@@ -327,43 +227,108 @@ msda_bilinear_fwd_kernel(const T* __restrict__ value, const float* __restrict__ 
 #pragma unroll
         for (int i = 0; i < V; ++i) acc[c][i] = 0.f;
       }
-      // the group's points, one a thread per round of GP; the rounds of a
-      // batch (MSDA_FWD_ROUNDS of them) are loaded at once, round 0 is in use
-      float2 xy[MSDA_FWD_ROUNDS];
-      float a[MSDA_FWD_ROUNDS];
+      if constexpr (NEAREST) {
+        // batches of MSDA_FWD_ROUNDS rounds of GP points: each thread rounds
+        // its point of each round to a row in the image (-1 outside the map)
+        for (int jb = 0; jb < J; jb += MSDA_FWD_ROUNDS * GP) {
+          int r[MSDA_FWD_ROUNDS];
+          float w[MSDA_FWD_ROUNDS];
 #pragma unroll
-      for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
-        if (l >= lv.n) break;
-        const int H = lv.h[l];
-        const int W = lv.w[l];
-        for (int p = 0; p < P; ++p) {
-          const int j = l * P + p;
-          const int t = j & (GP - 1);
-          if (t == 0) {
-            if ((j >> log2_gp) % MSDA_FWD_ROUNDS == 0) {
+          for (int k = 0; k < MSDA_FWD_ROUNDS; ++k) {
+            const int jk = jb + k * GP + g;
+            r[k] = -1;
+            w[k] = 0.f;
+            if (jk < J) {
+              const int4 e = spt[jk];
+              const float2 xy = __ldg(lp + jk);
+              const int o = msda_nearest(xy.x, xy.y, e.x, e.y);
+              r[k] = o < 0 ? -1 : e.z + o;
+              w[k] = msda_to_float(ap[jk]);
+            }
+          }
 #pragma unroll
-              for (int k = 0; k < MSDA_FWD_ROUNDS; ++k) {
-                const int jk = j + k * GP + g;
-                xy[k] = jk < J ? __ldg(lp + jk) : make_float2(0.f, 0.f);
-                a[k] = jk < J ? msda_to_float(ap[jk]) : 0.f;
+          for (int k = 0; k < MSDA_FWD_ROUNDS; ++k) {
+            const int j0 = jb + k * GP;
+            if (j0 >= J) break;  // the same for every thread
+            const int nt = min(GP, J - j0);
+            // MSDA_NEAR_BATCH points at a time: their rows are all requested
+            // before any is added
+            for (int t0 = 0; t0 < nt; t0 += MSDA_NEAR_BATCH) {
+              typename MsdaRaw<TV, V>::type raw[MSDA_NEAR_BATCH][CH];
+              float ww[MSDA_NEAR_BATCH];
+              bool on[MSDA_NEAR_BATCH];
+#pragma unroll
+              for (int b = 0; b < MSDA_NEAR_BATCH; ++b) {
+                const int t = t0 + b;
+                const int rr = __shfl_sync(0xffffffffu, r[k], t & (GP - 1), GP);
+                ww[b] = __shfl_sync(0xffffffffu, w[k], t & (GP - 1), GP);
+                on[b] = t < nt && rr >= 0;
+                // a point's level, and so whether it is staged, is the same
+                // in every group of the warp
+                const bool in_smem = j0 + t < staged * P;
+#pragma unroll
+                for (int c = 0; c < CH; ++c) {
+                  const int u = u0 + g + c * GP;
+                  if (on[b] && u < G) {
+                    raw[b][c] = in_smem ? msda_fetch<true, TV, V>(sv + rr * D + V * u)
+                                        : msda_fetch<false, TV, V>(vb + rr * (int)row + V * u);
+                  }
+                }
               }
-            } else {
 #pragma unroll
-              for (int k = 0; k + 1 < MSDA_FWD_ROUNDS; ++k) {
-                xy[k] = xy[k + 1];
-                a[k] = a[k + 1];
+              for (int b = 0; b < MSDA_NEAR_BATCH; ++b) {
+#pragma unroll
+                for (int c = 0; c < CH; ++c) {
+                  if (on[b] && u0 + g + c * GP < G) {
+                    float v[V];
+                    msda_unpack(raw[b][c], v);
+#pragma unroll
+                    for (int i = 0; i < V; ++i) acc[c][i] = fmaf(ww[b], v[i], acc[c][i]);
+                  }
+                }
               }
             }
           }
-          const float nx = __shfl_sync(0xffffffffu, xy[0].x, t, GP);
-          const float ny = __shfl_sync(0xffffffffu, xy[0].y, t, GP);
-          const float w = __shfl_sync(0xffffffffu, a[0], t, GP);
-          if (l < staged) {
-            msda_bilinear_point<T, V, CH, true>(sv + lv.start[l] * D, D, H, W, nx, ny, w, u0, g,
-                                                GP, G, acc);
-          } else {
-            msda_bilinear_point<T, V, CH, false>(vb + (int64_t)lv.start[l] * row, (int)row, H,
-                                                 W, nx, ny, w, u0, g, GP, G, acc);
+        }
+      } else {
+        // the group's points, one a thread per round of GP; the rounds of a
+        // batch (MSDA_FWD_ROUNDS of them) are loaded at once, round 0 is in use
+        float2 xy[MSDA_FWD_ROUNDS];
+        float a[MSDA_FWD_ROUNDS];
+#pragma unroll
+        for (int l = 0; l < MSDA_MAX_LEVELS; ++l) {
+          if (l >= lv.n) break;
+          const int H = lv.h[l];
+          const int W = lv.w[l];
+          for (int p = 0; p < P; ++p) {
+            const int j = l * P + p;
+            const int t = j & (GP - 1);
+            if (t == 0) {
+              if ((j >> log2_gp) % MSDA_FWD_ROUNDS == 0) {
+#pragma unroll
+                for (int k = 0; k < MSDA_FWD_ROUNDS; ++k) {
+                  const int jk = j + k * GP + g;
+                  xy[k] = jk < J ? __ldg(lp + jk) : make_float2(0.f, 0.f);
+                  a[k] = jk < J ? msda_to_float(ap[jk]) : 0.f;
+                }
+              } else {
+#pragma unroll
+                for (int k = 0; k + 1 < MSDA_FWD_ROUNDS; ++k) {
+                  xy[k] = xy[k + 1];
+                  a[k] = a[k + 1];
+                }
+              }
+            }
+            const float nx = __shfl_sync(0xffffffffu, xy[0].x, t, GP);
+            const float ny = __shfl_sync(0xffffffffu, xy[0].y, t, GP);
+            const float w = __shfl_sync(0xffffffffu, a[0], t, GP);
+            if (l < staged) {
+              msda_bilinear_point<TV, V, CH, true>(sv + lv.start[l] * D, D, H, W, nx, ny, w,
+                                                   u0, g, GP, G, acc);
+            } else {
+              msda_bilinear_point<TV, V, CH, false>(vb + (int64_t)lv.start[l] * row, (int)row,
+                                                    H, W, nx, ny, w, u0, g, GP, G, acc);
+            }
           }
         }
       }
@@ -371,27 +336,37 @@ msda_bilinear_fwd_kernel(const T* __restrict__ value, const float* __restrict__ 
 #pragma unroll
         for (int c = 0; c < CH; ++c) {
           const int u = u0 + g + c * GP;
-          if (u < G) msda_store(out + nqm * D + V * u, acc[c]);
+          if (u >= G) continue;
+          if constexpr (std::is_same<TV, int8_t>::value) {
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[c][i] *= __ldg(scale + V * u + i);
+          }
+          msda_store(out + nqm * D + V * u, acc[c]);
         }
       }
     }
   }
 }
 
-template <typename T, int V>
-static int msda_bilinear_launch(const void* value, const void* loc, const void* attn,
-                                void* out, int N, int S, int M, int D, int Lq, int P,
-                                int staged, const MsdaLevels& lv, cudaStream_t st) {
+template <typename T, typename TV, int V, bool NEAREST>
+static int msda_fwd_launch(const TV* value, const float* scale, const void* loc,
+                           const void* attn, void* out, int N, int S, int M, int D, int Lq,
+                           int P, int staged, const MsdaLevels& lv, cudaStream_t st) {
   const int G = D / V;
   int log2_gp = 0;
   while ((1 << log2_gp) < G && log2_gp < 5) ++log2_gp;
   const int GP = 1 << log2_gp;
   if ((int64_t)S * M * D > 0x7fffffff) return (int)cudaErrorInvalidValue;  // 32-bit offsets
+  // staging copies 16-byte pieces of rows
+  if (staged > 0 && ((D * sizeof(TV)) % 16 != 0 || ((uintptr_t)value & 15) != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
   int staged_rows = 0;
   for (int l = 0; l < staged; ++l) staged_rows += lv.h[l] * lv.w[l];
-  const size_t smem = (size_t)staged_rows * D * sizeof(T);
+  const size_t staged_bytes = (size_t)staged_rows * D * sizeof(TV);
+  const size_t smem = staged_bytes + (NEAREST ? (size_t)lv.n * P * sizeof(int4) : 0);
   if (smem > MSDA_MAX_STAGED) return (int)cudaErrorInvalidValue;
-  const auto kern = msda_bilinear_fwd_kernel<T, V>;
+  const auto kern = msda_fwd_kernel<T, TV, V, NEAREST>;
   // this launch's shared memory, the blocks of it that an SM holds, the
   // device's SMs and L2
   int per_sm = 0, dev = 0, sms = 0, l2 = 0;
@@ -406,33 +381,31 @@ static int msda_bilinear_launch(const void* value, const void* loc, const void* 
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const int64_t per_pass = MSDA_FWD_THREADS >> log2_gp;  // queries a block serves at once
   const int64_t passes = (Lq + per_pass - 1) / per_pass;
-  int64_t chunks = passes;  // without staging: one pass of queries a block
+  // one wave of blocks shared by the (image, head) pairs of as many images as
+  // keep their value tables within half the L2 (blocks run image by image) ...
+  const double table = (double)S * M * D * sizeof(TV);
+  int64_t images = (int64_t)(0.5 * l2 / table);
+  images = images < 1 ? 1 : (images > N ? N : images);
+  int64_t chunks = (int64_t)per_sm * sms / (images * M);
   if (staged > 0) {
-    // one wave of blocks shared by the (image, head) pairs of as many images
-    // as keep their value tables within half the L2 (blocks run image by
-    // image) ...
-    const double table = (double)S * M * D * sizeof(T);
-    int64_t images = (int64_t)(0.5 * l2 / table);
-    images = images < 1 ? 1 : (images > N ? N : images);
-    chunks = (int64_t)per_sm * sms / (images * M);
-    // ... whose copies (staged bytes a block) stay under 5% of the corner
-    // reads that staging saves (4 corners of each staged point)
-    const double saved = (double)Lq * P * staged * 4 * D * sizeof(T);
-    const int64_t cap = (int64_t)(0.05 * saved / (double)smem);
+    // ... whose copies (staged bytes a block) stay under a quarter of the row
+    // reads that staging saves (4 corners, or 1 nearest row, a staged point)
+    const double saved = (double)Lq * P * staged * (NEAREST ? 1 : 4) * D * sizeof(TV);
+    const int64_t cap = (int64_t)(0.25 * saved / (double)staged_bytes);
     chunks = chunks < cap ? chunks : cap;
-    chunks = chunks < 1 ? 1 : (chunks > passes ? passes : chunks);
   }
+  chunks = chunks < 1 ? 1 : (chunks > passes ? passes : chunks);
   const int64_t q_chunk = (passes + chunks - 1) / chunks * per_pass;
   chunks = (Lq + q_chunk - 1) / q_chunk;
   if (chunks > 0x7fffffff || M > 65535 || N > 65535) return (int)cudaErrorInvalidValue;
   kern<<<dim3((unsigned int)chunks, M, N), MSDA_FWD_THREADS, smem, st>>>(
-      (const T*)value, (const float*)loc, (const T*)attn, (T*)out, S, M, D, Lq, P, G, log2_gp,
+      value, scale, (const float*)loc, (const T*)attn, (T*)out, S, M, D, Lq, P, G, log2_gp,
       (int)q_chunk, staged, staged_rows, lv);
   return (int)cudaGetLastError();
 }
 
-// Channel groups of VEC when D and the addresses allow it, else single
-// channels; staging needs the groups.
+// Channel groups of VEC (16 bytes) when D and the addresses allow it, else
+// single channels; staging needs the groups.
 template <typename T, int VEC>
 static int msda_dispatch(const void* value, const void* loc, const void* attn,
                          void* out, int n, int s, int m, int d, int lq,
@@ -442,38 +415,30 @@ static int msda_dispatch(const void* value, const void* loc, const void* attn,
                    ((uintptr_t)out & 15) == 0;
   if (staged > 0 && !vec) return (int)cudaErrorInvalidValue;
   if ((int64_t)n * lq * m == 0) return (int)cudaSuccess;
-  if (!nearest) {
-    return vec ? msda_bilinear_launch<T, VEC>(value, loc, attn, out, n, s, m, d, lq, n_points,
-                                              staged, lv, st)
-               : msda_bilinear_launch<T, 1>(value, loc, attn, out, n, s, m, d, lq, n_points,
-                                            staged, lv, st);
+  const T* v = (const T*)value;
+  if (nearest) {
+    return vec ? msda_fwd_launch<T, T, VEC, true>(v, nullptr, loc, attn, out, n, s, m, d, lq,
+                                                  n_points, staged, lv, st)
+               : msda_fwd_launch<T, T, 1, true>(v, nullptr, loc, attn, out, n, s, m, d, lq,
+                                                n_points, staged, lv, st);
   }
-  const int64_t total = (int64_t)n * lq * m * (vec ? d / VEC : d);
-  if ((total + 255) / 256 > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const unsigned int blocks = (unsigned int)((total + 255) / 256);
-  if (vec) {
-    msda_forward_kernel<T, T, VEC, true><<<blocks, 256, 0, st>>>(
-        (const T*)value, nullptr, (const float*)loc, (const T*)attn, (T*)out, total, s, m, d,
-        lq, n_points, lv);
-  } else {
-    msda_forward_kernel<T, T, 1, true><<<blocks, 256, 0, st>>>(
-        (const T*)value, nullptr, (const float*)loc, (const T*)attn, (T*)out, total, s, m, d,
-        lq, n_points, lv);
-  }
-  return (int)cudaGetLastError();
+  return vec ? msda_fwd_launch<T, T, VEC, false>(v, nullptr, loc, attn, out, n, s, m, d, lq,
+                                                 n_points, staged, lv, st)
+             : msda_fwd_launch<T, T, 1, false>(v, nullptr, loc, attn, out, n, s, m, d, lq,
+                                               n_points, staged, lv, st);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. shapes_hw: host array [n_levels][2] of (H, W).
-// staged: the bilinear mode's levels, from the first, whose rows of a head a
-// block stages in shared memory (0 .. n_levels; 0 for nearest; needs 16-byte
-// channel groups and at most 227 KB).
+// staged: the levels, from the first, whose rows of a head a block stages in
+// shared memory (0 .. n_levels; needs 16-byte channel groups and at most
+// 227 KB, nearest's table of the points included).
 // Returns the first failed CUDA call's error, else cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int msda_forward(const void* value, const void* loc, const void* attn,
                             void* out, int n, int s, int m, int d, int lq,
                             int n_levels, int n_points, const int* shapes_hw,
                             int dtype, int nearest, int staged, void* stream) {
-  if (n_points < 1 || d < 1 || staged < 0 || staged > n_levels || (nearest && staged > 0)) {
+  if (n_points < 1 || d < 1 || staged < 0 || staged > n_levels) {
     return (int)cudaErrorInvalidValue;
   }
   MsdaLevels lv;
@@ -772,9 +737,11 @@ extern "C" int msda_backward(const void* value, const void* loc, const void* att
 //      over the max, after the table pass in stream order. A channel holding a
 //      NaN gets a NaN scale, so the forward's outputs from it are NaN.
 // The table equals the plain version's bit for bit.
-// msda_forward_int8: the bilinear kernel above reading int8 corners
-// (msda_forward_kernel<T, int8_t, ...>), with each channel's scale multiplied
-// into the corner weight; sums in f32, the output in attn's type.
+// msda_forward_int8: the forward kernel above (msda_fwd_kernel<T, int8_t, V,
+// false>) reading int8 corners, V bytes a unit (8 for a bf16 output, 4 for
+// f32), with the coarse levels staged as the bf16 table's (level 0 at the
+// eval shapes is 64 KB of 32-byte rows) and each channel's sum multiplied by
+// its scale once before the store; sums in f32, the output in attn's type.
 //
 // Bound at the main-path shapes (S = Lq = 43008, M = 8, D = 32, L = 3, P = 4,
 // bf16): the quantize must read value 22 MB and write the 11 MB table, 33 MB,
@@ -872,43 +839,34 @@ extern "C" int msda_quantize(const void* value, void* q, void* scale, long long 
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T, int V>
-static void msda_int8_launch(const int8_t* qvalue, const float* scale, const float* loc,
-                             const T* attn, T* out, int64_t total, int S, int M, int D,
-                             int Lq, int P, const MsdaLevels& lv, cudaStream_t st) {
-  const int threads = 256;
-  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
-  msda_forward_kernel<T, int8_t, V, false><<<blocks, threads, 0, st>>>(
-      qvalue, scale, loc, attn, out, total, S, M, D, Lq, P, lv);
-}
-
+// VEC int8 channels in one VEC-byte load and VEC outputs in one 16-byte store
+// when D and the addresses allow it, else single channels.
 template <typename T, int VEC>
 static int msda_int8_dispatch(const void* qvalue, const void* scale, const void* loc,
                               const void* attn, void* out, int n, int s, int m, int d,
-                              int lq, int n_points, const MsdaLevels& lv, cudaStream_t st) {
-  // VEC int8 channels in one VEC-byte load, VEC outputs in one 16-byte store
+                              int lq, int n_points, const MsdaLevels& lv, int staged,
+                              cudaStream_t st) {
   const bool vec = d % VEC == 0 && ((uintptr_t)qvalue % VEC) == 0 &&
                    ((uintptr_t)out & 15) == 0;
-  const int64_t total = (int64_t)n * lq * m * (vec ? d / VEC : d);
-  if (total == 0) return (int)cudaSuccess;
-  if ((total + 255) / 256 > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  if (vec) {
-    msda_int8_launch<T, VEC>((const int8_t*)qvalue, (const float*)scale, (const float*)loc,
-                             (const T*)attn, (T*)out, total, s, m, d, lq, n_points, lv, st);
-  } else {
-    msda_int8_launch<T, 1>((const int8_t*)qvalue, (const float*)scale, (const float*)loc,
-                           (const T*)attn, (T*)out, total, s, m, d, lq, n_points, lv, st);
-  }
-  return (int)cudaGetLastError();
+  if ((int64_t)n * lq * m == 0) return (int)cudaSuccess;
+  const int8_t* q = (const int8_t*)qvalue;
+  const float* sc = (const float*)scale;
+  return vec ? msda_fwd_launch<T, int8_t, VEC, false>(q, sc, loc, attn, out, n, s, m, d, lq,
+                                                      n_points, staged, lv, st)
+             : msda_fwd_launch<T, int8_t, 1, false>(q, sc, loc, attn, out, n, s, m, d, lq,
+                                                    n_points, staged, lv, st);
 }
 
 // qvalue int8 [N, S, M, D] and its f32 scale [D] (msda_quantize); loc, attn and
-// out as msda_forward, dtype that of attn and out (0 f32, 1 bf16).
+// out as msda_forward, dtype that of attn and out (0 f32, 1 bf16); staged as
+// msda_forward's (rows of D bytes: D a multiple of 16).
 extern "C" int msda_forward_int8(const void* qvalue, const void* scale, const void* loc,
                                  const void* attn, void* out, int n, int s, int m, int d,
                                  int lq, int n_levels, int n_points, const int* shapes_hw,
-                                 int dtype, void* stream) {
-  if (n_points < 1) return (int)cudaErrorInvalidValue;
+                                 int dtype, int staged, void* stream) {
+  if (n_points < 1 || d < 1 || staged < 0 || staged > n_levels) {
+    return (int)cudaErrorInvalidValue;
+  }
   MsdaLevels lv;
   const int rc = msda_levels(&lv, n_levels, shapes_hw, s);
   if (rc != 0) return rc;
@@ -916,11 +874,11 @@ extern "C" int msda_forward_int8(const void* qvalue, const void* scale, const vo
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0) {
     return msda_int8_dispatch<float, 4>(qvalue, scale, loc, attn, out, n, s, m, d, lq,
-                                        n_points, lv, st);
+                                        n_points, lv, staged, st);
   }
   if (dtype == 1) {
     return msda_int8_dispatch<__nv_bfloat16, 8>(qvalue, scale, loc, attn, out, n, s, m, d,
-                                                lq, n_points, lv, st);
+                                                lq, n_points, lv, staged, st);
   }
   return (int)cudaErrorInvalidValue;
 }

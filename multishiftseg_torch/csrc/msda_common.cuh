@@ -1,7 +1,8 @@
 // Device helpers shared by the deformable-attention kernels
 // (csrc/ms_deform_attn.cu, csrc/ms_deform_attn_approx.cu): the level table, the
-// nearest pixel of a point, the conversions of bf16 / f32 / int8 channels to f32
-// registers and back, and the weighted accumulation of one row of V channels.
+// nearest pixel of a point, the conversions of bf16 / f32 channels (and of one
+// int8 channel) to f32 registers and back, and the weighted accumulation of one
+// row of V channels.
 
 #pragma once
 
@@ -52,42 +53,70 @@ __device__ __forceinline__ float msda_to_float(float v) { return v; }
 __device__ __forceinline__ float msda_to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float msda_to_float(int8_t v) { return (float)v; }
 
-// V consecutive channels <-> f32 registers
-template <typename T>
-__device__ __forceinline__ void msda_load(const T* p, float (&v)[1]) { v[0] = msda_to_float(*p); }
-__device__ __forceinline__ void msda_load(const float* p, float (&v)[4]) {
-  const float4 r = __ldg(reinterpret_cast<const float4*>(p));
-  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
-}
-__device__ __forceinline__ void msda_load(const __nv_bfloat16* p, float (&v)[8]) {
-  const uint4 r = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
+// The raw bits of V consecutive channels of a TV table: one 16-byte load of 8
+// bf16 or 4 f32, an 8-byte load of 4 bf16 or 8 int8, a 4-byte load of 4 int8,
+// or one channel.
+template <typename TV, int V> struct MsdaRaw { using type = TV; };  // V == 1
+template <> struct MsdaRaw<float, 4> { using type = float4; };
+template <> struct MsdaRaw<__nv_bfloat16, 8> { using type = uint4; };
+template <> struct MsdaRaw<__nv_bfloat16, 4> { using type = uint2; };
+template <> struct MsdaRaw<int8_t, 8> { using type = uint2; };
+template <> struct MsdaRaw<int8_t, 4> { using type = unsigned; };
+
+// them at p, from shared memory (SHARED) or through the read-only path
+template <bool SHARED, typename TV, int V>
+__device__ __forceinline__ typename MsdaRaw<TV, V>::type msda_fetch(const TV* p) {
+  using R = typename MsdaRaw<TV, V>::type;
+  const R* q = reinterpret_cast<const R*>(p);
+  if constexpr (SHARED || V == 1) {
+    return *q;
+  } else {
+    return __ldg(q);
   }
 }
-__device__ __forceinline__ void msda_load(const __nv_bfloat16* p, float (&v)[4]) {
-  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+
+// 4 int8 channels (one word) to f32, exactly: each byte with its sign bit
+// flipped (b + 128) becomes the low byte of the f32 2^23 + b + 128 by one
+// byte permute, and 2^23 + 128 is subtracted. An int-to-float conversion
+// issues at a quarter of the FMA rate, and bounded the int8 forward.
+__device__ __forceinline__ void msda_i8x4(unsigned w, float* v) {
+  const unsigned x = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] = __uint_as_float(__byte_perm(x, 0x4b000000u, 0x7540u + i)) - 8388736.f;
+  }
 }
-// the int8 table: 8 channels as one 8-byte load (bf16 output), 4 as one
-// 4-byte load (f32 output)
-__device__ __forceinline__ void msda_load(const int8_t* p, float (&v)[8]) {
-  const uint2 r = __ldg(reinterpret_cast<const uint2*>(p));
-  const char4 a = *reinterpret_cast<const char4*>(&r.x);
-  const char4 b = *reinterpret_cast<const char4*>(&r.y);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+
+// raw bits -> V f32 registers; a bf16 becomes an f32 by a shift or a mask
+template <typename TV>
+__device__ __forceinline__ void msda_unpack(TV r, float (&v)[1]) { v[0] = msda_to_float(r); }
+__device__ __forceinline__ void msda_unpack(float4 r, float (&v)[4]) {
+  v[0] = r.x; v[1] = r.y; v[2] = r.z; v[3] = r.w;
 }
-__device__ __forceinline__ void msda_load(const int8_t* p, float (&v)[4]) {
-  const int r = __ldg(reinterpret_cast<const int*>(p));
-  const char4 a = *reinterpret_cast<const char4*>(&r);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+__device__ __forceinline__ void msda_unpack(uint4 r, float (&v)[8]) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+__device__ __forceinline__ void msda_unpack(uint2 r, float (&v)[4]) {  // 4 bf16
+  v[0] = __uint_as_float(r.x << 16);
+  v[1] = __uint_as_float(r.x & 0xffff0000u);
+  v[2] = __uint_as_float(r.y << 16);
+  v[3] = __uint_as_float(r.y & 0xffff0000u);
+}
+__device__ __forceinline__ void msda_unpack(uint2 r, float (&v)[8]) {  // 8 int8
+  msda_i8x4(r.x, v);
+  msda_i8x4(r.y, v + 4);
+}
+__device__ __forceinline__ void msda_unpack(unsigned r, float (&v)[4]) { msda_i8x4(r, v); }
+
+// V consecutive channels at p (global memory) -> f32 registers
+template <typename TV, int V>
+__device__ __forceinline__ void msda_load(const TV* p, float (&v)[V]) {
+  msda_unpack(msda_fetch<false, TV, V>(p), v);
 }
 __device__ __forceinline__ void msda_store(float* p, const float (&v)[1]) { *p = v[0]; }
 __device__ __forceinline__ void msda_store(__nv_bfloat16* p, const float (&v)[1]) {

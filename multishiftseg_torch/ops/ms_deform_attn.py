@@ -6,9 +6,11 @@ custom VJP ``_core_vjp_fwd`` / ``_core_vjp_bwd`` (:565-716) and ``MSDeformAttn``
 (:795-870). The kernels are in ``csrc/ms_deform_attn.cu`` (the ``bilinear`` and
 ``nearest`` forwards, the int8 table's quantize and forward, the ``bilinear``
 backward) and ``csrc/ms_deform_attn_approx.cu`` (``nearest_top{T}``,
-``nearest_top{T}c``, ``shared``). The ``bilinear`` forward kernel serves one
-(image, head) a block and copies that head's rows of the first levels (the
-coarsest) into shared memory; :func:`staged_levels` picks how many.
+``nearest_top{T}c``, ``shared``). One forward kernel serves ``bilinear``,
+``nearest`` and the int8 table: a block takes one (image, head) and copies that
+head's rows of the first levels (the coarsest) into shared memory;
+:func:`forward_staged_levels` picks how many. The top-T kernel selects once a
+head, one lane a point.
 
 Sample modes (:func:`parse_sample_mode`):
 
@@ -59,8 +61,8 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 SAMPLE_MODES = ("bilinear", "nearest", "nearest_top{T}", "nearest_top{T}c", "shared")
-MAX_POINTS = 32  # J = L * P a head: the selection's registers in the top-T kernel
-# the shared memory a block of the bilinear forward kernel may stage (an
+MAX_POINTS = 32  # J = L * P a head: one warp's lanes in the top-T kernel's selection
+# the shared memory a block of the forward kernel may stage (an
 # H100's 227 KB)
 SMEM_BUDGET = 232448
 
@@ -492,11 +494,11 @@ def _check_core_args(value, spatial_shapes, loc, attn, value_dtypes=tuple(_DTYPE
 def staged_levels(spatial_shapes: Sequence[Tuple[int, int]], head_dim: int,
                   dtype: torch.dtype, smem_budget: int = SMEM_BUDGET) -> int:
     """How many levels, from the first (the coarsest, as the model orders
-    them), the bilinear forward kernel stages in shared memory: as many as fit
-    in ``smem_budget`` bytes with one head's rows of ``head_dim`` channels of
-    ``dtype``. Zero when a row is not a whole number of 16-byte pieces (the
-    kernel copies rows in 16-byte pieces and reads them as channel groups)."""
-    row = head_dim * torch.finfo(dtype).bits // 8
+    them), the forward kernel stages in shared memory: as many as fit in
+    ``smem_budget`` bytes with one head's rows of ``head_dim`` channels of
+    ``dtype`` (bf16, f32, or the int8 table's). Zero when a row is not a whole
+    number of 16-byte pieces (the kernel copies rows in 16-byte pieces)."""
+    row = head_dim * torch.empty((), dtype=dtype).element_size()
     if row % 16:
         return 0
     staged, used = 0, 0
@@ -508,6 +510,17 @@ def staged_levels(spatial_shapes: Sequence[Tuple[int, int]], head_dim: int,
     return staged
 
 
+def forward_staged_levels(table: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                          nearest: bool = False) -> int:
+    """The levels a forward launch stages for this value table [N, S, M, D]
+    (bf16, f32 or the int8 table): none for ``nearest`` (one row a point:
+    staging ran no faster on the H100, PERF.md) or for a table that is not
+    16-byte aligned (staging copies 16-byte pieces), else :func:`staged_levels`."""
+    if nearest or table.data_ptr() % 16:
+        return 0
+    return staged_levels(spatial_shapes, table.shape[-1], table.dtype)
+
+
 def _levels(spatial_shapes):
     return (ctypes.c_int * (2 * len(spatial_shapes)))(*[v for hw in spatial_shapes for v in hw])
 
@@ -516,20 +529,19 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode):
+def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode, staged=None):
+    """``bilinear`` or ``nearest`` on the card. ``staged``: the levels to stage
+    (default :func:`forward_staged_levels`)."""
     n, s, m, d, lq, L, P = _check_core_args(value, spatial_shapes, loc, attn)
-    from .._build import load
+    from .._build import function
 
     nearest = sample_mode == "nearest"
-    lib = load("ms_deform_attn")
-    fn = lib.msda_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = function("ms_deform_attn", "msda_forward",
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((n, lq, m * d), dtype=value.dtype, device=value.device)
-    # staging copies 16-byte pieces: an aligned table only
-    staged = 0 if nearest or value.data_ptr() % 16 else staged_levels(spatial_shapes, d,
-                                                                        value.dtype)
+    if staged is None:
+        staged = forward_staged_levels(value, spatial_shapes, nearest)
     with torch.cuda.device(value.device):
         rc = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
                 n, s, m, d, lq, L, P, _levels(spatial_shapes), _DTYPE_CODE[value.dtype],
@@ -563,7 +575,9 @@ def _quantize_cuda(value):
     return qvalue, scale
 
 
-def _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, loc, attn):
+def _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, loc, attn, staged=None):
+    """The bilinear forward over the int8 table on the card; ``staged`` as
+    :func:`_ms_deform_attn_cuda`'s."""
     n, s, m, d, lq, L, P = _check_core_args(qvalue, spatial_shapes, loc, attn,
                                             value_dtypes=(torch.int8,))
     if (scale.dtype != torch.float32 or tuple(scale.shape) != (d,)
@@ -573,12 +587,14 @@ def _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, loc, attn):
 
     fn = function("ms_deform_attn", "msda_forward_int8",
                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                  + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((n, lq, m * d), dtype=attn.dtype, device=qvalue.device)
+    if staged is None:
+        staged = forward_staged_levels(qvalue, spatial_shapes)
     with torch.cuda.device(qvalue.device):
         rc = fn(qvalue.data_ptr(), scale.data_ptr(), loc.data_ptr(), attn.data_ptr(),
                 out.data_ptr(), n, s, m, d, lq, L, P, _levels(spatial_shapes),
-                _DTYPE_CODE[attn.dtype], _stream(qvalue.device))
+                _DTYPE_CODE[attn.dtype], staged, _stream(qvalue.device))
     if rc != 0:
         raise RuntimeError(f"msda_forward_int8 failed: cudaError {rc}")
     LAUNCHES["ms_deform_attn_int8"] += 1

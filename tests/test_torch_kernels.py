@@ -207,6 +207,63 @@ def test_bilinear_forward_staging_matches_plain(cuda, dtype, staged, d):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def _staging_case(rng, shapes, d, n=2, lq=1500, m=4, p=3):
+    """value, locations (a third on the levels' last rows, see _edge_points)
+    and weights summing to 1 a head."""
+    s = sum(h * w for h, w in shapes)
+    value = rng.randn(n, s, m, d).astype(np.float32)
+    loc = rng.rand(n, lq, m, len(shapes), p, 2).astype(np.float32) * 1.2 - 0.1
+    loc = _edge_points(rng, loc, shapes)
+    attn = rng.rand(n, lq, m, len(shapes), p).astype(np.float32)
+    attn /= attn.reshape(n, lq, m, -1).sum(-1).reshape(n, lq, m, 1, 1)
+    return value, loc, attn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode_d", [("nearest", 32), ("nearest", 6), ("int8", 32),
+                                    ("int8", 6), ("int8", 256)])
+@pytest.mark.parametrize("staged", sorted(STAGING_LEVELS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nearest_and_int8_forward_staging_match_plain(cuda, dtype, staged, mode_d):
+    """The head-major forward of ``nearest`` and of the int8 table with no
+    level staged and with the levels that fit in shared memory (those of
+    ``STAGING_LEVELS[staged]`` at D = 32, none at D = 6, at most level 0 for
+    the int8 table's 256-byte rows at D = 256), each launched explicitly,
+    against the plain versions: 2 images, points outside the maps and on the
+    staged levels' last rows, several query passes a block; D = 6 reads single
+    channels, D = 256 in f32 takes two channel passes. The wrapper stages them
+    for the int8 table and none for ``nearest``. f32: sum order (and the int8
+    scale taken once a channel sum); bf16: both sides round the f32 sum once."""
+    mode, d = mode_d
+    shapes = STAGING_LEVELS[staged]
+    rng = np.random.RandomState(40 + staged + d)
+    value, loc, attn = _staging_case(rng, shapes, d)
+    v = torch.from_numpy(value).to(cuda, dtype)
+    lo = torch.from_numpy(loc).to(cuda)
+    a = torch.from_numpy(attn).to(cuda, dtype)
+    if mode == "int8":
+        q, scale = msda.quantize_value_table(v)
+        run = lambda k: msda._ms_deform_attn_int8_cuda(q, scale, shapes, lo, a, staged=k)
+        ref = msda._bilinear_int8_plain(q, scale, shapes, lo, a)
+        table, counter = q, "ms_deform_attn_int8"
+    else:
+        run = lambda k: msda._ms_deform_attn_cuda(v, shapes, lo, a, "nearest", staged=k)
+        ref = msda.ms_deform_attn_core_plain(v, shapes, lo, a, "nearest")
+        table, counter = v, "ms_deform_attn_nearest"
+    fit = msda.staged_levels(shapes, d, table.dtype)
+    assert fit == {32: staged, 6: 0, 256: min(staged, 1)}[d]
+    assert msda.forward_staged_levels(table, shapes, mode == "nearest") == (
+        0 if mode == "nearest" else fit)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for k in sorted({0, fit}):
+        before = msda.LAUNCHES[counter]
+        out = run(k)
+        torch.cuda.synchronize()
+        assert msda.LAUNCHES[counter] == before + 1
+        assert out.dtype == dtype and out.shape == ref.shape
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [130, 160, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -779,6 +836,83 @@ def test_approximate_kernels_match_plain(cuda, levels, mode, dtype, d, weights):
     bad = bad.reshape(N, LQ, M, d).any(-1)
     assert not (bad & ~near).any()
     assert int(bad.sum()) <= 2
+
+
+# the top-T kernel's selection widths: J = 12 (two heads a warp) and J = 32
+# (one head a warp); (levels, points a level)
+WARP_WIDTHS = {12: ([(6, 4), (3, 2), (2, 5)], 4), 32: ([(6, 4), (3, 2), (2, 5), (4, 4)], 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weights", ["random", "equal", "zeros"])
+@pytest.mark.parametrize("d", [32, 6])  # 16-byte channel groups, single channels
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["nearest_top1", "nearest_top6", "nearest_topJ",
+                                  "nearest_top6c", "nearest_topJc"])
+@pytest.mark.parametrize("j", sorted(WARP_WIDTHS))
+def test_top_kernel_at_warp_widths_matches_plain(cuda, j, mode, dtype, d, weights):
+    """``nearest_top{T}[c]`` with a head's points on 16 lanes (J = 12, two
+    heads a warp) and on 32 (J = 32, one head a warp), over 2400 heads (many
+    blocks, a partial last one), with random, all-equal (the tie rule alone)
+    and zero weights (a third 0, some heads all 0), against the plain version.
+    Tolerance as ``test_approximate_kernels_match_plain``; outputs whose
+    centroid lies within 1e-4 px of a rounding boundary may flip, at most
+    max(2, 1 in 10,000) of them."""
+    shapes, p = WARP_WIDTHS[j]
+    mode = mode.replace("J", str(j))
+    rng = np.random.RandomState(j + d)
+    n, lq, m = 2, 300, 4
+    s = sum(h * w for h, w in shapes)
+    value = rng.randn(n, s, m, d).astype(np.float32)
+    loc = rng.rand(n, lq, m, len(shapes), p, 2).astype(np.float32) * 1.2 - 0.1
+    attn = np.full((n, lq, m, len(shapes), p), 1.0 / j, np.float32)
+    if weights != "equal":
+        attn = rng.rand(*attn.shape).astype(np.float32)
+        if weights == "zeros":
+            attn[rng.rand(*attn.shape) < 0.33] = 0.0
+            attn[:, 0, 0] = 0.0
+        attn /= np.maximum(attn.reshape(n, lq, m, -1).sum(-1), 1e-6).reshape(n, lq, m, 1, 1)
+    v = torch.from_numpy(value).to(cuda, dtype)
+    lo = torch.from_numpy(loc).to(cuda)
+    a = torch.from_numpy(attn).to(cuda, dtype)
+    kind = msda.parse_sample_mode(mode)[0]
+    before = msda.LAUNCHES[f"ms_deform_attn_{kind}"]
+    out = msda.ms_deform_attn_core(v, shapes, lo, a, mode)
+    ref = msda.ms_deform_attn_core_plain(v, shapes, lo, a, mode)
+    torch.cuda.synchronize()
+    assert msda.LAUNCHES[f"ms_deform_attn_{kind}"] == before + 1
+    assert out.dtype == dtype and out.shape == (n, lq, m * d)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    bad = ((out.float() - ref.float()).abs() > tol + tol * ref.float().abs()).cpu().numpy()
+    near = near_rounding_boundary(loc, a.float().cpu().numpy(), shapes, mode)
+    bad = bad.reshape(n, lq, m, d).any(-1)
+    assert not (bad & ~near).any()
+    assert int(bad.sum()) <= max(2, bad.size // 10000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest_top6", "nearest_top6c"])
+def test_top_kernel_takes_inputs_off_16_byte_alignment(cuda, mode):
+    """Locations and weights that start 8 and 2 bytes past a 16-byte boundary
+    (contiguous views into larger buffers; the selection reads a point's
+    location as one float2 and its weight alone): the output equals that of
+    the aligned inputs."""
+    shapes, p = WARP_WIDTHS[12]
+    rng = np.random.RandomState(50)
+    n, lq, m, d = 2, 300, 4, 32
+    value = torch.from_numpy(rng.randn(n, sum(h * w for h, w in shapes), m, d).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    loc = torch.from_numpy(rng.rand(n, lq, m, len(shapes), p, 2).astype(np.float32)).to(cuda)
+    attn = torch.softmax(torch.from_numpy(rng.randn(n, lq, m, len(shapes) * p).astype(
+        np.float32)), -1).view(n, lq, m, len(shapes), p).to(cuda, torch.bfloat16)
+    loc_off = torch.empty(loc.numel() + 2, device=cuda)[2:].view(loc.shape).copy_(loc)
+    attn_off = torch.empty(attn.numel() + 1, dtype=attn.dtype, device=cuda)[1:].view(
+        attn.shape).copy_(attn)
+    assert loc_off.data_ptr() % 16 == 8 and attn_off.data_ptr() % 16 == 2
+    got = msda.ms_deform_attn_core(value, shapes, loc_off, attn_off, mode)
+    want = msda.ms_deform_attn_core(value, shapes, loc, attn, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

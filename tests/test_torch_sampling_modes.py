@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 import flax
 import jax
 import jax.numpy as jnp
@@ -345,3 +346,77 @@ def test_both_tails_are_refused():
         maskformer.inference(outs, (8, 10), num_classes=5, score_lowres=True, score_topq=3)
     with pytest.raises(ValueError, match="score_topq"):
         maskformer.inference(outs, (8, 10), num_classes=5, score_topq=9)  # > 8 queries
+
+
+# the top-T kernel's selection widths: J = 12 (two heads a warp) and J = 32
+# (one head a warp); (levels, points a level)
+WARP_WIDTHS = {12: ([(6, 4), (3, 2), (2, 5)], 4), 32: ([(6, 4), (3, 2), (2, 5), (4, 4)], 8)}
+
+
+@pytest.mark.parametrize("weights", ["random", "equal", "zeros"])
+@pytest.mark.parametrize("mode", ["nearest_top6", "nearest_top6c", "nearest_topJc"])
+@pytest.mark.parametrize("j", sorted(WARP_WIDTHS))
+def test_top_modes_match_jax_at_warp_widths(j, mode, weights):
+    """``nearest_top{T}[c]`` at the selection widths the card's kernel lays
+    out differently (a head per 16 or per 32 lanes): the port's plain version
+    against JAX's, held off the centroids' rounding boundaries as above."""
+    shapes, p = WARP_WIDTHS[j]
+    mode = mode.replace("J", str(j))
+    rng = np.random.RandomState(j)
+    s = sum(h * w for h, w in shapes)
+    value = rng.randn(N, s, M, D).astype(np.float32)
+    loc = rng.rand(N, LQ, M, len(shapes), p, 2).astype(np.float32) * 1.2 - 0.1
+    attn = np.full((N, LQ, M, len(shapes), p), 1.0 / j, np.float32)
+    if weights != "equal":
+        attn = rng.rand(*attn.shape).astype(np.float32)
+        if weights == "zeros":
+            attn[rng.rand(*attn.shape) < 0.33] = 0.0
+            attn[:, 0, 0] = 0.0
+        attn /= np.maximum(attn.reshape(N, LQ, M, -1).sum(-1), 1e-6).reshape(N, LQ, M, 1, 1)
+    ours, ref = _port(value, loc, attn, shapes, mode), _jax(value, loc, attn, shapes, mode)
+    assert ours.shape == ref.shape == (N, LQ, M * D)
+    skipped = assert_close_off_boundaries(ours, ref, loc, attn, shapes, mode)
+    assert skipped <= N * LQ * M // 10
+    assert np.abs(ref).max() > 0.1
+
+
+@pytest.mark.parametrize("case", ["int8_eval", "int8_train", "int8_16_byte_rows",
+                                  "int8_8_byte_rows", "bf16_32_byte_rows", "f32_32_byte_rows"])
+def test_staged_levels_sizes_int8_and_32_byte_rows(case):
+    """The forward kernel stages rows of the int8 table as it does bf16 and
+    f32 ones, sized by their bytes: the eval pyramid's level 0 (2048 rows of
+    32 bytes, 64 KB; levels 0-1 would take 320 KB), the training pyramid's
+    levels 0-1 (77 KB), all three levels with 16-byte rows, none with rows of
+    8 bytes (no whole 16-byte pieces)."""
+    shapes, d, dtype, want = {
+        "int8_eval": (chip_smoke.LEVELS, 32, torch.int8, 1),
+        "int8_train": (chip_smoke.TRAIN_LEVELS, 32, torch.int8, 2),
+        "int8_16_byte_rows": (chip_smoke.TRAIN_LEVELS, 16, torch.int8, 3),
+        "int8_8_byte_rows": (chip_smoke.TRAIN_LEVELS, 8, torch.int8, 0),
+        "bf16_32_byte_rows": (chip_smoke.LEVELS, 16, torch.bfloat16, 1),
+        "f32_32_byte_rows": (chip_smoke.TRAIN_LEVELS, 8, torch.float32, 2),
+    }[case]
+    assert msda.staged_levels(shapes, d, dtype) == want
+    # the same bytes a row stage the same levels whatever the type
+    assert msda.staged_levels(shapes, d, dtype) == msda.staged_levels(
+        shapes, d * torch.empty((), dtype=dtype).element_size(), torch.int8)
+
+
+@pytest.mark.parametrize("case", ["bilinear_bf16", "int8", "nearest", "f32", "train_bf16",
+                                  "off_16_bytes"])
+def test_forward_staged_levels_choice(case):
+    """The levels a forward launch stages for its table at the eval pyramid:
+    level 0 of a bf16 table (128 KB) or of the int8 table (64 KB), none for
+    ``nearest`` (one row a point), none for an f32 table (level 0 is 256 KB),
+    levels 0-1 at the training pyramid; none for a table that does not start
+    on a 16-byte boundary."""
+    rng = np.random.RandomState(3)
+    levels = chip_smoke.TRAIN_LEVELS if case == "train_bf16" else chip_smoke.LEVELS
+    s = sum(h * w for h, w in levels)
+    dtype = {"int8": torch.int8, "f32": torch.float32}.get(case, torch.bfloat16)
+    table = torch.from_numpy(rng.randint(-9, 9, (1, s, 2, 32)).astype(np.float32)).to(dtype)
+    if case == "off_16_bytes":
+        table = torch.empty(table.numel() + 1, dtype=dtype)[1:].view(table.shape)
+    want = {"bilinear_bf16": 1, "int8": 1, "nearest": 0, "f32": 0, "train_bf16": 2,
+            "off_16_bytes": 0}[case]
+    assert msda.forward_staged_levels(table, levels, nearest=case == "nearest") == want
