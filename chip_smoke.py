@@ -121,9 +121,7 @@ medians of 25 such calls, with the lowest and highest block median as
 calls issued back to back (each call's device time; see ``spread_ms``), and
 ``host_ms``, the wrapper's host time a call. The rows of the forward kernel
 (``bilinear``, ``nearest``, int8) add ``staged_levels``, the levels it staged
-in shared memory, and its device time with the other choice:
-``device_ms_unstaged`` with none, or ``device_ms_staged`` with the levels that
-fit.
+in shared memory.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device": ...}``
@@ -154,6 +152,9 @@ QUERIES, CLASSES = 100, 19
 # the stage-2 step (exps/m2f.yaml): 8 pairs of 700x700 crops padded to 704x704
 TRAIN_PAIRS, CROP, TRAIN_HW = 8, (700, 700), (704, 704)
 TRAIN_LEVELS = [(22, 22), (44, 44), (88, 88)]
+# the top-T kernel's selection widths, for its tests: J = 12 points a head
+# (two heads a warp) and J = 32 (one head a warp); (levels, points a level)
+WARP_WIDTHS = {12: ([(6, 4), (3, 2), (2, 5)], 4), 32: ([(6, 4), (3, 2), (2, 5), (4, 4)], 8)}
 TRAIN_POINTS = 12544
 SEED = 0
 # train_parity's weight and batch seeds: the gradient limit rests on several
@@ -204,6 +205,11 @@ def nvidia_smi():
         return f"nvidia-smi unavailable: {e}"
 
 
+# cycles the card sleeps before a block of back-to-back calls: longer than
+# the host takes to queue them (25 calls of at most 0.15 ms of host time)
+QUEUE_AHEAD_CYCLES = 20_000_000
+
+
 def median_ms(torch, fn, reps):
     """Median device time of ``fn`` over ``reps`` calls, one event pair each."""
     fn()
@@ -225,10 +231,10 @@ def spread_ms(torch, fn, back_to_back=False, blocks=4, reps=25):
     calls of ``fn`` each: the spread tells a small change from noise within
     one run. By default each call is timed as ``median_ms`` times it: alone
     and synchronised, the wrapper's host time before its launch included.
-    ``back_to_back``: a block issues its calls with an event between
-    consecutive ones and no host sync, so the card runs them in a row and each
-    interval is one call's device time (the host's work for a call overlaps
-    the previous one)."""
+    ``back_to_back``: a block queues its calls behind a sleep kernel, with an
+    event between consecutive ones and no host sync, so the card runs them in
+    a row whatever the host's pace and each interval is one call's device
+    time."""
     fn()
     torch.cuda.synchronize()
     meds = []
@@ -237,6 +243,7 @@ def spread_ms(torch, fn, back_to_back=False, blocks=4, reps=25):
             meds.append(median_ms(torch, fn, reps))
             continue
         events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         events[0].record()
         for i in range(reps):
             fn()
@@ -269,25 +276,6 @@ def time_redesigned(torch, row, fn):
     row["ms"], row["ms_spread"] = spread_ms(torch, fn)
     row["device_ms"], row["device_ms_spread"] = spread_ms(torch, fn, back_to_back=True)
     row["host_ms"] = host_ms(torch, fn)
-
-
-def staging_fields(torch, row, msda, table, nearest, run_staged):
-    """The levels the forward kernel staged at the main-path shapes
-    (``staged_levels``), and its device time with the other choice: with none
-    staged where it staged some (``device_ms_unstaged``), with the levels that
-    fit (``staged_levels`` of the table) where it staged none
-    (``device_ms_staged``): whether staging pays. A tree without
-    ``forward_staged_levels`` (an A/B run of an older one) reports neither."""
-    if not hasattr(msda, "forward_staged_levels"):
-        return
-    row["staged_levels"] = msda.forward_staged_levels(table, LEVELS, nearest)
-    if row["staged_levels"]:
-        row["device_ms_unstaged"] = spread_ms(torch, lambda: run_staged(0),
-                                              back_to_back=True)[0]
-    else:
-        fit = msda.staged_levels(LEVELS, table.shape[-1], table.dtype)
-        row["device_ms_staged"] = spread_ms(torch, lambda: run_staged(fit),
-                                            back_to_back=True)[0]
 
 
 def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
@@ -423,9 +411,7 @@ def phase_kernels(torch):
             "library_ms": None}
         row = rows[f"ms_deform_attn_{mode}"]
         time_redesigned(torch, row, run)
-        staging_fields(torch, row, msda, value, mode == "nearest",
-                       lambda k: msda._ms_deform_attn_cuda(value, LEVELS, loc, attn, mode,
-                                                           staged=k))
+        row["staged_levels"] = msda.forward_staged_levels(value, LEVELS, mode == "nearest")
         # f32 edge cases: a degenerate h == 1 / w == 1 pyramid (a 32-px side)
         # with points outside the map, and 30 channels a head (no 16-byte
         # channel groups: the kernel's one-channel path); f32 sums in another order
@@ -620,9 +606,7 @@ def approx_kernel_rows(torch, dev, rows, check, checks):
         "max_abs_err": err, "plain_ms": median_ms(torch, plain_i, 10), "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None}
     time_redesigned(torch, rows["ms_deform_attn_int8"], run_i)
-    staging_fields(torch, rows["ms_deform_attn_int8"], msda, q, False,
-                   lambda k: msda._ms_deform_attn_int8_cuda(q, scale, LEVELS, loc, attn,
-                                                            staged=k))
+    rows["ms_deform_attn_int8"]["staged_levels"] = msda.forward_staged_levels(q, LEVELS)
     del q, scale, out
 
     for mode, line, counter in (("nearest_top6", 304, "ms_deform_attn_nearest_top"),
@@ -2562,8 +2546,7 @@ def main(argv=None):
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the redesigned kernels' rows also carry their spreads and device times
     # (and the forward's, the levels it staged in shared memory)
-    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels",
-             "device_ms_unstaged", "device_ms_staged")
+    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels")
     if rows:
         emit({"kernels": [{k: r[k] for k in key_order + extra if k in r}
                           for r in rows.values()]})

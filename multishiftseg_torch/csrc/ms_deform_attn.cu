@@ -51,9 +51,10 @@
 //     keeps its channel units of V channels (GP threads, 4 at D = 32 in bf16,
 //     8 in f32): 16 bytes of a bf16 / f32 table; V bytes of the int8 table,
 //     whose V channels make one 16-byte store of the output.
-//   * Before the query loop the block copies the head's rows of the first
-//     `staged` levels (the coarsest: the model orders them so) to shared
-//     memory with 16-byte cp.async pieces, 64 B a row at a 512 B stride:
+//   * Before the query loop a bilinear or int8 block copies the head's rows
+//     of the first `staged` levels (the coarsest: the model orders them so)
+//     to shared memory with 16-byte cp.async pieces, 64 B a row at a 512 B
+//     stride:
 //     levels 0 and 1 at the training shapes (151 KB), level 0 at the eval
 //     shapes (128 KB; 64 KB of int8 rows); the caller picks the count
 //     (ops/ms_deform_attn.py::staged_levels). Their rows are then plain
@@ -65,7 +66,9 @@
 //     keep their value tables within half the L2 (4 of the 16 at training, 4
 //     chunks a pair; 1 at eval, 16 chunks), so the unstaged levels' rows stay
 //     in L2; staged, the copies (blocks x staged bytes) stay under a quarter
-//     of the row reads staging saves.
+//     of the row reads staging saves. Launches that stage nothing take the
+//     same wave: against one pass of queries a block it ran 17-22% faster
+//     for nearest and for single channels, as fast for f32 (H100, PERF.md).
 //   * Each point's location and weight is loaded once for its group, one
 //     point a thread, a query's rounds of GP points at once; shuffles over
 //     the whole warp (every thread takes the same passes) hand it out.
@@ -90,7 +93,7 @@
 // concurrent blocks' random points otherwise spread over all 16 images'
 // tables, more than the L2 holds) made it the faster of the two for bilinear
 // and the int8 table. Nearest reads one row a point, and staging level 0 ran
-// no faster than none: the caller stages nothing for it. What bounds the
+// no faster than none: it reads every row from global memory. What bounds the
 // nearest kernel is the latency of each pass's location and weight loads
 // and of its row loads, not bytes or instructions: with the row loads
 // removed it still took most of its time. Prefetching the next pass's
@@ -180,8 +183,8 @@ msda_fwd_kernel(const TV* __restrict__ value, const float* __restrict__ scale,
   constexpr int CH = V == 1 ? MSDA_FWD_MAX_CHUNKS : 1;
   extern __shared__ uint4 msda_smem[];
   TV* sv = reinterpret_cast<TV*>(msda_smem);  // [staged_rows][D]
-  // nearest: (W, H, first row) of each point's level, after the staged rows
-  int4* spt = reinterpret_cast<int4*>(sv + staged_rows * D);
+  // nearest (which stages no rows): (W, H, first row) of each point's level
+  int4* spt = reinterpret_cast<int4*>(msda_smem);
   const int m = blockIdx.y, n = blockIdx.z;
   const int64_t row = (int64_t)M * D;  // stride of one s in value
   const TV* vb = value + (int64_t)n * S * row + (int64_t)m * D;
@@ -263,15 +266,11 @@ msda_fwd_kernel(const TV* __restrict__ value, const float* __restrict__ scale,
                 const int rr = __shfl_sync(0xffffffffu, r[k], t & (GP - 1), GP);
                 ww[b] = __shfl_sync(0xffffffffu, w[k], t & (GP - 1), GP);
                 on[b] = t < nt && rr >= 0;
-                // a point's level, and so whether it is staged, is the same
-                // in every group of the warp
-                const bool in_smem = j0 + t < staged * P;
 #pragma unroll
                 for (int c = 0; c < CH; ++c) {
                   const int u = u0 + g + c * GP;
                   if (on[b] && u < G) {
-                    raw[b][c] = in_smem ? msda_fetch<true, TV, V>(sv + rr * D + V * u)
-                                        : msda_fetch<false, TV, V>(vb + rr * (int)row + V * u);
+                    raw[b][c] = msda_fetch<false, TV, V>(vb + rr * (int)row + V * u);
                   }
                 }
               }
@@ -364,7 +363,7 @@ static int msda_fwd_launch(const TV* value, const float* scale, const void* loc,
   int staged_rows = 0;
   for (int l = 0; l < staged; ++l) staged_rows += lv.h[l] * lv.w[l];
   const size_t staged_bytes = (size_t)staged_rows * D * sizeof(TV);
-  const size_t smem = staged_bytes + (NEAREST ? (size_t)lv.n * P * sizeof(int4) : 0);
+  const size_t smem = NEAREST ? (size_t)lv.n * P * sizeof(int4) : staged_bytes;
   if (smem > MSDA_MAX_STAGED) return (int)cudaErrorInvalidValue;
   const auto kern = msda_fwd_kernel<T, TV, V, NEAREST>;
   // this launch's shared memory, the blocks of it that an SM holds, the
@@ -388,9 +387,9 @@ static int msda_fwd_launch(const TV* value, const float* scale, const void* loc,
   images = images < 1 ? 1 : (images > N ? N : images);
   int64_t chunks = (int64_t)per_sm * sms / (images * M);
   if (staged > 0) {
-    // ... whose copies (staged bytes a block) stay under a quarter of the row
-    // reads that staging saves (4 corners, or 1 nearest row, a staged point)
-    const double saved = (double)Lq * P * staged * (NEAREST ? 1 : 4) * D * sizeof(TV);
+    // ... whose copies (staged bytes a block) stay under a quarter of the
+    // corner reads that staging saves (4 corners of each staged point)
+    const double saved = (double)Lq * P * staged * 4 * D * sizeof(TV);
     const int64_t cap = (int64_t)(0.25 * saved / (double)staged_bytes);
     chunks = chunks < cap ? chunks : cap;
   }
@@ -430,15 +429,15 @@ static int msda_dispatch(const void* value, const void* loc, const void* attn,
 
 // dtype: 0 = float32, 1 = bfloat16. shapes_hw: host array [n_levels][2] of (H, W).
 // staged: the levels, from the first, whose rows of a head a block stages in
-// shared memory (0 .. n_levels; needs 16-byte channel groups and at most
-// 227 KB, nearest's table of the points included).
+// shared memory (0 .. n_levels; bilinear only; needs 16-byte channel groups
+// and at most 227 KB).
 // Returns the first failed CUDA call's error, else cudaGetLastError() after
 // the launch (0 on success).
 extern "C" int msda_forward(const void* value, const void* loc, const void* attn,
                             void* out, int n, int s, int m, int d, int lq,
                             int n_levels, int n_points, const int* shapes_hw,
                             int dtype, int nearest, int staged, void* stream) {
-  if (n_points < 1 || d < 1 || staged < 0 || staged > n_levels) {
+  if (n_points < 1 || d < 1 || staged < 0 || staged > n_levels || (nearest && staged > 0)) {
     return (int)cudaErrorInvalidValue;
   }
   MsdaLevels lv;

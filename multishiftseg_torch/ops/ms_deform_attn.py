@@ -529,9 +529,9 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode, staged=None):
-    """``bilinear`` or ``nearest`` on the card. ``staged``: the levels to stage
-    (default :func:`forward_staged_levels`)."""
+def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode):
+    """``bilinear`` or ``nearest`` on the card, staging the levels
+    :func:`forward_staged_levels` picks."""
     n, s, m, d, lq, L, P = _check_core_args(value, spatial_shapes, loc, attn)
     from .._build import function
 
@@ -540,8 +540,7 @@ def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode, staged=N
                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((n, lq, m * d), dtype=value.dtype, device=value.device)
-    if staged is None:
-        staged = forward_staged_levels(value, spatial_shapes, nearest)
+    staged = forward_staged_levels(value, spatial_shapes, nearest)
     with torch.cuda.device(value.device):
         rc = fn(value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(),
                 n, s, m, d, lq, L, P, _levels(spatial_shapes), _DTYPE_CODE[value.dtype],
@@ -575,9 +574,9 @@ def _quantize_cuda(value):
     return qvalue, scale
 
 
-def _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, loc, attn, staged=None):
-    """The bilinear forward over the int8 table on the card; ``staged`` as
-    :func:`_ms_deform_attn_cuda`'s."""
+def _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, loc, attn):
+    """The bilinear forward over the int8 table on the card, staging the
+    levels :func:`forward_staged_levels` picks."""
     n, s, m, d, lq, L, P = _check_core_args(qvalue, spatial_shapes, loc, attn,
                                             value_dtypes=(torch.int8,))
     if (scale.dtype != torch.float32 or tuple(scale.shape) != (d,)
@@ -589,8 +588,7 @@ def _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, loc, attn, staged=N
                   [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty((n, lq, m * d), dtype=attn.dtype, device=qvalue.device)
-    if staged is None:
-        staged = forward_staged_levels(qvalue, spatial_shapes)
+    staged = forward_staged_levels(qvalue, spatial_shapes)
     with torch.cuda.device(qvalue.device):
         rc = fn(qvalue.data_ptr(), scale.data_ptr(), loc.data_ptr(), attn.data_ptr(),
                 out.data_ptr(), n, s, m, d, lq, L, P, _levels(spatial_shapes),

@@ -22,6 +22,7 @@ from multishiftseg_torch.losses import criterion, matcher, rcl
 from multishiftseg_torch.ops import dilated_conv as dconv
 from multishiftseg_torch.ops import ms_deform_attn as msda
 from multishiftseg_torch.ops import scores
+from multishiftseg_torch.tools import forward_ab
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -225,15 +226,14 @@ def _staging_case(rng, shapes, d, n=2, lq=1500, m=4, p=3):
 @pytest.mark.parametrize("staged", sorted(STAGING_LEVELS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_nearest_and_int8_forward_staging_match_plain(cuda, dtype, staged, mode_d):
-    """The head-major forward of ``nearest`` and of the int8 table with no
-    level staged and with the levels that fit in shared memory (those of
-    ``STAGING_LEVELS[staged]`` at D = 32, none at D = 6, at most level 0 for
-    the int8 table's 256-byte rows at D = 256), each launched explicitly,
-    against the plain versions: 2 images, points outside the maps and on the
-    staged levels' last rows, several query passes a block; D = 6 reads single
-    channels, D = 256 in f32 takes two channel passes. The wrapper stages them
-    for the int8 table and none for ``nearest``. f32: sum order (and the int8
-    scale taken once a channel sum); bf16: both sides round the f32 sum once."""
+    """The head-major forward of ``nearest`` and of the int8 table at level
+    sets whose first 2, 1 or 0 levels fit in shared memory, against the plain
+    versions: 2 images, points outside the maps and on the levels' last rows,
+    several query passes a block; D = 6 reads single channels, D = 256 in f32
+    takes two channel passes. The wrapper stages those levels of the int8
+    table (at most level 0 of its 256-byte rows at D = 256, none at D = 6)
+    and none for ``nearest``. f32: sum order (and the int8 scale taken once a
+    channel sum); bf16: both sides round the f32 sum once."""
     mode, d = mode_d
     shapes = STAGING_LEVELS[staged]
     rng = np.random.RandomState(40 + staged + d)
@@ -243,25 +243,22 @@ def test_nearest_and_int8_forward_staging_match_plain(cuda, dtype, staged, mode_
     a = torch.from_numpy(attn).to(cuda, dtype)
     if mode == "int8":
         q, scale = msda.quantize_value_table(v)
-        run = lambda k: msda._ms_deform_attn_int8_cuda(q, scale, shapes, lo, a, staged=k)
+        run = lambda: msda._ms_deform_attn_int8_cuda(q, scale, shapes, lo, a)
         ref = msda._bilinear_int8_plain(q, scale, shapes, lo, a)
         table, counter = q, "ms_deform_attn_int8"
+        want = {32: staged, 6: 0, 256: min(staged, 1)}[d]
     else:
-        run = lambda k: msda._ms_deform_attn_cuda(v, shapes, lo, a, "nearest", staged=k)
+        run = lambda: msda._ms_deform_attn_cuda(v, shapes, lo, a, "nearest")
         ref = msda.ms_deform_attn_core_plain(v, shapes, lo, a, "nearest")
-        table, counter = v, "ms_deform_attn_nearest"
-    fit = msda.staged_levels(shapes, d, table.dtype)
-    assert fit == {32: staged, 6: 0, 256: min(staged, 1)}[d]
-    assert msda.forward_staged_levels(table, shapes, mode == "nearest") == (
-        0 if mode == "nearest" else fit)
+        table, counter, want = v, "ms_deform_attn_nearest", 0
+    assert msda.forward_staged_levels(table, shapes, mode == "nearest") == want
+    before = msda.LAUNCHES[counter]
+    out = run()
+    torch.cuda.synchronize()
+    assert msda.LAUNCHES[counter] == before + 1
+    assert out.dtype == dtype and out.shape == ref.shape
     tol = 1e-5 if dtype == torch.float32 else 1e-2
-    for k in sorted({0, fit}):
-        before = msda.LAUNCHES[counter]
-        out = run(k)
-        torch.cuda.synchronize()
-        assert msda.LAUNCHES[counter] == before + 1
-        assert out.dtype == dtype and out.shape == ref.shape
-        torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda
@@ -838,9 +835,7 @@ def test_approximate_kernels_match_plain(cuda, levels, mode, dtype, d, weights):
     assert int(bad.sum()) <= 2
 
 
-# the top-T kernel's selection widths: J = 12 (two heads a warp) and J = 32
-# (one head a warp); (levels, points a level)
-WARP_WIDTHS = {12: ([(6, 4), (3, 2), (2, 5)], 4), 32: ([(6, 4), (3, 2), (2, 5), (4, 4)], 8)}
+WARP_WIDTHS = chip_smoke.WARP_WIDTHS
 
 
 @pytest.mark.cuda
@@ -1134,6 +1129,26 @@ def test_new_kernels_stay_off_the_cpu(monkeypatch):
     meter.update(torch.rand(40, 30), np.random.RandomState(0).randint(0, 2, (40, 30)))
     assert meter.compute() is not None
     assert all(v == 0 for v in launch_counts().values())
+
+
+@pytest.mark.parametrize("case", sorted(forward_ab.CASES))
+def test_forward_ab_cases_run_the_main_path_shapes(case):
+    """The forward A/B tool times the deformable forward at ``chip_smoke.py``'s
+    pyramids, heads and points, staging what the wrapper stages there: level
+    0 of a bf16 table at eval, levels 0-1 at training, none for an f32 table,
+    30-channel rows or ``nearest``."""
+    levels, images, dtype, d, nearest = forward_ab.CASES[case]
+    assert levels in (chip_smoke.LEVELS, chip_smoke.TRAIN_LEVELS)
+    assert (forward_ab.HEADS, forward_ab.POINTS) == (chip_smoke.N_HEADS, chip_smoke.N_POINTS)
+    table = torch.empty((1, sum(h * w for h, w in levels), forward_ab.HEADS, d), dtype=dtype)
+    want = {"bf16_bilinear_eval": 1, "bf16_bilinear_train": 2}.get(case, 0)
+    assert msda.forward_staged_levels(table, levels, nearest) == want
+
+
+def test_forward_ab_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        forward_ab.main(["--trees", str(REPO)])
 
 
 @pytest.mark.parametrize("case", ["eval_bf16", "train_bf16", "eval_f32", "train_f32",

@@ -348,9 +348,7 @@ def test_both_tails_are_refused():
         maskformer.inference(outs, (8, 10), num_classes=5, score_topq=9)  # > 8 queries
 
 
-# the top-T kernel's selection widths: J = 12 (two heads a warp) and J = 32
-# (one head a warp); (levels, points a level)
-WARP_WIDTHS = {12: ([(6, 4), (3, 2), (2, 5)], 4), 32: ([(6, 4), (3, 2), (2, 5), (4, 4)], 8)}
+WARP_WIDTHS = chip_smoke.WARP_WIDTHS
 
 
 @pytest.mark.parametrize("weights", ["random", "equal", "zeros"])
