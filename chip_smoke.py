@@ -114,9 +114,11 @@ with the counts set to 0 just before it and read just after.
 Every row's ``ms`` times single synchronised calls (the wrapper's host time
 before its launch included). The rows of the score tails' forward and of every
 deformable forward at the eval shapes (``bilinear``, ``nearest``, the int8
-quantize and forward, ``nearest_top6``, ``nearest_top6c``, ``shared``) and the
-bilinear forward at the training shapes give it as the median of 4 block
-medians of 25 such calls, with the lowest and highest block median as
+quantize and forward, ``nearest_top6``, ``nearest_top6c``, ``shared``), the
+bilinear forward at the training shapes, the label points, the pixel
+selection (``bottom_k_sum``), the assignment and the two binned-metric
+kernels give it as the median of 4 block medians of 25 such calls, with the
+lowest and highest block median as
 ``ms_spread``, and add ``device_ms`` and ``device_ms_spread``, the same over
 calls issued back to back (each call's device time; see ``spread_ms``), and
 ``host_ms``, the wrapper's host time a call. The rows of the forward kernel
@@ -552,6 +554,19 @@ def msda_approx_ops(torch, loc, attn, levels, mode):
     return ops
 
 
+def shared_gather_bytes(torch, value, loc, attn, levels):
+    """Bytes ``shared`` gathers from the value table (through the L2): one row
+    of M * D channels for each (query, level, point) whose centroid (float64)
+    lies inside the half-pixel border. Each is read once, for all heads."""
+    a, xy = attn.double(), loc.double()
+    asum = a.sum(2)
+    c = (xy * a[..., None]).sum(2) / asum.clamp_min(1e-12)[..., None]
+    size = torch.tensor([[w, h] for h, w in levels], dtype=torch.float64, device=loc.device)
+    px = c * size[None, None, :, None, :] - 0.5
+    inb = ((px > -0.5) & (px < size[None, None, :, None, :] - 0.5)).all(-1)
+    return int(inb.sum()) * value.shape[2] * value.shape[3] * value.element_size()
+
+
 def approx_kernel_rows(torch, dev, rows, check, checks):
     """The int8 table and the approximate deformable modes at the main-path
     shapes (1024x2048, batch 1, bf16): the quantize against its plain version
@@ -628,6 +643,9 @@ def approx_kernel_rows(torch, dev, rows, check, checks):
             "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
         time_redesigned(torch, rows[f"ms_deform_attn_{mode}"], run)
+        if mode == "shared":
+            rows["ms_deform_attn_shared"]["l2_bytes"] = shared_gather_bytes(
+                torch, value, loc, attn, LEVELS)
         del out
     del value, loc, attn
 
@@ -749,6 +767,7 @@ def train_kernel_rows(torch, dev, rows, check, checks):
         "bound_ms": b_ms, "bound_by": b_by,
         # PyTorch has no assignment solver
         "library_ms": None}
+    time_redesigned(torch, rows["linear_sum_assignment"], run)
 
     # label points on 16 label maps at 704x704: every class at the matcher's
     # points, and one class per row at the augmented half's clean candidates
@@ -782,6 +801,7 @@ def train_kernel_rows(torch, dev, rows, check, checks):
         # the one-call equivalent, grid_sample of [B, K, H, W] one-hot masks,
         # takes other inputs (the masks, not the label map)
         "library_ms": None}
+    time_redesigned(torch, rows["label_points"], run)
 
 
 def in_map_taps(n, hw, rate):
@@ -975,6 +995,7 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
         # smallest but neither shares the threshold's ties, and both take k
         # on the host
         "library_ms": None}
+    time_redesigned(torch, rows["bottom_k_sum"], run)
 
     # small and odd shapes: taps wholly outside the map, channels off the
     # tiles, f32 and bf16, the gradients through the autograd Function
@@ -1168,7 +1189,7 @@ def ood_hist_rows(torch, dev, rows, checks):
     from multishiftseg_torch.evals import ood_metrics as om
 
     rs = np.random.RandomState(SEED + 31)
-    times = {}
+    times, runs = {}, {}
     for hw in VAL_HW:
         n = hw[0] * hw[1]
         # scores shaped like an anomaly map: most low, the OOD ones higher
@@ -1202,6 +1223,9 @@ def ood_hist_rows(torch, dev, rows, checks):
             "library_ms": median_ms(torch, library, 20),
             "valid": int(((lab == 0) | (lab == 1)).sum()), "bytes": nbytes(s, lab)}
         checks[-1].update({k: v for k, v in times[hw].items()})
+        runs[hw] = (lambda s=s, lab=lab: om.masked_min_max(s, lab),
+                    lambda s=s, lab=lab, lo=lo, hi=hi: om.label_histograms(s, lab, lo, hi,
+                                                                           NUM_BINS))
     t = times[VAL_HW[0]]
     # bytes: each score and label read once (and the histograms written);
     # operations: a compare and a min and max per valid pixel, six for a bin
@@ -1221,6 +1245,8 @@ def ood_hist_rows(torch, dev, rows, checks):
         # torch.bincount over bin + 8192 x label, one call after the same
         # elementwise bin arithmetic (timed with it)
         "library_ms": t["library_ms"]}
+    time_redesigned(torch, rows["ood_hist_minmax"], runs[VAL_HW[0]][0])
+    time_redesigned(torch, rows["ood_hist"], runs[VAL_HW[0]][1])
 
 
 def seeded_deeplab(torch, seed):
@@ -2546,7 +2572,9 @@ def main(argv=None):
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the redesigned kernels' rows also carry their spreads and device times
     # (and the forward's, the levels it staged in shared memory)
-    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels")
+    # (and shared's, the bytes its gathers read through the L2)
+    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels",
+             "l2_bytes")
     if rows:
         emit({"kernels": [{k: r[k] for k in key_order + extra if k in r}
                           for r in rows.values()]})

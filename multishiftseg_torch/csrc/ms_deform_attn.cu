@@ -28,7 +28,10 @@
 // (16.5 M rows of 64 B, about 1 GB) come from the 22 MB value table, which fits
 // in the 50 MB L2, so in practice L2 bandwidth is the nearer limit.
 
+#include <algorithm>
 #include <type_traits>
+
+#include <cooperative_groups.h>
 
 #include "msda_common.cuh"
 
@@ -112,13 +115,6 @@ __device__ __forceinline__ unsigned msda_group_mask(int GP) {
 #define MSDA_NEAR_BATCH 4          // nearest rows a thread requests before adding them
 #define MSDA_MAX_STAGED 232448     // shared bytes a block may use (an H100's 227 KB)
 
-__device__ __forceinline__ void msda_cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
 // acc += w * the V channels at p
 template <typename TV, int V, bool SHARED>
 __device__ __forceinline__ void msda_fma_from(const TV* p, float w, float (&acc)[V]) {
@@ -196,7 +192,7 @@ msda_fwd_kernel(const TV* __restrict__ value, const float* __restrict__ scale,
       const int s = i / pieces, k = i - s * pieces;
       msda_cp_async16(sv + (int64_t)s * D + k * E, vb + s * row + k * E);
     }
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    msda_cp_async_wait_all();
   }
   if constexpr (NEAREST) {
     for (int j = threadIdx.x; j < J; j += MSDA_FWD_THREADS) {
@@ -722,19 +718,35 @@ extern "C" int msda_backward(const void* value, const void* loc, const void* att
 // (N, S, M) / 127, floored at 1e-12; q = clip(round(v / scale_d), -127, 127))
 // and :221-225 (the scale folded into the corner weights of the forward).
 //
-// msda_quantize, two kernels:
-//   1. the per-channel absolute max. A block's threads own fixed channels of
-//      consecutive rows of the [N*S*M, D] view and walk the rows grid-strided;
-//      the max runs on the bits of |v| (non-negative floats order as their
-//      bits, and a NaN's bits above +inf's), and the block reduces its rows in
-//      shared memory and issues one atomicMax a channel, so the result is exact
-//      whatever the order and a NaN propagates, as in jnp.max and torch.amax.
-//   2. one pass that writes the table: rintf(__fdiv_rn(v, scale)) clamped to
+// msda_quantize, one cooperative kernel (msda_quantize_kernel), grid-wide
+// barrier between its two passes, every block resident at once:
+//   1. Each block copies its contiguous slice of value (16-element aligned) to
+//      shared memory with 16-byte cp.async pieces, as far as its share of the
+//      grid's shared memory holds (two blocks an SM, 108 KB each: 29 MB on an
+//      H100, the whole bf16 table at the eval shapes), and takes the
+//      per-channel max |v| of the slice on the bits (non-negative floats order
+//      as their bits, and a NaN's bits lie above +inf's, so the max is exact,
+//      order-free and propagates a NaN, as jnp.max and torch.amax); bf16 pairs
+//      take one 16x2 integer max (__vmaxu2). Every thread's pieces keep their
+//      channels (the threads a pass takes are a multiple of the lanes after
+//      which the channels repeat), so a thread keeps one max an element of its
+//      piece; warp shuffles join lanes that own the same channels and the block
+//      writes one partial [D] to the caller's scratch.
+//   2. After the barrier each block reduces the partials to the scale, max |v|
+//      / 127 by __fdiv_rn floored at 1e-12 (NaN kept), and writes its slice of
+//      the table from shared memory (what did not fit is read again from
+//      global memory, through the L2): rintf(__fdiv_rn(v, scale)) clamped to
 //      +-127 (round half to even and IEEE division, as jnp.round and the plain
-//      version's true division; no fast math), 0 where the quotient is NaN (as
-//      XLA's float-to-int conversion); then a small kernel writes the scale
-//      over the max, after the table pass in stream order. A channel holding a
-//      NaN gets a NaN scale, so the forward's outputs from it are NaN.
+//      version's true division; no fast math), 0 where the quotient is NaN
+//      (as XLA's float-to-int conversion), 16 int8 to a store; the quotient
+//      comes from the scale's reciprocal wherever that provably rounds alike
+//      (msda_q8_rcp), an IEEE division costing some ten instructions an
+//      element. Block 0 writes the scale. A channel holding a NaN gets a NaN scale, so the forward's
+//      outputs from it are NaN.
+// It reads value once from device memory, needs no zeroed buffer and launches
+// one kernel. Its barrier is cooperative groups' grid sync, so it launches by
+// cudaLaunchCooperativeKernel, which a CUDA graph can capture. A pointer off
+// 16-byte alignment takes single elements and nothing is staged.
 // The table equals the plain version's bit for bit.
 // msda_forward_int8: the forward kernel above (msda_fwd_kernel<T, int8_t, V,
 // false>) reading int8 corners, V bytes a unit (8 for a bf16 output, 4 for
@@ -744,31 +756,23 @@ extern "C" int msda_backward(const void* value, const void* loc, const void* att
 //
 // Bound at the main-path shapes (S = Lq = 43008, M = 8, D = 32, L = 3, P = 4,
 // bf16): the quantize must read value 22 MB and write the 11 MB table, 33 MB,
-// 9.9 us at 3.35 TB/s (the max pass reads value once more, 44 MB in all); the
-// forward must read the table 11 MB, loc 33 MB and attn 8.3 MB and write 22 MB,
-// 74.3 MB, 22.2 us. Both are bound by bytes.
+// 9.9 us at 3.35 TB/s; the forward must read the table 11 MB, loc 33 MB and
+// attn 8.3 MB and write 22 MB, 74.3 MB, 22.2 us. Both are bound by bytes.
 
-#define MSDA_Q_THREADS 256
+#define MSDA_Q_THREADS 512
+#define MSDA_Q_BLOCKS_PER_SM 2
+#define MSDA_Q_MAX_D 256
+// the bytes of value a block stages: two blocks an SM, each beside its 3 KB of
+// reduction buffers (a multiple of 64: whole 16-element pieces in bf16 and f32)
+#define MSDA_Q_STAGE_BYTES (108 * 1024)
 
-template <typename T>
-__global__ void msda_absmax_kernel(const T* __restrict__ value, int64_t rows, int D,
-                                   int rows_per_step, unsigned int* __restrict__ amax) {
-  __shared__ unsigned int smax[MSDA_Q_THREADS];
-  const int d = threadIdx.x % D;
-  const int r0 = threadIdx.x / D;
-  unsigned int mx = 0u;  // the bits of max |v|
-  if (r0 < rows_per_step) {
-    for (int64_t r = (int64_t)blockIdx.x * rows_per_step + r0; r < rows;
-         r += (int64_t)gridDim.x * rows_per_step) {
-      mx = max(mx, __float_as_uint(fabsf(msda_to_float(value[r * D + d]))));
-    }
+__host__ __device__ __forceinline__ int msda_gcd(int a, int b) {
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
   }
-  smax[threadIdx.x] = mx;
-  __syncthreads();
-  if (threadIdx.x < D) {
-    for (int k = 1; k < rows_per_step; ++k) mx = max(mx, smax[k * D + threadIdx.x]);
-    atomicMax(amax + threadIdx.x, mx);
-  }
+  return a;
 }
 
 // max |v| / 127 floored at 1e-12; NaN stays NaN (fmaxf would drop it)
@@ -777,63 +781,288 @@ __device__ __forceinline__ float msda_scale(unsigned int amax_bits) {
   return isnan(s) ? s : fmaxf(s, 1e-12f);
 }
 
-template <typename T>
-__global__ void msda_quantize_kernel(const T* __restrict__ value, int64_t total, int D,
-                                     unsigned int* __restrict__ amax_scale,
-                                     int8_t* __restrict__ q) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const float s = msda_scale(amax_scale[i % D]);
-  const float v = rintf(__fdiv_rn(msda_to_float(value[i]), s));
-  q[i] = isnan(v) ? (int8_t)0 : (int8_t)fminf(fmaxf(v, -127.f), 127.f);
-}
-
-__global__ void msda_scale_kernel(unsigned int* __restrict__ amax_scale, int D) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d < D) amax_scale[d] = __float_as_uint(msda_scale(amax_scale[d]));
-}
-
-template <typename T>
-static int msda_quantize_launch(const T* value, int8_t* q, unsigned int* scale,
-                                int64_t rows, int D, cudaStream_t st) {
-  const int rows_per_step = MSDA_Q_THREADS / D;
-  int sms = 132;
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess) {
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+// Pass 1's pieces: 16 bytes (8 bf16 or 4 f32) whose |v| bits are max'ed into
+// 4 words (bf16 two to a word, as 16-bit halves), or one element.
+__device__ __forceinline__ void msda_q_absmax(uint4 r, unsigned (&acc)[4], bool bf16) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[i] = bf16 ? __vmaxu2(acc[i], w[i] & 0x7fff7fffu) : max(acc[i], w[i] & 0x7fffffffu);
   }
-  const int64_t steps = (rows + rows_per_step - 1) / rows_per_step;
-  const int blocks1 = (int)(steps < 4 * (int64_t)sms ? steps : 4 * (int64_t)sms);
-  msda_absmax_kernel<T><<<blocks1, MSDA_Q_THREADS, 0, st>>>(value, rows, D, rows_per_step,
-                                                           scale);
-  int rc = (int)cudaGetLastError();
+}
+template <typename T>
+__device__ __forceinline__ void msda_q_absmax(T r, unsigned (&acc)[1], bool) {
+  acc[0] = max(acc[0], __float_as_uint(fabsf(msda_to_float(r))));
+}
+// the f32 bits of the max of element j of the pieces
+template <int AW>
+__device__ __forceinline__ unsigned msda_q_bits(const unsigned (&acc)[AW], int j, bool bf16) {
+  if constexpr (AW == 1) {
+    return acc[0];
+  } else {
+    return bf16 ? ((acc[j >> 1] >> (16 * (j & 1))) & 0xffffu) << 16 : acc[j];
+  }
+}
+
+// one table entry: rintf(v / s) clamped to +-127, 0 for NaN
+__device__ __forceinline__ unsigned msda_q8_clamp(float x) {
+  return isnan(x) ? 0u : (unsigned)(int)fminf(fmaxf(x, -127.f), 127.f) & 0xffu;
+}
+__device__ __forceinline__ unsigned msda_q8(float v, float s) {
+  return msda_q8_clamp(rintf(__fdiv_rn(v, s)));
+}
+// The same from r = 1 / s (IEEE-rounded) where that is exact: |v / s| <= 127
+// (1 + 2^-23) by the scale's choice, so v * r lies within 2^-15 of the IEEE
+// quotient (the reciprocal and the product each within 2^-24 relative); where
+// v * r is more than 2^-14 from a half-integer both round to the same integer.
+// Nearer to one, or NaN, the quotient is taken exactly (s_at() gives s).
+template <typename F>
+__device__ __forceinline__ unsigned msda_q8_rcp(float v, float r, F s_at) {
+  const float x = __fmul_rn(v, r);
+  const float i = rintf(x);
+  if (fabsf(x - i) < 0.5f - 6.103515625e-05f) return msda_q8_clamp(i);
+  return msda_q8(v, s_at());
+}
+
+// 16 elements at p (16-byte aligned, shared or global memory) -> f32
+__device__ __forceinline__ void msda_q_load16(const __nv_bfloat16* p, float (&v)[16]) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  float a[8], b[8];
+  msda_unpack(q[0], a);
+  msda_unpack(q[1], b);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    v[i] = a[i];
+    v[8 + i] = b[i];
+  }
+}
+__device__ __forceinline__ void msda_q_load16(const float* p, float (&v)[16]) {
+  const float4* q = reinterpret_cast<const float4*>(p);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 r = q[i];
+    v[4 * i] = r.x;
+    v[4 * i + 1] = r.y;
+    v[4 * i + 2] = r.z;
+    v[4 * i + 3] = r.w;
+  }
+}
+
+// Block b quantizes value[b * per_block, ...) of the total elements ([rows, D]
+// flattened; per_block a multiple of 16), staging its first `stage` elements.
+// VEC: value and q are 16-byte aligned; pass 1 takes 16-byte pieces (E
+// elements), pass 2 pieces of 16 elements (one 16-byte store); else single
+// elements in both. partials: [gridDim.x][D] scratch.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(MSDA_Q_THREADS, MSDA_Q_BLOCKS_PER_SM)
+msda_quantize_kernel(const T* __restrict__ value, int64_t total, int D, int per_block,
+                     int stage, unsigned* partials, float* __restrict__ scale,
+                     int8_t* __restrict__ q) {
+  constexpr bool bf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int E = VEC ? 16 / (int)sizeof(T) : 1;  // elements of a pass-1 piece
+  constexpr int AW = VEC ? 4 : 1;                   // words of its max bits
+  constexpr int PE = VEC ? 16 : 1;                  // elements of a pass-2 piece
+  extern __shared__ uint4 msda_q_smem[];
+  __shared__ unsigned smax[MSDA_Q_MAX_D];
+  __shared__ unsigned red[MSDA_Q_THREADS];
+  __shared__ float ssc[MSDA_Q_MAX_D];
+  const T* sv = reinterpret_cast<const T*>(msda_q_smem);
+  const int t = threadIdx.x;
+  const int64_t start = (int64_t)blockIdx.x * per_block;
+  const int64_t left = total - start;
+  const int n = left <= 0 ? 0 : (left < per_block ? (int)left : per_block);
+  const int ns = min(n, stage);
+  const int off = (int)(start % D);  // the channel of the slice's first element
+  const T* gv = value + start;
+  if (t < D) smax[t] = 0u;
+
+  // 1. thread t < A1 takes pieces t, t + A1, ...: A1 is a multiple of the p1
+  // lanes after which the pieces' channels repeat
+  const int p1 = D / msda_gcd(D, E);
+  const int A1 = MSDA_Q_THREADS - MSDA_Q_THREADS % p1;
+  const int full = n / E, staged = VEC ? ns / E : 0;  // pieces; staged ones copied
+  const int in_smem = staged * E;                       // elements in shared memory
+  unsigned acc[AW];
+#pragma unroll
+  for (int i = 0; i < AW; ++i) acc[i] = 0u;
+  if (t < A1) {
+    if constexpr (VEC) {
+      for (int p = t; p < staged; p += A1) {
+        msda_cp_async16(msda_q_smem + p, reinterpret_cast<const uint4*>(gv) + p);
+      }
+    }
+    // the unstaged pieces from global memory while the copies land
+    int p = t;
+    if (p < staged) p += (staged - p + A1 - 1) / A1 * A1;
+    for (; p < full; p += A1) {
+      if constexpr (VEC) {
+        msda_q_absmax(__ldg(reinterpret_cast<const uint4*>(gv) + p), acc, bf16);
+      } else {
+        msda_q_absmax(gv[p], acc, bf16);
+      }
+    }
+    if constexpr (VEC) {
+      msda_cp_async_wait_all();
+      for (int p = t; p < staged; p += A1) msda_q_absmax(msda_q_smem[p], acc, bf16);
+    }
+  }
+  __syncthreads();  // smax zeroed
+  if (VEC && t < n - full * E) {  // the last block's elements past its last piece
+    const int i = full * E + t;
+    atomicMax(smax + (off + i) % D, __float_as_uint(fabsf(msda_to_float(gv[i]))));
+  }
+  unsigned bits[E];
+#pragma unroll
+  for (int j = 0; j < E; ++j) bits[j] = msda_q_bits(acc, j, bf16);
+  const int c1 = (off + t * E) % D;
+  if (32 % p1 == 0) {  // lanes p1 apart hold the same channels (and A1 is every thread)
+    for (int o = p1; o < 32; o <<= 1) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) bits[j] = max(bits[j], __shfl_xor_sync(0xffffffffu, bits[j], o));
+    }
+    if ((t & 31) < p1) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) atomicMax(smax + (c1 + j) % D, bits[j]);
+    }
+  } else if (t < A1) {
+#pragma unroll
+    for (int j = 0; j < E; ++j) atomicMax(smax + (c1 + j) % D, bits[j]);
+  }
+  __syncthreads();
+  if (t < D) partials[(int64_t)blockIdx.x * D + t] = smax[t];
+
+  cooperative_groups::this_grid().sync();
+
+  // 2. the scale from every block's partials (R blocks a step per channel)
+  const int R = MSDA_Q_THREADS / D;
+  unsigned mx = 0u;
+  if (t < R * D) {  // 8 loads in flight at a time
+    const unsigned* pc = partials + t % D;
+    int b = t / D;
+    for (; b + 7 * R < (int)gridDim.x; b += 8 * R) {
+      unsigned m8[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) m8[k] = __ldcg(pc + (int64_t)(b + k * R) * D);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) mx = max(mx, m8[k]);
+    }
+    for (; b < (int)gridDim.x; b += R) mx = max(mx, __ldcg(pc + (int64_t)b * D));
+  }
+  red[t] = mx;
+  __syncthreads();
+  if (t < D) {
+    for (int r = 1; r < R; ++r) mx = max(mx, red[r * D + t]);
+    ssc[t] = msda_scale(mx);
+    if (blockIdx.x == 0) scale[t] = ssc[t];
+  }
+  __syncthreads();
+
+  // the table: thread t < A2 takes pieces t, t + A2, ... of PE elements, whose
+  // channels (and scales) stay its own
+  const int p2 = D / msda_gcd(D, PE);
+  const int A2 = MSDA_Q_THREADS - MSDA_Q_THREADS % p2;
+  const int full2 = n / PE;
+  if (t < A2) {
+    float r[PE];  // 1 / scale of each element's channel
+    const int c2 = (off + t * PE) % D;
+#pragma unroll
+    for (int j = 0; j < PE; ++j) r[j] = __frcp_rn(ssc[(c2 + j) % D]);
+    for (int p = t; p < full2; p += A2) {
+      const int e0 = p * PE;
+      if constexpr (VEC) {
+        float v[16];
+        msda_q_load16(e0 + 16 <= in_smem ? sv + e0 : gv + e0, v);
+        unsigned b[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          b[j] = msda_q8_rcp(v[j], r[j], [&] { return ssc[(c2 + j) % D]; });
+        }
+        uint4 o;
+        unsigned* ow = reinterpret_cast<unsigned*>(&o);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          ow[w] = b[4 * w] | b[4 * w + 1] << 8 | b[4 * w + 2] << 16 | b[4 * w + 3] << 24;
+        }
+        *reinterpret_cast<uint4*>(q + start + e0) = o;
+      } else {
+        q[start + e0] = (int8_t)msda_q8_rcp(msda_to_float(gv[e0]), r[0],
+                                            [&] { return ssc[c2]; });
+      }
+    }
+  }
+  if (VEC && t < n - full2 * PE) {  // the last block's elements past its last piece
+    const int i = full2 * PE + t;
+    const float v = msda_to_float(i < in_smem ? sv[i] : gv[i]);
+    q[start + i] = (int8_t)msda_q8(v, ssc[(off + i) % D]);
+  }
+}
+
+// The most blocks msda_quantize launches on the current device (the partials
+// scratch it needs is that many rows of D words); 0 on error.
+extern "C" int msda_quantize_max_blocks() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) return 0;
+  return sms * MSDA_Q_BLOCKS_PER_SM;
+}
+
+template <typename T, bool VEC>
+static int msda_quantize_launch(const T* value, int8_t* q, float* scale, unsigned* partials,
+                                int max_blocks, int64_t total, int D, cudaStream_t st) {
+  const auto kern = msda_quantize_kernel<T, VEC>;
+  int dev = 0, sms = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (rc == 0) rc = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              VEC ? MSDA_Q_STAGE_BYTES : 0);
   if (rc != 0) return rc;
-  const int64_t total = rows * D;
-  const int64_t blocks2 = (total + MSDA_Q_THREADS - 1) / MSDA_Q_THREADS;
-  if (blocks2 > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  msda_quantize_kernel<T><<<(unsigned int)blocks2, MSDA_Q_THREADS, 0, st>>>(
-      value, total, D, scale, q);
-  rc = (int)cudaGetLastError();
+  // every block resident (the barrier): MSDA_Q_BLOCKS_PER_SM an SM, which the
+  // launch bounds and the staging size guarantee (else the launch fails);
+  // at least a 16-element piece a thread; within the scratch
+  int64_t blocks = (total + 16 * MSDA_Q_THREADS - 1) / (16 * MSDA_Q_THREADS);
+  blocks = std::min(blocks, (int64_t)MSDA_Q_BLOCKS_PER_SM * sms);
+  blocks = std::max<int64_t>(1, std::min<int64_t>(blocks, max_blocks));
+  const int64_t per_block = std::max<int64_t>(16, ((total + blocks - 1) / blocks + 15) / 16 * 16);
+  if (per_block > 0x7fffffff - 64) return (int)cudaErrorInvalidValue;
+  blocks = std::max<int64_t>(1, (total + per_block - 1) / per_block);
+  int per = (int)per_block;
+  int stage = VEC ? (int)std::min<int64_t>(per_block, MSDA_Q_STAGE_BYTES / sizeof(T)) : 0;
+  void* args[] = {(void*)&value, (void*)&total, (void*)&D, (void*)&per, (void*)&stage,
+                  (void*)&partials, (void*)&scale, (void*)&q};
+  rc = (int)cudaLaunchCooperativeKernel((const void*)kern, dim3((unsigned int)blocks),
+                                        dim3(MSDA_Q_THREADS), args,
+                                        (size_t)stage * sizeof(T), st);
   if (rc != 0) return rc;
-  // stream order: the table pass has read every max before the scale replaces it
-  msda_scale_kernel<<<(D + 255) / 256, 256, 0, st>>>(scale, D);
   return (int)cudaGetLastError();
 }
 
-// value [rows, D] (rows = N * S * M) f32 (dtype 0) or bf16 (1); q int8 [rows, D];
-// scale: a zeroed f32 [D] buffer, the scale on return. D <= 256.
-extern "C" int msda_quantize(const void* value, void* q, void* scale, long long rows,
-                             int d, int dtype, void* stream) {
-  if (d < 1 || d > MSDA_Q_THREADS || rows < 0) return (int)cudaErrorInvalidValue;
-  if (rows == 0) return (int)cudaSuccess;
+// value [rows, D] (rows = N * S * M) f32 (dtype 0) or bf16 (1) -> q int8
+// [rows, D] and the f32 scale [D]. partials: scratch of partial_blocks x D
+// words (msda_quantize_max_blocks() rows), no initial contents. D <= 256.
+extern "C" int msda_quantize(const void* value, void* q, void* scale, void* partials,
+                             int partial_blocks, long long rows, int d, int dtype,
+                             void* stream) {
+  if (d < 1 || d > MSDA_Q_MAX_D || rows < 0 || partial_blocks < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int64_t total = (int64_t)rows * d;
+  const bool vec = ((uintptr_t)value & 15) == 0 && ((uintptr_t)q & 15) == 0;
   cudaStream_t st = (cudaStream_t)stream;
+  unsigned* part = (unsigned*)partials;
+  float* sc = (float*)scale;
+  int8_t* qq = (int8_t*)q;
   if (dtype == 0) {
-    return msda_quantize_launch<float>((const float*)value, (int8_t*)q,
-                                       (unsigned int*)scale, rows, d, st);
+    const float* v = (const float*)value;
+    return vec ? msda_quantize_launch<float, true>(v, qq, sc, part, partial_blocks, total, d, st)
+               : msda_quantize_launch<float, false>(v, qq, sc, part, partial_blocks, total, d,
+                                                    st);
   }
   if (dtype == 1) {
-    return msda_quantize_launch<__nv_bfloat16>((const __nv_bfloat16*)value, (int8_t*)q,
-                                               (unsigned int*)scale, rows, d, st);
+    const __nv_bfloat16* v = (const __nv_bfloat16*)value;
+    return vec ? msda_quantize_launch<__nv_bfloat16, true>(v, qq, sc, part, partial_blocks,
+                                                           total, d, st)
+               : msda_quantize_launch<__nv_bfloat16, false>(v, qq, sc, part, partial_blocks,
+                                                            total, d, st);
   }
   return (int)cudaErrorInvalidValue;
 }

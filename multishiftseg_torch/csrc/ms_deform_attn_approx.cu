@@ -55,23 +55,41 @@
 // copy each tile's points to shared memory (cp.async) while they work on the
 // previous tile, ran slower.
 //
-// shared: a block takes QPB queries. First its threads compute the J shared
-// points of each query from all M heads, x_s = sum_m a x / max(sum_m a, 1e-12),
-// round them to their nearest pixels and keep the pixel (or -1 outside the
-// border, dropping the point for every head) in shared memory; then one thread
-// per (query, head, channel group) gathers the J rows of its head's channels
-// with the head's exact weights.
+// shared (msda_shared_kernel): one warp a query at a time; persistent blocks
+// of MSDA_SH_WARPS warps, as many as the SMs hold.
+//   1. The warp copies a query's M * J locations and weights (768 B of loc and
+//      192 B of bf16 attn at M = 8, J = 12) to shared memory in 16-byte
+//      cp.async pieces (2-byte loads for the edges of a block that is not
+//      16-byte aligned), one query ahead: the next query's points land while
+//      the warp gathers this one's rows. attn is read from global memory
+//      once. Lane j < J sums point j's centroid over the heads in head order,
+//      x_s = sum_m a x / max(sum_m a, 1e-12) (each step __fadd_rn /
+//      __fmul_rn, one division, as the plain version), and rounds it to its
+//      nearest pixel; a ballot compacts the in-map points, in point order,
+//      into a list of (row, point) in shared memory. A point outside the
+//      border drops for every head: it is not in the list, so no lane
+//      branches around a load.
+//   2. Gather: the query's row is M * D channels (512 B in bf16 at D = 32),
+//      one 16-byte unit a lane (units of V channels of one head; passes of 32
+//      units when a row holds more, as in f32 or single channels). A lane
+//      requests MSDA_SH_BATCH list rows before it adds any, each with its
+//      head's exact weight from the staged attn.
+//   What bounds it is latency: a query's two dependent steps (its points,
+//   then its rows). On the H100 (PERF.md) copying the points a query ahead
+//   beat copying them on demand; 4 rows a batch beat 2, 3, 5, 6, 8 or 12 (12
+//   spills); 16 warps a block at 64 registers (two blocks an SM) beat 4 or 8
+//   warps at 64 or 80.
 //
 // Bound at the main-path shapes (S = Lq = 43008, M = 8, D = 32, L = 3, P = 4,
 // bf16): each mode must read value 22 MB, loc 33 MB and attn 8.3 MB and write
 // 22 MB, 85.5 MB, 25.5 us at 3.35 TB/s. Its arithmetic is 2 f32 operations per
 // channel and gathered row plus the selection's J^2 comparisons a head, far
 // below the byte time. So bytes bound it; the rows come from the 22 MB value
-// table, which fits in the 50 MB L2.
+// table, which fits in the 50 MB L2. shared gathers 12 rows of 512 B a query,
+// about 264 MB of L2 reads a call: at the L2's rate that is the nearer floor.
 
 #include "msda_common.cuh"
 
-#define MSDA_THREADS 256
 #define MSDA_TOPK_THREADS 256
 #define MSDA_TOPK_BATCH 4  // list entries whose rows a thread requests before adding them
 
@@ -225,59 +243,169 @@ msda_topk_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   }
 }
 
-template <typename T, int V>
-__global__ void msda_shared_kernel(const T* __restrict__ value, const float* __restrict__ loc,
-                                   const T* __restrict__ attn, T* __restrict__ out,
-                                   int64_t queries, int S, int M, int D, int Lq, int P,
-                                   int qpb, MsdaLevels lv) {
-  extern __shared__ int spix[];  // [qpb][J]: the shared point's row offset, or -1
+// shared: one warp a query (see the file's head). Tuning knobs, each chosen
+// on the H100 (PERF.md): queries a block, rows a lane requests before it adds
+// any, and the blocks an SM must hold (which caps the registers).
+#ifndef MSDA_SH_WARPS
+#define MSDA_SH_WARPS 16
+#endif
+#ifndef MSDA_SH_BATCH
+#define MSDA_SH_BATCH 4
+#endif
+#ifndef MSDA_SH_MIN_BLOCKS
+#define MSDA_SH_MIN_BLOCKS 2
+#endif
+#define MSDA_SH_THREADS (32 * MSDA_SH_WARPS)
+#define MSDA_SH_LIST_BYTES (32 * 8)  // a warp's list of in-map points: J <= 32 int2
+#define MSDA_SH_SMEM 232448           // shared bytes a block may use (an H100's 227 KB)
+
+// The warp copies nbytes (even) at src (2-byte aligned) to shared memory at
+// dst + (src & 15), so that src's 16-byte-aligned pieces land on 16-byte
+// boundaries; dst is 16-byte aligned with 16 bytes to spare. The aligned body
+// moves in 16-byte cp.async pieces (the caller waits for them), the up to 14
+// bytes before and after it in 2-byte loads.
+__device__ __forceinline__ void msda_warp_copy(char* dst, const char* src, int nbytes,
+                                               int lane) {
+  const int shift = (int)((uintptr_t)src & 15);
+  char* d = dst + shift;
+  const int head = min(nbytes, (16 - shift) & 15);
+  const int body = (nbytes - head) & ~15;
+  for (int i = lane; i < (nbytes - body) >> 1; i += 32) {  // the 2-byte edges
+    const int b = 2 * i < head ? 2 * i : 2 * i + body;
+    *reinterpret_cast<unsigned short*>(d + b) =
+        __ldg(reinterpret_cast<const unsigned short*>(src + b));
+  }
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+  uint4* d4 = reinterpret_cast<uint4*>(d + head);
+  for (int i = lane; i < (body >> 4); i += 32) msda_cp_async16(d4 + i, s4 + i);
+}
+
+// Warp w of block b serves queries b * MSDA_SH_WARPS + w, then every
+// gridDim.x * MSDA_SH_WARPS further on. STAGED (persistent blocks): a query's
+// loc [M][J] float2 and attn [M][J] are copied to one of the warp's two pairs
+// of shared buffers (loc_buf and attn_buf bytes) while the warp gathers the
+// previous query's rows, and read from there; else (only when they do not
+// fit: one query a warp) read from global memory. G units of V channels a
+// head; lane u of a pass serves unit u of the query's M * G.
+template <typename T, int V, bool STAGED>
+__global__ void __launch_bounds__(MSDA_SH_THREADS, MSDA_SH_MIN_BLOCKS)
+msda_shared_kernel(const T* __restrict__ value, const float* __restrict__ loc,
+                   const T* __restrict__ attn, T* __restrict__ out, int64_t queries, int S,
+                   int M, int D, int Lq, int P, int loc_buf, int attn_buf, int warp_bytes,
+                   MsdaLevels lv) {
+  extern __shared__ uint4 msda_sh_smem[];
   const int J = lv.n * P;
-  const int64_t q0 = (int64_t)blockIdx.x * qpb;
-  const float2* loc2 = reinterpret_cast<const float2*>(loc);
-  for (int i = threadIdx.x; i < qpb * J; i += blockDim.x) {
-    const int64_t nq = q0 + i / J;  // n * Lq + q
-    const int j = i % J;
-    int pix = -1;
+  const int lane = threadIdx.x & 31;
+  const int MG = M * (D / V);
+  const int G = D / V;
+  const int64_t row = (int64_t)M * D;
+  const int loc_bytes = M * J * 8, attn_bytes = M * J * (int)sizeof(T);
+  char* wbase = reinterpret_cast<char*>(msda_sh_smem) + (threadIdx.x >> 5) * warp_bytes;
+  int2* list = reinterpret_cast<int2*>(wbase);  // [K]: (row, point) of the in-map points
+  char* bufs = wbase + MSDA_SH_LIST_BYTES;      // 2 x (loc_buf + attn_buf)
+  const char* lsrc = reinterpret_cast<const char*>(loc);
+  const char* asrc = reinterpret_cast<const char*>(attn);
+  // this lane's point: its level's W, H and first row
+  int lw = 0, lh = 0, lstart = 0;
+  if (lane < J) {
+    const int l = lane / P;
+#pragma unroll
+    for (int k = 0; k < MSDA_MAX_LEVELS; ++k) {
+      if (k == l) {
+        lw = lv.w[k];
+        lh = lv.h[k];
+        lstart = lv.start[k];
+      }
+    }
+  }
+  const int64_t stride = (int64_t)gridDim.x * MSDA_SH_WARPS;
+  int64_t nq = (int64_t)blockIdx.x * MSDA_SH_WARPS + (threadIdx.x >> 5);  // n * Lq + q
+  if constexpr (STAGED) {
     if (nq < queries) {
+      msda_warp_copy(bufs, lsrc + nq * loc_bytes, loc_bytes, lane);
+      msda_warp_copy(bufs + loc_buf, asrc + nq * attn_bytes, attn_bytes, lane);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int k = 0; nq < queries; nq += stride, ++k) {
+    const char* lq_src = lsrc + nq * loc_bytes;
+    const char* aq_src = asrc + nq * attn_bytes;
+    const float2* lp = reinterpret_cast<const float2*>(lq_src);
+    const T* ap = reinterpret_cast<const T*>(aq_src);
+    if constexpr (STAGED) {
+      char* lb = bufs + (k & 1) * (loc_buf + attn_buf);
+      char* ab = lb + loc_buf;
+      // the next query's points into the other buffers, then wait for this one's
+      const int64_t nx = nq + stride;
+      char* nb = bufs + ((k + 1) & 1) * (loc_buf + attn_buf);
+      if (nx < queries) {
+        msda_warp_copy(nb, lsrc + nx * loc_bytes, loc_bytes, lane);
+        msda_warp_copy(nb + loc_buf, asrc + nx * attn_bytes, attn_bytes, lane);
+      }
+      asm volatile("cp.async.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      __syncwarp();
+      lp = reinterpret_cast<const float2*>(lb + ((uintptr_t)lq_src & 15));
+      ap = reinterpret_cast<const T*>(ab + ((uintptr_t)aq_src & 15));
+    }
+
+    // 1. lane j < J: point j's centroid over the heads, in head order, and its
+    // nearest pixel; the in-map points go to the list in point order
+    int pix = -1;
+    if (lane < J) {
       float asum = 0.f, sx = 0.f, sy = 0.f;
+#pragma unroll 4
       for (int h = 0; h < M; ++h) {
-        const int64_t e = (nq * M + h) * J + j;
-        const float a = msda_to_float(attn[e]);
-        const float2 xy = __ldg(loc2 + e);
+        const float a = msda_to_float(ap[h * J + lane]);
+        const float2 xy = lp[h * J + lane];
         asum = __fadd_rn(asum, a);
         sx = __fadd_rn(sx, __fmul_rn(xy.x, a));
         sy = __fadd_rn(sy, __fmul_rn(xy.y, a));
       }
       const float inv = __fdiv_rn(1.f, fmaxf(asum, 1e-12f));
-      const int l = j / P;
-      const int o = msda_nearest(__fmul_rn(sx, inv), __fmul_rn(sy, inv), lv.w[l], lv.h[l]);
-      if (o >= 0) pix = lv.start[l] + o;
+      const int o = msda_nearest(__fmul_rn(sx, inv), __fmul_rn(sy, inv), lw, lh);
+      if (o >= 0) pix = lstart + o;
     }
-    spix[i] = pix;
-  }
-  __syncthreads();
+    const unsigned in_map = __ballot_sync(0xffffffffu, pix >= 0);
+    if (pix >= 0) list[__popc(in_map & ((1u << lane) - 1u))] = make_int2(pix, lane);
+    const int K = __popc(in_map);
+    __syncwarp();
 
-  const int groups = D / V;
-  const int per_query = M * groups;
-  const int ql = threadIdx.x / per_query;
-  const int64_t nq = q0 + ql;
-  if (ql >= qpb || nq >= queries) return;
-  const int m = (threadIdx.x % per_query) / groups;
-  const int d0 = (threadIdx.x % groups) * V;
-  const int n = (int)(nq / Lq);
-  const int64_t nqm = nq * M + m;
-  const T* ap = attn + nqm * J;
-  const int64_t row = (int64_t)M * D;
-  const T* vb = value + (int64_t)n * S * row + (int64_t)m * D + d0;
-  const int* sp = spix + ql * J;
-  float acc[V];
+    // 2. gather: lane u of a pass adds the K rows' channels of unit u with its
+    // head's exact weights, MSDA_SH_BATCH rows requested before any is added
+    const int64_t n = nq / Lq;
+    const T* vb = value + n * S * row;
+    for (int u = lane; u < MG; u += 32) {
+      const T* vu = vb + (int64_t)u * V;
+      const T* aw = ap + (u / G) * J;
+      float acc[V];
 #pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.f;
-  for (int j = 0; j < J; ++j) {
-    const int pix = sp[j];
-    if (pix >= 0) msda_fma<T, V>(vb + (int64_t)pix * row, msda_to_float(ap[j]), acc);
+      for (int i = 0; i < V; ++i) acc[i] = 0.f;
+      for (int t0 = 0; t0 < K; t0 += MSDA_SH_BATCH) {
+        typename MsdaRaw<T, V>::type raw[MSDA_SH_BATCH];
+        float w[MSDA_SH_BATCH];
+#pragma unroll
+        for (int b = 0; b < MSDA_SH_BATCH; ++b) {
+          if (t0 + b < K) {
+            const int2 e = list[t0 + b];
+            raw[b] = msda_fetch<false, T, V>(vu + e.x * row);
+            w[b] = msda_to_float(aw[e.y]);
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < MSDA_SH_BATCH; ++b) {
+          if (t0 + b < K) {
+            float v[V];
+            msda_unpack(raw[b], v);
+#pragma unroll
+            for (int i = 0; i < V; ++i) acc[i] = fmaf(w[b], v[i], acc[i]);
+          }
+        }
+      }
+      msda_store(out + nq * row + (int64_t)u * V, acc);
+    }
+    __syncwarp();  // the list and buffers are rewritten for the next query
   }
-  msda_store(out + nqm * D + d0, acc);
 }
 
 // Channel groups of VEC (16 bytes) when D and the addresses allow it, else 1.
@@ -351,22 +479,56 @@ extern "C" int msda_forward_topk(const void* value, const void* loc, const void*
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T, int V, bool STAGED>
+static int msda_shared_go(const void* value, const void* loc, const void* attn, void* out,
+                          int64_t queries, int s, int m, int d, int lq, int P,
+                          int loc_buf, int attn_buf, int warp_bytes, const MsdaLevels& lv,
+                          cudaStream_t st) {
+  const auto kern = msda_shared_kernel<T, V, STAGED>;
+  const size_t smem = (size_t)warp_bytes * MSDA_SH_WARPS;
+  int64_t blocks = (queries + MSDA_SH_WARPS - 1) / MSDA_SH_WARPS;
+  int rc = 0;
+  if (smem > 48 * 1024) {
+    rc = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
+  }
+  if (STAGED && rc == 0) {
+    // persistent: the MSDA_SH_MIN_BLOCKS blocks an SM that the launch bounds
+    // hold in registers (no occupancy query: it cost host time every call)
+    int dev = 0, sms = 0;
+    rc = (int)cudaGetDevice(&dev);
+    if (rc == 0) rc = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == 0 && blocks > (int64_t)MSDA_SH_MIN_BLOCKS * sms) {
+      blocks = (int64_t)MSDA_SH_MIN_BLOCKS * sms;
+    }
+  }
+  if (rc != 0) return rc;
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  kern<<<(unsigned int)blocks, MSDA_SH_THREADS, smem, st>>>(
+      (const T*)value, (const float*)loc, (const T*)attn, (T*)out, queries, s, m, d, lq, P,
+      loc_buf, attn_buf, warp_bytes, lv);
+  return (int)cudaGetLastError();
+}
+
+// Staged unless a warp's two pairs of buffers would not fit in a block's
+// shared memory (M * J above about 650 points at 16 warps a block).
 template <typename T, int V>
 static int msda_shared_launch(const void* value, const void* loc, const void* attn, void* out,
                               int n, int s, int m, int d, int lq, int P, const MsdaLevels& lv,
                               cudaStream_t st) {
-  const int per_query = m * (d / V);
-  if (per_query > 1024) return (int)cudaErrorInvalidValue;
-  const int qpb = per_query >= MSDA_THREADS ? 1 : MSDA_THREADS / per_query;
-  const int threads = qpb * per_query;
   const int64_t queries = (int64_t)n * lq;
-  const int64_t blocks = (queries + qpb - 1) / qpb;
-  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)qpb * lv.n * P * sizeof(int);
-  msda_shared_kernel<T, V><<<(unsigned int)blocks, threads, smem, st>>>(
-      (const T*)value, (const float*)loc, (const T*)attn, (T*)out, queries, s, m, d, lq, P,
-      qpb, lv);
-  return (int)cudaGetLastError();
+  const int64_t points = (int64_t)m * lv.n * P;
+  if (points * 8 > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  // each buffer: a query's bytes and 16 to spare, rounded up to 16
+  const int loc_buf = (int)((points * 8 + 31) & ~15);
+  const int attn_buf = (int)((points * (int64_t)sizeof(T) + 31) & ~15);
+  const int64_t staged_bytes = MSDA_SH_LIST_BYTES + 2 * ((int64_t)loc_buf + attn_buf);
+  if (staged_bytes * MSDA_SH_WARPS <= MSDA_SH_SMEM) {
+    return msda_shared_go<T, V, true>(value, loc, attn, out, queries, s, m, d, lq, P, loc_buf,
+                                      attn_buf, (int)staged_bytes, lv, st);
+  }
+  return msda_shared_go<T, V, false>(value, loc, attn, out, queries, s, m, d, lq, P, 0, 0,
+                                     MSDA_SH_LIST_BYTES, lv, st);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. shapes_hw: host array [n_levels][2] of (H, W).

@@ -49,6 +49,18 @@ __device__ __forceinline__ int msda_nearest(float nx, float ny, int W, int H) {
   return iy * W + ix;
 }
 
+// 16 bytes global -> shared without passing through registers; the thread
+// waits with msda_cp_async_wait_all (or a group wait) before reading them
+__device__ __forceinline__ void msda_cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void msda_cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 __device__ __forceinline__ float msda_to_float(float v) { return v; }
 __device__ __forceinline__ float msda_to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float msda_to_float(int8_t v) { return (float)v; }

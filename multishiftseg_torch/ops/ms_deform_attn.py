@@ -551,27 +551,39 @@ def _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, sample_mode):
     return out
 
 
+# device index -> the most blocks msda_quantize launches there (its scratch rows)
+_QUANTIZE_BLOCKS = {}
+
+
 def _quantize_cuda(value):
+    """The quantize kernel: one launch, no zeroed buffer. The scale [D] is a
+    view of one f32 buffer whose tail is the kernel's scratch (a partial max
+    a block and channel)."""
     if value.dtype not in _DTYPE_CODE or value.dim() != 4 or not value.is_contiguous():
         raise ValueError(f"expected a contiguous f32 or bf16 value [N, S, M, D], got "
                          f"{value.dtype} {tuple(value.shape)}")
     from .._build import function
 
     fn = function("ms_deform_attn", "msda_quantize",
-                  [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p])
+                  [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p])
     d = value.shape[-1]
-    qvalue = torch.empty(value.shape, dtype=torch.int8, device=value.device)
-    # the per-channel absolute max accumulates as integer bits of non-negative
-    # floats (order-free, exact), then becomes the scale in place
-    scale = torch.zeros(d, dtype=torch.float32, device=value.device)
-    with torch.cuda.device(value.device):
-        rc = fn(value.data_ptr(), qvalue.data_ptr(), scale.data_ptr(), value.numel() // max(d, 1),
-                d, _DTYPE_CODE[value.dtype], _stream(value.device))
+    dev = value.device
+    with torch.cuda.device(dev):
+        blocks = _QUANTIZE_BLOCKS.get(dev.index)
+        if blocks is None:
+            blocks = function("ms_deform_attn", "msda_quantize_max_blocks", [])()
+            if blocks < 1:
+                raise RuntimeError("msda_quantize_max_blocks failed")
+            _QUANTIZE_BLOCKS[dev.index] = blocks
+        qvalue = torch.empty(value.shape, dtype=torch.int8, device=dev)
+        buf = torch.empty(d * (1 + blocks), dtype=torch.float32, device=dev)
+        rc = fn(value.data_ptr(), qvalue.data_ptr(), buf.data_ptr(), buf.data_ptr() + 4 * d,
+                blocks, value.numel() // max(d, 1), d, _DTYPE_CODE[value.dtype], _stream(dev))
     if rc != 0:
         raise RuntimeError(f"msda_quantize failed: cudaError {rc}")
     LAUNCHES["ms_deform_attn_quantize"] += 1
-    return qvalue, scale
+    return qvalue, buf[:d]
 
 
 def _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, loc, attn):

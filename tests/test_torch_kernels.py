@@ -9,6 +9,7 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
 """
 
 import ast
+import re
 from pathlib import Path
 
 import numpy as np
@@ -843,20 +844,23 @@ WARP_WIDTHS = chip_smoke.WARP_WIDTHS
 @pytest.mark.parametrize("d", [32, 6])  # 16-byte channel groups, single channels
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["nearest_top1", "nearest_top6", "nearest_topJ",
-                                  "nearest_top6c", "nearest_topJc"])
+                                  "nearest_top6c", "nearest_topJc", "shared"])
 @pytest.mark.parametrize("j", sorted(WARP_WIDTHS))
 def test_top_kernel_at_warp_widths_matches_plain(cuda, j, mode, dtype, d, weights):
     """``nearest_top{T}[c]`` with a head's points on 16 lanes (J = 12, two
     heads a warp) and on 32 (J = 32, one head a warp), over 2400 heads (many
-    blocks, a partial last one), with random, all-equal (the tie rule alone)
-    and zero weights (a third 0, some heads all 0), against the plain version.
-    Tolerance as ``test_approximate_kernels_match_plain``; outputs whose
-    centroid lies within 1e-4 px of a rounding boundary may flip, at most
-    max(2, 1 in 10,000) of them."""
+    blocks, a partial last one); ``shared`` with its points on 12 or 32 lanes
+    over 602 queries (a warp each: many blocks, a partial last one). Random,
+    all-equal (the tie rule alone) and zero weights (a third 0, some heads all
+    0), against the plain version. Tolerance as
+    ``test_approximate_kernels_match_plain``; outputs whose centroid lies
+    within 1e-4 px of a rounding boundary may flip, at most max(2, 1 in
+    10,000) of them."""
     shapes, p = WARP_WIDTHS[j]
     mode = mode.replace("J", str(j))
     rng = np.random.RandomState(j + d)
-    n, lq, m = 2, 300, 4
+    # 602 = 2 x 7 x 43 queries: no power-of-two block of warps divides them
+    n, lq, m = 2, 301 if mode == "shared" else 300, 4
     s = sum(h * w for h, w in shapes)
     value = rng.randn(n, s, m, d).astype(np.float32)
     loc = rng.rand(n, lq, m, len(shapes), p, 2).astype(np.float32) * 1.2 - 0.1
@@ -886,11 +890,41 @@ def test_top_kernel_at_warp_widths_matches_plain(cuda, j, mode, dtype, d, weight
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["nearest_top6", "nearest_top6c"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shared_kernel_with_points_beyond_shared_memory_matches_plain(cuda, dtype):
+    """``shared`` with 48 heads of 32 points: a query's 1,536 locations and
+    weights, twice over for a warp's two buffers, do not fit in a block's
+    shared memory, so the kernel reads them from global memory (and gathers
+    48 x 32 channels in passes). Tolerance and flips as
+    ``test_top_kernel_at_warp_widths_matches_plain``."""
+    shapes, p = WARP_WIDTHS[32]
+    rng = np.random.RandomState(51)
+    n, lq, m, d = 2, 45, 48, 32
+    value = rng.randn(n, sum(h * w for h, w in shapes), m, d).astype(np.float32)
+    loc = rng.rand(n, lq, m, len(shapes), p, 2).astype(np.float32) * 1.2 - 0.1
+    attn = rng.rand(n, lq, m, len(shapes), p).astype(np.float32)
+    v = torch.from_numpy(value).to(cuda, dtype)
+    lo = torch.from_numpy(loc).to(cuda)
+    a = torch.from_numpy(attn / attn.reshape(n, lq, m, -1).sum(-1)[..., None, None]).to(
+        cuda, dtype)
+    out = msda.ms_deform_attn_core(v, shapes, lo, a, "shared")
+    ref = msda.ms_deform_attn_core_plain(v, shapes, lo, a, "shared")
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    bad = ((out.float() - ref.float()).abs() > tol + tol * ref.float().abs()).cpu().numpy()
+    near = near_rounding_boundary(loc, a.float().cpu().numpy(), shapes, "shared")
+    bad = bad.reshape(n, lq, m, d).any(-1)
+    assert not (bad & ~near).any()
+    assert int(bad.sum()) <= max(2, bad.size // 10000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["nearest_top6", "nearest_top6c", "shared"])
 def test_top_kernel_takes_inputs_off_16_byte_alignment(cuda, mode):
     """Locations and weights that start 8 and 2 bytes past a 16-byte boundary
     (contiguous views into larger buffers; the selection reads a point's
-    location as one float2 and its weight alone): the output equals that of
+    location as one float2 and its weight alone, ``shared`` copies a query's
+    points in 16-byte pieces with 2-byte edges): the output equals that of
     the aligned inputs."""
     shapes, p = WARP_WIDTHS[12]
     rng = np.random.RandomState(50)
@@ -938,6 +972,86 @@ def test_quantize_kernel_equals_plain_bit_for_bit(cuda, dtype, case, nan):
     assert torch.equal(scale[held].view(torch.int32), sp[held].view(torch.int32))
     if nan:
         assert not q[..., 3].any()
+
+
+def _quantize_stage_bytes():
+    """MSDA_Q_STAGE_BYTES of csrc/ms_deform_attn.cu: the bytes of value a
+    quantize block holds in shared memory."""
+    src = (REPO / "multishiftseg_torch" / "csrc" / "ms_deform_attn.cu").read_text()
+    return int(re.search(r"#define MSDA_Q_STAGE_BYTES \((\d+) \* 1024\)", src).group(1)) * 1024
+
+
+def _assert_quantize_is_plain(v):
+    q, scale = msda.quantize_value_table(v)
+    qp, sp = msda.quantize_value_table_plain(v)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qp)
+    assert torch.equal(scale.view(torch.int32), sp.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["under_capacity", "over_capacity", "prime_rows_d32",
+                                  "prime_rows_d30", "unaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_kernel_at_capacity_edges_equals_plain(cuda, dtype, case):
+    """The one-launch quantize, bit for bit: a table just under the grid's
+    shared memory (every block's slice staged) and just over it (the rest of
+    each slice read again from global memory); a prime row count (no block
+    count divides it, slices start mid-row: at 30 channels, off the row
+    boundaries); value and table off 16-byte alignment (single elements)."""
+    d = 30 if case == "prime_rows_d30" else 32
+    size = torch.empty((), dtype=dtype).element_size()
+    msda.quantize_value_table(torch.zeros(1, 1, 1, d, dtype=dtype, device=cuda))
+    capacity = msda._QUANTIZE_BLOCKS[cuda.index or 0] * (_quantize_stage_bytes() // size)
+    rows = {"under_capacity": capacity // d - 8, "over_capacity": capacity // d + 40000,
+            "prime_rows_d32": 100003, "prime_rows_d30": 100003, "unaligned": 7919}[case]
+    g = torch.Generator(device=cuda).manual_seed(23)
+    v = torch.randn(rows * d + 8, generator=g, device=cuda).to(dtype)
+    v[:d] = torch.linspace(-3.5, 3.5, d)  # exact half steps of the scale
+    if case == "unaligned":
+        v = v[1:]
+    v = v[:rows * d].view(1, rows, 1, d)
+    assert (v.data_ptr() % 16 != 0) == (case == "unaligned")
+    _assert_quantize_is_plain(v)
+
+
+@pytest.mark.cuda
+def test_quantize_is_one_kernel(cuda):
+    """One quantize call launches exactly one kernel on the card (no fill, no
+    second pass), at the eval shapes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    v = torch.randn(1, 43008, 8, 32, device=cuda).to(torch.bfloat16)
+    msda.quantize_value_table(v)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        msda.quantize_value_table(v)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "msda_quantize_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quantize_replays_in_a_cuda_graph(cuda, dtype):
+    """The quantize captured in a CUDA graph and replayed on new data gives the
+    plain version's table and scale bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    v = (torch.randn(1, 43008, 8, 32, generator=g, device=cuda) * 3).to(dtype)
+    msda.quantize_value_table(v)  # built and sized before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q, scale = msda.quantize_value_table(v)
+    for seed in (25, 26):
+        g.manual_seed(seed)
+        v.copy_(torch.randn(v.shape, generator=g, device=cuda) * seed)
+        graph.replay()
+        qp, sp = msda.quantize_value_table_plain(v)
+        torch.cuda.synchronize()
+        assert torch.equal(q, qp)
+        assert torch.equal(scale.view(torch.int32), sp.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -1133,16 +1247,38 @@ def test_new_kernels_stay_off_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("case", sorted(forward_ab.CASES))
 def test_forward_ab_cases_run_the_main_path_shapes(case):
-    """The forward A/B tool times the deformable forward at ``chip_smoke.py``'s
-    pyramids, heads and points, staging what the wrapper stages there: level
-    0 of a bf16 table at eval, levels 0-1 at training, none for an f32 table,
-    30-channel rows or ``nearest``."""
-    levels, images, dtype, d, nearest = forward_ab.CASES[case]
+    """The A/B tool times each kernel at ``chip_smoke.py``'s pyramids, heads
+    and points, the forward staging what the wrapper stages there: level 0 of
+    a bf16 table at eval, levels 0-1 at training, none for an f32 table,
+    30-channel rows, ``nearest``, ``shared`` or the quantize."""
+    levels, images, dtype, d, kind = forward_ab.CASES[case]
     assert levels in (chip_smoke.LEVELS, chip_smoke.TRAIN_LEVELS)
     assert (forward_ab.HEADS, forward_ab.POINTS) == (chip_smoke.N_HEADS, chip_smoke.N_POINTS)
+    assert kind in ("bilinear", "nearest", "shared", "quantize")
     table = torch.empty((1, sum(h * w for h, w in levels), forward_ab.HEADS, d), dtype=dtype)
     want = {"bf16_bilinear_eval": 1, "bf16_bilinear_train": 2}.get(case, 0)
-    assert msda.forward_staged_levels(table, levels, nearest) == want
+    if kind in ("bilinear", "nearest"):
+        assert msda.forward_staged_levels(table, levels, kind == "nearest") == want
+    else:
+        assert want == 0
+
+
+@pytest.mark.parametrize("case", ["bf16_shared_eval", "bf16_quantize_eval",
+                                  "f32_quantize_eval"])
+def test_forward_ab_new_cases_take_chip_smoke_inputs(case):
+    """``shared`` and the quantize are timed on the eval rows of
+    ``chip_smoke.py``'s ``kernels`` phase: one 1024x2048 image, 8 heads of 32
+    channels, the query per table row, bf16 (f32 for the quantize too)."""
+    levels, images, dtype, d, kind = forward_ab.CASES[case]
+    assert (levels, images, d) == (chip_smoke.LEVELS, 1, chip_smoke.HEAD_DIM)
+    assert kind == case.split("_")[1]
+    assert dtype == (torch.float32 if case.startswith("f32") else torch.bfloat16)
+
+
+def test_forward_ab_tree_flags():
+    """A tree may carry extra nvcc flags for a variant's build."""
+    assert forward_ab.parse_tree(".") == (Path("."), [])
+    assert forward_ab.parse_tree("a/b::-DX=1,-DY=2") == (Path("a/b"), ["-DX=1", "-DY=2"])
 
 
 def test_forward_ab_needs_a_card(monkeypatch):
