@@ -554,19 +554,6 @@ def msda_approx_ops(torch, loc, attn, levels, mode):
     return ops
 
 
-def shared_gather_bytes(torch, value, loc, attn, levels):
-    """Bytes ``shared`` gathers from the value table (through the L2): one row
-    of M * D channels for each (query, level, point) whose centroid (float64)
-    lies inside the half-pixel border. Each is read once, for all heads."""
-    a, xy = attn.double(), loc.double()
-    asum = a.sum(2)
-    c = (xy * a[..., None]).sum(2) / asum.clamp_min(1e-12)[..., None]
-    size = torch.tensor([[w, h] for h, w in levels], dtype=torch.float64, device=loc.device)
-    px = c * size[None, None, :, None, :] - 0.5
-    inb = ((px > -0.5) & (px < size[None, None, :, None, :] - 0.5)).all(-1)
-    return int(inb.sum()) * value.shape[2] * value.shape[3] * value.element_size()
-
-
 def approx_kernel_rows(torch, dev, rows, check, checks):
     """The int8 table and the approximate deformable modes at the main-path
     shapes (1024x2048, batch 1, bf16): the quantize against its plain version
@@ -643,9 +630,6 @@ def approx_kernel_rows(torch, dev, rows, check, checks):
             "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
         time_redesigned(torch, rows[f"ms_deform_attn_{mode}"], run)
-        if mode == "shared":
-            rows["ms_deform_attn_shared"]["l2_bytes"] = shared_gather_bytes(
-                torch, value, loc, attn, LEVELS)
         del out
     del value, loc, attn
 
@@ -2572,9 +2556,7 @@ def main(argv=None):
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the redesigned kernels' rows also carry their spreads and device times
     # (and the forward's, the levels it staged in shared memory)
-    # (and shared's, the bytes its gathers read through the L2)
-    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels",
-             "l2_bytes")
+    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels")
     if rows:
         emit({"kernels": [{k: r[k] for k in key_order + extra if k in r}
                           for r in rows.values()]})

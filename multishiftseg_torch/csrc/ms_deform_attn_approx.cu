@@ -243,18 +243,11 @@ msda_topk_kernel(const T* __restrict__ value, const float* __restrict__ loc,
   }
 }
 
-// shared: one warp a query (see the file's head). Tuning knobs, each chosen
-// on the H100 (PERF.md): queries a block, rows a lane requests before it adds
-// any, and the blocks an SM must hold (which caps the registers).
-#ifndef MSDA_SH_WARPS
-#define MSDA_SH_WARPS 16
-#endif
-#ifndef MSDA_SH_BATCH
-#define MSDA_SH_BATCH 4
-#endif
-#ifndef MSDA_SH_MIN_BLOCKS
-#define MSDA_SH_MIN_BLOCKS 2
-#endif
+// shared: one warp a query (see the file's head), its shape chosen on the
+// H100 (PERF.md).
+#define MSDA_SH_WARPS 16      // queries a block
+#define MSDA_SH_BATCH 4       // rows a lane requests before it adds any
+#define MSDA_SH_MIN_BLOCKS 2  // blocks an SM must hold (caps the registers)
 #define MSDA_SH_THREADS (32 * MSDA_SH_WARPS)
 #define MSDA_SH_LIST_BYTES (32 * 8)  // a warp's list of in-map points: J <= 32 int2
 #define MSDA_SH_SMEM 232448           // shared bytes a block may use (an H100's 227 KB)

@@ -4,23 +4,22 @@ and ``nearest``), ``shared`` (``msda_forward_shared`` in
 ``csrc/ms_deform_attn_approx.cu``) and the int8 table's quantize
 (``msda_quantize``).
 
-Each checkout's two sources are built with the port's ``nvcc`` flags (plus a
-tree's own, below) and loaded into this one process. Every build runs on the
-same input tensors in interleaved blocks, so neither the process nor where its
-tensors lie in memory differs between them. A block is 25 calls queued behind
-a sleep kernel: the card runs them back to back whatever the host's pace, and
-the block's median interval is one call's device time.
+Each checkout's two sources are built with the port's ``nvcc`` flags and
+loaded into this one process. Every build runs on the same input tensors in
+interleaved blocks, so neither the process nor where its tensors lie in memory
+differs between them. A block is 25 calls queued behind a sleep kernel: the
+card runs them back to back whatever the host's pace, and the block's median
+interval is one call's device time.
 
     python -m multishiftseg_torch.tools.forward_ab --trees PARENT . [--rounds 10]
 
-``--trees`` takes checkout roots, the first of them the reference. A root may
-carry extra nvcc flags after ``::``, comma-separated, to time a variant of one
-source (``.::-DMSDA_SH_BATCH=4``). Their ``msda_forward`` and
-``msda_forward_shared`` must take this checkout's arguments. The quantize runs
-each tree's whole device work a call: a tree whose library has no
-``msda_quantize_max_blocks`` takes the older entry, which wants its scale
-zero-filled first (a fill launch) and runs three kernels. Each forward build
-stages the levels this checkout's wrapper picks
+``--trees`` takes checkout roots, the first of them the reference; to time a
+variant of a source, pass a copy of the checkout with that source edited.
+Their ``msda_forward`` and ``msda_forward_shared`` must take this checkout's
+arguments. The quantize runs each tree's whole device work a call: a tree
+whose library has no ``msda_quantize_max_blocks`` takes the older entry,
+which wants its scale zero-filled first (a fill launch) and runs three
+kernels. Each forward build stages the levels this checkout's wrapper picks
 (``ops.ms_deform_attn.forward_staged_levels``). Prints the card's name and
 power limit, each tree's registers and spills a kernel, and one JSON line a
 case; ``--out`` also writes them to a file.
@@ -65,12 +64,6 @@ CASES = {
 QUEUE_AHEAD_CYCLES = 20_000_000
 
 
-def parse_tree(spec: str):
-    """``ROOT[::FLAG,FLAG...]`` -> (root, extra nvcc flags)."""
-    root, _, flags = spec.partition("::")
-    return Path(root), [f for f in flags.split(",") if f]
-
-
 def ptxas_summary(log):
     """nvcc's ``-Xptxas -v`` log -> ``["entry: R registers, S spill bytes", ...]``."""
     rows, entry = [], None
@@ -88,7 +81,7 @@ def ptxas_summary(log):
     return rows
 
 
-def build(tree: Path, flags, out: Path):
+def build(tree: Path, out: Path):
     """``tree``'s two sources -> (``{source: library}``, the build's
     :func:`ptxas_summary`), built at once."""
     out.mkdir(parents=True, exist_ok=True)
@@ -97,7 +90,7 @@ def build(tree: Path, flags, out: Path):
         src = tree / "multishiftseg_torch" / "csrc" / f"{name}.cu"
         lib = out / f"{name}.so"
         procs[name] = (subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)],
+            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib)
     libs, ptxas = {}, []
     for name, (proc, lib) in procs.items():
@@ -153,6 +146,8 @@ def caller(libs, kind, levels, value, loc, attn):
                                            stream))
                 return q, buf[:d]
         else:
+            # checkouts from before the quantize's single launch only: drop
+            # this branch once no such checkout is compared
             fn = lib.msda_quantize
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
@@ -245,10 +240,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("forward_ab: no CUDA device")
     work = _build.BUILD_DIR / "forward_ab"
-    trees = [parse_tree(t) for t in args.trees]
-    with ThreadPoolExecutor(len(trees)) as ex:
-        built = list(ex.map(build, [t for t, _ in trees], [f for _, f in trees],
-                            [work / f"tree{i}" for i in range(len(trees))]))
+    with ThreadPoolExecutor(len(args.trees)) as ex:
+        built = list(ex.map(build, map(Path, args.trees),
+                            [work / f"tree{i}" for i in range(len(args.trees))]))
     libs = {k: b[0] for k, b in zip(args.trees, built)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)

@@ -1275,10 +1275,25 @@ def test_forward_ab_new_cases_take_chip_smoke_inputs(case):
     assert dtype == (torch.float32 if case.startswith("f32") else torch.bfloat16)
 
 
-def test_forward_ab_tree_flags():
-    """A tree may carry extra nvcc flags for a variant's build."""
-    assert forward_ab.parse_tree(".") == (Path("."), [])
-    assert forward_ab.parse_tree("a/b::-DX=1,-DY=2") == (Path("a/b"), ["-DX=1", "-DY=2"])
+def test_forward_ab_ptxas_summary():
+    """Each tree's build reports every kernel entry's registers and spill
+    stores from nvcc's ``-Xptxas -v`` log; a function that is no entry adds
+    no line."""
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z17msda_shared_kernelILi8EEvPKv' for 'sm_90a'
+ptxas info    : Function properties for _Z17msda_shared_kernelILi8EEvPKv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 432 bytes cmem[0]
+ptxas info    : Function properties for helper
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function 'msda_quantize_kernel' for 'sm_90a'
+ptxas info    : Function properties for msda_quantize_kernel
+    104 bytes stack frame, 104 bytes spill stores, 96 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 400 bytes cmem[0]
+"""
+    assert forward_ab.ptxas_summary(log) == [
+        "_Z17msda_shared_kernelILi8EEvPKv: 64 registers, 0 spill bytes",
+        "msda_quantize_kernel: 40 registers, 104 spill bytes"]
 
 
 def test_forward_ab_needs_a_card(monkeypatch):
