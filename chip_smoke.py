@@ -123,7 +123,14 @@ lowest and highest block median as
 calls issued back to back (each call's device time; see ``spread_ms``), and
 ``host_ms``, the wrapper's host time a call. The rows of the forward kernel
 (``bilinear``, ``nearest``, int8) add ``staged_levels``, the levels it staged
-in shared memory.
+in shared memory. The assignment's and the selection's rows add
+``device_kernels``, the device kernels one call runs (the launch calls of a
+profile, ``launch_calls``); the
+assignment's ``max_steps``, the most Dijkstra steps of any problem (from the
+plain version), and ``device_ns_per_step``, its device time over them; the
+selection's ``staged_fraction``, the share of keys its kernel keeps in shared
+memory, and as ``library_ms`` one ``torch.topk`` of the k smallest keys and
+their sum.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit as
 ``nvidia-smi`` gives them, and as the last line ``{"ok": true, "device": ...}``
@@ -269,6 +276,35 @@ def host_ms(torch, fn, reps=25):
         times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     return statistics.median(times)
+
+
+# host-side CUDA runtime calls that put work on the device, as the profiler
+# names them (libraries that launch with cuLaunchKernel are not counted)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchCooperativeKernel", "cudaMemsetAsync",
+                "cudaMemcpyAsync")
+
+
+def launch_calls(prof):
+    """The runtime calls in a profile that launch a kernel, a fill or a copy:
+    recorded on the host's clock, so none falls out of the window, as device
+    events were seen to (a cooperative kernel's most of all)."""
+    return sum(1 for e in prof.events() if e.name.startswith(LAUNCH_CALLS))
+
+
+def device_kernels(torch, fn, calls=10, pause_s=0.25):
+    """Device kernels (and copies or fills) a call of ``fn`` runs: the launch
+    calls of ``calls`` warm calls in one profile, over ``calls``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pause_s)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(pause_s)
+    return launch_calls(prof) / calls
 
 
 def time_redesigned(torch, row, fn):
@@ -741,8 +777,8 @@ def train_kernel_rows(torch, dev, rows, check, checks):
     checks.append({"check": "linear_sum_assignment_main_shapes", "equal_to_plain": same,
                    "scipy_optimal_on_valid_rows": optimal, "ok": same and optimal})
     # each Dijkstra step reduces over every column: about 5 f32 operations each
-    b_ms, b_by = bound(nbytes(cost) + b * CLASSES * 4, sum(steps) * QUERIES * 5)
-    rows["linear_sum_assignment"] = {
+    b_ms, b_by = bound(nbytes(cost, got), sum(steps) * QUERIES * 5)
+    row = rows["linear_sum_assignment"] = {
         "name": "linear_sum_assignment", "route": "cuda",
         "source": "multishiftseg_torch/csrc/assignment.cu",
         "replaces": "multishiftseg_tpu/losses/matcher.py:28",
@@ -751,7 +787,12 @@ def train_kernel_rows(torch, dev, rows, check, checks):
         "bound_ms": b_ms, "bound_by": b_by,
         # PyTorch has no assignment solver
         "library_ms": None}
-    time_redesigned(torch, rows["linear_sum_assignment"], run)
+    time_redesigned(torch, row, run)
+    # a latency yardstick beside the byte bound: the search is a chain of
+    # dependent argmins, the longest problem's steps
+    row["device_kernels"] = device_kernels(torch, run)
+    row["max_steps"] = max(steps)
+    row["device_ns_per_step"] = row["device_ms"] * 1e6 / max(steps)
 
     # label points on 16 label maps at 704x704: every class at the matcher's
     # points, and one class per row at the augmented half's clean candidates
@@ -953,11 +994,11 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
     run = lambda: rcl._bottom_k_sum(vals, keyed, sn)
     plain = lambda: rcl.bottom_k_sum_plain(vals, keyed, sn)
     got, want = run(), plain()
-    _, _, work, _ = rcl.bottom_k_sum_cuda(vals, keyed, sn)
+    _, threshold, _ = rcl.bottom_k_sum_cuda(vals, keyed, sn)
     kth = torch.sort(keyed.view(torch.int32).long() & 0xFFFFFFFF).values[int(sn) - 1]
     torch.cuda.synchronize()
     err = check("bottom_k_sum_main_shapes", got, want, 0.0, 1e-6)
-    same_t = (int(work[257]) & 0xFFFFFFFF) == int(kth)
+    same_t = (int(threshold) & 0xFFFFFFFF) == int(kth)
     checks[-1].update(threshold_equal_kth_key=same_t, ok=checks[-1]["ok"] and same_t)
     # its backward, which every training step launches: the weights exactly
     grads = []
@@ -970,16 +1011,22 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
     checks[-1]["elements"] = n
     del grads
     b_ms, b_by = bound(nbytes(vals, keyed, sn, got), 2 * n)  # a compare and an add each
-    rows["bottom_k_sum"] = {
+    k_host = int(sn)
+    row = rows["bottom_k_sum"] = {
         "name": "bottom_k_sum", "route": "cuda", "source": "multishiftseg_torch/csrc/bottom_k.cu",
         "replaces": "multishiftseg_tpu/losses/rcl.py:65",
         "max_abs_err": err, "ms": median_ms(torch, run, 20), "plain_ms": median_ms(torch, plain, 5),
         "bound_ms": b_ms, "bound_by": b_by,
-        # no single PyTorch call computes it: topk / kthvalue find the k
-        # smallest but neither shares the threshold's ties, and both take k
-        # on the host
-        "library_ms": None}
-    time_redesigned(torch, rows["bottom_k_sum"], run)
+        # the k smallest by torch.topk (k read to the host first): the same
+        # forward value, since the threshold's ties are equal values where the
+        # key is finite, but not the kernel's gradient weights (topk picks
+        # some of the ties whole)
+        "library_ms": median_ms(
+            torch, lambda: torch.topk(keyed, k_host, largest=False).values.sum(), 20)}
+    time_redesigned(torch, row, run)
+    with torch.no_grad():
+        row["device_kernels"] = device_kernels(torch, run)
+    row["staged_fraction"] = rcl.staged_fraction(n, dev)
 
     # small and odd shapes: taps wholly outside the map, channels off the
     # tiles, f32 and bf16, the gradients through the autograd Function
@@ -1393,8 +1440,9 @@ def phase_slice_parity(torch, hw=(256, 512)):
 def profile_request(torch, fwd, image, focus=None):
     """``fwd(image)`` (a request, or a training step) once under torch.profiler:
     device time by kernel name (top 12), the device's busy share of the wall
-    time and, with ``focus`` (a string or several), the device time of the
-    kernels whose name holds each string and its share of the busy time."""
+    time, the device events and the launch calls (see ``launch_calls``) and,
+    with ``focus`` (a string or several), the device time of the kernels whose
+    name holds each string and its share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1425,7 +1473,8 @@ def profile_request(torch, fwd, image, focus=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     res = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
            "device_busy_share": busy / 1e3 / wall_ms if wall_ms else None,
-           "device_events": len(spans), "device_kernel_ms_total": sum(v[0] for v in by_name.values()),
+           "device_events": len(spans), "launch_calls": launch_calls(prof),
+           "device_kernel_ms_total": sum(v[0] for v in by_name.values()),
            "top_kernels": [{"name": k[:90], "ms": v[0], "count": v[1]} for k, v in top]}
     for name in (focus,) if isinstance(focus, str) else focus or ():
         ms = sum(v[0] for k, v in by_name.items() if name in k)
@@ -2555,8 +2604,11 @@ def main(argv=None):
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the redesigned kernels' rows also carry their spreads and device times
-    # (and the forward's, the levels it staged in shared memory)
-    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels")
+    # (the forward's, the levels it staged in shared memory; the assignment's
+    # and the selection's, their device kernels a call, the assignment's
+    # longest search and the selection's staged share of keys)
+    extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels",
+             "device_kernels", "max_steps", "device_ns_per_step", "staged_fraction")
     if rows:
         emit({"kernels": [{k: r[k] for k in key_order + extra if k in r}
                           for r in rows.values()]})

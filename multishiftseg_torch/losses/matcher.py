@@ -12,6 +12,7 @@ assignment problem are targets, columns are queries.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Optional
 
@@ -99,25 +100,64 @@ def _lsa_one(cost: np.ndarray, steps: Optional[list] = None) -> np.ndarray:
     return col4row
 
 
+# The kernel's limits (``csrc/assignment.cu``): columns, and shared memory a
+# problem (its cost copy, u and col4row), the H100's opt-in maximum a block.
+LSA_MAX_COLUMNS = 512
+LSA_MAX_SHARED_BYTES = 232448
+
+
+def assignment_shared_bytes(r: int, c: int) -> int:
+    """Shared memory the kernel takes for one R x C problem
+    (``lsa_smem_bytes`` in ``csrc/assignment.cu``)."""
+    return 4 * ((r * c + 6) & ~3) + 8 * r
+
+
+def check_assignment_shape(r: int, c: int) -> None:
+    """Raise ValueError, naming the limit, for a problem shape the kernel does
+    not hold."""
+    if c > LSA_MAX_COLUMNS:
+        raise ValueError(f"the assignment kernel takes at most {LSA_MAX_COLUMNS} columns, "
+                         f"got {c}")
+    need = assignment_shared_bytes(r, c)
+    if need > LSA_MAX_SHARED_BYTES:
+        raise ValueError(f"the assignment kernel holds a problem in at most "
+                         f"{LSA_MAX_SHARED_BYTES} bytes of shared memory (4 * R * C + 8 * R "
+                         f"and alignment); {r} x {c} needs {need}")
+
+
+_LSA_SOLVE = []  # the kernel's entry, once loaded
+
+
+def launch_device(dev: torch.device):
+    """``dev`` as the current device for a launch: no switch when it is
+    already (the wrappers of these small kernels count their host time)."""
+    if dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
 def _lsa_cuda(cost: torch.Tensor) -> torch.Tensor:
     if cost.dtype != torch.float32:
         raise TypeError(f"cost must be float32, got {cost.dtype}")
-    cost = cost.contiguous()
     b, r, c = cost.shape
-    from .._build import load
+    check_assignment_shape(r, c)
+    cost = cost.contiguous()
+    if not _LSA_SOLVE:
+        from .._build import function
 
-    lib = load("assignment")
-    fn = lib.lsa_solve
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    out = torch.empty((b, r), dtype=torch.int32, device=cost.device)
-    with torch.cuda.device(cost.device):
-        stream = torch.cuda.current_stream(cost.device).cuda_stream
-        rc = fn(cost.data_ptr(), out.data_ptr(), b, r, c, stream)
+        _LSA_SOLVE.append(function("assignment", "lsa_solve",
+                                   [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                                   + [ctypes.c_void_p]))
+    dev = cost.device
+    out = torch.empty((b, r), dtype=torch.int64, device=dev)
+    with launch_device(dev):
+        # the raw handle: building a torch Stream object costs host time
+        rc = _LSA_SOLVE[0](cost.data_ptr(), out.data_ptr(), b, r, c,
+                           torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"lsa_solve failed: cudaError {rc}")
     LAUNCHES["linear_sum_assignment"] += 1
-    return out.long()
+    return out
 
 
 def batch_sigmoid_ce_cost(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

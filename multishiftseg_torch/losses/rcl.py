@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from .. import _build
+from .matcher import launch_device
 
 # Kernel launches (see ``ops.launch_counts``).
 LAUNCHES = {"bottom_k_sum": 0}
@@ -108,66 +109,120 @@ def bottom_k_sum_plain(values: torch.Tensor, keyed: torch.Tensor,
 
 
 class _BottomKSum(torch.autograd.Function):
-    """The selection on the card: a radix select and one reduction pass
-    forward; backward, the elementwise weight from the saved threshold."""
+    """The selection on the card: one cooperative kernel forward (radix select
+    and the sums); backward, the elementwise weight from the saved threshold."""
 
     @staticmethod
     def forward(ctx, values, keyed, select_num):
-        out, keys, work, result = bottom_k_sum_cuda(values, keyed, select_num)
+        out, keys, scratch = _bottom_k_forward(values, keyed, select_num)
         ctx.shape = values.shape
-        ctx.save_for_backward(keys, work, result)
+        ctx.save_for_backward(keys, scratch)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, grad):
-        keys, work, result = ctx.saved_tensors
+        keys, scratch = ctx.saved_tensors
         dvalues = torch.empty(keys.shape, dtype=torch.float32, device=keys.device)
         g = grad.float().contiguous()
-        fn = _build.function("bottom_k", "bottom_k_backward",
-                             [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 5)
-        with torch.cuda.device(keys.device):
-            stream = torch.cuda.current_stream(keys.device).cuda_stream
-            rc = fn(keys.data_ptr(), keys.numel(), work.data_ptr(), result.data_ptr(),
-                    g.data_ptr(), dvalues.data_ptr(), stream)
+        dev = keys.device
+        with launch_device(dev):
+            rc = _kernel(dev).backward(keys.data_ptr(), keys.numel(), scratch.data_ptr(),
+                                       g.data_ptr(), dvalues.data_ptr(),
+                                       torch._C._cuda_getCurrentRawStream(dev.index))
         if rc != 0:
             raise RuntimeError(f"bottom_k_backward failed: cudaError {rc}")
         return dvalues.view(ctx.shape), None, None
 
 
-def bottom_k_sum_cuda(values: torch.Tensor, keyed: torch.Tensor, select_num: torch.Tensor):
-    """The kernel: (sum [] f32, the keys [n] as int32, the work buffer that
-    holds the threshold, the result [sum, tie weight, n_less, n_eq]). f32
-    ``values`` and ``keyed`` of one shape, ``select_num`` int32 with one element,
-    all on one device."""
+# the scratch's words (csrc/bottom_k.cu): threshold, then the result
+SCRATCH_THRESHOLD, SCRATCH_RESULT = 0, 1
+
+
+@dataclass(frozen=True)
+class _Kernel:
+    """A device's entries of ``csrc/bottom_k.cu`` and its launch shape: the most
+    blocks (all resident) and the 4-byte words a block stages (keys, then values)."""
+
+    forward: object
+    backward: object
+    max_blocks: int
+    stage_words: int
+    scratch_words: int
+
+
+_KERNELS: Dict[Optional[int], _Kernel] = {}
+
+
+def _kernel(dev: torch.device) -> _Kernel:
+    """The kernel's entries and launch shape on ``dev``, loaded and queried
+    once a device."""
+    kern = _KERNELS.get(dev.index)
+    if kern is None:
+        cfg = _build.function("bottom_k", "bottom_k_config", [ctypes.c_void_p] * 2)
+        blocks, stage = ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(dev):
+            rc = cfg(ctypes.addressof(blocks), ctypes.addressof(stage))
+        if rc != 0:
+            raise RuntimeError(f"bottom_k_config failed: cudaError {rc}")
+        words = _build.function("bottom_k", "bottom_k_scratch_words", [ctypes.c_int])
+        words.restype = ctypes.c_longlong
+        kern = _KERNELS[dev.index] = _Kernel(
+            forward=_build.function("bottom_k", "bottom_k_forward",
+                                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+                                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                                    + [ctypes.c_void_p]),
+            backward=_build.function("bottom_k", "bottom_k_backward",
+                                     [ctypes.c_void_p, ctypes.c_longlong]
+                                     + [ctypes.c_void_p] * 4),
+            max_blocks=blocks.value, stage_words=stage.value,
+            scratch_words=words(blocks.value))
+    return kern
+
+
+def staged_fraction(n: int, dev: torch.device) -> float:
+    """The share of ``n`` keys the forward on ``dev`` stages in shared memory
+    (the rest it reads from global memory in every pass)."""
+    kern = _kernel(dev)
+    fn = _build.function("bottom_k", "bottom_k_staged_keys",
+                         [ctypes.c_longlong, ctypes.c_int, ctypes.c_int])
+    fn.restype = ctypes.c_longlong
+    return fn(n, kern.max_blocks, kern.stage_words) / max(n, 1)
+
+
+def _bottom_k_forward(values: torch.Tensor, keyed: torch.Tensor, select_num: torch.Tensor):
+    """The kernel: (sum [] f32, the keys, the scratch that holds the threshold
+    and the result). f32 ``values`` and ``keyed`` of one shape, ``select_num``
+    int32 with one element, all on one device."""
     if values.dtype != torch.float32 or keyed.dtype != torch.float32:
         raise TypeError(f"values and keys must be float32, got {values.dtype}, {keyed.dtype}")
     if values.shape != keyed.shape:
         raise ValueError(f"values {tuple(values.shape)} and keys {tuple(keyed.shape)} differ")
     if select_num.numel() != 1 or select_num.dtype != torch.int32:
         raise TypeError("select_num must be one int32")
-    if len({values.device, keyed.device, select_num.device}) != 1:
-        raise ValueError("values, keys and select_num must be on one device")
     dev = values.device
-    keys = keyed.detach().contiguous().view(torch.int32).reshape(-1)
-    vals = values.detach().contiguous().reshape(-1)
-    k = select_num.detach().reshape(1).contiguous()
-    n = keys.numel()
-    blocks = _build.function("bottom_k", "bottom_k_blocks", [ctypes.c_longlong])(n)
-    work = torch.zeros(260, dtype=torch.int32, device=dev)
-    part_sum = torch.empty(2 * blocks, dtype=torch.float64, device=dev)
-    part_cnt = torch.empty(2 * blocks, dtype=torch.int64, device=dev)
-    result = torch.empty(4, dtype=torch.float32, device=dev)
-    fn = _build.function("bottom_k", "bottom_k_forward",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 6)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(keys.data_ptr(), vals.data_ptr(), n, k.data_ptr(), work.data_ptr(),
-                part_sum.data_ptr(), part_cnt.data_ptr(), result.data_ptr(), stream)
+    if keyed.device != dev or select_num.device != dev:
+        raise ValueError("values, keys and select_num must be on one device")
+    keys = keyed.contiguous()
+    vals = values.contiguous()
+    kern = _kernel(dev)
+    scratch = torch.empty(kern.scratch_words, dtype=torch.float32, device=dev)
+    with launch_device(dev):  # the raw stream handle, as in matcher.py
+        rc = kern.forward(keys.data_ptr(), vals.data_ptr(), keys.numel(), select_num.data_ptr(),
+                          scratch.data_ptr(), kern.max_blocks, kern.stage_words,
+                          torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"bottom_k_forward failed: cudaError {rc}")
     LAUNCHES["bottom_k_sum"] += 1
-    return result[0].clone(), keys, work, result
+    return scratch[SCRATCH_RESULT], keys, scratch
+
+
+def bottom_k_sum_cuda(values: torch.Tensor, keyed: torch.Tensor, select_num: torch.Tensor):
+    """The kernel outside autograd: (sum [] f32, threshold [] int32, result [4]
+    f32: sum, tie weight, n_less, n_eq), views of one scratch buffer."""
+    out, _, scratch = _bottom_k_forward(values.detach(), keyed.detach(), select_num.detach())
+    return (out, scratch[SCRATCH_THRESHOLD].view(torch.int32),
+            scratch[SCRATCH_RESULT:SCRATCH_RESULT + 4])
 
 
 def _sample_masked(noise: torch.Tensor, values: torch.Tensor, mask: torch.Tensor,

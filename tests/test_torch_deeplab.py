@@ -105,17 +105,19 @@ def test_dilated_conv_plain_matches_jax(case):
 # the bottom-k pixel selection
 
 
-@pytest.mark.parametrize("case", ["ties", "zero", "one", "all"])
+@pytest.mark.parametrize("case", ["ties", "zero", "one", "all", "beyond_valid", "beyond_n"])
 def test_bottom_k_sum_plain_matches_jax(case):
     """Keys with many ties at the threshold and +inf at invalid positions; the
     value within one ulp and the gradient (1 below the threshold, need / n_eq
-    at it) exactly."""
+    at it) exactly. ``beyond_valid``: count < k <= n, the threshold at +inf;
+    ``beyond_n``: k > n."""
     rng = np.random.RandomState(11)
     vals = (np.floor(rng.rand(997) * 40) / 16).astype(np.float32)
     valid = rng.rand(997) > 0.25
     keyed = np.where(valid, vals, np.inf).astype(np.float32)
     count = int(valid.sum())
-    k = {"ties": int(0.8 * count), "zero": 0, "one": 1, "all": count}[case]
+    k = {"ties": int(0.8 * count), "zero": 0, "one": 1, "all": count,
+         "beyond_valid": (count + 997) // 2, "beyond_n": 1000}[case]
     val_j, grad_j = jax.value_and_grad(
         lambda v: jax_rcl._bottom_k_sum(v, jnp.asarray(keyed), jnp.int32(k)))(jnp.asarray(vals))
     v = torch.from_numpy(vals).requires_grad_()

@@ -441,8 +441,11 @@ def test_ms_deform_attn_autograd_on_the_card(cuda):
             pc.grad.abs().max()))
 
 
+# (2, 113, 512): the most columns and, at them, the most rows the kernel
+# holds (232,344 bytes of shared memory a problem)
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(16, 19, 100), (3, 5, 8), (2, 1, 1), (2, 7, 300)])
+@pytest.mark.parametrize("shape", [(16, 19, 100), (3, 5, 8), (2, 1, 1), (2, 7, 300),
+                                   (2, 113, 512)])
 def test_assignment_kernel_matches_plain(cuda, shape):
     """Rows at BIG (ties everywhere) included; the same assignment exactly."""
     rng = np.random.RandomState(4)
@@ -452,7 +455,69 @@ def test_assignment_kernel_matches_plain(cuda, shape):
     got = matcher.linear_sum_assignment(c)
     want = matcher.linear_sum_assignment_plain(c)
     torch.cuda.synchronize()
+    assert got.dtype == torch.int64
     assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 19, 100), (3, 5, 8), (2, 7, 300)])
+def test_assignment_kernel_with_nan_and_inf_costs_matches_plain(cuda, shape):
+    """Three scattered NaN or +inf entries a problem (never a whole row): a
+    NaN never wins a step; the same assignment as the plain version."""
+    rng = np.random.RandomState(41)
+    b, r, c = shape
+    cost = rng.rand(*shape).astype(np.float32)
+    cost[rng.rand(b, r) > 0.5] = matcher.BIG
+    for i in range(b):
+        for j, flat in enumerate(rng.choice(r * c, 3, replace=False)):
+            cost[i].flat[flat] = np.nan if j % 2 == 0 else np.inf
+    ct = torch.from_numpy(cost).to(cuda)
+    got = matcher.linear_sum_assignment(ct)
+    want = matcher.linear_sum_assignment_plain(ct)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 7, 513), (2, 114, 512)])
+def test_assignment_past_its_limit_raises_before_launch(cuda, shape):
+    """One column past 512, or one row past the shared memory a problem may
+    take: ValueError, and no launch."""
+    before = matcher.LAUNCHES["linear_sum_assignment"]
+    with pytest.raises(ValueError, match="assignment kernel"):
+        matcher.linear_sum_assignment(torch.zeros(shape, device=cuda))
+    assert matcher.LAUNCHES["linear_sum_assignment"] == before
+
+
+def _launches(fn, calls=10):
+    """(launch calls, device kernel names) of ``calls`` warm calls of ``fn`` in
+    one profile between host pauses. The launch calls are the host's runtime
+    records (``chip_smoke.launch_calls``): the card's profiler was seen to
+    drop device events from windows this short, not these."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.25)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.25)
+    return chip_smoke.launch_calls(prof), [
+        e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+        and not getattr(e, "is_user_annotation", False)]
+
+
+@pytest.mark.cuda
+def test_assignment_is_one_kernel(cuda):
+    """One assignment call at the stage-2 shapes runs exactly one kernel (it
+    writes the int64 result itself)."""
+    cost = torch.rand(16, 19, 100, device=cuda)
+    launches, kernels = _launches(lambda: matcher.linear_sum_assignment(cost))
+    assert launches == 10 and all("lsa_warp_kernel" in k for k in kernels), (launches, kernels)
 
 
 @pytest.mark.cuda
@@ -527,21 +592,32 @@ def test_dilated_conv_skips_input_gradient_unless_asked(cuda):
     assert k.grad is not None and float(k.grad.abs().max()) > 0
 
 
+# "large": the main path's order of size; "beyond_stage": more keys than the
+# kernel stages in shared memory on an H100 (about 7.3 M), the rest read from
+# global memory in every pass; "beyond_valid": count < k <= n, the threshold
+# at +inf; "beyond_n": k > n, threshold 0xFFFFFFFF
+BOTTOM_K_CASES = ["ties", "zero", "one", "all", "large", "beyond_stage", "beyond_valid",
+                  "beyond_n"]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["ties", "zero", "one", "all", "large"])
+@pytest.mark.parametrize("case", BOTTOM_K_CASES)
 def test_bottom_k_kernel_matches_plain(cuda, case):
     """The radix select finds the binary search's threshold bit for bit; the
     sum within f32 rounding; the gradient weights exactly."""
     rng = np.random.RandomState(7)
-    n = 3_000_017 if case == "large" else 5003
+    n = {"large": 3_000_017, "beyond_stage": 9_000_011}.get(case, 5003)
     vals = (np.floor(rng.rand(n) * 64) / 16).astype(np.float32)  # many ties
-    if case == "large":
+    if case in ("large", "beyond_stage"):
         vals = rng.gamma(1.0, 2.0, n).astype(np.float32)
     valid = rng.rand(n) > 0.2
     keyed = np.where(valid, vals, np.inf).astype(np.float32)
     count = int(valid.sum())
     k = {"ties": int(0.8 * count), "zero": 0, "one": 1, "all": count,
-         "large": int(0.8 * count)}[case]
+         "large": int(0.8 * count), "beyond_stage": int(0.8 * count),
+         "beyond_valid": (count + n) // 2, "beyond_n": n + 3}[case]
+    if case == "beyond_stage":
+        assert rcl.staged_fraction(n, cuda) < 1.0
     sn = torch.tensor(k, dtype=torch.int32, device=cuda)
     kt = torch.from_numpy(keyed).to(cuda)
     sums, grads = [], []
@@ -551,13 +627,61 @@ def test_bottom_k_kernel_matches_plain(cuda, case):
         out.backward(torch.tensor(1.5, device=cuda))
         sums.append(float(out.detach()))
         grads.append(v.grad)
-    _, _, work, result = rcl.bottom_k_sum_cuda(torch.from_numpy(vals).to(cuda), kt, sn)
+    _, threshold, result = rcl.bottom_k_sum_cuda(torch.from_numpy(vals).to(cuda), kt, sn)
     torch.cuda.synchronize()
     bits = np.sort(keyed.view(np.uint32))
-    want_t = 0 if k <= 0 else int(bits[k - 1])
-    assert int(work[257].item()) & 0xFFFFFFFF == want_t
+    want_t = 0 if k <= 0 else (0xFFFFFFFF if k > n else int(bits[k - 1]))
+    assert int(threshold.item()) & 0xFFFFFFFF == want_t
+    assert float(result[0]) == sums[0]
     np.testing.assert_allclose(sums[0], sums[1], rtol=1e-6, atol=1e-6)
     assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_bottom_k_is_one_kernel(cuda):
+    """A forward call at the main-path shapes (8 x 700 x 700) runs exactly one
+    kernel: no fill, no second pass, no copy of the result."""
+    g = torch.Generator(device=cuda).manual_seed(42)
+    n = 8 * 700 * 700
+    vals = -torch.rand(n, generator=g, device=cuda).log() * 2
+    keyed = torch.where(torch.rand(n, generator=g, device=cuda) > 0.2, vals,
+                        torch.full_like(vals, float("inf")))
+    sn = (0.8 * torch.isfinite(keyed).sum()).to(torch.int32)
+    launches, kernels = _launches(lambda: rcl._bottom_k_sum(vals, keyed, sn))
+    assert launches == 10 and all("bk_select_sum" in k for k in kernels), (launches, kernels)
+
+
+@pytest.mark.cuda
+def test_bottom_k_replays_in_a_cuda_graph(cuda):
+    """The forward captured in a CUDA graph and replayed on new keys, values
+    and k: the plain version's threshold bit for bit and its sum."""
+    g = torch.Generator(device=cuda).manual_seed(43)
+    n = 8 * 700 * 700
+    vals = torch.empty(n, device=cuda)
+    keyed = torch.empty(n, device=cuda)
+    sn = torch.zeros((), dtype=torch.int32, device=cuda)
+
+    def draw(seed):
+        g.manual_seed(seed)
+        vals.copy_(-torch.rand(n, generator=g, device=cuda).log() * seed)
+        keyed.copy_(torch.where(torch.rand(n, generator=g, device=cuda) > 0.1 * seed, vals,
+                                torch.full_like(vals, float("inf"))))
+        sn.copy_((0.8 * torch.isfinite(keyed).sum()).to(torch.int32))
+
+    draw(1)
+    rcl.bottom_k_sum_cuda(vals, keyed, sn)  # built and sized before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, threshold, _ = rcl.bottom_k_sum_cuda(vals, keyed, sn)
+    for seed in (2, 3):
+        draw(seed)
+        graph.replay()
+        want = rcl.bottom_k_sum_plain(vals, keyed, sn)
+        kth = torch.sort(keyed.view(torch.int32).long() & 0xFFFFFFFF).values[int(sn) - 1]
+        torch.cuda.synchronize()
+        assert int(threshold) & 0xFFFFFFFF == int(kth)
+        np.testing.assert_allclose(float(out), float(want), rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.cuda
@@ -1019,17 +1143,10 @@ def test_quantize_kernel_at_capacity_edges_equals_plain(cuda, dtype, case):
 def test_quantize_is_one_kernel(cuda):
     """One quantize call launches exactly one kernel on the card (no fill, no
     second pass), at the eval shapes."""
-    from torch.profiler import ProfilerActivity, profile
-
     v = torch.randn(1, 43008, 8, 32, device=cuda).to(torch.bfloat16)
-    msda.quantize_value_table(v)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        msda.quantize_value_table(v)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    assert len(kernels) == 1 and "msda_quantize_kernel" in kernels[0], kernels
+    launches, kernels = _launches(lambda: msda.quantize_value_table(v))
+    assert launches == 10 and all("msda_quantize_kernel" in k for k in kernels), (launches,
+                                                                                 kernels)
 
 
 @pytest.mark.cuda

@@ -363,6 +363,51 @@ def test_linear_sum_assignment_plain_matches_jax_on_masked_problems(rng):
     assert all(len(set(r)) == 19 for r in ours)
 
 
+def test_linear_sum_assignment_plain_matches_jax_with_nan_and_inf_costs(rng):
+    """Three scattered NaN or +inf entries a problem (never a whole row, on
+    which both solvers would search forever), rows at BIG included: the same
+    assignment as the JAX solver, exactly."""
+    cost = rng.rand(20, 19, 100).astype(np.float32)
+    cost[rng.rand(20, 19) > 0.5] = jax_matcher.BIG
+    for i in range(len(cost)):
+        for j, flat in enumerate(rng.choice(cost[i].size, 3, replace=False)):
+            cost[i].flat[flat] = np.nan if j % 2 == 0 else np.inf
+    ours = matcher.linear_sum_assignment_plain(torch.from_numpy(cost)).numpy()
+    ref = np.asarray(jax.vmap(jax_matcher.linear_sum_assignment)(jnp.asarray(cost)))
+    np.testing.assert_array_equal(ours, ref)
+    assert all(len(set(r)) == 19 for r in ours)
+
+
+@pytest.mark.parametrize("shape", [(7, 513), (114, 512), (600, 600)])
+def test_assignment_shape_past_the_kernel_limit_raises(shape):
+    """The wrapper's limit check, a pure function: the kernel holds at most
+    512 columns and 232,448 bytes of shared memory a problem."""
+    with pytest.raises(ValueError, match="assignment kernel"):
+        matcher.check_assignment_shape(*shape)
+
+
+@pytest.mark.parametrize("shape", [(19, 100), (100, 100), (113, 512), (1, 512)])
+def test_assignment_shape_within_the_kernel_limit_passes(shape):
+    """The main path (up to 100 targets by 100 queries) and the largest
+    problems the kernel holds pass the check."""
+    matcher.check_assignment_shape(*shape)
+    assert matcher.assignment_shared_bytes(*shape) <= matcher.LSA_MAX_SHARED_BYTES
+
+
+def test_assignment_limit_is_checked_before_the_kernel_loads(monkeypatch):
+    """A tensor off the CPU past the limit raises before the library loads."""
+    from multishiftseg_torch import _build
+
+    def refuse(name):
+        raise AssertionError(f"loaded {name}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    before = matcher.LAUNCHES["linear_sum_assignment"]
+    with pytest.raises(ValueError, match="at most 512 columns"):
+        matcher.linear_sum_assignment(torch.zeros(2, 7, 513, device="meta"))
+    assert matcher.LAUNCHES["linear_sum_assignment"] == before
+
+
 def test_bottom_k_sum_matches_jax(rng):
     vals = np.round(rng.rand(500).astype(np.float32) * 20) / 20  # ties at the threshold
     keyed = np.where(rng.rand(500) > 0.2, vals, np.inf).astype(np.float32)
