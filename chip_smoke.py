@@ -1214,13 +1214,20 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
 
 
 def ood_hist_rows(torch, dev, rows, checks):
-    """The masked score range and the 8192-bin label-split histogram of one
-    map at 720x1280 (the rows' times) and 1024x2048, with void pixels: equal
-    to the plain versions bit for bit."""
+    """The binned metrics' kernel (``csrc/ood_hist.cu``) through its three
+    entries at 720x1280 (the rows' times) and 1024x2048, with void pixels: the
+    masked range, the 8192-bin label-split histogram over a given range, and
+    both in one launch (the validation meter's), each equal to its plain
+    version bit for bit; then ``BinnedOODMeter.update`` on a 720x1280 crop of
+    a 768x1280 map with numpy labels, as validation calls it: wall ms, device
+    kernels and host syncs a map."""
     from multishiftseg_torch.evals import ood_metrics as om
 
     rs = np.random.RandomState(SEED + 31)
-    times, runs = {}, {}
+    # a checkout from before the one-launch entry (``--root``) has two entries
+    both = getattr(om, "range_histograms", None)
+    entries = ("minmax", "hist") + (("range_hist",) if both else ())
+    times = {}
     for hw in VAL_HW:
         n = hw[0] * hw[1]
         # scores shaped like an anomaly map: most low, the OOD ones higher
@@ -1234,9 +1241,18 @@ def ood_hist_rows(torch, dev, rows, checks):
         torch.cuda.synchronize()
         same_range = float(lo) == float(lo_p) and float(hi) == float(hi_p)
         same_hist = all(bool(torch.equal(a, c)) for a, c in zip(got, want))
-        checks.append({"check": f"ood_hist_{hw[0]}x{hw[1]}", "range_equal": same_range,
-                       "histograms_equal": same_hist, "pixels": n,
-                       "counted": int(got[0].sum() + got[1].sum()), "ok": same_range and same_hist})
+        check = {"check": f"ood_hist_{hw[0]}x{hw[1]}", "range_equal": same_range,
+                 "histograms_equal": same_hist, "pixels": n,
+                 "counted": int(got[0].sum() + got[1].sum())}
+        if both:
+            one = both(s, lab, NUM_BINS)
+            torch.cuda.synchronize()
+            check["one_launch_equal"] = (float(one[0]) == float(lo_p)
+                                         and float(one[1]) == float(hi_p)
+                                         and all(bool(torch.equal(a, c))
+                                                 for a, c in zip(one[2:], want)))
+        check["ok"] = same_range and same_hist and check.get("one_launch_equal", True)
+        checks.append(check)
 
         def library():
             # the same bin arithmetic (elementwise passes), then one bincount
@@ -1245,39 +1261,101 @@ def ood_hist_rows(torch, dev, rows, checks):
             bins = x.to(torch.int32).clamp(max=NUM_BINS - 1).long() + NUM_BINS * (lab == 0)
             return torch.bincount(torch.where(valid, bins, 2 * NUM_BINS), minlength=2 * NUM_BINS + 1)
 
-        times[hw] = {
-            "minmax_ms": median_ms(torch, lambda: om.masked_min_max(s, lab), 50),
-            "minmax_plain_ms": median_ms(torch, lambda: om.masked_min_max_plain(s, lab), 20),
-            "hist_ms": median_ms(torch, lambda: om.label_histograms(s, lab, lo, hi, NUM_BINS), 50),
-            "hist_plain_ms": median_ms(torch, lambda: om.label_histograms_plain(
-                s, lab, lo, hi, NUM_BINS), 20),
-            "library_ms": median_ms(torch, library, 20),
-            "valid": int(((lab == 0) | (lab == 1)).sum()), "bytes": nbytes(s, lab)}
-        checks[-1].update({k: v for k, v in times[hw].items()})
-        runs[hw] = (lambda s=s, lab=lab: om.masked_min_max(s, lab),
-                    lambda s=s, lab=lab, lo=lo, hi=hi: om.label_histograms(s, lab, lo, hi,
-                                                                           NUM_BINS))
+        runs = {"minmax": (lambda: om.masked_min_max(s, lab),
+                           lambda: om.masked_min_max_plain(s, lab)),
+                "hist": (lambda: om.label_histograms(s, lab, lo, hi, NUM_BINS),
+                         lambda: om.label_histograms_plain(s, lab, lo, hi, NUM_BINS)),
+                "range_hist": (lambda: both(s, lab, NUM_BINS),
+                               lambda: om.range_histograms_plain(s, lab, NUM_BINS))}
+        t = times[hw] = {"valid": int(((lab == 0) | (lab == 1)).sum()), "bytes": nbytes(s, lab),
+                         "library_ms": median_ms(torch, library, 20)}
+        for e in entries:
+            run, plain = runs[e]
+            t[e] = {"plain_ms": median_ms(torch, plain, 20), "device_kernels":
+                    device_kernels(torch, run)}
+            time_redesigned(torch, t[e], run)
+        check.update({f"{e}_{k}": v for e in entries for k, v in t[e].items()})
+        check["library_ms"] = t["library_ms"]
+        # what back-to-back timing reads for a one-element kernel: the floor
+        # of any one-kernel row's device_ms
+        one = torch.zeros(1, device=dev)
+        check["one_kernel_floor_ms"] = spread_ms(torch, lambda: one.add_(1), back_to_back=True)[0]
     t = times[VAL_HW[0]]
-    # bytes: each score and label read once (and the histograms written);
+    # bytes: each score and label read once, the results written once;
     # operations: a compare and a min and max per valid pixel, six for a bin
-    b_mm = bound(t["bytes"] + 8, 3 * t["valid"])
-    b_h = bound(t["bytes"] + 2 * NUM_BINS * 4, 6 * t["valid"])
-    rows["ood_hist_minmax"] = {
-        "name": "ood_hist_minmax", "route": "cuda", "source": "multishiftseg_torch/csrc/ood_hist.cu",
-        "replaces": "multishiftseg_tpu/evals/ood_metrics.py:197", "max_abs_err": 0.0,
-        "ms": t["minmax_ms"], "plain_ms": t["minmax_plain_ms"], "bound_ms": b_mm[0],
-        "bound_by": b_mm[1],
-        # no single PyTorch call takes the min and max over a label mask
-        "library_ms": None}
-    rows["ood_hist"] = {
-        "name": "ood_hist", "route": "cuda", "source": "multishiftseg_torch/csrc/ood_hist.cu",
-        "replaces": "multishiftseg_tpu/evals/ood_metrics.py:186", "max_abs_err": 0.0,
-        "ms": t["hist_ms"], "plain_ms": t["hist_plain_ms"], "bound_ms": b_h[0], "bound_by": b_h[1],
-        # torch.bincount over bin + 8192 x label, one call after the same
-        # elementwise bin arithmetic (timed with it)
-        "library_ms": t["library_ms"]}
-    time_redesigned(torch, rows["ood_hist_minmax"], runs[VAL_HW[0]][0])
-    time_redesigned(torch, rows["ood_hist"], runs[VAL_HW[0]][1])
+    bounds = {"minmax": bound(t["bytes"] + 8, 3 * t["valid"]),
+              "hist": bound(t["bytes"] + 2 * NUM_BINS * 4, 6 * t["valid"]),
+              "range_hist": bound(t["bytes"] + 8 + 2 * NUM_BINS * 4, 9 * t["valid"])}
+    names = {"minmax": "ood_hist_minmax", "hist": "ood_hist", "range_hist": "ood_range_hist"}
+    lines = {"minmax": "197", "hist": "186", "range_hist": "235"}
+    for e in entries:
+        rows[names[e]] = {
+            "name": names[e], "route": "cuda",
+            "source": "multishiftseg_torch/csrc/ood_hist.cu",
+            "replaces": f"multishiftseg_tpu/evals/ood_metrics.py:{lines[e]}", "max_abs_err": 0.0,
+            "plain_ms": t[e]["plain_ms"], "bound_ms": bounds[e][0], "bound_by": bounds[e][1],
+            # no single PyTorch call takes the min and max over a label mask;
+            # for the histogram: torch.bincount over bin + 8192 x label, after
+            # the same elementwise bin arithmetic (timed with it)
+            "library_ms": t["library_ms"] if e == "hist" else None,
+            **{k: t[e][k] for k in ("ms", "ms_spread", "device_ms", "device_ms_spread",
+                                    "host_ms", "device_kernels")}}
+    if both:
+        # the validation meter runs the one-launch entry alone; the other two
+        # are binned_ood_metrics' and callers' entries, off the main paths
+        rows["ood_hist_minmax"]["paths"] = rows["ood_hist"]["paths"] = ()
+    check = {"check": "binned_meter_update_720x1280_crop", "ok": True}
+    check.update(meter_update_stats(torch, dev, om, card_labels=bool(both)))
+    checks.append(check)
+
+
+# the runtime calls by which a read of a tensor waits for the device (not the
+# cudaDeviceSynchronize of torch.cuda.synchronize and of the profiler's stop)
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize")
+
+
+def host_syncs(prof):
+    """The runtime calls in a profile by which the host waited for a stream."""
+    return sum(1 for e in prof.events() if e.name.startswith(SYNC_CALLS))
+
+
+def meter_update_stats(torch, dev, om, calls=10, reps=25, card_labels=True):
+    """``BinnedOODMeter.update`` on a 720x1280 crop of a 768x1280 map with
+    numpy labels, as validation calls it: the median wall ms of ``reps``
+    updates (each ends in its copy to the host; with ``card_labels`` also
+    with the labels already on the card), and the device launches, kernels
+    and host syncs an update from a profile of ``calls``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rs = np.random.RandomState(SEED + 32)
+    full = torch.from_numpy(rs.beta(2, 5, (768, 1280)).astype(np.float32)).to(dev)
+    lab = rs.choice([0, 1, 255], size=VAL_HW[0], p=[0.75, 0.1, 0.15]).astype(np.int32)
+    meter = om.BinnedOODMeter(NUM_BINS)
+    crop = full[:VAL_HW[0][0], :VAL_HW[0][1]]
+
+    def wall(labels):
+        meter.update(crop, labels)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            meter.update(crop, labels)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times), [min(times), max(times)]
+
+    out = {}
+    out["update_wall_ms"], out["update_wall_ms_range"] = wall(lab)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            meter.update(crop, lab)
+        torch.cuda.synchronize()
+    out["launch_calls_an_update"] = launch_calls(prof) / calls
+    out["kernels_an_update"] = sum(1 for e in prof.events()
+                                   if e.name.startswith(LAUNCH_CALLS[:2])) / calls
+    out["host_syncs_an_update"] = host_syncs(prof) / calls
+    if card_labels:
+        out["update_wall_ms_labels_on_card"] = wall(torch.from_numpy(lab).to(dev))[0]
+    return out
 
 
 def seeded_deeplab(torch, seed):
@@ -2338,8 +2416,10 @@ def phase_validate(torch, device="cuda", sizes=(VAL_HW[0],) * 6 + (VAL_HW[1],) *
                                  + list(diff_recorded.values())),
             "finite": all(np.isfinite(v) for v in metrics.values()),
             "every_map_metered": len(seen) == len(sizes),
-            "launches_ok": device == "cpu" or (counts["ood_hist"] == len(sizes)
-                                               and counts["ood_hist_minmax"] == len(sizes))}
+            # one launch of the range and histogram entry a map, no other entry
+            "launches_ok": device == "cpu" or (counts.get("ood_range_hist", 0) == len(sizes)
+                                               and counts["ood_hist"] == 0
+                                               and counts["ood_hist_minmax"] == 0)}
         m["ok"] = bool(all(m["checks"].values()))
         ok &= m["ok"]
         res["models"][name] = m
@@ -2600,15 +2680,17 @@ def main(argv=None):
                               for p in row.get("paths", paths))
     everything = set(args.phases) == set(PHASES)
     ok = all(p["ok"] for p in phases) and (
-        not everything or all(r["launches"] > 0 for r in rows.values()))
+        not everything or all(r["launches"] > 0 for r in rows.values()
+                              if r.get("paths", paths)))
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                  "plain_ms", "bound_ms", "bound_by", "library_ms")
     # the redesigned kernels' rows also carry their spreads and device times
     # (the forward's, the levels it staged in shared memory; the assignment's
     # and the selection's, their device kernels a call, the assignment's
-    # longest search and the selection's staged share of keys)
+    # longest search and the selection's staged share of keys; a row with no
+    # main path, its empty "paths")
     extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels",
-             "device_kernels", "max_steps", "device_ns_per_step", "staged_fraction")
+             "device_kernels", "max_steps", "device_ns_per_step", "staged_fraction", "paths")
     if rows:
         emit({"kernels": [{k: r[k] for k in key_order + extra if k in r}
                           for r in rows.values()]})

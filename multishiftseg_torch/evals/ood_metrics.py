@@ -4,23 +4,27 @@ Exact numpy implementations, a copy of ``multishiftseg_tpu/evals/ood_metrics.py:
 (sklearn semantics of the reference's ``lib/utils/metric.py:69-181``) without the
 native C++ route; and the binned metrics of ``:159-316`` (``BinnedOODMeter``,
 ``binned_ood_metrics``), whose per-map reductions, the masked score range and the
-label-split histogram, run as CUDA kernels for CUDA tensors
-(``csrc/ood_hist.cu``) and as their plain versions for CPU tensors. Label 1 =
+label-split histogram, run as one CUDA kernel for CUDA tensors
+(``csrc/ood_hist.cu``: the range, the histogram over a given range, or both in
+one launch) and as their plain versions for CPU tensors. Label 1 =
 OOD (positive), label 0 = in-distribution; higher score = more anomalous.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import _build
+from ..losses.matcher import launch_device
 
-# Kernel launches (see ``ops.launch_counts``).
-LAUNCHES = {"ood_hist_minmax": 0, "ood_hist": 0}
+# Kernel launches (see ``ops.launch_counts``), by entry: the range, the
+# histogram over a given range, both in one launch.
+LAUNCHES = {"ood_hist_minmax": 0, "ood_hist": 0, "ood_range_hist": 0}
 
 # numpy<2 names the trapezoidal rule `trapz`
 _np_trapezoid = getattr(np, "trapezoid", getattr(np, "trapz", None))
@@ -125,16 +129,16 @@ def metrics_from_histograms(pos_hist: torch.Tensor, neg_hist: torch.Tensor,
     return auroc_v, ap, fpr95
 
 
-def masked_min_max(scores: torch.Tensor, labels: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def masked_min_max(scores: torch.Tensor, labels) -> Tuple[torch.Tensor, torch.Tensor]:
     """(lo, hi), f32 0-d tensors: the range of the scores whose label is 0 or 1
     (+inf, -inf when there is none; NaN, both, when one of them is NaN, as
     JAX's ``min`` / ``max`` give). The CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    scores, labels = _flat(scores, labels)
     if scores.device.type == "cpu":
         return masked_min_max_plain(scores, labels)
-    return _min_max_cuda(scores, labels)
+    out = _reduce_cuda(_RANGE, scores, labels)
+    lohi = out[:2].view(torch.float32)
+    return lohi[0], lohi[1]
 
 
 def masked_min_max_plain(scores, labels):
@@ -144,17 +148,18 @@ def masked_min_max_plain(scores, labels):
     return torch.where(valid, scores, inf).min(), torch.where(valid, scores, -inf).max()
 
 
-def label_histograms(scores: torch.Tensor, labels: torch.Tensor, lo: torch.Tensor,
-                     hi: torch.Tensor, num_bins: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def label_histograms(scores: torch.Tensor, labels, lo, hi, num_bins: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pos, neg), int32 [num_bins]: the counts of one map's OOD / in-distribution
     pixels, binned over [lo, hi]: ``bin = clamp(int((s - lo) / max(hi - lo,
-    1e-12) * num_bins), 0, num_bins - 1)`` in f32 (JAX's ``_hist_update`` from
-    zero histograms). The CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
-    scores, labels = _flat(scores, labels)
+    1e-12) * num_bins), 0, num_bins - 1)`` in f32, a NaN in bin 0 (JAX's
+    ``_hist_update`` from zero histograms). ``lo`` / ``hi``: tensors (read on
+    the card where they lie there) or numbers. The CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if scores.device.type == "cpu":
         return label_histograms_plain(scores, labels, lo, hi, num_bins)
-    return _hist_cuda(scores, labels, lo, hi, num_bins)
+    out = _reduce_cuda(_HIST, scores, labels, num_bins, lo, hi)
+    return out[2:2 + num_bins], out[2 + num_bins:]
 
 
 def label_histograms_plain(scores, labels, lo, hi, num_bins):
@@ -162,12 +167,39 @@ def label_histograms_plain(scores, labels, lo, hi, num_bins):
     lo = torch.as_tensor(lo, dtype=torch.float32, device=scores.device)
     hi = torch.as_tensor(hi, dtype=torch.float32, device=scores.device)
     x = (scores - lo) / torch.clamp(hi - lo, min=1e-12) * num_bins
-    # clamped in float first: the same bin as clamping the int, for every
-    # non-NaN value, without converting an out-of-range float
+    # a NaN to bin 0, as XLA's conversion (NaN to 0) and clip give; the rest
+    # clamped in float first: the same bin as clamping the int, without
+    # converting an out-of-range float
+    x = torch.nan_to_num(x, nan=0.0)
     bins = x.clamp(0, num_bins).to(torch.int32).clamp(max=num_bins - 1).long()
     pos = torch.bincount(bins[labels == 1], minlength=num_bins).to(torch.int32)
     neg = torch.bincount(bins[labels == 0], minlength=num_bins).to(torch.int32)
     return pos, neg
+
+
+def range_histograms(scores: torch.Tensor, labels, num_bins: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(lo, hi, pos, neg): :func:`masked_min_max`, then :func:`label_histograms`
+    over that range, as JAX's ``BinnedOODMeter.update`` and
+    ``binned_ood_metrics`` chain them. On the card one kernel, whose four
+    results are views of one int32 buffer; the plain versions in sequence for
+    CPU tensors."""
+    out = _range_histograms_buffer(scores, labels, num_bins)
+    lohi = out[:2].view(torch.float32)
+    return lohi[0], lohi[1], out[2:2 + num_bins], out[2 + num_bins:]
+
+
+def range_histograms_plain(scores, labels, num_bins):
+    lo, hi = masked_min_max_plain(scores, labels)
+    return (lo, hi) + label_histograms_plain(scores, labels, lo, hi, num_bins)
+
+
+def _range_histograms_buffer(scores, labels, num_bins):
+    """int32 [2 + 2 num_bins]: lo and hi (f32 bits), pos, neg."""
+    if scores.device.type == "cpu":
+        lo, hi, pos, neg = range_histograms_plain(scores, labels, num_bins)
+        return torch.cat([torch.stack([lo, hi]).view(torch.int32), pos, neg])
+    return _reduce_cuda(_RANGE | _HIST, scores, labels, num_bins)
 
 
 def _flat(scores, labels):
@@ -175,48 +207,118 @@ def _flat(scores, labels):
             torch.as_tensor(labels).to(scores.device).reshape(-1).to(torch.int32))
 
 
-def _min_max_cuda(scores, labels):
-    scores, labels = scores.contiguous(), labels.contiguous()
-    lohi = torch.empty(2, dtype=torch.float32, device=scores.device)
-    fn = _build.function("ood_hist", "ood_masked_min_max",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                          ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(scores.device):
-        stream = torch.cuda.current_stream(scores.device).cuda_stream
-        rc = fn(scores.data_ptr(), labels.data_ptr(), scores.numel(), lohi.data_ptr(),
-                stream)
-    if rc != 0:
-        raise RuntimeError(f"ood_masked_min_max failed: cudaError {rc}")
-    LAUNCHES["ood_hist_minmax"] += 1
-    return lohi[0], lohi[1]
+# ---------------------------------------------------------------------------
+# The CUDA kernel (csrc/ood_hist.cu): one entry, three modes.
+
+_RANGE, _HIST = 1, 2
+_COUNTER = {_RANGE: "ood_hist_minmax", _HIST: "ood_hist", _RANGE | _HIST: "ood_range_hist"}
 
 
-def _hist_cuda(scores, labels, lo, hi, num_bins):
-    scores, labels = scores.contiguous(), labels.contiguous()
+@dataclass(frozen=True)
+class _Kernel:
+    """A device's entry of ``csrc/ood_hist.cu`` and its launch shape: the most
+    blocks (all resident), the shared memory a block may take, the cluster
+    size; ``lib`` is the library it came from."""
+
+    lib: object
+    reduce: object
+    max_blocks: int
+    smem_bytes: int
+    cluster: int
+
+
+_KERNELS: Dict[Optional[int], _Kernel] = {}
+
+
+def _kernel(dev: torch.device) -> _Kernel:
+    """The entry and launch shape on ``dev``, queried once a device. The
+    library is asked for on every call (``_build`` keeps it loaded), so a
+    failed build raises however often it is tried."""
+    lib = _build.load("ood_hist")
+    kern = _KERNELS.get(dev.index)
+    if kern is None or kern.lib is not lib:
+        cfg = _build.function("ood_hist", "ood_config", [ctypes.c_void_p] * 3)
+        blocks, smem, cluster = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+        with torch.cuda.device(dev):
+            rc = cfg(ctypes.addressof(blocks), ctypes.addressof(smem), ctypes.addressof(cluster))
+        if rc != 0:
+            raise RuntimeError(f"ood_config failed: cudaError {rc}")
+        kern = _KERNELS[dev.index] = _Kernel(
+            lib=lib,
+            reduce=_build.function("ood_hist", "ood_reduce",
+                                   [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_longlong] * 3
+                                   + [ctypes.c_void_p] * 3 + [ctypes.c_float] * 2
+                                   + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                                   + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+            max_blocks=blocks.value, smem_bytes=smem.value, cluster=cluster.value)
+    return kern
+
+
+def _rows(scores: torch.Tensor):
+    """(f32 scores, pixels, row width, row stride): a contiguous map is one row;
+    a 2-D view with contiguous rows (a crop) is read in place; anything else
+    is made contiguous."""
+    if scores.dtype != torch.float32:
+        scores = scores.float()
+    n = scores.numel()
+    if scores.is_contiguous():
+        return scores, n, n, n
+    if scores.dim() == 2 and scores.stride(1) == 1 and scores.stride(0) >= scores.shape[1]:
+        return scores, n, scores.shape[1], scores.stride(0)
+    return scores.contiguous(), n, n, n
+
+
+def _labels_on(labels, dev: torch.device) -> torch.Tensor:
+    """int32 [n] labels on ``dev``: a tensor moves device to device, a numpy
+    array is uploaded without a host sync."""
+    if isinstance(labels, torch.Tensor):
+        return labels.to(dev).reshape(-1).to(torch.int32).contiguous()
+    host = np.ascontiguousarray(np.asarray(labels).reshape(-1), dtype=np.int32)
+    return torch.from_numpy(host).to(dev, non_blocking=True)
+
+
+def _range_arg(v, dev: torch.device):
+    """(device pointer or None, value) of one end of a given range."""
+    if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+        v = v.to(dev, torch.float32).reshape(())
+        return v.data_ptr(), 0.0
+    return None, float(v)
+
+
+def _reduce_cuda(mode: int, scores: torch.Tensor, labels, num_bins: int = 1, lo=None, hi=None
+                 ) -> torch.Tensor:
+    """One launch of the kernel in ``mode``: int32 [2 + 2 num_bins], lo and hi
+    (f32 bits) then pos and neg."""
     dev = scores.device
-    if 2 * num_bins * 4 > 232448:
-        raise ValueError(f"the kernel takes at most 29056 bins, got {num_bins}")
-    lohi = torch.stack([torch.as_tensor(lo, dtype=torch.float32, device=dev).reshape(()),
-                        torch.as_tensor(hi, dtype=torch.float32, device=dev).reshape(())])
-    hists = torch.zeros((2, num_bins), dtype=torch.int32, device=dev)
-    fn = _build.function("ood_hist", "ood_hist",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(scores.data_ptr(), labels.data_ptr(), scores.numel(), lohi.data_ptr(),
-                num_bins, hists[0].data_ptr(), hists[1].data_ptr(), stream)
+    scores, n, w, ld = _rows(scores)
+    lab = _labels_on(labels, dev)
+    if lab.numel() != n:
+        raise ValueError(f"{lab.numel()} labels for {n} scores")
+    kern = _kernel(dev)
+    step = 4 * kern.cluster  # the kernel's histogram entries a block, padded
+    if mode & _HIST and 4 * step * -(-2 * num_bins // step) > kern.smem_bytes:
+        raise ValueError(f"too many bins for the kernel's shared memory: {num_bins}")
+    lo_p, lo_v = _range_arg(lo, dev) if mode == _HIST else (None, 0.0)
+    hi_p, hi_v = _range_arg(hi, dev) if mode == _HIST else (None, 0.0)
+    words = 2 + 2 * num_bins
+    # the output, then the blocks' partial ranges (two words a block)
+    buf = torch.empty(words + 2 * kern.max_blocks, dtype=torch.int32, device=dev)
+    with launch_device(dev):  # the raw stream handle, as in matcher.py
+        rc = kern.reduce(mode, scores.data_ptr(), n, w, ld, lab.data_ptr(), lo_p, hi_p, lo_v,
+                         hi_v, num_bins, buf.data_ptr(), buf.data_ptr() + 4 * words,
+                         kern.max_blocks, kern.smem_bytes,
+                         torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"ood_hist failed: cudaError {rc}")
-    LAUNCHES["ood_hist"] += 1
-    return hists[0], hists[1]
+        raise RuntimeError(f"ood_reduce failed: cudaError {rc}")
+    LAUNCHES[_COUNTER[mode]] += 1
+    return buf[:words]
 
 
 class BinnedOODMeter:
     """Streaming (AUROC, AUPRC, FPR@95) over many variable-size score maps with
     bounded memory (``ood_metrics.py:200-266``): ``update`` reduces each map on
-    its device to an int32 histogram over the map's own score range (one host
-    sync for the range, then 2 x num_bins counts copied to the host); ``compute``
+    its device to an int32 histogram over the map's own score range (range and
+    histogram in one kernel, then one copy of both to the host); ``compute``
     merges the maps' histograms into the global range on the host, each source
     bin's count landing at its bin centre's target bin, and finishes in float64.
     Accuracy is O(score range / num_bins)."""
@@ -227,16 +329,17 @@ class BinnedOODMeter:
         self._hists: List[Tuple[np.ndarray, np.ndarray, float, float]] = []
 
     def update(self, scores: torch.Tensor, labels) -> None:
-        """scores: [...] tensor; labels: [...] int (1 = OOD, 0 = in, other = void)."""
-        scores = torch.as_tensor(scores).reshape(-1)
-        labels = torch.as_tensor(np.asarray(labels).reshape(-1)).to(scores.device, torch.int32)
-        lo, hi = masked_min_max(scores, labels)
-        lo_f, hi_f = float(lo), float(hi)
-        if not (np.isfinite(lo_f) and np.isfinite(hi_f)):
-            return  # no valid pixel in this map, or a NaN score
-        pos, neg = label_histograms(scores, labels, lo, hi, self.num_bins)
-        self._hists.append((pos.cpu().numpy().astype(np.int64),
-                            neg.cpu().numpy().astype(np.int64), lo_f, hi_f))
+        """scores: [...] tensor; labels: [...] int (1 = OOD, 0 = in, other =
+        void), a numpy array or a tensor on any device. On the card: one
+        kernel, one copy of its int32 buffer to the host."""
+        host = _range_histograms_buffer(torch.as_tensor(scores), labels,
+                                        self.num_bins).cpu().numpy()
+        lo, hi = (float(v) for v in host[:2].view(np.float32))
+        if not (np.isfinite(lo) and np.isfinite(hi)):
+            return  # no valid pixel in this map, or a NaN or infinite score
+        b = self.num_bins
+        self._hists.append((host[2:2 + b].astype(np.int64), host[2 + b:].astype(np.int64),
+                            lo, hi))
 
     def compute(self) -> Optional[Tuple[float, float, float]]:
         if not self._hists:
@@ -282,14 +385,15 @@ def binned_ood_metrics(scores: torch.Tensor, labels: torch.Tensor, num_bins: int
                        recall_level: float = 0.95
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Histogram-binned (AUROC, AUPRC, FPR@recall) of one set of maps, on their
-    device: the range (unless given) and the histogram through the same
-    kernels as :class:`BinnedOODMeter`, no host sync."""
-    scores, labels = _flat(torch.as_tensor(scores), labels)
-    if lo is None or hi is None:
-        lo_v, hi_v = masked_min_max(scores, labels)
-    if lo is not None:
-        lo_v = torch.tensor(lo, dtype=torch.float32)
-    if hi is not None:
-        hi_v = torch.tensor(hi, dtype=torch.float32)
-    pos, neg = label_histograms(scores, labels, lo_v, hi_v, num_bins)
+    device, no host sync: the range and the histogram in one kernel, or the
+    histogram alone over a given range."""
+    scores = torch.as_tensor(scores)
+    if lo is None and hi is None:
+        _, _, pos, neg = range_histograms(scores, labels, num_bins)
+    else:
+        if lo is None or hi is None:
+            lo_v, hi_v = masked_min_max(scores, labels)
+            lo = lo_v if lo is None else lo
+            hi = hi_v if hi is None else hi
+        pos, neg = label_histograms(scores, labels, lo, hi, num_bins)
     return metrics_from_histograms(pos, neg, recall_level)

@@ -838,24 +838,42 @@ def _hist_cases(rng):
     yield "no_valid_pixel", s[:1000], np.full(1000, 255, np.int32), None
     yield "constant", np.full(5000, 0.3, np.float32), lab[:5000], None
     yield "one_pixel", s[:1], np.ones(1, np.int32), None
+    yield "ragged", s[:100_003], lab[:100_003], None  # a slice not a multiple of 4
     nan = s.copy()
     nan[rng.randint(0, n, 3)] = np.nan  # a NaN score: the range is NaN, as JAX's
     yield "nan", nan, np.zeros(n, np.int32), None
+    for name, v in (("pos_inf", np.inf), ("neg_inf", -np.inf)):
+        bad = s.copy()  # an infinite range: (s - lo) / span is NaN or 0
+        bad[np.flatnonzero(lab != 255)[rng.randint(0, 1000)]] = v
+        yield name, bad, lab, None
+    void = s.copy()  # a NaN score at a void pixel is not counted
+    void[np.flatnonzero(lab == 255)[:5]] = np.nan
+    yield "nan_at_void", void, lab, None
+    yield "nan_given_range", nan, lab, (0.0, 1.0)
+
+
+HIST_CASES = [c[0] for c in _hist_cases(np.random.RandomState(14))]
+
+
+def _hist_case(name):
+    return next(c for c in _hist_cases(np.random.RandomState(14)) if c[0] == name)
+
+
+def _equal_ranges(got, want):
+    return np.array_equal(np.array([float(v) for v in got]), np.array([float(v) for v in want]),
+                          equal_nan=True)
 
 
 @pytest.mark.cuda
 def test_ood_hist_kernels_equal_plain(cuda):
     """The masked range and the histograms (8192 bins) equal the plain
-    versions bit for bit."""
+    versions bit for bit, non-finite ranges included."""
     rng = np.random.RandomState(14)
     for name, s, lab, given in _hist_cases(rng):
         st, lt = torch.from_numpy(s), torch.from_numpy(lab)
         lo_p, hi_p = ood_metrics.masked_min_max_plain(st, lt)
         lo_k, hi_k = ood_metrics.masked_min_max(st.to(cuda), lt.to(cuda))
-        np.testing.assert_array_equal([float(lo_k), float(hi_k)], [float(lo_p), float(hi_p)],
-                                      err_msg=name)
-        if not np.isfinite(float(lo_p)) or not np.isfinite(float(hi_p)):
-            continue
+        assert _equal_ranges((lo_k, hi_k), (lo_p, hi_p)), name
         lo, hi = given or (lo_p, hi_p)
         want = ood_metrics.label_histograms_plain(st, lt, lo, hi, 8192)
         got = ood_metrics.label_histograms(st.to(cuda), lt.to(cuda),
@@ -863,6 +881,150 @@ def test_ood_hist_kernels_equal_plain(cuda):
                                            torch.as_tensor(hi).to(cuda), 8192)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b), name
+        if given:  # the range by value
+            got = ood_metrics.label_histograms(st.to(cuda), lt.to(cuda), *given, 8192)
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", HIST_CASES)
+def test_range_histograms_kernel_equals_the_plain_sequence(cuda, case):
+    """Range and histograms in one launch: the plain range, then the plain
+    histograms over it, bit for bit."""
+    _, s, lab, _ = _hist_case(case)
+    st, lt = torch.from_numpy(s), torch.from_numpy(lab)
+    want = ood_metrics.range_histograms_plain(st, lt, 8192)
+    got = ood_metrics.range_histograms(st.to(cuda), lt.to(cuda), 8192)
+    assert _equal_ranges(got[:2], want[:2])
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,crop", [((768, 1280), (720, 1000)), ((96, 131), (90, 33))])
+def test_ood_entries_read_a_cropped_view_in_place(cuda, shape, crop):
+    """A crop of a padded map (rows ``shape[1]`` apart) through every entry:
+    the plain versions' results, and one device kernel a call (no copy)."""
+    rng = np.random.RandomState(18)
+    full = torch.from_numpy(rng.rand(*shape).astype(np.float32)).to(cuda)
+    lab = rng.choice([0, 1, 255], size=crop, p=[0.6, 0.25, 0.15]).astype(np.int32)
+    view = full[:crop[0], :crop[1]]
+    assert not view.is_contiguous()
+    lt, ld = torch.from_numpy(lab), torch.from_numpy(lab).to(cuda)
+    want = ood_metrics.range_histograms_plain(view.cpu(), lt, 8192)
+    got = ood_metrics.range_histograms(view, ld, 8192)
+    assert _equal_ranges(got[:2], want[:2])
+    assert _equal_ranges(ood_metrics.masked_min_max(view, ld), want[:2])
+    hists = ood_metrics.label_histograms(view, ld, got[0], got[1], 8192)
+    for a, b, c in zip(got[2:], hists, want[2:]):
+        assert torch.equal(a.cpu(), c) and torch.equal(b.cpu(), c)
+    launches, kernels = _launches(lambda: ood_metrics.range_histograms(view, ld, 8192))
+    assert launches == 10 and all("ood_reduce_kernel" in k for k in kernels), (launches, kernels)
+
+
+@pytest.mark.cuda
+def test_range_histograms_past_the_staged_share(cuda):
+    """A 4096x4096 map: more pixels than the blocks stage in shared memory (the
+    rest re-read from global memory), the plain sequence's results."""
+    g = torch.Generator(device=cuda).manual_seed(19)
+    n = 4096 * 4096
+    s = torch.rand(n, generator=g, device=cuda)
+    lab = (torch.rand(n, generator=g, device=cuda) * 3).to(torch.int32)
+    lab[lab == 2] = 255
+    got = ood_metrics.range_histograms(s, lab, 8192)
+    want = ood_metrics.range_histograms_plain(s.cpu(), lab.cpu(), 8192)
+    assert _equal_ranges(got[:2], want[:2])
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a.cpu(), b)
+    assert int(got[2].sum() + got[3].sum()) == int(((lab == 0) | (lab == 1)).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["range", "histogram", "both"])
+def test_ood_entries_are_one_kernel(cuda, entry):
+    """Each entry at 720x1280 runs exactly one kernel a call: no fill, no
+    stack, no finishing kernel."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    s = torch.rand(921_600, generator=g, device=cuda)
+    lab = (torch.rand(921_600, generator=g, device=cuda) * 2).to(torch.int32)
+    lo, hi = ood_metrics.masked_min_max(s, lab)
+    fn = {"range": lambda: ood_metrics.masked_min_max(s, lab),
+          "histogram": lambda: ood_metrics.label_histograms(s, lab, lo, hi, 8192),
+          "both": lambda: ood_metrics.range_histograms(s, lab, 8192)}[entry]
+    launches, kernels = _launches(fn)
+    assert launches == 10 and all("ood_reduce_kernel" in k for k in kernels), (launches, kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("labels_on", ["cuda", "numpy"])
+def test_binned_meter_update_is_one_kernel_and_one_sync(cuda, labels_on):
+    """A meter update on a crop of a padded map: one kernel and one copy to the
+    host, which is the update's one host sync; numpy labels add one upload
+    and no sync. The histograms equal the CPU meter's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.RandomState(21)
+    full = torch.from_numpy(rng.rand(768, 1280).astype(np.float32)).to(cuda)
+    lab = rng.choice([0, 1, 255], size=(720, 1280)).astype(np.int32)
+    labels = torch.from_numpy(lab).to(cuda) if labels_on == "cuda" else lab
+    card, cpu = ood_metrics.BinnedOODMeter(), ood_metrics.BinnedOODMeter()
+    card.update(full[:720], labels)
+    cpu.update(full[:720].cpu(), lab)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            card.update(full[:720], labels)
+    names = [e.name for e in prof.events()]
+    launches = chip_smoke.launch_calls(prof)
+    assert launches == 5 * (2 if labels_on == "cuda" else 3), names
+    assert sum(n.startswith("cudaLaunch") for n in names) == 5
+    assert chip_smoke.host_syncs(prof) == 5, [n for n in names if "Synchronize" in n]
+    for a, b in zip(card._hists, cpu._hists):
+        assert all(np.array_equal(x, y) for x, y in zip(a[:2], b[:2])) and a[2:] == b[2:]
+
+
+@pytest.mark.cuda
+def test_ood_histogram_past_its_limit_raises_before_launch(cuda):
+    """More bins than a block's shared memory holds: ValueError, no launch."""
+    s, lab = torch.rand(64, device=cuda), torch.zeros(64, dtype=torch.int32, device=cuda)
+    before = dict(ood_metrics.LAUNCHES)
+    with pytest.raises(ValueError, match="too many bins"):
+        ood_metrics.label_histograms(s, lab, 0.0, 1.0, 40_000)
+    with pytest.raises(ValueError, match="too many bins"):
+        ood_metrics.range_histograms(s, lab, 40_000)
+    assert ood_metrics.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_range_histograms_replay_in_a_cuda_graph(cuda):
+    """The one-launch range and histograms captured in a CUDA graph and
+    replayed on new scores and labels: the plain sequence's results."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    n = 720 * 1280
+    s = torch.empty(n, device=cuda)
+    lab = torch.empty(n, dtype=torch.int32, device=cuda)
+
+    def draw(seed):
+        g.manual_seed(seed)
+        s.copy_(torch.rand(n, generator=g, device=cuda) * seed)
+        lab.copy_((torch.rand(n, generator=g, device=cuda) * 3).to(torch.int32))
+        lab[lab == 2] = 255
+
+    draw(1)
+    ood_metrics.range_histograms(s, lab, 8192)  # loaded and configured before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ood_metrics.range_histograms(s, lab, 8192)
+    for seed in (2, 3):
+        draw(seed)
+        graph.replay()
+        want = ood_metrics.range_histograms_plain(s.cpu(), lab.cpu(), 8192)
+        torch.cuda.synchronize()
+        assert _equal_ranges(out[:2], want[:2])
+        for a, b in zip(out[2:], want[2:]):
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda
@@ -897,6 +1059,12 @@ def test_new_wrappers_raise_when_the_build_fails(cuda, monkeypatch):
         ood_metrics.masked_min_max(s, lab)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         ood_metrics.BinnedOODMeter().update(s, lab.cpu().numpy())
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ood_metrics.BinnedOODMeter().update(s, lab)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ood_metrics.range_histograms(s, lab, 64)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        ood_metrics.label_histograms(s, lab, 0.0, 1.0, 64)
 
 
 # ---------------------------------------------------------------------------
@@ -1340,6 +1508,10 @@ def test_new_kernels_take_the_card_route_off_the_cpu(monkeypatch):
     with pytest.raises(_Sentinel, match="ood_hist"):
         ood_metrics.label_histograms(s_, l_, torch.zeros((), device="meta"),
                                      torch.ones((), device="meta"), 8)
+    with pytest.raises(_Sentinel, match="ood_hist"):
+        ood_metrics.range_histograms(s_, l_, 8)
+    with pytest.raises(_Sentinel, match="ood_hist"):
+        ood_metrics.BinnedOODMeter(num_bins=8).update(s_, l_)
 
 
 def test_new_kernels_stay_off_the_cpu(monkeypatch):
@@ -1357,8 +1529,12 @@ def test_new_kernels_stay_off_the_cpu(monkeypatch):
     c = torch.zeros(2, 6, 20, requires_grad=True)
     scores.anomaly_score_upsampled(c, masks, tuple(g.shape[1:])).sum().backward()
     meter = ood_metrics.BinnedOODMeter()
-    meter.update(torch.rand(40, 30), np.random.RandomState(0).randint(0, 2, (40, 30)))
+    lab = np.random.RandomState(0).randint(0, 2, (40, 30))
+    meter.update(torch.rand(40, 30), lab)
+    meter.update(torch.rand(50, 40)[:40, :30], torch.from_numpy(lab))
     assert meter.compute() is not None
+    ood_metrics.range_histograms(torch.rand(64), torch.zeros(64, dtype=torch.int32), 16)
+    ood_metrics.binned_ood_metrics(torch.rand(64), torch.zeros(64, dtype=torch.int32), 16)
     assert all(v == 0 for v in launch_counts().values())
 
 

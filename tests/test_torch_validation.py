@@ -138,6 +138,87 @@ def test_binned_metrics_match_jax_and_the_exact_ones():
         np.testing.assert_allclose(binned, exact, rtol=0, atol=2 / NB)
 
 
+def _bad_score_map(value, where, seed=10, n=1000):
+    """1000 scores in [0, 1) with labels 0 / 1 / 255, one of them ``value``
+    (NaN, +inf or -inf) at a valid pixel or at a void one."""
+    rng = np.random.RandomState(seed)
+    scores = rng.rand(n).astype(np.float32)
+    labels = rng.choice([0, 1, 255], size=n, p=[0.6, 0.25, 0.15]).astype(np.int32)
+    i = int(np.flatnonzero(labels != 255 if where == "valid" else labels == 255)[7])
+    scores[i] = value
+    return scores, labels
+
+
+NON_FINITE = {"nan": np.nan, "pos_inf": np.inf, "neg_inf": -np.inf}
+
+
+@pytest.mark.parametrize("given", [None, (0.0, 1.0)], ids=["own_range", "given_range"])
+@pytest.mark.parametrize("where", ["valid", "void"])
+@pytest.mark.parametrize("value", sorted(NON_FINITE))
+def test_non_finite_scores_match_jax(value, where, given):
+    """A NaN or infinite score, in a valid pixel or a void one, over the map's
+    own range or a given one: the histograms equal JAX's (a NaN bin, from a
+    NaN score or an infinite range, is bin 0) and ``binned_ood_metrics``
+    matches JAX's within f32 rounding."""
+    scores, labels = _bad_score_map(NON_FINITE[value], where)
+    st, lt = torch.from_numpy(scores), torch.from_numpy(labels)
+    if given is None:
+        lo, hi = om.masked_min_max(st, lt)
+        lo_j, hi_j = jax_om._masked_min_max(jnp.asarray(scores), jnp.asarray(labels))
+        np.testing.assert_array_equal([float(lo), float(hi)], [float(lo_j), float(hi_j)])
+    else:
+        lo, hi = lo_j, hi_j = given
+    for nb in (64, NB):
+        pos, neg = om.label_histograms(st, lt, lo, hi, nb)
+        zj = jnp.zeros(nb, jnp.int32)
+        pos_j, neg_j = jax_om._hist_update(zj, zj, jnp.asarray(scores), jnp.asarray(labels),
+                                           jnp.float32(lo_j), jnp.float32(hi_j), nb)
+        np.testing.assert_array_equal(pos.numpy(), np.asarray(pos_j))
+        np.testing.assert_array_equal(neg.numpy(), np.asarray(neg_j))
+        kw = {} if given is None else dict(lo=given[0], hi=given[1])
+        got = om.binned_ood_metrics(st, lt, num_bins=nb, **kw)
+        want = jax_om.binned_ood_metrics(jnp.asarray(scores), jnp.asarray(labels),
+                                         num_bins=nb, **kw)
+        np.testing.assert_allclose([float(v) for v in got], [float(v) for v in want],
+                                   rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ("maps",) + EDGE_CASES + tuple(sorted(NON_FINITE)))
+def test_range_histograms_equal_the_plain_sequence(case):
+    """``range_histograms`` on the CPU is ``masked_min_max`` then
+    ``label_histograms`` over that range, exactly (NaN ranges included)."""
+    if case in NON_FINITE:
+        maps = [_bad_score_map(NON_FINITE[case], "valid")]
+    else:
+        maps = _maps(11) if case == "maps" else [dict(zip(EDGE_CASES, _edge_maps()))[case]]
+    for scores, labels in maps:
+        st, lt = torch.from_numpy(scores), torch.from_numpy(labels)
+        lo, hi, pos, neg = om.range_histograms(st, lt, NB)
+        lo_p, hi_p = om.masked_min_max_plain(st, lt)
+        pos_p, neg_p = om.label_histograms_plain(st, lt, lo_p, hi_p, NB)
+        np.testing.assert_array_equal([float(lo), float(hi)], [float(lo_p), float(hi_p)])
+        assert torch.equal(pos, pos_p) and torch.equal(neg, neg_p)
+        assert pos.dtype == neg.dtype == torch.int32 and lo.dtype == torch.float32
+
+
+@pytest.mark.parametrize("kind", ["numpy", "tensor_int32", "tensor_int64"])
+def test_binned_meter_takes_labels_as_an_array_or_a_tensor(kind):
+    """``update`` takes labels as a numpy array or as a tensor (here on the
+    CPU; on the card, tests/test_torch_kernels.py): the same histograms as
+    JAX's meter given the same labels."""
+    ours, ref = om.BinnedOODMeter(), jax_om.BinnedOODMeter()
+    for scores, labels in _maps(12):
+        lab = {"numpy": labels, "tensor_int32": torch.from_numpy(labels),
+               "tensor_int64": torch.from_numpy(labels.astype(np.int64))}[kind]
+        ours.update(torch.from_numpy(scores), lab)
+        ref.update(jnp.asarray(scores), labels)
+    for (p, n, lo, hi), (pj, nj, loj, hij) in zip(ours._hists, ref._hists):
+        np.testing.assert_array_equal(p, pj)
+        np.testing.assert_array_equal(n, nj)
+        assert (lo, hi) == (loj, hij)
+    np.testing.assert_allclose(ours.compute(), ref.compute(), rtol=0, atol=1e-12)
+
+
 class _InMemory:
     """A validation set without an ``images`` path list: (image, labels, name)."""
 
