@@ -1224,9 +1224,7 @@ def ood_hist_rows(torch, dev, rows, checks):
     from multishiftseg_torch.evals import ood_metrics as om
 
     rs = np.random.RandomState(SEED + 31)
-    # a checkout from before the one-launch entry (``--root``) has two entries
-    both = getattr(om, "range_histograms", None)
-    entries = ("minmax", "hist") + (("range_hist",) if both else ())
+    entries = ("minmax", "hist", "range_hist")
     times = {}
     for hw in VAL_HW:
         n = hw[0] * hw[1]
@@ -1241,17 +1239,14 @@ def ood_hist_rows(torch, dev, rows, checks):
         torch.cuda.synchronize()
         same_range = float(lo) == float(lo_p) and float(hi) == float(hi_p)
         same_hist = all(bool(torch.equal(a, c)) for a, c in zip(got, want))
+        one = om.range_histograms(s, lab, NUM_BINS)
+        torch.cuda.synchronize()
+        one_equal = (float(one[0]) == float(lo_p) and float(one[1]) == float(hi_p)
+                     and all(bool(torch.equal(a, c)) for a, c in zip(one[2:], want)))
         check = {"check": f"ood_hist_{hw[0]}x{hw[1]}", "range_equal": same_range,
-                 "histograms_equal": same_hist, "pixels": n,
-                 "counted": int(got[0].sum() + got[1].sum())}
-        if both:
-            one = both(s, lab, NUM_BINS)
-            torch.cuda.synchronize()
-            check["one_launch_equal"] = (float(one[0]) == float(lo_p)
-                                         and float(one[1]) == float(hi_p)
-                                         and all(bool(torch.equal(a, c))
-                                                 for a, c in zip(one[2:], want)))
-        check["ok"] = same_range and same_hist and check.get("one_launch_equal", True)
+                 "histograms_equal": same_hist, "one_launch_equal": one_equal, "pixels": n,
+                 "counted": int(got[0].sum() + got[1].sum()),
+                 "ok": same_range and same_hist and one_equal}
         checks.append(check)
 
         def library():
@@ -1265,7 +1260,7 @@ def ood_hist_rows(torch, dev, rows, checks):
                            lambda: om.masked_min_max_plain(s, lab)),
                 "hist": (lambda: om.label_histograms(s, lab, lo, hi, NUM_BINS),
                          lambda: om.label_histograms_plain(s, lab, lo, hi, NUM_BINS)),
-                "range_hist": (lambda: both(s, lab, NUM_BINS),
+                "range_hist": (lambda: om.range_histograms(s, lab, NUM_BINS),
                                lambda: om.range_histograms_plain(s, lab, NUM_BINS))}
         t = times[hw] = {"valid": int(((lab == 0) | (lab == 1)).sum()), "bytes": nbytes(s, lab),
                          "library_ms": median_ms(torch, library, 20)}
@@ -1300,12 +1295,15 @@ def ood_hist_rows(torch, dev, rows, checks):
             "library_ms": t["library_ms"] if e == "hist" else None,
             **{k: t[e][k] for k in ("ms", "ms_spread", "device_ms", "device_ms_spread",
                                     "host_ms", "device_kernels")}}
-    if both:
-        # the validation meter runs the one-launch entry alone; the other two
-        # are binned_ood_metrics' and callers' entries, off the main paths
-        rows["ood_hist_minmax"]["paths"] = rows["ood_hist"]["paths"] = ()
-    check = {"check": "binned_meter_update_720x1280_crop", "ok": True}
-    check.update(meter_update_stats(torch, dev, om, card_labels=bool(both)))
+    # the validation meter runs the one-launch entry alone; the other two
+    # are binned_ood_metrics' and callers' entries, off the main paths
+    rows["ood_hist_minmax"]["paths"] = rows["ood_hist"]["paths"] = ()
+    check = {"check": "binned_meter_update_720x1280_crop"}
+    check.update(meter_update_stats(torch, dev, om))
+    # one kernel and one host sync a map; three runtime calls: the label
+    # upload, the kernel, the copy of its buffer back
+    check["ok"] = (check["kernels_an_update"] == 1 and check["host_syncs_an_update"] == 1
+                   and check["launch_calls_an_update"] == 3)
     checks.append(check)
 
 
@@ -1319,12 +1317,12 @@ def host_syncs(prof):
     return sum(1 for e in prof.events() if e.name.startswith(SYNC_CALLS))
 
 
-def meter_update_stats(torch, dev, om, calls=10, reps=25, card_labels=True):
+def meter_update_stats(torch, dev, om, calls=10, reps=25):
     """``BinnedOODMeter.update`` on a 720x1280 crop of a 768x1280 map with
     numpy labels, as validation calls it: the median wall ms of ``reps``
-    updates (each ends in its copy to the host; with ``card_labels`` also
-    with the labels already on the card), and the device launches, kernels
-    and host syncs an update from a profile of ``calls``."""
+    updates (each ends in its copy to the host; also with the labels already
+    on the card), and the device launches, kernels and host syncs an update
+    from a profile of ``calls``."""
     from torch.profiler import ProfilerActivity, profile
 
     rs = np.random.RandomState(SEED + 32)
@@ -1353,8 +1351,7 @@ def meter_update_stats(torch, dev, om, calls=10, reps=25, card_labels=True):
     out["kernels_an_update"] = sum(1 for e in prof.events()
                                    if e.name.startswith(LAUNCH_CALLS[:2])) / calls
     out["host_syncs_an_update"] = host_syncs(prof) / calls
-    if card_labels:
-        out["update_wall_ms_labels_on_card"] = wall(torch.from_numpy(lab).to(dev))[0]
+    out["update_wall_ms_labels_on_card"] = wall(torch.from_numpy(lab).to(dev))[0]
     return out
 
 

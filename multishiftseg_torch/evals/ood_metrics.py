@@ -278,11 +278,13 @@ def _labels_on(labels, dev: torch.device) -> torch.Tensor:
 
 
 def _range_arg(v, dev: torch.device):
-    """(device pointer or None, value) of one end of a given range."""
+    """(f32 tensor on ``dev`` or None, its pointer or None, value) of one end of
+    a given range. The caller holds the tensor until the launch is queued: a
+    converted copy freed before it could be handed to the other end."""
     if isinstance(v, torch.Tensor) and v.device.type != "cpu":
         v = v.to(dev, torch.float32).reshape(())
-        return v.data_ptr(), 0.0
-    return None, float(v)
+        return v, v.data_ptr(), 0.0
+    return None, None, float(v)
 
 
 def _reduce_cuda(mode: int, scores: torch.Tensor, labels, num_bins: int = 1, lo=None, hi=None
@@ -298,8 +300,8 @@ def _reduce_cuda(mode: int, scores: torch.Tensor, labels, num_bins: int = 1, lo=
     step = 4 * kern.cluster  # the kernel's histogram entries a block, padded
     if mode & _HIST and 4 * step * -(-2 * num_bins // step) > kern.smem_bytes:
         raise ValueError(f"too many bins for the kernel's shared memory: {num_bins}")
-    lo_p, lo_v = _range_arg(lo, dev) if mode == _HIST else (None, 0.0)
-    hi_p, hi_v = _range_arg(hi, dev) if mode == _HIST else (None, 0.0)
+    lo_t, lo_p, lo_v = _range_arg(lo, dev) if mode == _HIST else (None, None, 0.0)
+    hi_t, hi_p, hi_v = _range_arg(hi, dev) if mode == _HIST else (None, None, 0.0)
     words = 2 + 2 * num_bins
     # the output, then the blocks' partial ranges (two words a block)
     buf = torch.empty(words + 2 * kern.max_blocks, dtype=torch.int32, device=dev)
@@ -308,6 +310,7 @@ def _reduce_cuda(mode: int, scores: torch.Tensor, labels, num_bins: int = 1, lo=
                          hi_v, num_bins, buf.data_ptr(), buf.data_ptr() + 4 * words,
                          kern.max_blocks, kern.smem_bytes,
                          torch._C._cuda_getCurrentRawStream(dev.index))
+    del lo_t, hi_t  # queued: the stream orders their reuse after the kernel
     if rc != 0:
         raise RuntimeError(f"ood_reduce failed: cudaError {rc}")
     LAUNCHES[_COUNTER[mode]] += 1

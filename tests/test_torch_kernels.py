@@ -881,6 +881,13 @@ def test_ood_hist_kernels_equal_plain(cuda):
                                            torch.as_tensor(hi).to(cuda), 8192)
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b), name
+        # float64 ends on the card: both converted before the launch, each
+        # kept until it is queued (the two copies must not share a block)
+        got = ood_metrics.label_histograms(st.to(cuda), lt.to(cuda),
+                                           torch.as_tensor(lo).to(cuda, torch.float64),
+                                           torch.as_tensor(hi).to(cuda, torch.float64), 8192)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b), name
         if given:  # the range by value
             got = ood_metrics.label_histograms(st.to(cuda), lt.to(cuda), *given, 8192)
             for a, b in zip(got, want):
