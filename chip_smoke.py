@@ -77,6 +77,18 @@ exits non-zero and prints no result. Phases, one JSON line each:
    its six settings on the same folder against the ``bilinear`` run, writing
    the artifact, after which the gate must refuse exactly the settings
    recorded unqualified.
+15. ``train_loop``: both trainers' ``train()``, the epoch loop a user runs
+   (``python -m multishiftseg_torch.train.cli``), from their recipes' yaml with
+   only the dataset roots, ``n_epochs = 2`` and ``warmup_epoch = 1`` overridden
+   (full widths, batch 8, crop 700, bf16, 4 loader workers), on a synthetic
+   tree made from ``SEED`` (16 Cityscapes frames of 1024x2048 with one
+   generated variant each, a 4-image COCO bank, 4 RoadAnomaly21 images of
+   720x1280): one epoch in each stage, two steps and a validation each, the
+   checkpoints; then a resume from ``last`` with ``n_epochs = 3`` whose epoch
+   runs in stage 1 with the saved optimizer state and best AUPRC. Per epoch:
+   steps, stage, seconds, images/s, the median step, the loader's wait a
+   step; peak memory, the decoder, the files, and the launches, which must
+   include every training kernel of the trainer and the binned metrics.
 
 ``slice_parity`` and ``train_parity`` run the CPU's decoder on the card's
 attention masks, and hold every bit that differs to a logit within rounding of 0.
@@ -106,7 +118,8 @@ held off their rounding boundaries, flips counted), with f32 edge cases
 weights, T = J against ``nearest``). A kernel's ``launches``
 are those of the main paths: ``serve``, ``deeplab_serve``, ``validate`` and
 ``evaluate`` for the eval kernels, the timed steps of ``train``,
-``deeplab_train`` and ``stage1_train`` for the training kernels (the dilated
+``deeplab_train`` and ``stage1_train`` and the epochs of ``train_loop`` for
+the training kernels (the dilated
 conv's, the bilinear deformable forward's and the anomaly tail's rows split
 them: eval paths, training steps), each path run
 with the counts set to 0 just before it and read just after.
@@ -745,7 +758,8 @@ def train_kernel_rows(torch, dev, rows, check, checks):
             "name": "ms_deform_attn_bilinear_train_shapes", "route": "cuda",
             "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
             "replaces": "multishiftseg_tpu/ops/ms_deform_attn.py:93",
-            "counter": "ms_deform_attn_bilinear", "paths": ("train", "stage1_train"),
+            "counter": "ms_deform_attn_bilinear",
+            "paths": ("train", "stage1_train", "train_loop"),
             "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
             "staged_levels": msda.staged_levels(TRAIN_LEVELS, HEAD_DIM, value.dtype)}
@@ -973,7 +987,7 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
         "name": "dilated_conv3x3_train", "route": "cuda",
         "source": "multishiftseg_torch/csrc/dilated_conv.cu",
         "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
-        "counter": "dilated_conv3x3", "paths": ("deeplab_train",),
+        "counter": "dilated_conv3x3", "paths": ("deeplab_train", "train_loop"),
         "max_abs_err": max(errs), "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
         "bound_by": b_by,
         # cuDNN's dilated conv2d, bf16 channels-last: the same function
@@ -1136,7 +1150,7 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
             "name": "mask_scores_anomaly_stage1_shapes", "route": "cuda",
             "source": "multishiftseg_torch/csrc/mask_scores.cu",
             "replaces": "multishiftseg_tpu/ops/scores.py:39",
-            "counter": "mask_scores_anomaly", "paths": ("stage1_train",),
+            "counter": "mask_scores_anomaly", "paths": ("stage1_train", "train_loop"),
             "max_abs_err": err, "plain_ms": median_ms(torch, plain_a, 3), "bound_ms": b_ms,
             "bound_by": b_by,
             # no single PyTorch call computes the fused tail (the plain version
@@ -2587,9 +2601,159 @@ def evaluate_approximate(torch, device, tmp, root, cfg_path, weights, bilinear):
     return res, totals
 
 
+# the kernels each trainer's epoch loop must launch (steps and validation)
+LOOP_KERNELS = {
+    "m2f": ("ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward", "label_points",
+            "linear_sum_assignment", "mask_scores_anomaly", "mask_scores_backward",
+            "mask_scores_semantic_classes", "ood_range_hist"),
+    "deeplab": ("dilated_conv3x3", "dilated_conv3x3_wgrad", "bottom_k_sum", "ood_range_hist")}
+
+
+def same_optimizer_state(torch, a, b):
+    """Two optimizer ``state_dict``s hold the same groups and equal tensors."""
+    if a["param_groups"] != b["param_groups"] or set(a["state"]) != set(b["state"]):
+        return False
+    return all(torch.equal(torch.as_tensor(v).cpu(), torch.as_tensor(b["state"][k][key]).cpu())
+               for k, st in a["state"].items() for key, v in st.items())
+
+
+def phase_train_loop(torch, device="cuda", frames=16, hw=(H, W), val_hw=VAL_HW[0],
+                     models=None, overrides=None):
+    """Both trainers' ``train()`` (the epoch loop: DiverseCityscapes, the
+    recipe's augmentations, the Loader's pinned side-stream copies, the steps,
+    a validation and the checkpoints every epoch) on a synthetic tree made
+    from ``SEED`` (``tools.synthetic_tree``: ``frames`` Cityscapes frames of
+    ``hw`` with labelTrainIds, one generated variant each with a label-254
+    region, a 4-image COCO bank, a 4-image RoadAnomaly21 folder of
+    ``val_hw``). The recipe's yaml with only the roots, ``n_epochs = 2`` and
+    ``warmup_epoch = 1`` overridden (batch 8, crop 700, bf16 and 4 workers
+    stay): two steps an epoch, one epoch in each stage, two validations; then
+    a resume from ``last`` with ``n_epochs = 3`` whose epoch runs stage 1 with
+    the saved optimizer state and best AUPRC. Per epoch: steps, stage,
+    seconds, images/s, the median step, the loader's wait a step; peak
+    memory, the decoder, the files written and the launches of every run.
+    ``device="cpu"`` with small ``models`` and ``overrides`` rehearses the
+    control flow."""
+    import os
+    import tempfile
+
+    from multishiftseg_torch.core.config import load_config
+    from multishiftseg_torch.data import native_io
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.tools.synthetic_tree import write_training_tree
+    from multishiftseg_torch.train.checkpoint import CheckpointManager
+    from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD
+    from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device != "cpu"
+    # no earlier phase was cut to make room: the script ends within half its limit
+    res = {"phase": "train_loop", "card": nvidia_smi() if cuda else "cpu", "frames": frames,
+           "frame_hw": list(hw), "val_hw": list(val_hw), "earlier_phases_cut": [],
+           "trainers": {}}
+    totals, ok = {}, True
+    trainers = {"m2f": TrainM2FOOD, "deeplab": TrainDeepLabOOD}
+    here = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        roots = write_training_tree(Path(tmp) / "data", SEED + 70, frames=frames, hw=hw,
+                                    val_hw=val_hw)
+        res["tree_seconds"] = time.perf_counter() - t0
+        for name, cls in trainers.items():
+            def config(n_epochs):
+                cfg = load_config(str(here / "exps" / f"{name}.yaml"))
+                for k, v in roots.items():
+                    setattr(cfg.data, k, v)
+                cfg.train.n_epochs, cfg.train.warmup_epoch = n_epochs, 1
+                cfg.model_dir = str(Path(tmp) / f"ckpts_{name}")
+                for fn in (overrides or {}).get(name, ()):
+                    fn(cfg)
+                return cfg
+
+            def make(cfg):
+                model = (models or {}).get(name)
+                return cls(cfg, model=model() if model else None, device=device)
+
+            def run(tr, **kw):
+                reset_launch_counts()
+                if cuda:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                best = tr.train(**kw)
+                seconds = time.perf_counter() - t0
+                counts = launch_counts()
+                for k, v in counts.items():
+                    totals[k] = totals.get(k, 0) + v
+                epochs = [{**{k: h[k] for k in ("epoch", "stage", "steps", "seconds",
+                                                "img_per_s", "step_ms_median", "loss",
+                                                "valid_seconds", "metrics", "saved",
+                                                "optimizer")},
+                           "loader_wait_s_per_step": h["loader_wait_s"] / h["steps"]}
+                          for h in tr.history]
+                return {"seconds_with_datasets": seconds, "best": best, "epochs": epochs,
+                        "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
+                                         if cuda else None),
+                        "launches": {k: v for k, v in counts.items() if v}}
+
+            cfg = config(2)
+            t0 = time.perf_counter()
+            tr = make(cfg)
+            build_s = time.perf_counter() - t0
+            first = run(tr)
+            del tr
+            ckpt = CheckpointManager(cfg.model_dir)
+            files = sorted(os.listdir(cfg.model_dir))
+            saved = ckpt.restore("last", "cpu")
+            # the resume: the optimizer and best AUPRC as restored, then its epoch
+            tr = make(config(3))
+            start, stage = ckpt.resume(tr, "last", 0, 1)
+            resumed_opt = same_optimizer_state(torch, tr.optimizer.state_dict(),
+                                               saved["optimizer"])
+            resumed_best = tr.best["AUPRC"] == saved["best_auprc"]
+            second = run(tr, resume="last")
+            del tr
+            if cuda:
+                torch.cuda.empty_cache()
+            m = {"model_build_seconds": build_s, "train": first,
+                 "resume": {"start_epoch": start, "stage": stage, **second},
+                 "files": files, "decoder": native_io.decoder()}
+            stages = [e["stage"] for e in first["epochs"]]
+            launched = {k: first["launches"].get(k, 0) + second["launches"].get(k, 0)
+                        for k in LOOP_KERNELS[name]}
+            m["kernels_launched"] = launched
+            m["checks"] = {
+                "two_stages": stages == [0, 1],
+                "two_steps_an_epoch": [e["steps"] for e in first["epochs"]] == [2, 2],
+                "validated_every_epoch": all(
+                    e["metrics"] and all(np.isfinite(v) for v in e["metrics"].values())
+                    for e in first["epochs"] + second["epochs"]),
+                "finite_losses": all(np.isfinite(e["loss"])
+                                     for e in first["epochs"] + second["epochs"]),
+                "checkpoints": {"last.pt", "AUPRC_best.pt", "scalars.csv"} <= set(files)
+                and saved["epoch"] == 1 and saved["stage"] == 1,
+                "resume_into_stage_1": (start, stage) == (2, 1) and [
+                    (e["epoch"], e["stage"]) for e in second["epochs"]] == [(2, 1)],
+                "resume_optimizer_state": resumed_opt,
+                "resume_best_auprc": resumed_best,
+                "kernels_launched": not cuda or all(v > 0 for v in launched.values())}
+            m["ok"] = bool(all(m["checks"].values()))
+            ok &= m["ok"]
+            res["trainers"][name] = m
+            emit({"train_loop": name, "card": res["card"], "epochs": [
+                {k: e[k] for k in ("epoch", "stage", "steps", "seconds", "img_per_s",
+                                   "step_ms_median", "loader_wait_s_per_step")}
+                for e in first["epochs"] + second["epochs"]],
+                "peak_mem_gib": max(first["peak_mem_gib"] or 0, second["peak_mem_gib"] or 0),
+                "decoder": m["decoder"], "files": files, "ok": m["ok"]})
+    res["ok"] = bool(ok)
+    return res, totals
+
+
 PHASES = ("kernels", "slice_parity", "serve", "train_parity", "train", "deeplab_parity",
           "deeplab_serve", "deeplab_train_parity", "deeplab_train", "stage1_parity",
-          "stage1_train", "validate", "evaluate")
+          "stage1_train", "validate", "evaluate", "train_loop")
 
 
 def parse_args(argv):
@@ -2666,12 +2830,14 @@ def main(argv=None):
     s1_launches = run("stage1_train", phase_stage1_train)
     val_launches = run("validate", phase_validate)
     eval_launches = run("evaluate", phase_evaluate)
+    loop_launches = run("train_loop", phase_train_loop)
 
     # each main path was run with the counts set to 0 just before it; a row
     # counts its counter over its paths (default: every path)
     paths = {"serve": launches, "train": train_launches, "deeplab_serve": dl_launches,
              "deeplab_train": dl_train_launches, "stage1_train": s1_launches,
-             "validate": val_launches, "evaluate": eval_launches}
+             "validate": val_launches, "evaluate": eval_launches,
+             "train_loop": loop_launches}
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))

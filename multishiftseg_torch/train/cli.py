@@ -1,0 +1,84 @@
+"""Training command line: the port's counterpart of
+``multishiftseg_tpu/train/cli.py`` (the reference's ``train_deeplab.py`` /
+``train_m2f.py``), single-process.
+
+    python -m multishiftseg_torch.train.cli --model m2f --cfg exps/m2f.yaml \\
+        --id exp0 [--weight_path pretrained.pth] [--resume last] [--device cuda]
+
+The log goes to ``cfg.log_dir/log.txt`` (``outputs/<id>/`` by default) and to
+stderr; checkpoints and ``scalars.csv`` to ``cfg.model_dir`` (``ckpts/<id>/``).
+It trains on the card unless ``--device cpu`` is given, and raises when CUDA is
+asked for and absent. The instance, panoptic and vanilla Mask2Former
+configurations (``instance_trainer.py`` in the JAX package) are not ported
+(ROADMAP Queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+from typing import Optional, Sequence
+
+
+def trainer_class(model: str, cfg):
+    """The trainer ``--model`` and the configuration select."""
+    if model == "deeplab":
+        from .deeplab_trainer import TrainDeepLabOOD
+
+        return TrainDeepLabOOD
+    m = cfg.model.m2f
+    if m.instance_on or m.panoptic_on or not m.ood_finetune:
+        raise NotImplementedError(
+            "the instance, panoptic and vanilla Mask2Former configurations "
+            "(instance_trainer.py in the JAX package) are not ported: ROADMAP Queue 1 item 3")
+    from .m2f_trainer import TrainM2FOOD
+
+    return TrainM2FOOD
+
+
+def main(argv: Optional[Sequence[str]] = None):
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--model", choices=["deeplab", "m2f"], required=True)
+    parser.add_argument("--cfg", default=None, help="experiment yaml")
+    parser.add_argument("--id", default="exp", help="experiment id")
+    parser.add_argument("--weight_path", default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--run", default="train")
+    parser.add_argument("--start_epoch", type=int, default=0)
+    parser.add_argument("--resume", default=None,
+                        help="checkpoint name to resume from (last or AUPRC_best)")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+
+    from ..core.config import load_config
+
+    cfg = load_config(args.cfg, args.id)
+    cfg.train.seed = args.seed
+    os.makedirs(cfg.log_dir, exist_ok=True)
+    root = logging.getLogger()
+    handlers = [logging.FileHandler(os.path.join(cfg.log_dir, "log.txt"))]
+    if not root.handlers:
+        handlers.append(logging.StreamHandler())
+    for h in handlers:
+        h.setFormatter(logging.Formatter("[%(asctime)s] %(message)s"))
+        root.addHandler(h)
+    root.setLevel(logging.INFO)
+    try:
+        trainer = trainer_class(args.model, cfg)(cfg, weight_path=args.weight_path,
+                                                 device=args.device)
+        run_fn = getattr(trainer, args.run)
+        if args.run == "train":
+            result = run_fn(start_epoch=args.start_epoch, resume=args.resume)
+        else:
+            result = run_fn()
+        logging.warning("done: %s", result)
+        return result
+    finally:
+        for h in handlers:
+            root.removeHandler(h)
+            h.close()
+
+
+if __name__ == "__main__":
+    main()

@@ -8,9 +8,10 @@ the two-stage schedule (``_stage_optimizer`` :169-180): stage 0 trains
 ``trainable_params_name`` (``ood_head``) at ``lr``, stage 1 trains
 ``trainable_params_name_update`` (``aspp``, ``bot_fine``, ``bot_aspp``,
 ``ood_head``) at ``lr_update``, each with a fresh torch ``Adam`` (L2 added to the
-gradient), and ``valid`` (:324-333: the energy score in eval mode through
-``batched_valid``). Datasets, the epoch loop and checkpoints are not ported
-yet.
+gradient), ``build_datasets`` (:146-166: the crop-first Compose), ``train``
+(:184-318, the single-process branch: :func:`.epochs.train_epochs`) and
+``valid`` (:324-333: the energy score in eval mode through
+``batched_valid``).
 
 Every BatchNorm, the frozen trunk's included, normalises with batch statistics
 and updates its running statistics with the biased variance, as flax does
@@ -32,10 +33,14 @@ import torch
 from ..convert.from_jax import deeplab_from_jax
 from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
+from ..data.anomaly import RoadAnomaly21
+from ..data.cityscapes import DiverseCityscapes
+from ..data.transforms import Compose, Normalize, RandCrop, ToTensor
 from ..losses.rcl import make_rcl_params, rel_contrastive_loss
 from ..models.deeplab import DeepWV3Plus, init_ood_head_from_final
 from ..models.wider_resnet import draw_dropout_masks
 from ..utils import resolve_device
+from .epochs import train_epochs
 from .m2f_trainer import synthetic_batch  # noqa: F401  seeded batches, as for M2F
 from .state import build_stage_optimizer
 from .validation import batched_valid
@@ -65,6 +70,8 @@ class TrainDeepLabOOD:
         self.rcl_params = make_rcl_params(cfg.loss.params)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.bf16 = cfg.train.bf16
+        self.n_steps = 0
+        self.best: Dict[str, float] = {"AUPRC": -1.0}
         self.set_stage(0)
 
     def set_stage(self, stage: int) -> None:
@@ -75,6 +82,33 @@ class TrainDeepLabOOD:
             m.trainable_params_name_update or m.trainable_params_name)
         lr = t.lr if stage == 0 else (t.lr_update or t.lr)
         self.optimizer = build_stage_optimizer(self.model, lr, t.weight_decay, names)
+        self.stage = stage
+
+    def build_datasets(self):
+        """(DiverseCityscapes train set, RoadAnomaly21 validation set). The
+        train Compose crops first: ``RandCrop`` is a pixel selection at the
+        recipe's geometry (frames larger than the crop) and ``ToTensor`` /
+        ``Normalize`` are pixel-wise, so this equals the reference order
+        ``[ToTensor, RandCrop, Normalize]`` on a fraction of the pixels."""
+        d = self.cfg.data
+        train_tf = Compose([RandCrop(size=tuple(d.crop_size)), ToTensor(),
+                            Normalize(mean=d.mean, std=d.std)])
+        test_tf = Compose([ToTensor(), Normalize(mean=d.mean, std=d.std)])
+        train_ds = DiverseCityscapes(
+            root=d.cityscapes_root, generation_root=d.generation_root, coco_root=d.coco_root,
+            split="train", transform=train_tf, anomaly_mix=d.anomaly_mix, mixup=d.mixup,
+            seed=self.cfg.train.seed)
+        return train_ds, RoadAnomaly21(root=d.anomaly_track_root, transform=test_tf)
+
+    def train(self, start_epoch: int = 0, resume: Optional[str] = None) -> Dict[str, float]:
+        """The recipe: ``ood_head`` until ``warmup_epoch``, then ``aspp``,
+        ``bot_*`` and ``ood_head`` at ``lr_update``. Validates every epoch,
+        keeps ``AUPRC_best`` and ``last`` under ``cfg.model_dir`` and writes
+        ``train/loss``, ``train/img_per_s`` and ``val/*`` to its
+        ``scalars.csv``. Returns ``{"AUPRC": best}``."""
+        return train_epochs(self, start_epoch, resume,
+                            lambda stage, *batch: self.step(*batch)[0],
+                            lambda stage, img_per_s: {"train/img_per_s": img_per_s})
 
     def load_jax_variables(self, variables: Mapping) -> None:
         """Load a JAX ``DeepWV3Plus`` variable tree (numpy leaves) strictly,
@@ -114,6 +148,7 @@ class TrainDeepLabOOD:
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()
+        self.n_steps += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
     @torch.inference_mode()

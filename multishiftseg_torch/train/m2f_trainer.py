@@ -8,9 +8,10 @@ reference checkpoint (``_build_variables`` :156-173), ``copy_class_embed_to_ood`
 ``class_embed2``), the paired stage-2 step (``make_stage2_step``, :281-306: the
 official Hungarian-matched set criterion with RCL as its OOD loss, over all
 parameters, through the detectron2-style AdamW groups and full-model gradient
-clipping), the stage switch of ``train`` (:380-392, :427-441), ``make_eval_step``
-(:326-343) and ``valid`` (:494-506). Datasets and the epoch loop are not ported
-yet.
+clipping), ``build_datasets`` (:208-230: the 12-stage probabilistic Compose),
+``train`` (:347-493, the single-process branch: :func:`.epochs.train_epochs`
+with ``stage1_step`` before ``warmup_epoch`` and ``stage2_step`` from it on),
+``make_eval_step`` (:326-343) and ``valid`` (:494-506).
 
 The model keeps f32 master weights and optimizer state; with ``cfg.train.bf16``
 the forward runs under ``torch.autocast`` in bf16 (the JAX model's
@@ -29,6 +30,11 @@ import torch
 from ..convert.from_jax import maskformer_from_jax
 from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
+from ..data.anomaly import RoadAnomaly21
+from ..data.cityscapes import DiverseCityscapes
+from ..data.transforms import (AutoContrast, ColorJitter, Compose, Equalize, GaussianBlur,
+                               Normalize, RandCrop, RandHorizontalFlip, RandResize,
+                               RandRotate, RandSharpness, RandVerticalFlip, ToTensor)
 from ..losses.criterion import CriterionConfig, criterion_draws, set_criterion
 from ..losses.rcl import make_rcl_params, rel_contrastive_loss
 from ..models.maskformer import MaskFormer, inference
@@ -36,6 +42,7 @@ from ..models.pixel_decoder import DEFORM_POINTS
 from ..ops.ms_deform_attn import parse_eval_sample_mode
 from ..ops.scores import anomaly_score_upsampled
 from ..utils import resolve_device
+from .epochs import train_epochs
 from .state import build_m2f_official_optimizer, build_stage_optimizer, clip_grad_norm
 from .validation import batched_valid
 
@@ -107,6 +114,7 @@ class TrainM2FOOD:
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.bf16 = cfg.train.bf16
         self.step = 0
+        self.best: Dict[str, float] = {"AUPRC": -1.0}
         self.set_stage(0)
 
     def set_stage(self, stage: int) -> None:
@@ -126,6 +134,46 @@ class TrainM2FOOD:
         else:
             raise ValueError(f"stage {stage}: the recipe has stages 0 and 1")
         self.stage = stage
+
+    def build_datasets(self):
+        """(DiverseCityscapes train set with the 12-stage probabilistic
+        pipeline, RoadAnomaly21 validation set)."""
+        d = self.cfg.data
+        train_tf = Compose([
+            [ToTensor(), 1.0],
+            [ColorJitter(), 0.5],
+            [GaussianBlur(), 0.5],
+            [RandSharpness(), 0.5],
+            [AutoContrast(), 0.5],
+            [Equalize(), 0.5],
+            [RandResize(scale=[0.7, 0.8, 0.9, 1.0]), 0.5],
+            [RandRotate(), 0.5],
+            [RandHorizontalFlip(), 0.5],
+            [RandVerticalFlip(), 0.5],
+            [RandCrop(size=tuple(d.crop_size)), 1.0],
+            [Normalize(mean=d.mean, std=d.std), 1.0],
+        ])
+        test_tf = Compose([ToTensor(), Normalize(mean=d.mean, std=d.std)])
+        train_ds = DiverseCityscapes(
+            root=d.cityscapes_root, generation_root=d.generation_root, coco_root=d.coco_root,
+            split="train", transform=train_tf, anomaly_mix=d.anomaly_mix, mixup=d.mixup,
+            seed=self.cfg.train.seed)
+        return train_ds, RoadAnomaly21(root=d.anomaly_track_root, transform=test_tf)
+
+    def train(self, start_epoch: int = 0, resume: Optional[str] = None) -> Dict[str, float]:
+        """The recipe: ``stage1_step`` (RCL on ``class_embed2``) until
+        ``warmup_epoch``, then ``stage2_step`` (the official criterion, all
+        parameters); each half padded to /32. Validates every epoch, keeps
+        ``AUPRC_best`` and ``last`` under ``cfg.model_dir`` and writes
+        ``train/loss``, ``stage`` and ``val/*`` to its ``scalars.csv``.
+        Returns ``{"AUPRC": best}``."""
+        def step(stage, img_c, img_g, tgt_c, tgt_g):
+            if stage == 0:
+                return self.stage1_step(img_c, img_g, tgt_c, tgt_g)[0]
+            return self.stage2_step(img_c, img_g, tgt_c, tgt_g)[0]
+
+        return train_epochs(self, start_epoch, resume, step,
+                            lambda stage, img_per_s: {"stage": stage})
 
     def load_jax_variables(self, variables: Mapping) -> None:
         """Load a JAX ``MaskFormer`` variable tree (numpy leaves) strictly,

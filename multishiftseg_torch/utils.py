@@ -1,5 +1,6 @@
-"""Device selection shared by the port's entry points, the ReLU sign hooks of
-the parity checks, and the colouring of predictions."""
+"""Device selection shared by the port's entry points, the host allocator's
+tuning for the data pipeline, the ReLU sign hooks of the parity checks, and the
+colouring of predictions."""
 
 from __future__ import annotations
 
@@ -32,6 +33,28 @@ def resolve_device(device="cuda") -> torch.device:
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+_ALLOCATOR_TUNED = False
+
+
+def tune_host_allocator() -> bool:
+    """Keep large freed buffers in the glibc heap instead of returning them to
+    the kernel (``M_MMAP_THRESHOLD`` and ``M_TRIM_THRESHOLD`` at 1 GiB), so the
+    loader's batch-sized arrays do not fault in fresh pages every step, as
+    ``multishiftseg_tpu/utils.py::tune_host_allocator``. glibc only; False
+    elsewhere. Idempotent."""
+    global _ALLOCATOR_TUNED
+    if not _ALLOCATOR_TUNED:
+        try:
+            import ctypes
+
+            libc = ctypes.CDLL("libc.so.6", use_errno=True)
+            _ALLOCATOR_TUNED = bool(libc.mallopt(-3, 1 << 30) == 1      # M_MMAP_THRESHOLD
+                                    and libc.mallopt(-1, 1 << 30) == 1)  # M_TRIM_THRESHOLD
+        except OSError:
+            return False
+    return _ALLOCATOR_TUNED
 
 
 def relu_sign_hooks(model: torch.nn.Module, signs: dict, replay: dict = None) -> list:
