@@ -2617,23 +2617,23 @@ def same_optimizer_state(torch, a, b):
                for k, st in a["state"].items() for key, v in st.items())
 
 
-def phase_train_loop(torch, device="cuda", frames=16, hw=(H, W), val_hw=VAL_HW[0],
-                     models=None, overrides=None):
+TRAIN_LOOP_FRAMES = 16
+
+
+def phase_train_loop(torch):
     """Both trainers' ``train()`` (the epoch loop: DiverseCityscapes, the
     recipe's augmentations, the Loader's pinned side-stream copies, the steps,
     a validation and the checkpoints every epoch) on a synthetic tree made
-    from ``SEED`` (``tools.synthetic_tree``: ``frames`` Cityscapes frames of
-    ``hw`` with labelTrainIds, one generated variant each with a label-254
-    region, a 4-image COCO bank, a 4-image RoadAnomaly21 folder of
-    ``val_hw``). The recipe's yaml with only the roots, ``n_epochs = 2`` and
-    ``warmup_epoch = 1`` overridden (batch 8, crop 700, bf16 and 4 workers
-    stay): two steps an epoch, one epoch in each stage, two validations; then
-    a resume from ``last`` with ``n_epochs = 3`` whose epoch runs stage 1 with
-    the saved optimizer state and best AUPRC. Per epoch: steps, stage,
-    seconds, images/s, the median step, the loader's wait a step; peak
-    memory, the decoder, the files written and the launches of every run.
-    ``device="cpu"`` with small ``models`` and ``overrides`` rehearses the
-    control flow."""
+    from ``SEED`` (``tools.synthetic_tree``: 16 Cityscapes frames of H x W
+    with labelTrainIds, one generated variant each with a label-254 region, a
+    4-image COCO bank, a 4-image RoadAnomaly21 folder of ``VAL_HW[0]``). The
+    recipe's yaml with only the roots, ``n_epochs = 2`` and ``warmup_epoch =
+    1`` overridden (batch 8, crop 700, bf16 and 4 workers stay): two steps an
+    epoch, one epoch in each stage, two validations; then a resume from
+    ``last`` with ``n_epochs = 3`` whose epoch runs stage 1 with the saved
+    optimizer state and best AUPRC. Per epoch: steps, stage, seconds,
+    images/s, the median step on the card, the loader's wait a step; peak
+    memory, the decoder, the files written and the launches of every run."""
     import os
     import tempfile
 
@@ -2647,18 +2647,17 @@ def phase_train_loop(torch, device="cuda", frames=16, hw=(H, W), val_hw=VAL_HW[0
 
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = False
-    cuda = device != "cpu"
     # no earlier phase was cut to make room: the script ends within half its limit
-    res = {"phase": "train_loop", "card": nvidia_smi() if cuda else "cpu", "frames": frames,
-           "frame_hw": list(hw), "val_hw": list(val_hw), "earlier_phases_cut": [],
+    res = {"phase": "train_loop", "card": nvidia_smi(), "frames": TRAIN_LOOP_FRAMES,
+           "frame_hw": [H, W], "val_hw": list(VAL_HW[0]), "earlier_phases_cut": [],
            "trainers": {}}
     totals, ok = {}, True
     trainers = {"m2f": TrainM2FOOD, "deeplab": TrainDeepLabOOD}
     here = Path(__file__).resolve().parent
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        roots = write_training_tree(Path(tmp) / "data", SEED + 70, frames=frames, hw=hw,
-                                    val_hw=val_hw)
+        roots = write_training_tree(Path(tmp) / "data", SEED + 70, frames=TRAIN_LOOP_FRAMES,
+                                    hw=(H, W), val_hw=VAL_HW[0])
         res["tree_seconds"] = time.perf_counter() - t0
         for name, cls in trainers.items():
             def config(n_epochs):
@@ -2667,19 +2666,12 @@ def phase_train_loop(torch, device="cuda", frames=16, hw=(H, W), val_hw=VAL_HW[0
                     setattr(cfg.data, k, v)
                 cfg.train.n_epochs, cfg.train.warmup_epoch = n_epochs, 1
                 cfg.model_dir = str(Path(tmp) / f"ckpts_{name}")
-                for fn in (overrides or {}).get(name, ()):
-                    fn(cfg)
                 return cfg
-
-            def make(cfg):
-                model = (models or {}).get(name)
-                return cls(cfg, model=model() if model else None, device=device)
 
             def run(tr, **kw):
                 reset_launch_counts()
-                if cuda:
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
                 best = tr.train(**kw)
                 seconds = time.perf_counter() - t0
@@ -2693,13 +2685,12 @@ def phase_train_loop(torch, device="cuda", frames=16, hw=(H, W), val_hw=VAL_HW[0
                            "loader_wait_s_per_step": h["loader_wait_s"] / h["steps"]}
                           for h in tr.history]
                 return {"seconds_with_datasets": seconds, "best": best, "epochs": epochs,
-                        "peak_mem_gib": (torch.cuda.max_memory_allocated() / 2**30
-                                         if cuda else None),
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                         "launches": {k: v for k, v in counts.items() if v}}
 
             cfg = config(2)
             t0 = time.perf_counter()
-            tr = make(cfg)
+            tr = cls(cfg)
             build_s = time.perf_counter() - t0
             first = run(tr)
             del tr
@@ -2707,15 +2698,14 @@ def phase_train_loop(torch, device="cuda", frames=16, hw=(H, W), val_hw=VAL_HW[0
             files = sorted(os.listdir(cfg.model_dir))
             saved = ckpt.restore("last", "cpu")
             # the resume: the optimizer and best AUPRC as restored, then its epoch
-            tr = make(config(3))
+            tr = cls(config(3))
             start, stage = ckpt.resume(tr, "last", 0, 1)
             resumed_opt = same_optimizer_state(torch, tr.optimizer.state_dict(),
                                                saved["optimizer"])
             resumed_best = tr.best["AUPRC"] == saved["best_auprc"]
             second = run(tr, resume="last")
             del tr
-            if cuda:
-                torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
             m = {"model_build_seconds": build_s, "train": first,
                  "resume": {"start_epoch": start, "stage": stage, **second},
                  "files": files, "decoder": native_io.decoder()}
@@ -2737,7 +2727,7 @@ def phase_train_loop(torch, device="cuda", frames=16, hw=(H, W), val_hw=VAL_HW[0
                     (e["epoch"], e["stage"]) for e in second["epochs"]] == [(2, 1)],
                 "resume_optimizer_state": resumed_opt,
                 "resume_best_auprc": resumed_best,
-                "kernels_launched": not cuda or all(v > 0 for v in launched.values())}
+                "kernels_launched": all(v > 0 for v in launched.values())}
             m["ok"] = bool(all(m["checks"].values()))
             ok &= m["ok"]
             res["trainers"][name] = m
@@ -2745,7 +2735,7 @@ def phase_train_loop(torch, device="cuda", frames=16, hw=(H, W), val_hw=VAL_HW[0
                 {k: e[k] for k in ("epoch", "stage", "steps", "seconds", "img_per_s",
                                    "step_ms_median", "loader_wait_s_per_step")}
                 for e in first["epochs"] + second["epochs"]],
-                "peak_mem_gib": max(first["peak_mem_gib"] or 0, second["peak_mem_gib"] or 0),
+                "peak_mem_gib": max(first["peak_mem_gib"], second["peak_mem_gib"]),
                 "decoder": m["decoder"], "files": files, "ok": m["ok"]})
     res["ok"] = bool(ok)
     return res, totals

@@ -3,7 +3,8 @@
 Counterpart of ``multishiftseg_tpu/core/logging.py``. ``StepTimer.stop``
 synchronises the device a step's result lives on (in place of
 ``jax.block_until_ready``), so a step's time includes its device work;
-``profiler_trace`` records a ``torch.profiler`` trace and exports it in the
+``StreamStepTimer`` times steps on the device's stream without waiting for
+any, for a loop that must not stall its host; ``profiler_trace`` records a ``torch.profiler`` trace and exports it in the
 Chrome format; ``log_compile_time`` logs a function's first call, which in the
 port includes the first-use ``nvcc`` build of the kernels it launches.
 ``ScalarWriter`` writes the JAX package's ``step,tag,value`` CSV with ``%.8g``
@@ -114,6 +115,38 @@ class StepTimer:
     @property
     def avg_step_ms(self) -> float:
         return 1e3 * self.total_time / max(self.steps - self.warmup_steps, 1)
+
+
+class StreamStepTimer:
+    """Per-step times that make no step wait: on a CUDA device an event pair a
+    step on the current stream (the step's span on the card), read by
+    :meth:`times_ms` once the caller has waited for that stream anyway; on
+    the CPU, whose work is done when a step returns, the wall clock."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._spans = []
+
+    def _mark(self):
+        if self.device.type != "cuda":
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(self.device))
+        return event
+
+    def start(self):
+        self._spans.append([self._mark(), None])
+
+    def stop(self):
+        self._spans[-1][1] = self._mark()
+
+    def times_ms(self) -> list:
+        """Each step's milliseconds (waits for the last step's end event)."""
+        if self.device.type != "cuda":
+            return [1e3 * (b - a) for a, b in self._spans]
+        if self._spans:
+            self._spans[-1][1].synchronize()
+        return [a.elapsed_time(b) for a, b in self._spans]
 
 
 class ScalarWriter:

@@ -46,7 +46,7 @@ def _library_path() -> Path:
 def _build(path: Path) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *LIBS]
+    cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *LIBS]
     subprocess.run(cmd, check=True, capture_output=True, text=True)
     os.replace(tmp, path)
 

@@ -22,18 +22,13 @@ import torch
 log = logging.getLogger(__name__)
 
 
-def _counter(trainer) -> str:
-    """The trainer's step-count attribute (DeepLab's ``step`` is its method)."""
-    return "step" if isinstance(getattr(trainer, "step", None), int) else "n_steps"
-
-
 def save_checkpoint(path: str, trainer, generator: bool = True, **extra) -> str:
     """Write ``trainer``'s state to ``path`` (directories made as needed), its
     generator's unless ``generator`` is False, and ``extra`` entries."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     state = {"model": trainer.model.state_dict(), "stage": trainer.stage,
              "optimizer": trainer.optimizer.state_dict(),
-             "step": getattr(trainer, _counter(trainer)), **extra}
+             "step": trainer.n_steps, **extra}
     if generator:
         state["generator"] = trainer.generator.get_state()
     tmp = f"{path}.{os.getpid()}.tmp"
@@ -57,7 +52,7 @@ def restore_checkpoint(path: str, trainer) -> dict:
     trainer.optimizer.load_state_dict(state["optimizer"])
     if "generator" in state:
         trainer.generator.set_state(state["generator"].cpu())
-    setattr(trainer, _counter(trainer), int(state["step"]))
+    trainer.n_steps = int(state["step"])
     return state
 
 
@@ -109,6 +104,6 @@ class CheckpointManager:
         if raw is not None and "generator" in raw and saved_stage == stage:
             trainer.optimizer.load_state_dict(raw["optimizer"])
             trainer.generator.set_state(raw["generator"].cpu())
-            setattr(trainer, _counter(trainer), int(raw["step"]))
+            trainer.n_steps = int(raw["step"])
             log.warning("restored the optimizer and generator state (full resume)")
         return start_epoch, stage

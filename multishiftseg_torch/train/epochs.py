@@ -6,7 +6,9 @@ Counterpart of the single-process branch of ``train`` in
 shuffling :class:`Loader` onto the trainer's device, the resume from a named
 checkpoint, the switch to stage 1 at ``warmup_epoch``, one validation a epoch,
 the scalar curves, ``AUPRC_best`` on improvement and ``last`` every epoch.
-Each epoch's steps, stage, times and metrics go to ``trainer.history``.
+Each epoch's steps, stage, times and metrics go to ``trainer.history``. As in
+JAX, no step waits for the device: the epoch's ``float(loss)`` is its one
+wait, and each step's span on the card comes from CUDA events read after it.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import statistics
 import time
 from typing import Callable, Dict, Optional
 
-from ..core.logging import ScalarWriter, StepTimer
+from ..core.logging import ScalarWriter, StreamStepTimer
 from ..data.loader import Loader
 from .checkpoint import CheckpointManager
 
@@ -48,19 +50,20 @@ def train_epochs(trainer, start_epoch: int, resume: Optional[str],
             trainer.set_stage(1)
             log.warning("epoch %d: switched to stage 1", epoch)
         train_ds.set_epoch(epoch)
-        timer = StepTimer(warmup_steps=0)
+        timer = StreamStepTimer(trainer.device)  # no step waits for the card
         wait0, t0, n_img, loss = loader.wait_seconds, time.perf_counter(), 0, None
         for img_c, tgt_c, img_g, tgt_g in loader:
             timer.start()
             loss = step(stage, img_c, img_g, tgt_c, tgt_g)
-            timer.stop(loss, items=2 * img_c.shape[0])
+            timer.stop()
             n_img += 2 * img_c.shape[0]
         if n_img == 0:
             raise RuntimeError(f"loader produced no batches (dataset size {len(train_ds)} "
                                f"< batch {cfg.train.train_batch} with drop_last)")
+        loss = float(loss)  # the epoch's one wait for the card, inside its time
         seconds = time.perf_counter() - t0
         img_per_s = n_img / max(seconds, 1e-9)
-        loss = float(loss)
+        step_ms = timer.times_ms()
         log.warning("epoch %d stage %d loss %.4f (%.1f img/s)", epoch, stage, loss, img_per_s)
         t1 = time.perf_counter()
         metrics = trainer.valid(val_ds)
@@ -80,9 +83,9 @@ def train_epochs(trainer, start_epoch: int, resume: Optional[str],
         # the fault-tolerance checkpoint, overwritten every epoch (--resume last)
         ckpt.save("last", trainer, epoch=epoch, best_auprc=trainer.best["AUPRC"])
         trainer.history.append({
-            "epoch": epoch, "stage": stage, "steps": len(timer.times), "images": n_img,
+            "epoch": epoch, "stage": stage, "steps": len(step_ms), "images": n_img,
             "seconds": seconds, "img_per_s": img_per_s,
-            "step_ms_median": 1e3 * statistics.median(timer.times),
+            "step_ms_median": statistics.median(step_ms),
             "optimizer": type(trainer.optimizer).__name__,
             "loader_wait_s": loader.wait_seconds - wait0, "loss": loss,
             "valid_seconds": valid_seconds, "metrics": metrics, "saved": saved})

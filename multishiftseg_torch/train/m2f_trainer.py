@@ -117,6 +117,15 @@ class TrainM2FOOD:
         self.best: Dict[str, float] = {"AUPRC": -1.0}
         self.set_stage(0)
 
+    @property
+    def n_steps(self) -> int:
+        """The step count under the name both trainers give it (checkpoints)."""
+        return self.step
+
+    @n_steps.setter
+    def n_steps(self, value: int) -> None:
+        self.step = value
+
     def set_stage(self, stage: int) -> None:
         """Stage 0: a fresh ``Adam`` at ``train.lr`` / ``train.weight_decay``
         over ``trainable_params_name`` (``class_embed2``), the rest frozen.

@@ -32,6 +32,29 @@ NORM_ATOL = 5e-5
 MEAN, STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
 
 
+# data/image_ops.py reproduces the arithmetic of one OpenCV build: the vector
+# widths that build dispatches on a CPU with AVX-512 decide which pixels take
+# fused multiply-adds and which the scalar tails' plain ones (16 pixels for the
+# warp, 32 for HSV to RGB, 4 / 8 elements for the blur's row / column pass), and
+# its linear resize runs on IPP. The bit-exact comparisons hold only there.
+PINNED_OPENCV = "5.0.0"
+
+
+@pytest.fixture(scope="module")
+def opencv_pin():
+    """Fail, naming the pinned build, where OpenCV is another build or
+    dispatches other vector widths: the comparisons would report bit
+    differences that are not the port's."""
+    features = cv2.getCPUFeaturesLine().split()
+    found = {"version": cv2.__version__, "avx512_skx": "*AVX512-SKX" in features,
+             "ipp": bool(cv2.ipp.useIPP())}
+    want = {"version": PINNED_OPENCV, "avx512_skx": True, "ipp": True}
+    if found != want:
+        pytest.fail(f"data/image_ops.py is held bit for bit against OpenCV {PINNED_OPENCV} "
+                    f"dispatching AVX512_SKX with IPP on ({want}); this host has {found} "
+                    f"(CPU features: {' '.join(features)})", pytrace=False)
+
+
 def _sample(seed, h=75, w=131, ood=True):
     """(image, mask, gen_image, gen_mask): f32 [0, 1] images and int32 masks
     of train ids, void 255 and, in the generated mask, an OOD (254) block."""
@@ -67,6 +90,7 @@ def every_colour():
     return rgb.reshape(4096, 4096, 3)
 
 
+@pytest.mark.usefixtures("opencv_pin")
 def test_colour_conversions_over_every_colour(every_colour):
     np.testing.assert_array_equal(image_ops.rgb2gray(every_colour),
                                   cv2.cvtColor(every_colour, cv2.COLOR_RGB2GRAY))
@@ -90,6 +114,7 @@ def test_equalize_hist_matches_opencv(hw):
 
 
 @pytest.mark.parametrize("hw", [(37, 85), (20, 90), (64, 64), (17, 9)])
+@pytest.mark.usefixtures("opencv_pin")
 def test_gaussian_blur_matches_opencv(hw):
     """Widths whose rows end in scalar tails of 1-3 (rows) and 1-7 (columns)
     elements, and a 9-wide image, all 3 channels."""
@@ -108,6 +133,7 @@ def test_gaussian_blur_matches_opencv(hw):
 
 
 @pytest.mark.parametrize("hw", [(120, 203), (64, 64), (33, 50)])
+@pytest.mark.usefixtures("opencv_pin")
 def test_resizes_match_opencv(hw):
     """Bilinear on f32 HWC (up, down, the exact halving and the identity),
     nearest on int32 and uint8 masks."""
@@ -130,6 +156,7 @@ def test_resizes_match_opencv(hw):
 
 
 @pytest.mark.parametrize("hw", [(257, 395), (120, 203), (64, 15), (31, 16)])
+@pytest.mark.usefixtures("opencv_pin")
 def test_rotation_matches_opencv(hw):
     """``getRotationMatrix2D`` and ``warpAffine`` (bilinear image, nearest
     mask) at widths with and without a scalar tail, over the recipe's angle
@@ -171,6 +198,7 @@ TRANSFORMS = {
 
 
 @pytest.mark.parametrize("name", sorted(TRANSFORMS))
+@pytest.mark.usefixtures("opencv_pin")
 def test_train_transform_matches_jax(name):
     """Each transform on the same Sample and generator state, at three seeds:
     equal outputs and the generator left in the same state."""
@@ -184,6 +212,7 @@ def test_train_transform_matches_jax(name):
         assert got.images()[0] is got.image and len(got.images()) == 2
 
 
+@pytest.mark.usefixtures("opencv_pin")
 def test_crops_resize_when_the_image_is_smaller():
     for make in (lambda m: m.RandCrop((96, 160)), lambda m: m.RandCropIncludeOOD((96, 160))):
         want = make(jt)(np.random.default_rng(4), jt.Sample(*_sample(4)))
@@ -201,6 +230,7 @@ def test_crop_include_ood_without_anomaly_falls_back():
 
 
 @pytest.mark.parametrize("name", ["ColorJitter", "Equalize"])
+@pytest.mark.usefixtures("opencv_pin")
 def test_colour_transforms_over_every_colour(name, every_colour):
     """ColorJitter (all four operations, in a drawn order) and Equalize on an
     image that holds every RGB colour."""
@@ -222,6 +252,7 @@ def _coco_cut(seed, h=60, w=80):
     return img, mask
 
 
+@pytest.mark.usefixtures("opencv_pin")
 def test_random_scale_matches_jax():
     img, mask = _coco_cut(0)
     scales = [0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0]
@@ -233,6 +264,7 @@ def test_random_scale_matches_jax():
 
 
 @pytest.mark.parametrize("normalized", [True, False])
+@pytest.mark.usefixtures("opencv_pin")
 def test_mix_object_matches_jax(normalized):
     cut_img, cut_mask = _coco_cut(1)
     for seed in range(3):
@@ -309,6 +341,7 @@ def _recipes(m):
 
 
 @pytest.mark.parametrize("recipe", ["m2f", "deeplab"])
+@pytest.mark.usefixtures("opencv_pin")
 def test_diverse_cityscapes_matches_jax(recipe, city_tree):
     """Same pairings, and the same items at two epochs and several indices
     (mixup, the recipe's Compose, then the COCO paste)."""

@@ -6,16 +6,24 @@ at ``warmup_epoch`` (stage 0's optimizer, then stage 1's from the boundary
 epoch on), ``AUPRC_best`` saved only on improvement and ``last`` every epoch,
 the resume in both cases of the saved stage, an empty loader and a worker's
 exception, the scalar curves read back by the JAX package's ``ScalarWriter``,
-and the training CLI's routing.
+and the training CLI's routing. Against the JAX package's ``train()`` on the
+same tree: the stage and the [clean ‖ generated] batch of every step over two
+epochs (the steps themselves replaced by recorders in both packages).
 """
 
 import os
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import multishiftseg_tpu.train.deeplab_trainer as jax_deeplab_trainer
+import multishiftseg_tpu.train.m2f_trainer as jax_m2f_trainer
+from multishiftseg_tpu.core.config import load_config as jax_load_config
 from multishiftseg_tpu.core.logging import ScalarWriter as JaxScalarWriter
+from multishiftseg_tpu.models.deeplab import DeepWV3Plus as JaxDeepLab
+from multishiftseg_tpu.models.maskformer import MaskFormer as JaxMaskFormer
 
 from multishiftseg_torch.core.config import load_config
 from multishiftseg_torch.models.deeplab import DeepWV3Plus
@@ -56,8 +64,8 @@ def tree(tmp_path_factory):
                                coco=2, coco_hw=(60, 80), val=2, val_hw=(64, 96))
 
 
-def make_cfg(name, tree, model_dir, n_epochs=3, warmup=1, batch=2):
-    cfg = load_config(f"exps/{name}.yaml")
+def make_cfg(name, tree, model_dir, n_epochs=3, warmup=1, batch=2, loader=load_config):
+    cfg = loader(f"exps/{name}.yaml")
     for k, v in tree.items():
         setattr(cfg.data, k, v)
     cfg.data.crop_size, cfg.data.num_workers = CROP, 2
@@ -104,6 +112,85 @@ def test_train_crosses_the_warmup_boundary(name, tree, tmp_path):
     assert [s for s, _ in curves["train/loss"]] == [0, 1, 2]
     if name == "m2f":
         assert [v for _, v in curves["stage"]] == [0.0, 1.0, 1.0]
+
+
+NORM_ATOL = 5e-5  # f32 images after Normalize, as in test_torch_data.py
+
+
+def jax_step_inputs(name, tree, model_dir, monkeypatch):
+    """[(stage, images, targets)] that the JAX package's ``train()`` feeds
+    its step over two epochs across the boundary; the steps, the validation
+    and the checkpoint writes are stubbed out."""
+    cfg = make_cfg(name, tree, model_dir, n_epochs=2, loader=jax_load_config)
+    seen = []
+
+    def recorder(stage):
+        def step(state, img, tgt):  # the arrays as the jitted step takes them
+            seen.append((stage, np.asarray(jnp.asarray(img)), np.asarray(jnp.asarray(tgt))))
+            return state, 0.0, {}
+        return step
+
+    for module in (jax_deeplab_trainer, jax_m2f_trainer):
+        monkeypatch.setattr(module, "shard_batch", lambda arrays, mesh: arrays)
+    if name == "m2f":
+        tr = jax_m2f_trainer.TrainM2FOOD(cfg, model=JaxMaskFormer(num_classes=19, **M2F_WIDTHS))
+        tr.make_stage1_step = lambda tx, paired=True: recorder(0)
+        tr.make_stage2_step = lambda tx, paired=True: recorder(1)
+    else:
+        made = []
+
+        def make_train_step(model, tx, rcl_params, paired=False):
+            made.append(tx)  # the first optimizer is stage 0's, a second stage 1's
+            return recorder(len(made) - 1)
+
+        monkeypatch.setattr(jax_deeplab_trainer, "make_train_step", make_train_step)
+        tr = jax_deeplab_trainer.TrainDeepLabOOD(cfg, model=JaxDeepLab(**DL_TINY))
+    tr.valid = lambda *a: {}
+    tr.ckpt.save = lambda *a, **k: None
+    tr.train()
+    return seen
+
+
+def port_step_inputs(name, tree, model_dir):
+    """The port's counterpart of :func:`jax_step_inputs`: what its
+    ``train()`` hands the step, concatenated [clean ‖ generated] as the
+    step does (M2F through its own ``_pair``, padding included)."""
+    tr = make_trainer(name, make_cfg(name, tree, model_dir, n_epochs=2))
+    seen = []
+
+    def pair(img_c, img_g, tgt_c, tgt_g):
+        return torch.cat([img_c, img_g]), torch.cat([tgt_c, tgt_g])
+
+    def recorder(pair):
+        def step(img_c, img_g, tgt_c, tgt_g):
+            img, tgt = pair(img_c, img_g, tgt_c, tgt_g)
+            seen.append((tr.stage, img.numpy(), tgt.numpy()))
+            return torch.zeros(()), {}
+        return step
+
+    if name == "m2f":
+        tr.stage1_step = tr.stage2_step = recorder(tr._pair)
+    else:
+        tr.step = recorder(pair)
+    tr.valid = lambda ds: {}
+    tr.train()
+    return seen
+
+
+@pytest.mark.parametrize("name", ["m2f", "deeplab"])
+def test_train_feeds_the_step_what_jax_feeds_it(name, tree, tmp_path, monkeypatch):
+    """The loop's wiring against the JAX package's ``train()`` on one tree and
+    seed: the Loader's seed and shuffle, ``set_epoch`` before each epoch, the
+    unpacking of (image, mask, gen_image, gen_mask) into the step's halves and
+    their order, and the stage of every step. Images within 5e-5 (after
+    Normalize), targets equal."""
+    want = jax_step_inputs(name, tree, tmp_path / "jax", monkeypatch)
+    got = port_step_inputs(name, tree, tmp_path / "port")
+    assert [s for s, _, _ in got] == [s for s, _, _ in want] == [0, 0, 1, 1]
+    for (_, img, tgt), (_, want_img, want_tgt) in zip(got, want):
+        assert img.shape == want_img.shape and img.dtype == want_img.dtype
+        np.testing.assert_allclose(img, want_img, rtol=0, atol=NORM_ATOL)
+        np.testing.assert_array_equal(tgt, want_tgt)
 
 
 def test_auprc_best_is_saved_only_on_improvement(tree, tmp_path):
@@ -186,8 +273,8 @@ def test_a_worker_exception_reaches_the_caller(tree, tmp_path):
 
 
 def test_logging_helpers(tmp_path):
-    """Meters, the step timer (its warm-up excluded), the first-call logger
-    and the profiler trace's export, on the CPU."""
+    """Meters, the step timer (its warm-up excluded), the stream step timer,
+    the first-call logger and the profiler trace's export, on the CPU."""
     from multishiftseg_torch.core import logging as mlog
 
     meters = mlog.MultiRunningMeter()
@@ -199,6 +286,12 @@ def test_logging_helpers(tmp_path):
         timer.start()
         timer.stop(torch.ones(2), items=4)
     assert timer.steps == 3 and timer.total_items == 8 and len(timer.times) == 3
+    stream_timer = mlog.StreamStepTimer("cpu")
+    for _ in range(2):
+        stream_timer.start()
+        torch.ones(8).sum()
+        stream_timer.stop()
+    assert len(stream_timer.times_ms()) == 2 and min(stream_timer.times_ms()) >= 0
     calls = []
     fn = mlog.log_compile_time("f")(lambda x: calls.append(x) or x)
     assert fn(1) == 1 and fn(2) == 2 and calls == [1, 2]
