@@ -89,9 +89,31 @@ exits non-zero and prints no result. Phases, one JSON line each:
    steps, stage, seconds, images/s, the median step, the loader's wait a
    step; peak memory, the decoder, the files, and the launches, which must
    include every training kernel of the trainer and the binned metrics.
+16. ``instance_parity``: one ``TrainM2FInstance`` step of
+   exps/m2f_instance.yaml (the vanilla decoder, 48 target slots, deep
+   supervision over 9 layers) at full widths on 2 unpadded 200x200 crops, f32
+   with TF32 off, card against CPU and a float64 CPU step from the same
+   weights, batch and CPU-made draws, the CPU steps attending with the card's
+   attention masks and matching with its assignments (each within 1e-5 of the
+   CPU's own optimum on the CPU's costs): losses, gradients, the AdamW update,
+   the launches (6 + 6 deformable, 10 assignments, 20 label points); then
+   ``instance_inference`` / ``panoptic_inference`` on the card against the
+   CPU on the same logits (the model's at 256x512, and confident synthetic
+   ones at 512x1024).
+17. ``instance_train``: the three vanilla recipes,
+   exps/m2f_{instance,panoptic,semantic}.yaml, at their own widths (batch 8,
+   unpadded crops 700x700 / 700x700 / 512x1024, 48 / 48 / 20 slots, bf16)
+   through ``train()`` on a generated Cityscapes tree of 24 train and 2 val
+   frames of 1024x2048 (instanceIds, panoptic pngs and json, labelTrainIds),
+   one epoch of 3 steps, the instance recipe then through a resume from
+   ``last``; then ``evaluate(max_images=2)`` at 1024x2048 for each (AP, +PQ,
+   or mIoU; random weights: the values mean nothing). Per recipe: epoch
+   seconds, images/s, the median step, the loader's wait, peak memory, the
+   launches of train and of evaluate.
 
-``slice_parity`` and ``train_parity`` run the CPU's decoder on the card's
-attention masks, and hold every bit that differs to a logit within rounding of 0.
+``slice_parity``, ``train_parity`` and ``instance_parity`` run the CPU's
+decoder on the card's attention masks, and hold every bit that differs to a
+logit within rounding of 0.
 
 The ``kernels`` phase also holds the training slice's kernels at its shapes
 (16 images at 704x704): the deformable-attention backward and the bilinear
@@ -110,7 +132,11 @@ stage 1's shapes (the anomaly score, and the K class channels alone), the
 anomaly tail's backward there (d probs alone, and with d masks) and with
 forced ties, and
 the binned metrics' masked range and 8192-bin histogram at 720x1280 and
-1024x2048 (bit-for-bit equal to the plain versions); and the eval fast
+1024x2048 (bit-for-bit equal to the plain versions); the vanilla recipes':
+the label points over 8 segment id maps of 700x700 with -1 pixels and 48
+slots, the assignment of 8 problems of 48 slots x 100 queries with
+duplicate classes and padding rows, and the semantic evaluation's K-class
+score tail at 1024x2048; and the eval fast
 paths' at the main-path shapes: the int8 table's quantize (bit for bit) and
 forward, ``nearest_top6``, ``nearest_top6c`` and ``shared`` (the centroid modes
 held off their rounding boundaries, flips counted), with f32 edge cases
@@ -119,9 +145,11 @@ weights, T = J against ``nearest``). A kernel's ``launches``
 are those of the main paths: ``serve``, ``deeplab_serve``, ``validate`` and
 ``evaluate`` for the eval kernels, the timed steps of ``train``,
 ``deeplab_train`` and ``stage1_train`` and the epochs of ``train_loop`` for
-the training kernels (the dilated
-conv's, the bilinear deformable forward's and the anomaly tail's rows split
-them: eval paths, training steps), each path run
+the training kernels, and ``instance_train``'s ``train()`` and ``evaluate()``
+calls for the vanilla recipes' (the dilated conv's, the bilinear deformable
+forward's, the anomaly tail's, the classes-only tail's, the label points'
+and the assignment's rows split them: eval paths, training steps, the
+vanilla recipes' shapes), each path run
 with the counts set to 0 just before it and read just after.
 
 Every row's ``ms`` times single synchronised calls (the wrapper's host time
@@ -201,6 +229,9 @@ DL_TRAIN_PARITY_SEEDS = (SEED + 27, SEED + 37)
 # M2F stage 1 (exps/m2f.yaml): the anomaly tail's backward at the stage-1 shapes,
 # stride-4 masks of the 704x704 padded crops
 S1_MASK_HW = (TRAIN_HW[0] // 4, TRAIN_HW[1] // 4)
+# the vanilla recipes (exps/m2f_{instance,panoptic,semantic}.yaml): batch 8 of
+# unpadded 700x700 crops, 48 target slots (instance and panoptic), 8 thing classes
+INST_BATCH, INST_SLOTS, INST_CLASSES = 8, 48, 8
 # the binned validation metrics: 8192 bins; SMIYC RoadAnomaly21's validation
 # images are 720x1280, Cityscapes-sized ones 1024x2048
 NUM_BINS = 8192
@@ -457,7 +488,7 @@ def phase_kernels(torch):
             "replaces": f"multishiftseg_tpu/ops/ms_deform_attn.py:{line}",
             # the eval paths; the training steps' launches are the
             # training-shape row's
-            "paths": ("serve", "validate", "evaluate"), "max_abs_err": err,
+            "paths": ("serve", "validate", "evaluate", "instance_eval"), "max_abs_err": err,
             "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
         row = rows[f"ms_deform_attn_{mode}"]
@@ -530,6 +561,7 @@ def phase_kernels(torch):
     train_kernel_rows(torch, dev, rows, check, checks)
     deeplab_kernel_rows(torch, dev, rows, check, checks)
     stage1_kernel_rows(torch, dev, rows, check, checks)
+    instance_kernel_rows(torch, dev, rows, check, checks)
     ood_hist_rows(torch, dev, rows, checks)
     ok = all(c["ok"] for c in checks)
     return rows, {"phase": "kernels", "ok": ok, "checks": checks}
@@ -759,7 +791,7 @@ def train_kernel_rows(torch, dev, rows, check, checks):
             "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
             "replaces": "multishiftseg_tpu/ops/ms_deform_attn.py:93",
             "counter": "ms_deform_attn_bilinear",
-            "paths": ("train", "stage1_train", "train_loop"),
+            "paths": ("train", "stage1_train", "train_loop", "instance_train"),
             "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
             "staged_levels": msda.staged_levels(TRAIN_LEVELS, HEAD_DIM, value.dtype)}
@@ -796,6 +828,8 @@ def train_kernel_rows(torch, dev, rows, check, checks):
         "name": "linear_sum_assignment", "route": "cuda",
         "source": "multishiftseg_torch/csrc/assignment.cu",
         "replaces": "multishiftseg_tpu/losses/matcher.py:28",
+        # the OOD trainers' steps; the vanilla recipes' are their own row's
+        "paths": ("train", "stage1_train", "train_loop"),
         "max_abs_err": 0.0 if same else float("nan"), "ms": median_ms(torch, run, 20),
         "plain_ms": median_ms(torch, lambda: matcher.linear_sum_assignment_plain(cost), 3),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -835,6 +869,7 @@ def train_kernel_rows(torch, dev, rows, check, checks):
         "name": "label_points", "route": "cuda",
         "source": "multishiftseg_torch/csrc/label_points.cu",
         "replaces": "multishiftseg_tpu/losses/criterion.py:66",
+        "paths": ("train", "stage1_train", "train_loop"),
         "max_abs_err": err, "ms": median_ms(torch, run, 20),
         "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
         # the one-call equivalent, grid_sample of [B, K, H, W] one-hot masks,
@@ -1170,7 +1205,8 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
         "name": "mask_scores_semantic_classes", "route": "cuda",
         "source": "multishiftseg_torch/csrc/mask_scores.cu",
         "replaces": "multishiftseg_tpu/ops/scores.py:25",
-        "max_abs_err": err, "plain_ms": median_ms(torch, plain_c, 3), "bound_ms": b_ms,
+        # stage 1's steps; the vanilla semantic evaluation's are their own row's
+        "paths": ("stage1_train", "train_loop"), "max_abs_err": err, "plain_ms": median_ms(torch, plain_c, 3), "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None}
     time_redesigned(torch, rows["mask_scores_semantic_classes"], run_c)
     del fmasks, cls, out
@@ -1225,6 +1261,111 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
     even = bool(torch.equal(dp[..., 0], dp[..., 1])) and float(dp[..., 0].abs().max()) > 0
     checks[-1].update(tied_classes_equal=even, ok=checks[-1]["ok"] and even)
     check_per_entry(checks, "mask_scores_backward_forced_ties_dmask", dm, want_m, abs_m.abs(), 1e-5)
+
+
+def instance_kernel_rows(torch, dev, rows, check, checks):
+    """The vanilla recipes' kernels at their own shapes: the label points over
+    8 segment id maps of 700x700 crops with -1 (ignore) pixels, 48 slots; the
+    assignment of 8 problems of 48 slots x 100 queries, costs from
+    ``compute_match_cost`` with duplicate classes and -1 padding slots (rows
+    at BIG); and the semantic evaluation's K-class score tail (100 queries of
+    256x512 masks to 1024x2048). Against the plain versions: label points
+    within 1e-6 (four corner weights summed in f32), the assignment exactly,
+    the score tail within 1e-5 (f32 sums in another order)."""
+    from multishiftseg_torch.losses import criterion, matcher
+    from multishiftseg_torch.ops import scores
+
+    b, t = INST_BATCH, INST_SLOTS
+    rs = np.random.RandomState(SEED + 80)
+    ids_np = np.repeat(np.repeat(rs.randint(-1, t, (b, 44, 44)), 16, 1), 16, 2)[:, :CROP[0],
+                                                                               :CROP[1]]
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    coords = torch.from_numpy(rs.rand(b, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
+    run = lambda: criterion.sample_target_points(ids, coords, t)
+    plain = lambda: criterion.sample_target_points_plain(ids, coords, t)
+    out = run()
+    err = check("label_points_classes_instance_shapes", out, plain(), 1e-6, 0.0)
+    rcoords = torch.from_numpy(rs.rand(b * t, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
+    slots = torch.arange(t, device=dev).repeat(b)
+    err = max(err, check("label_points_rows_instance_shapes",
+                         criterion.sample_class_points(ids, rcoords, slots, t),
+                         criterion.sample_class_points_plain(ids, rcoords, slots, t), 1e-6, 0.0))
+    label_bytes = label_sector_bytes(torch, ids, coords, torch.arange(b, device=dev))
+    b_ms, b_by = bound(label_bytes + nbytes(coords, out), b * TRAIN_POINTS * t * 8)
+    rows["label_points_instance_shapes"] = {
+        "name": "label_points_instance_shapes", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/label_points.cu",
+        "replaces": "multishiftseg_tpu/losses/criterion.py:66",
+        "counter": "label_points", "paths": ("instance_train",),
+        "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None}
+    time_redesigned(torch, rows["label_points_instance_shapes"], run)
+    del ids, coords, rcoords, out
+
+    classes = torch.from_numpy(rs.randint(0, INST_CLASSES, (b, t)))
+    classes[:, 1] = classes[:, 0]  # duplicate classes
+    for i in range(b):
+        classes[i, 10 + 4 * i:] = -1  # 10..38 valid slots
+    p_match = 512
+    cost_cpu = matcher.compute_match_cost(
+        torch.from_numpy(rs.randn(b, QUERIES, INST_CLASSES + 1).astype(np.float32)),
+        torch.from_numpy(3 * rs.randn(b, QUERIES, p_match).astype(np.float32)),
+        torch.from_numpy((rs.rand(b, t, p_match) > 0.7).astype(np.float32)), classes >= 0,
+        2.0, 5.0, 5.0, tgt_classes=classes).transpose(1, 2).contiguous()
+    cost = cost_cpu.to(dev)
+    run = lambda: matcher.linear_sum_assignment(cost)
+    steps = []
+    want = matcher.linear_sum_assignment_plain(cost, steps)
+    got = run()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(got.cpu(), want.cpu()))
+    from scipy.optimize import linear_sum_assignment as scipy_lsa
+
+    optimal, cost_np = True, cost_cpu.numpy()
+    for i in range(b):
+        valid = np.nonzero(classes[i].numpy() >= 0)[0]
+        r, c = scipy_lsa(cost_np[i][valid])
+        ours = cost_np[i][valid, got[i].cpu().numpy()[valid]].sum()
+        optimal &= bool(abs(ours - cost_np[i][valid][r, c].sum()) <= 1e-5 * abs(ours))
+    checks.append({"check": "linear_sum_assignment_instance_shapes", "equal_to_plain": same,
+                   "scipy_optimal_on_valid_rows": optimal,
+                   "shared_bytes": matcher.assignment_shared_bytes(t, QUERIES),
+                   "ok": same and optimal})
+    b_ms, b_by = bound(nbytes(cost, got), sum(steps) * QUERIES * 5)
+    row = rows["linear_sum_assignment_instance_shapes"] = {
+        "name": "linear_sum_assignment_instance_shapes", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/assignment.cu",
+        "replaces": "multishiftseg_tpu/losses/matcher.py:28",
+        "counter": "linear_sum_assignment", "paths": ("instance_train",),
+        "max_abs_err": 0.0 if same else float("nan"),
+        "plain_ms": median_ms(torch, lambda: matcher.linear_sum_assignment_plain(cost), 3),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    time_redesigned(torch, row, run)
+    row["max_steps"] = max(steps)
+    row["device_ns_per_step"] = row["device_ms"] * 1e6 / max(steps)
+    del cost
+
+    g = np.random.RandomState(SEED + 81)
+    masks = torch.from_numpy(3 * g.randn(1, QUERIES, H // 4, W // 4).astype(np.float32)).to(dev)
+    cls = torch.from_numpy(g.randn(1, QUERIES, CLASSES + 1).astype(np.float32)).to(dev)
+    run = lambda: scores.semantic_inference_upsampled(cls, masks, (H, W), CLASSES,
+                                                      _classes_only=True)
+    plain = lambda: scores.semantic_inference_upsampled_plain(cls, masks, (H, W), CLASSES,
+                                                              _classes_only=True)
+    with torch.no_grad():
+        out = run()
+        err = check("mask_scores_semantic_classes_eval_shapes", out, plain(), 1e-5, 1e-5)
+        ops = H * W * QUERIES * (11 + 2 * CLASSES)
+        b_ms, b_by = bound(nbytes(masks) + QUERIES * CLASSES * 4 + nbytes(out), ops)
+        rows["mask_scores_semantic_classes_eval_shapes"] = {
+            "name": "mask_scores_semantic_classes_eval_shapes", "route": "cuda",
+            "source": "multishiftseg_torch/csrc/mask_scores.cu",
+            "replaces": "multishiftseg_tpu/ops/scores.py:25",
+            "counter": "mask_scores_semantic_classes", "paths": ("instance_eval",),
+            "max_abs_err": err, "plain_ms": median_ms(torch, plain, 3), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+        time_redesigned(torch, rows["mask_scores_semantic_classes_eval_shapes"], run)
+    del masks, cls, out
 
 
 def ood_hist_rows(torch, dev, rows, checks):
@@ -1404,15 +1545,19 @@ def seeded_model(torch, seed, **cfg):
 
 def attention_mask_hooks(predictor, masks, replay=None):
     """Forward pre-hooks on the decoder's cross-attention layers: each appends
-    the (fg, bg) attention masks its layer receives to ``masks`` (on the CPU).
-    Given ``replay``, another run's ``masks``, the layer then attends with that
-    run's masks instead of its own. Returns the hook handles."""
+    the attention masks its layer receives to ``masks`` (on the CPU): (fg, bg)
+    for the GMA decoder's layers, (fg,) for the vanilla decoder's, which take
+    one mask. Given ``replay``, another run's ``masks``, the layer then attends
+    with that run's masks instead of its own. Returns the hook handles."""
+    from multishiftseg_torch.models.transformer_decoder import GlobalCrossAttentionLayer
+
     def hook(module, args, i):
-        masks.append((args[2].cpu(), args[3].cpu()))
+        n = 2 if isinstance(module, GlobalCrossAttentionLayer) else 1
+        masks.append(tuple(m.cpu() for m in args[2:2 + n]))
         if replay is None:
             return None
-        fg, bg = (m.to(args[2].device) for m in replay[i])
-        return (*args[:2], fg, bg, *args[4:])
+        mine = tuple(m.to(args[2].device) for m in replay[i])
+        return (*args[:2], *mine, *args[2 + n:])
 
     return [layer.register_forward_pre_hook(lambda m, a, i=i: hook(m, a, i))
             for i, layer in enumerate(predictor.transformer_cross_attention_layers)]
@@ -1422,8 +1567,9 @@ def mask_logit_layers(torch, card, cpu, sizes):
     """The decoder's attention masks and the logits behind them, layer by layer,
     card against CPU.
 
-    The decoder thresholds mask logits at 0 as hard booleans, so a logit within
-    rounding of 0 may fall on the other side on the card. The CPU run attends
+    The decoder thresholds mask logits at 0 as hard booleans (GMA: fg and bg;
+    vanilla: fg alone), so a logit within rounding of 0 may fall on the other
+    side on the card. The CPU run attends
     with the card's masks (:func:`attention_mask_hooks`), so every layer stays
     comparable; this holds each bit that differs to a logit within rounding
     of 0. ``card`` and ``cpu`` hold the ``embeds`` of every mask prediction
@@ -1441,14 +1587,15 @@ def mask_logit_layers(torch, card, cpu, sizes):
         return resize_bilinear_nchw(torch.einsum("nqc,nchw->nqhw", e, m), size)
 
     layers = []
-    for i, ((g_fg, g_bg), (c_fg, c_bg)) in enumerate(zip(card["masks"], cpu["masks"])):
+    for i, (g_masks, c_masks) in enumerate(zip(card["masks"], cpu["masks"])):
         size = sizes[i % 3]
         lg = logits(card["embeds"][i], card["mask_features"], size)
         lc = logits(cpu["embeds"][i], cpu["mask_features"], size)
         scale = logits(cpu["embeds"][i].abs(), cpu["mask_features"].abs(), size)
         tol = LOGIT_RTOL * scale
         err = (lg - lc).abs()
-        flip = ((g_fg != c_fg) | (g_bg != c_bg))[:, 0].reshape(lc.shape)
+        flip = torch.stack([g != c for g, c in zip(g_masks, c_masks)]).any(0)[:, 0].reshape(
+            lc.shape)
         layers.append({"flips": int(flip.sum()),
                        "max_abs_logit_at_flip": float(lc[flip].abs().max()) if flip.any() else None,
                        "max_logit_diff": float(err.max()),
@@ -1698,87 +1845,77 @@ def train_config(pairs, crop, bf16):
     return cfg
 
 
-def phase_train_parity(torch, seed, pairs=2, crop=(256, 256), card="cuda"):
-    """One stage-2 step at full widths in f32 (TF32 off): the card with kernels
-    against the CPU with plain versions, same weights, batch and CPU-made draws,
-    all made from ``seed``; and the CPU's step in float64, which the gradients
-    of both f32 steps are held against. (``card="cpu"`` rehearses the phase's
-    control flow without a card.)"""
+def tree_to(tree, dev):
+    """A nest of dicts and lists of tensors, moved to ``dev``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def recorded_step(torch, tr, step, card=None):
+    """``step()``, one training step of the M2F trainer ``tr`` that returns
+    (loss, components, gradient norm, assignments), with recorders: the mask
+    embeds, the pixel decoder's outputs, the attention masks (the layers
+    attend with those of ``card``, the card run's record, when given) and the
+    launch counts. Returns the record, with the losses, the gradient norm,
+    the assignments and every parameter's gradient and value (f32, CPU)."""
     from multishiftseg_torch.ops import launch_counts, reset_launch_counts
-    from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = train_config(pairs, crop, bf16=False)
-    base = seeded_model(torch, seed)
-    batch = synthetic_batch(pairs, crop, CLASSES, seed + 1)
-    trainers = {"card": TrainM2FOOD(cfg, model=copy.deepcopy(base), device=card),
-                "cpu": TrainM2FOOD(cfg, model=copy.deepcopy(base), device="cpu"),
-                "cpu_f64": TrainM2FOOD(cfg, model=copy.deepcopy(base), device="cpu")}
-    for tr in trainers.values():
-        tr.set_stage(1)
-    trainers["cpu_f64"].model.double()  # in place: the optimizer keeps the same parameters
-    draws = trainers["cpu"].draws(2 * pairs, tuple(crop))  # CPU-made, used by both
+    rec = {"embeds": [], "masks": []}
 
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
+    def record_pixel_decoder(m, i, o):
+        rec["mask_features"] = o[0].detach().float().cpu()
+        rec["ms"] = [t.detach().float().cpu() for t in o[2]]
 
-    runs = {}
-    for side, tr in trainers.items():
-        # the card runs first; the CPU steps then attend with the card's masks
-        rec = {"embeds": [], "masks": []}
+    head = tr.model.sem_seg_head
+    hooks = [head.predictor.mask_embed.register_forward_hook(
+                 lambda m, i, o: rec["embeds"].append(o.detach().float().cpu())),
+             head.pixel_decoder.register_forward_hook(record_pixel_decoder)]
+    hooks += attention_mask_hooks(head.predictor, rec["masks"],
+                                  card["masks"] if card is not None else None)
+    reset_launch_counts()
+    try:
+        loss, losses, gnorm, assign = step()
+        if tr.device.type == "cuda":
+            torch.cuda.synchronize()
+        rec["launches"] = launch_counts()
+    finally:
+        for h in hooks:
+            h.remove()
+    rec.update(loss=float(loss), losses={k: float(v) for k, v in losses.items()},
+               gnorm=float(gnorm), assign=[a.cpu() for a in assign],
+               grads={n: p.grad.detach().float().cpu() for n, p in tr.model.named_parameters()},
+               params={n: p.detach().float().cpu() for n, p in tr.model.named_parameters()})
+    return rec
 
-        def record_pixel_decoder(m, i, o, r=rec):
-            r["mask_features"] = o[0].detach().float().cpu()
-            r["ms"] = [t.detach().float().cpu() for t in o[2]]
 
-        head = tr.model.sem_seg_head
-        hooks = [head.predictor.mask_embed.register_forward_hook(
-                     lambda m, i, o, r=rec: r["embeds"].append(o.detach().float().cpu())),
-                 head.pixel_decoder.register_forward_hook(record_pixel_decoder)]
-        hooks += attention_mask_hooks(head.predictor, rec["masks"],
-                                      runs["card"]["masks"] if side != "card" else None)
-        reset_launch_counts()
-        try:
-            loss, losses, gnorm, assign = tr.stage2_step(*batch, draws=to(draws, tr.device))
-            if tr.device.type == "cuda":
-                torch.cuda.synchronize()
-            rec["launches"] = launch_counts()
-        finally:
-            for h in hooks:
-                h.remove()
-        rec.update(loss=float(loss), losses={k: float(v) for k, v in losses.items()},
-                   gnorm=float(gnorm), assign=[a.cpu() for a in assign],
-                   grads={n: p.grad.detach().float().cpu() for n, p in tr.model.named_parameters()},
-                   params={n: p.detach().float().cpu() for n, p in tr.model.named_parameters()})
-        runs[side] = rec
+def compare_steps(torch, runs, optimizer, m2f, res):
+    """What both M2F step parities hold: ``runs`` are the records
+    (:func:`recorded_step`) of the card's f32 step, the CPU's and the CPU's
+    float64 step from the same weights, batch and draws; ``optimizer`` gives
+    the parameter groups; ``m2f`` the config's learning rate and clip. Adds
+    the readings to ``res`` and returns the checks."""
     g, c, f = runs["card"], runs["cpu"], runs["cpu_f64"]
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
 
-    res = {"phase": "train_parity", "seed": seed, "pairs": pairs, "crop": list(crop),
-           "widths": "full", "dtype": "float32", "tf32": False, "launches": g["launches"],
-           "losses_card": g["losses"], "losses_cpu": c["losses"],
-           "grad_norm_card": g["gnorm"], "grad_norm_cpu": c["gnorm"]}
     # the pixel decoder's outputs, in the training forward: f32 on both sides,
     # conv algorithms and sums in another order (as slice_parity)
     res["pixel_decoder_rel_err"] = max([rel(g["mask_features"], c["mask_features"])]
                                        + [rel(a, b) for a, b in zip(g["ms"], c["ms"])])
     layers = mask_logit_layers(torch, g, c, [tuple(t.shape[-2:]) for t in c["ms"]])
     res["attention_masks"] = layers
-    res["assignment_equal"] = all(torch.equal(a, b) for a, b in zip(g["assign"], c["assign"]))
     res["loss_rel_err"] = {k: abs(g["losses"][k] - v) / max(abs(v), 1e-12)
                            for k, v in c["losses"].items()}
+
     # per parameter group (backbone / rest, decay or not), the worst tensor by
     # the largest error of its gradient over its largest entry
     def grad_errs(a, b):
         out = {}
-        for grp in trainers["cpu"].optimizer.param_groups:
+        for grp in optimizer.param_groups:
             key = f"lr_x{grp['lr_mult']:g}_{'decay' if grp['decay'] else 'no_decay'}"
             errs = {n: float((a["grads"][n] - b["grads"][n]).abs().max())
                     / max(float(b["grads"][n].abs().max()), 1e-30) for n in grp["names"]}
@@ -1796,8 +1933,8 @@ def phase_train_parity(torch, seed, pairs=2, crop=(256, 256), card="cuda"):
         for t in upstream}
     # the first AdamW step is about lr * sign(g): compare where the clipped
     # gradient is far above eps and clear of sign noise
-    lr = cfg.model.m2f.base_lr
-    clip = min(1.0, cfg.model.m2f.clip_gradients_value / c["gnorm"])
+    lr = m2f.base_lr
+    clip = min(1.0, m2f.clip_gradients_value / c["gnorm"])
     upd = 0.0
     for n, gc in c["grads"].items():
         sel = ((gc * clip).abs() > 1e-6) & (gc.abs() > 1e-2 * gc.abs().max())
@@ -1805,7 +1942,6 @@ def phase_train_parity(torch, seed, pairs=2, crop=(256, 256), card="cuda"):
             upd = max(upd, float((g["params"][n][sel] - c["params"][n][sel]).abs().max()))
     res["param_update_max_abs_err"] = upd
     res["param_update_atol"] = 1e-2 * lr
-    counts = g["launches"]
     # the same arithmetic on both sides; losses: f32 sums in another order.
     # Gradients: a ReLU input within f32 rounding of 0 takes either side and
     # moves the whole gradient path below it, on the card as on the CPU (up to
@@ -1814,18 +1950,55 @@ def phase_train_parity(torch, seed, pairs=2, crop=(256, 256), card="cuda"):
     # card's error may be at most 4x the CPU's, plus 1e-3 of scale.
     grad_ok = all(v["err"] <= 4 * vs_f64["cpu"][k]["err"] + 1e-3
                   for k, v in vs_f64["card"].items())
-    res["checks"] = {
+    return {
         "pixel_decoder_rel_err<=1e-3": res["pixel_decoder_rel_err"] <= 1e-3,
         "mask_logits_within_rounding": all(x["within_rounding"] for x in layers),
-        "assignment_equal": res["assignment_equal"],
         "loss_rel_err<=1e-3": max(res["loss_rel_err"].values()) <= 1e-3,
         "grad_err_vs_f64<=4x_cpu+1e-3": grad_ok,
         "param_update_err<=1e-2*lr": upd <= 1e-2 * lr,
-        "launches_ok": (counts["ms_deform_attn_bilinear"] == 6
-                        and counts["ms_deform_attn_bilinear_backward"] == 6
-                        and counts["linear_sum_assignment"] >= 1 and counts["label_points"] >= 4),
         "finite": all(np.isfinite(v) for v in list(g["losses"].values()) + [g["gnorm"]]),
         "upstream_grads_nonzero": all(res["upstream_grads_nonzero"].values())}
+
+
+def phase_train_parity(torch, seed, pairs=2, crop=(256, 256), card="cuda"):
+    """One stage-2 step at full widths in f32 (TF32 off): the card with kernels
+    against the CPU with plain versions, same weights, batch and CPU-made draws,
+    all made from ``seed``; and the CPU's step in float64, which the gradients
+    of both f32 steps are held against. (``card="cpu"`` rehearses the phase's
+    control flow without a card.)"""
+    from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_config(pairs, crop, bf16=False)
+    base = seeded_model(torch, seed)
+    batch = synthetic_batch(pairs, crop, CLASSES, seed + 1)
+    trainers = {"card": TrainM2FOOD(cfg, model=copy.deepcopy(base), device=card),
+                "cpu": TrainM2FOOD(cfg, model=copy.deepcopy(base), device="cpu"),
+                "cpu_f64": TrainM2FOOD(cfg, model=copy.deepcopy(base), device="cpu")}
+    for tr in trainers.values():
+        tr.set_stage(1)
+    trainers["cpu_f64"].model.double()  # in place: the optimizer keeps the same parameters
+    draws = trainers["cpu"].draws(2 * pairs, tuple(crop))  # CPU-made, used by both
+    runs = {}
+    for side, tr in trainers.items():
+        # the card runs first; the CPU steps then attend with the card's masks
+        runs[side] = recorded_step(
+            torch, tr, lambda tr=tr: tr.stage2_step(*batch, draws=tree_to(draws, tr.device)),
+            runs.get("card"))
+    g, c = runs["card"], runs["cpu"]
+    res = {"phase": "train_parity", "seed": seed, "pairs": pairs, "crop": list(crop),
+           "widths": "full", "dtype": "float32", "tf32": False, "launches": g["launches"],
+           "losses_card": g["losses"], "losses_cpu": c["losses"],
+           "grad_norm_card": g["gnorm"], "grad_norm_cpu": c["gnorm"]}
+    checks = compare_steps(torch, runs, trainers["cpu"].optimizer, cfg.model.m2f, res)
+    res["assignment_equal"] = all(torch.equal(a, b) for a, b in zip(g["assign"], c["assign"]))
+    counts = g["launches"]
+    res["checks"] = {
+        **checks, "assignment_equal": res["assignment_equal"],
+        "launches_ok": (counts["ms_deform_attn_bilinear"] == 6
+                        and counts["ms_deform_attn_bilinear_backward"] == 6
+                        and counts["linear_sum_assignment"] >= 1 and counts["label_points"] >= 4)}
     res["ok"] = bool(all(res["checks"].values()))
     return res
 
@@ -2741,9 +2914,417 @@ def phase_train_loop(torch):
     return res, totals
 
 
+def instance_config(recipe, batch, crop, bf16):
+    """exps/m2f_<recipe>.yaml with the batch, crop and precision given."""
+    from multishiftseg_torch.core.config import load_config
+
+    cfg = load_config(str(Path(__file__).resolve().parent / "exps" / f"m2f_{recipe}.yaml"))
+    cfg.train.train_batch = batch
+    cfg.data.crop_size = tuple(crop)
+    cfg.train.bf16 = bf16
+    return cfg
+
+
+def instance_batch(batch, crop, slots, seed):
+    """A seeded batch of the instance recipe: normalised f32 images [B, H, W, 3],
+    segment id maps [B, H, W] (-1 ignore) and classes [B, T] (the 8 thing
+    classes, duplicates, -1 padding) from ``tools.synthetic_tree``'s frames
+    through the port's mappers, clipped to the T largest segments."""
+    from multishiftseg_torch.data.mappers import instance_to_targets, remap_classes
+    from multishiftseg_torch.tools.synthetic_tree import segments_frame
+    from multishiftseg_torch.train.instance_trainer import THING_RAW_IDS, clip_targets
+
+    g = np.random.default_rng(seed)
+    class_map = {c: i for i, c in enumerate(THING_RAW_IDS)}
+    ids, classes = [], []
+    for _ in range(batch):
+        tgt = remap_classes(instance_to_targets(segments_frame(g, crop, 30)[1]), class_map)
+        tgt = clip_targets(tgt, slots).padded(slots)
+        ids.append(tgt.id_map)
+        classes.append(tgt.classes)
+    img = g.standard_normal((batch, *crop, 3), dtype=np.float32)
+    return img, np.stack(ids).astype(np.int32), np.stack(classes).astype(np.int32)
+
+
+def confident_logits(torch, seed, q, k, hw):
+    """Class logits [Q, K+1] with most queries confident, and mask logits
+    [Q, H, W] positive on a rectangle a query (overlapping others): inputs on
+    which the panoptic thresholds keep and merge segments."""
+    g = np.random.RandomState(seed)
+    cls = g.randn(q, k + 1).astype(np.float32)
+    cls[np.arange(q), g.randint(0, k, q)] += np.where(g.rand(q) < 0.7, 6.0, 0.0)
+    masks = g.randn(q, *hw).astype(np.float32) - 6.0
+    h, w = hw
+    for i in range(q):
+        y0, x0 = g.randint(0, h - h // 8), g.randint(0, w - w // 8)
+        masks[i, y0:y0 + g.randint(h // 16, h // 3), x0:x0 + g.randint(w // 16, w // 3)] += 12.0
+    return torch.from_numpy(cls), torch.from_numpy(masks)
+
+
+def postprocess_parity(torch, logits, masks, thing_ids):
+    """``instance_inference`` (over ``thing_ids``, or every class when None)
+    and ``panoptic_inference`` on the card against the CPU on the same
+    logits: the same detections (classes and masks equal, scores within 1e-5
+    relative, in score order) and the same panoptic map and segments."""
+    from multishiftseg_torch.models.inference_extras import (instance_inference,
+                                                             panoptic_inference)
+
+    out = {}
+    for name, fn in (("instance", lambda c, m: instance_inference(c, m, thing_ids=thing_ids)),
+                     ("panoptic", lambda c, m: panoptic_inference(c, m))):
+        card = fn(logits.cuda(), masks.cuda())
+        cpu = fn(logits.cpu(), masks.cpu())
+        if name == "panoptic":
+            out[name] = {"segments": len(cpu[1]), "equal": bool(
+                np.array_equal(card[0], cpu[0]) and card[1] == cpu[1])}
+            continue
+        order = [np.lexsort((d["pred_classes"], -d["scores"].astype(np.float64)))
+                 for d in (card, cpu)]
+        a, b = ({k: v[o] for k, v in d.items()} for d, o in zip((card, cpu), order))
+        out[name] = {"detections": int(len(b["scores"])), "equal": bool(
+            np.array_equal(a["pred_classes"], b["pred_classes"])
+            and np.array_equal(a["pred_masks"], b["pred_masks"])
+            and np.allclose(a["scores"], b["scores"], rtol=1e-5, atol=1e-7))}
+    return out
+
+
+def criterion_replay(torch, replay, log):
+    """Route the instance criterion's two data-dependent decisions through a
+    recorder: the matches (``criterion.match``) and the uncertain points of
+    the mask losses (``criterion.uncertain_point_coords``, a top-k over
+    |logit|). Each call appends its own result (on the CPU) to
+    ``log["assign"]`` or ``log["coords"]``; given ``replay``, another run's
+    ``log``, it returns that run's result instead, in call order, and logs in
+    ``log["assign_gaps"]`` whether its own assignment equals it and how far
+    the replayed one's total cost over the valid slots lies above its own on
+    its own costs (both optimal within rounding when small), and in
+    ``log["point_gaps"]`` the rows whose selection differs and how far the
+    replayed points' uncertainty falls below its own k-th largest, over the
+    largest |logit| (both selections agree within rounding when small).
+    Returns a function that restores both."""
+    from multishiftseg_torch.losses import criterion, matcher
+    from multishiftseg_torch.ops.sampling import point_sample_nchw
+
+    orig_match, orig_points = criterion.match, criterion.uncertain_point_coords
+
+    def match(pred_logits, out_pts, tgt_pts, valid, **kw):
+        own = orig_match(pred_logits, out_pts, tgt_pts, valid, **kw)
+        log["assign"].append(own.cpu())
+        if replay is None:
+            return own
+        other = replay["assign"][len(log["assign"]) - 1].to(own.device)
+        w = {k: kw[k] for k in ("cost_class_w", "cost_mask_w", "cost_dice_w")}
+        cost = matcher.compute_match_cost(pred_logits, out_pts, tgt_pts, valid,
+                                          tgt_classes=kw["tgt_classes"], **w).transpose(1, 2)
+
+        def total(a):
+            return (cost.gather(2, a[..., None])[..., 0].double() * valid).sum(1)
+
+        mine = total(own)
+        log["assign_gaps"].append({"equal": bool(torch.equal(own, other)), "rel_cost_gap": float(
+            ((total(other) - mine) / mine.abs().clamp_min(1e-12)).max())})
+        return other
+
+    def uncertain_point_coords(pred_masks, coords, rand, cfg):
+        own = orig_points(pred_masks, coords, rand, cfg)
+        log["coords"].append(own.cpu())
+        if replay is None:
+            return own
+        other = replay["coords"][len(log["coords"]) - 1].to(own.device)
+        k = int(cfg.importance_sample_ratio * cfg.num_points)
+        with torch.no_grad():
+            unc = -point_sample_nchw(pred_masks[:, None], coords)[:, 0].abs()
+            kth = unc.topk(k, dim=-1).values[:, -1:]
+            replayed = -point_sample_nchw(pred_masks[:, None], other[:, :k])[:, 0].abs()
+            gap = (kth - replayed).clamp_min(0).max()
+        log["point_gaps"].append({
+            "rows_differ": int((own != other).flatten(1).any(1).sum()),
+            "rel_gap": float(gap / unc.abs().max().clamp_min(1e-30))})
+        return other
+
+    criterion.match, criterion.uncertain_point_coords = match, uncertain_point_coords
+
+    def restore():
+        criterion.match, criterion.uncertain_point_coords = orig_match, orig_points
+
+    return restore
+
+
+def relu_replay(torch, model, replay, log):
+    """Route every ReLU of a step (``torch.nn.functional.relu``, and the
+    modules of ``model`` that hold it as their ``activation``) through a
+    recorder: each call appends its input's sign pattern (on the CPU) to
+    ``log["signs"]``. Given ``replay``, another run's ``log``, the call keeps
+    the units that run kept instead of its own (``x * sign``), in call order,
+    so that the step follows that run's branch of the piecewise-linear
+    model, and ``log["flips"]`` counts the units whose own sign differs (as
+    ``utils.relu_sign_hooks`` does for DeepLab's ``nn.ReLU`` modules).
+    Returns a function that restores the ReLUs."""
+    functional = torch.nn.functional
+    orig = functional.relu
+
+    def relu(x, inplace=False):
+        sign = x > 0
+        log["signs"].append(sign.cpu())
+        if replay is None:
+            return orig(x, inplace=inplace)
+        theirs = replay["signs"][len(log["signs"]) - 1].to(x.device)
+        log["flips"] += int((theirs != sign).sum())
+        return x * theirs.to(x.dtype)
+
+    held = [m for m in model.modules() if getattr(m, "activation", None) is orig]
+    functional.relu = relu
+    for m in held:
+        m.activation = relu
+
+    def restore():
+        functional.relu = orig
+        for m in held:
+            m.activation = orig
+
+    return restore
+
+
+def phase_instance_parity(torch, seed=SEED + 90, batch=2, crop=(200, 200), card="cuda"):
+    """One ``TrainM2FInstance`` step of the instance recipe at full widths on
+    2 unpadded 200x200 crops (pyramid 7 / 13 / 25, masks 50x50) with 48 slots,
+    f32 with TF32 off: the card (kernels) against the CPU (plain versions) and
+    a float64 CPU step, same weights, batch and CPU-made draws, the CPU steps
+    attending with the card's attention masks, following the card's ReLU
+    branches (:func:`relu_replay`, flips counted: an input within f32
+    rounding of 0 moves the whole gradient path below it; the first card
+    run without this held the decoder's ``query_embed`` 10x further from the
+    float64 step than the CPU) and taking the card's matches
+    and uncertain points (:func:`criterion_replay`: the random-weight queries
+    are alike, so 48-slot problems meet near-ties, and the top-k of |logit|
+    meets near-equal logits, that rounding decides; each replayed assignment
+    must cost within 1e-5 of the CPU's own optimum on the CPU's costs, and
+    each replayed point lie within LOGIT_RTOL of the largest |logit| of the
+    CPU's own selection threshold); held as ``train_parity`` holds the
+    stage-2 step. Then the
+    eval forward of one 256x512 image on the card and ``instance_inference`` /
+    ``panoptic_inference`` on its logits, and on confident synthetic logits at
+    512x1024, card against CPU. (``card="cpu"`` rehearses the step's control
+    flow without a card.)"""
+    from multishiftseg_torch.models.inference_extras import CITYSCAPES_THING_IDS
+    from multishiftseg_torch.ops.resize import resize_bilinear_nchw
+    from multishiftseg_torch.train.instance_trainer import TrainM2FInstance
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = instance_config("instance", batch, crop, bf16=False)
+    base = seeded_model(torch, seed, num_classes=INST_CLASSES, predictor="vanilla")
+    img, ids, classes = instance_batch(batch, crop, INST_SLOTS, seed + 1)
+    trainers = {side: TrainM2FInstance(cfg, model=copy.deepcopy(base), dataset_name="unused",
+                                       device=dev)
+                for side, dev in (("card", card), ("cpu", "cpu"), ("cpu_f64", "cpu"))}
+    trainers["cpu_f64"].model.double()  # in place: the optimizer keeps the same parameters
+    draws = trainers["cpu"].draws(batch, INST_SLOTS)  # CPU-made, used by all three
+    runs, matches, relus = {}, {}, {}
+    for side, tr in trainers.items():
+        card_run = runs.get("card")
+        matches[side] = {"assign": [], "coords": [], "assign_gaps": [], "point_gaps": []}
+        relus[side] = {"signs": [], "flips": 0}
+
+        def step(tr=tr, side=side):
+            card_side = side != "card"
+            restores = [criterion_replay(torch, matches["card"] if card_side else None,
+                                         matches[side]),
+                        relu_replay(torch, tr.model, relus["card"] if card_side else None,
+                                    relus[side])]
+            try:
+                return tr.step(img, ids, classes, draws=tree_to(draws, tr.device))
+            finally:
+                for restore in restores:
+                    restore()
+
+        runs[side] = recorded_step(torch, tr, step, card_run)
+    g, c = runs["card"], runs["cpu"]
+    n_out = len(g["assign"])  # the final output and the 9 auxiliary ones
+    res = {"phase": "instance_parity", "seed": seed, "batch": batch, "crop": list(crop),
+           "slots": INST_SLOTS, "valid_slots": [int((x >= 0).sum()) for x in classes],
+           "levels": [list(t.shape[-2:]) for t in c["ms"]], "widths": "full",
+           "dtype": "float32", "tf32": False, "launches": g["launches"],
+           "loss_card": g["loss"], "loss_cpu": c["loss"], "grad_norm_card": g["gnorm"],
+           "grad_norm_cpu": c["gnorm"]}
+    checks = compare_steps(torch, runs, trainers["cpu"].optimizer, cfg.model.m2f, res)
+    res["assignment_replay"] = {side: matches[side]["assign_gaps"] for side in ("cpu", "cpu_f64")}
+    res["point_replay"] = {side: matches[side]["point_gaps"] for side in ("cpu", "cpu_f64")}
+    res["relu_calls"] = {side: len(v["signs"]) for side, v in relus.items()}
+    res["relu_flips"] = {side: relus[side]["flips"] for side in ("cpu", "cpu_f64")}
+    res["checks"] = {
+        "relu_calls_equal": len(set(res["relu_calls"].values())) == 1,
+        **checks,
+        "assignments_within_rounding": all(
+            len(gaps) == n_out and all(x["equal"] or x["rel_cost_gap"] <= 1e-5 for x in gaps)
+            for gaps in res["assignment_replay"].values()),
+        "points_within_rounding": all(
+            len(gaps) == n_out and all(x["rel_gap"] <= LOGIT_RTOL for x in gaps)
+            for gaps in res["point_replay"].values())}
+    counts = g["launches"]
+    if card == "cuda":
+        # one match and two label-point launches (targets, mask rows) an output
+        res["checks"]["launches_ok"] = (
+            counts["ms_deform_attn_bilinear"] == 6
+            and counts["ms_deform_attn_bilinear_backward"] == 6
+            and counts["linear_sum_assignment"] == n_out and counts["label_points"] == 2 * n_out)
+        model = trainers["card"].model
+        x = torch.from_numpy(np.random.RandomState(seed + 2).randn(1, 256, 512, 3).astype(
+            np.float32)).cuda()
+        model.eval()
+        with torch.no_grad():
+            out = model(x)
+            masks = resize_bilinear_nchw(out["pred_masks"].float(), (256, 512))[0]
+        # the instance task scores every class; the panoptic one its things
+        res["postprocess_model_logits"] = postprocess_parity(
+            torch, out["pred_logits"][0].float().cpu(), masks.cpu(), None)
+        res["postprocess_confident_logits"] = postprocess_parity(
+            torch, *confident_logits(torch, seed + 3, QUERIES, CLASSES, (512, 1024)),
+            CITYSCAPES_THING_IDS)
+        res["checks"]["postprocess_equal"] = all(
+            v["equal"] for k in ("postprocess_model_logits", "postprocess_confident_logits")
+            for v in res[k].values())
+        res["checks"]["panoptic_segments_kept"] = (
+            res["postprocess_confident_logits"]["panoptic"]["segments"] > 0)
+    res["ok"] = bool(all(res["checks"].values()))
+    return res
+
+
+# the kernels the vanilla recipes' steps and evaluations must launch
+INSTANCE_TRAIN_KERNELS = ("ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward",
+                          "label_points", "linear_sum_assignment")
+INSTANCE_RECIPES = ("instance", "panoptic", "semantic")
+INSTANCE_FRAMES = {"train": 24, "val": 2}
+
+
+def phase_instance_train(torch):
+    """The three vanilla recipes, exps/m2f_{instance,panoptic,semantic}.yaml, at
+    their own widths (R-50, 100 queries, 9 layers, 12544 points, batch 8,
+    unpadded crops of 700x700 / 700x700 / 512x1024, 48 / 48 / 20 slots, bf16,
+    deep supervision, 4 loader workers) through ``train()`` on a generated
+    Cityscapes tree of 1024x2048 frames (``write_segments_tree``: 24 train and
+    2 val frames, 40 things each), only the root and ``n_epochs`` overridden:
+    one epoch of three steps (the median step is a warm one); the instance
+    recipe then resumes from ``last`` for a second epoch with the saved
+    optimizer state. Then ``evaluate(max_images=2)``
+    at 1024x2048 for each. Per recipe: epoch seconds, images/s, the median step
+    on the card, the loader's wait a step, peak memory, the launches of train
+    and of evaluate, and the metrics (random weights: the values mean nothing)."""
+    import tempfile
+
+    from multishiftseg_torch.data.registry import DatasetCatalog
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.tools.synthetic_tree import write_segments_tree
+    from multishiftseg_torch.train.checkpoint import CheckpointManager
+    from multishiftseg_torch.train.instance_trainer import TrainM2FInstance
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    here = Path(__file__).resolve().parent
+    res = {"phase": "instance_train", "card": nvidia_smi(), "frames": INSTANCE_FRAMES,
+           "frame_hw": [H, W], "recipes": {}}
+    totals = {"train": {}, "eval": {}}
+    ok = True
+
+    def add(into, counts):
+        for k, v in counts.items():
+            into[k] = into.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = write_segments_tree(Path(tmp) / "data", SEED + 91, frames=INSTANCE_FRAMES,
+                                   hw=(H, W), things=40)["cityscapes_root"]
+        res["tree_seconds"] = time.perf_counter() - t0
+        for recipe in INSTANCE_RECIPES:
+            def config(n_epochs):
+                from multishiftseg_torch.core.config import load_config
+
+                cfg = load_config(str(here / "exps" / f"m2f_{recipe}.yaml"))
+                cfg.data.cityscapes_root = root
+                cfg.train.n_epochs = n_epochs
+                cfg.model_dir = str(Path(tmp) / f"ckpts_{recipe}")
+                return cfg
+
+            def measured(fn, into):
+                reset_launch_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                add(into, counts)
+                return out, {"seconds": time.perf_counter() - t0,
+                             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                             "launches": {k: v for k, v in counts.items() if v}}
+
+            def epochs(tr):
+                return [{**{k: h[k] for k in ("epoch", "steps", "seconds", "img_per_s",
+                                                "step_ms_median", "loss")},
+                         "loader_wait_s_per_step": h["loader_wait_s"] / h["steps"]}
+                        for h in tr.history]
+
+            t0 = time.perf_counter()
+            tr = TrainM2FInstance(config(1))
+            m = {"model_build_seconds": time.perf_counter() - t0,
+                 "crop": list(tr.cfg.data.crop_size), "slots": tr.cfg.model.m2f.max_instances,
+                 "classes": tr.cfg.model.m2f.num_classes}
+            first, m["train"] = measured(tr.train, totals["train"])
+            m["train"]["epochs"] = epochs(tr)
+            checks = {"finite_loss": bool(np.isfinite(first["loss"])),
+                      "three_steps": [e["steps"] for e in m["train"]["epochs"]] == [3]}
+            if recipe == "instance":  # the resume: a new trainer from `last`
+                del tr
+                saved = CheckpointManager(config(2).model_dir).restore("last")
+                tr = TrainM2FInstance(config(2))
+                second, m["resume"] = measured(lambda: tr.train(resume="last"),
+                                               totals["train"])
+                m["resume"]["epochs"] = epochs(tr)
+                resumed = CheckpointManager(tr.cfg.model_dir).restore("last")
+                checks["resume"] = (saved["epoch"] == 0 and saved["step"] == 3
+                                    and [e["epoch"] for e in m["resume"]["epochs"]] == [1]
+                                    and resumed["step"] == 6 and all(
+                                        int(st["step"]) == 6
+                                        for st in resumed["optimizer"]["state"].values())
+                                    and bool(np.isfinite(second["loss"])))
+            metrics, m["evaluate"] = measured(lambda: tr.evaluate(max_images=2),
+                                              totals["eval"])
+            m["metrics"] = metrics
+            launched = m["train"]["launches"]
+            eval_l = m["evaluate"]["launches"]
+            checks["train_kernels_launched"] = all(launched.get(k, 0) > 0
+                                                   for k in INSTANCE_TRAIN_KERNELS)
+            checks["eval_launches"] = (
+                eval_l.get("ms_deform_attn_bilinear", 0) == 12
+                and eval_l.get("mask_scores_semantic_classes", 0) == (
+                    2 if recipe == "semantic" else 0))
+            checks["metrics"] = metrics is not None and all(
+                np.isnan(v) or 0.0 <= v <= 1.0 for k, v in metrics.items()
+                if k in ("AP", "AP50", "AP75", "PQ", "SQ", "RQ", "mIoU", "pixel_acc"))
+            m["checks"] = checks
+            m["ok"] = bool(all(checks.values()))
+            ok &= m["ok"]
+            res["recipes"][recipe] = m
+            emit({"instance_train": recipe, "card": res["card"],
+                  "epochs": m["train"]["epochs"] + m.get("resume", {}).get("epochs", []),
+                  "peak_mem_gib": max(m["train"]["peak_mem_gib"],
+                                      m.get("resume", {}).get("peak_mem_gib", 0.0)),
+                  "launches_train": launched, "launches_evaluate": eval_l,
+                  "evaluate_seconds": m["evaluate"]["seconds"],
+                  "metrics": {k: v for k, v in metrics.items() if k != "AP_per_class"},
+                  "ok": m["ok"]})
+            del tr
+            torch.cuda.empty_cache()
+    for name in DatasetCatalog.list():
+        DatasetCatalog.remove(name)
+    res["ok"] = bool(ok)
+    return res, totals
+
+
 PHASES = ("kernels", "slice_parity", "serve", "train_parity", "train", "deeplab_parity",
           "deeplab_serve", "deeplab_train_parity", "deeplab_train", "stage1_parity",
-          "stage1_train", "validate", "evaluate", "train_loop")
+          "stage1_train", "validate", "evaluate", "train_loop", "instance_parity",
+          "instance_train")
 
 
 def parse_args(argv):
@@ -2821,13 +3402,16 @@ def main(argv=None):
     val_launches = run("validate", phase_validate)
     eval_launches = run("evaluate", phase_evaluate)
     loop_launches = run("train_loop", phase_train_loop)
+    run("instance_parity", phase_instance_parity)
+    inst_launches = run("instance_train", phase_instance_train)
 
     # each main path was run with the counts set to 0 just before it; a row
     # counts its counter over its paths (default: every path)
     paths = {"serve": launches, "train": train_launches, "deeplab_serve": dl_launches,
              "deeplab_train": dl_train_launches, "stage1_train": s1_launches,
              "validate": val_launches, "evaluate": eval_launches,
-             "train_loop": loop_launches}
+             "train_loop": loop_launches, "instance_train": inst_launches.get("train", {}),
+             "instance_eval": inst_launches.get("eval", {})}
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))

@@ -1,11 +1,12 @@
 """JAX ``MaskFormer`` and ``DeepWV3Plus`` variables -> the port's ``state_dict``.
 
 The inverse of ``multishiftseg_tpu/convert/torch2jax.py::convert_maskformer``
-(R-50 + MSDeformAttn + GMA) and of ``convert_deeplab`` (:84-137, WRN-38
-DeepLab v3+ with its OOD head): conv HWIO -> OIHW, dense ``[in, out]`` ->
-``[out, in]``, BatchNorm/LayerNorm/GroupNorm ``scale`` -> ``weight``, running
-statistics from ``batch_stats``, and the ``q_proj``/``k_proj``/``v_proj`` of each
-attention packed into ``in_proj_weight``/``in_proj_bias``. The input is a nested
+(R-50 + MSDeformAttn + GMA; also the vanilla decoder's single
+``cross_{i}/multihead_attn``, which ``convert_maskformer`` does not read) and
+of ``convert_deeplab`` (:84-137, WRN-38 DeepLab v3+ with its OOD head): conv
+HWIO -> OIHW, dense ``[in, out]`` -> ``[out, in]``, BatchNorm/LayerNorm/GroupNorm
+``scale`` -> ``weight``, running statistics from ``batch_stats``, and the
+``q_proj``/``k_proj``/``v_proj`` of each attention packed into ``in_proj_weight``/``in_proj_bias``. The input is a nested
 dict of numpy arrays (``{"params": ..., "batch_stats": ...}``); a tree holding
 only some of ``backbone``, ``pixel_decoder`` and ``predictor`` converts those.
 Any path without a rule raises; a strict ``load_state_dict`` then also refuses
@@ -41,7 +42,7 @@ _MODULE_RULES = [
     (r"pixel_decoder/(adapter|layer)_(\d+)/conv", PIXEL_DECODER + r".\1_\2"),
     (r"pixel_decoder/(adapter|layer)_(\d+)_gn", PIXEL_DECODER + r".\1_\2.norm"),
     (r"pixel_decoder/mask_features/conv", PIXEL_DECODER + ".mask_features"),
-    (r"predictor/cross_(\d+)/(multihead_attn_(?:foreground|background)|norm)",
+    (r"predictor/cross_(\d+)/(multihead_attn(?:_foreground|_background)?|norm)",
      PREDICTOR + r".transformer_cross_attention_layers.\1.\2"),
     (r"predictor/self_(\d+)/(self_attn|norm)",
      PREDICTOR + r".transformer_self_attention_layers.\1.\2"),

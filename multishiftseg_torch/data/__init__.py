@@ -1,1 +1,2 @@
-"""Evaluation datasets, their transforms and image decoding."""
+"""Datasets (training and evaluation), their transforms, the segment mappers and
+the dataset catalog, and image decoding."""

@@ -1,11 +1,15 @@
 """Set criterion for mask classification (Hungarian-matched losses) with the
 Mask2Anomaly OOD extensions, and the label-point kernel it samples targets with.
 
-Counterpart of ``multishiftseg_tpu/losses/criterion.py:37-261, 339-495``
+Counterpart of ``multishiftseg_tpu/losses/criterion.py:37-336, 339-495``
 (``CriterionConfig``, ``set_criterion``, ``_single_output_losses``,
 ``_plain_mask_losses``, ``_clean_point_coords``, ``uncertain_point_coords``,
-``_finish_ood_loss``, the deep-supervision loop). The batch's leading axis is
-[clean ‖ augmented]; the target slots are the K train ids with a presence mask.
+``_finish_ood_loss``, the deep-supervision loop, and the instance criterion
+``set_criterion_instance`` / ``_instance_output_losses``). In
+:func:`set_criterion` the batch's leading axis is [clean ‖ augmented] and the
+target slots are the K train ids with a presence mask; in
+:func:`set_criterion_instance` the slots are T segments of an id map, each with
+its class (duplicates allowed, -1 for padding).
 Target masks are never materialised: they are sampled at points from the label
 map, by the CUDA kernel ``csrc/label_points.cu`` for CUDA tensors and by the
 plain 4-corner gather for CPU tensors.
@@ -14,7 +18,7 @@ Random numbers are an input. :func:`criterion_draws` makes every draw of one
 ``set_criterion`` call from a ``torch.Generator``; the losses take them as
 tensors, so a test can hand both frameworks the very same numbers (the JAX
 version draws them from ``jax.random`` keys at ``criterion.py:360-361, 405,
-417, 156-166`` and ``rcl.py:171-174``).
+417, 156-166, 306-307`` and ``rcl.py:171-174``).
 
 All losses run in f32, outside any autocast region.
 """
@@ -193,9 +197,12 @@ def _point_counts(cfg: CriterionConfig):
 
 def criterion_draws(generator: torch.Generator, batch: int, cfg: CriterionConfig,
                     label_hw: Tuple[int, int], crop_hw: Optional[Tuple[int, int]] = None,
-                    num_aux: int = 0, device=None) -> Dict[str, object]:
+                    num_aux: int = 0, device=None, slots: Optional[int] = None
+                    ) -> Dict[str, object]:
     """Every uniform [0, 1) draw of one :func:`set_criterion` call, made from
-    ``generator`` on its device (or ``device``).
+    ``generator`` on its device (or ``device``). ``slots`` replaces K, the
+    target slots of each image, for :func:`set_criterion_instance` (its T
+    segment slots; ``cfg`` then has no pixel selection and no OOD loss).
 
     Keys: ``match_coords`` [B, P, 2]; with pixel selection ``orig_coords``
     [B/2, K, P, 2], ``clean_coords`` [B/2 * K, 1.25 P, 2] and ``clean_rand``
@@ -205,7 +212,8 @@ def criterion_draws(generator: torch.Generator, batch: int, cfg: CriterionConfig
     auxiliary output.
     """
     device = device if device is not None else generator.device
-    K, P, half = cfg.num_classes, cfg.num_points, batch // 2
+    K = cfg.num_classes if slots is None else slots
+    P, half = cfg.num_points, batch // 2
     (n_clean, r_clean), (n_unc, r_unc) = _point_counts(cfg)
 
     def rand(*shape):
@@ -336,6 +344,72 @@ def set_criterion(outputs: Dict[str, object], sem_seg: torch.Tensor, draws: Dict
                 losses.update({f"{k}_{i}": v for k, v in l_i.items()})
                 assignments.append(a_i)
     return total, losses, assignments
+
+
+def set_criterion_instance(outputs: Dict[str, object], id_map: torch.Tensor,
+                           tgt_classes: torch.Tensor, draws: Dict[str, object],
+                           cfg: CriterionConfig
+                           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], List[torch.Tensor]]:
+    """The instance criterion: per-segment targets with duplicate classes
+    (the reference's ``prepare_targets``), padded to T slots.
+
+    id_map [B, H, W] int: the segment slot of each pixel, -1 = ignore;
+    tgt_classes [B, T] int: each slot's class, -1 = padding; draws from
+    :func:`criterion_draws` with ``slots=T``. Losses: labels and the plain
+    uncertainty-sampled masks, no OOD loss. Under ``cfg.deep_supervision`` the
+    match and the losses repeat per auxiliary output with ``_{i}``-suffixed keys.
+    Returns (total, components, the assignments [B, T], the final output's
+    first).
+    """
+    with torch.autocast(id_map.device.type, enabled=False):
+        total, losses, assignment = _instance_output_losses(outputs, id_map, tgt_classes,
+                                                            draws, cfg)
+        assignments = [assignment]
+        if cfg.deep_supervision:
+            for i, aux in enumerate(outputs.get("aux_outputs", [])):
+                t_i, l_i, a_i = _instance_output_losses(aux, id_map, tgt_classes,
+                                                        draws["aux"][i], cfg)
+                total = total + t_i
+                losses.update({f"{k}_{i}": v for k, v in l_i.items()})
+                assignments.append(a_i)
+    return total, losses, assignments
+
+
+def _instance_output_losses(outputs, id_map, tgt_classes, draws, cfg):
+    b, t = tgt_classes.shape
+    K = cfg.num_classes
+    dev = id_map.device
+    pred_logits = outputs["pred_logits"].float()  # [B, Q, K+1]
+    pred_masks = outputs["pred_masks"].float()  # [B, Q, Hs, Ws]
+    q = pred_logits.shape[1]
+    tgt_classes = tgt_classes.long()
+    valid = tgt_classes >= 0
+    num_masks = valid.sum().clamp_min(1).float()
+
+    # slot t's mask is (id_map == t): the semantic path's sampling with the
+    # slot indices for classes
+    match_coords = draws["match_coords"]
+    out_pts = point_sample_nchw(pred_masks.detach(), match_coords)  # [B, Q, P]
+    tgt_pts = sample_target_points(id_map, match_coords, t)  # [B, T, P]
+    assignment = match(pred_logits.detach(), out_pts, tgt_pts, valid,
+                       cost_class_w=cfg.class_weight, cost_mask_w=cfg.mask_weight,
+                       cost_dice_w=cfg.dice_weight, tgt_classes=tgt_classes)  # [B, T]
+
+    # loss_labels: each slot's class at its matched query (the assignment is
+    # injective over an image's slots), no-object elsewhere and for padding
+    slot_classes = torch.where(valid, tgt_classes, torch.full_like(tgt_classes, K))
+    target_classes = torch.full((b, q), K, dtype=torch.long, device=dev).scatter(
+        1, assignment, slot_classes)
+    logp = F.log_softmax(pred_logits, dim=-1)
+    nll = -logp.gather(-1, target_classes[..., None])[..., 0]
+    class_w = torch.where(target_classes == K, cfg.eos_coef, 1.0)
+    loss_ce = (nll * class_w).sum() / class_w.sum()
+
+    matched_masks = pred_masks[torch.arange(b, device=dev)[:, None], assignment]  # [B, T, ...]
+    losses = {"loss_ce": loss_ce * cfg.class_weight,
+              **_plain_mask_losses(draws, matched_masks, id_map, valid.float(), num_masks,
+                                   cfg)}
+    return sum(losses.values()), losses, assignment
 
 
 def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw=None):

@@ -5,8 +5,10 @@ Counterpart of ``multishiftseg_tpu/losses/matcher.py``: the per-image cost
 (class + point-sampled sigmoid-CE + dice, :112-156) is computed batched in f32,
 and the minimum-cost assignment (``linear_sum_assignment``, :28-109) is the CUDA
 kernel ``csrc/assignment.cu`` for CUDA tensors and the same algorithm in numpy
-on the host for CPU tensors. Target slots are the K train ids; a slot whose
-class is absent from the image costs ``BIG`` against every query. Rows of the
+on the host for CPU tensors. Target slots are the K train ids, or, in
+instance mode (``tgt_classes``), T segments of any classes, duplicates
+allowed (:138-181); a slot that is absent or padding costs ``BIG`` against
+every query. Rows of the
 assignment problem are targets, columns are queries.
 """
 
@@ -179,13 +181,21 @@ def batch_dice_cost(inputs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor
 def compute_match_cost(pred_logits: torch.Tensor, out_points: torch.Tensor,
                        tgt_points: torch.Tensor, valid: torch.Tensor,
                        cost_class_w: float, cost_mask_w: float,
-                       cost_dice_w: float) -> torch.Tensor:
-    """[B, Q, T] total matching cost for semantic targets (slot t is class t);
-    invalid slots cost ``BIG``."""
+                       cost_dice_w: float,
+                       tgt_classes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, Q, T] total matching cost; invalid slots cost ``BIG``. Semantic
+    targets: slot t is class t. Instance targets: slot t is class
+    ``tgt_classes[b, t]`` ([B, T] int, -1 for padding, which reads class 0 and
+    is masked to ``BIG`` with the other invalid slots)."""
     probs = torch.softmax(pred_logits.float(), dim=-1)
     t = tgt_points.shape[1]
     out_points = out_points.float()
-    cost = (cost_class_w * -probs[..., :t]
+    if tgt_classes is None:
+        cost_class = -probs[..., :t]
+    else:
+        idx = tgt_classes.long().clamp(0, probs.shape[-1] - 1)
+        cost_class = -probs.gather(2, idx[:, None, :].expand(-1, probs.shape[1], -1))
+    cost = (cost_class_w * cost_class
             + cost_mask_w * batch_sigmoid_ce_cost(out_points, tgt_points)
             + cost_dice_w * batch_dice_cost(out_points, tgt_points))
     return torch.where(valid[:, None, :], cost, torch.full_like(cost, BIG))
@@ -194,8 +204,10 @@ def compute_match_cost(pred_logits: torch.Tensor, out_points: torch.Tensor,
 @torch.no_grad()
 def match(pred_logits: torch.Tensor, out_points: torch.Tensor, tgt_points: torch.Tensor,
           valid: torch.Tensor, cost_class_w: float = 2.0, cost_mask_w: float = 5.0,
-          cost_dice_w: float = 5.0) -> torch.Tensor:
-    """Batched matching -> the query of each target slot, [B, T] int64."""
+          cost_dice_w: float = 5.0, tgt_classes: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    """Batched matching -> the query of each target slot, [B, T] int64
+    (``tgt_classes``: instance mode, see :func:`compute_match_cost`)."""
     cost = compute_match_cost(pred_logits, out_points, tgt_points, valid,
-                              cost_class_w, cost_mask_w, cost_dice_w)
+                              cost_class_w, cost_mask_w, cost_dice_w, tgt_classes)
     return linear_sum_assignment(cost.transpose(1, 2))  # rows = targets

@@ -1,8 +1,10 @@
 """MaskFormer meta-architecture (Mask2Anomaly variant): backbone -> pixel decoder ->
-GMA transformer decoder, plus preprocessing and semantic / anomaly inference.
+GMA or vanilla transformer decoder, plus preprocessing and semantic / anomaly
+inference.
 
 Counterpart of ``multishiftseg_tpu/models/maskformer.py`` for backbone
-``resnet50``, pixel decoder ``msdeformattn`` and predictor ``gma``. Module names
+``resnet50``, pixel decoder ``msdeformattn`` and predictors ``gma`` and
+``vanilla`` (the latter's prediction dict has no ``pred_*_ood`` keys). Module names
 follow the reference: ``backbone.*``, ``sem_seg_head.pixel_decoder.*``,
 ``sem_seg_head.predictor.*``. Images enter as ``[N, H, W, 3]``.
 """
@@ -20,7 +22,11 @@ from ..ops.scores import (anomaly_score_lowres, anomaly_score_topq,  # noqa: F40
                           semantic_inference_upsampled)
 from .pixel_decoder import MSDeformAttnPixelDecoder
 from .resnet import ResNet
-from .transformer_decoder import MultiScaleMaskedTransformerDecoderGMA
+from .transformer_decoder import (MultiScaleMaskedTransformerDecoder,
+                                  MultiScaleMaskedTransformerDecoderGMA)
+
+PREDICTORS = {"gma": MultiScaleMaskedTransformerDecoderGMA,
+              "vanilla": MultiScaleMaskedTransformerDecoder}
 
 PIXEL_MEAN = (123.675, 116.280, 103.530)
 PIXEL_STD = (58.395, 57.120, 57.375)
@@ -37,7 +43,8 @@ class MaskFormerHead(nn.Module):
 
 
 class MaskFormer(nn.Module):
-    """Prediction dict of the GMA decoder for preprocessed ``[N, H, W, 3]`` images."""
+    """Prediction dict of the ``predictor`` decoder (``gma``, the default, or
+    ``vanilla``) for preprocessed ``[N, H, W, 3]`` images."""
 
     def __init__(self, num_classes: int = 19, backbone: str = "resnet50",
                  hidden_dim: int = 256, num_queries: int = 100, nheads: int = 8,
@@ -49,7 +56,7 @@ class MaskFormer(nn.Module):
             raise NotImplementedError(f"backbone {backbone!r} is not ported")
         if pixel_decoder != "msdeformattn":
             raise NotImplementedError(f"pixel_decoder {pixel_decoder!r} is not ported")
-        if predictor != "gma":
+        if predictor not in PREDICTORS:
             raise NotImplementedError(f"predictor {predictor!r} is not ported")
         self.num_classes = num_classes
         self.backbone = ResNet(depth=50)
@@ -57,7 +64,7 @@ class MaskFormer(nn.Module):
         self.sem_seg_head = MaskFormerHead(
             MSDeformAttnPixelDecoder(conv_dim=hidden_dim, mask_dim=mask_dim,
                                      transformer_enc_layers=transformer_enc_layers),
-            MultiScaleMaskedTransformerDecoderGMA(
+            PREDICTORS[predictor](
                 num_classes=num_classes, hidden_dim=hidden_dim, num_queries=num_queries,
                 nheads=nheads, dim_feedforward=dim_feedforward, dec_layers=dec_layers,
                 mask_dim=mask_dim))
@@ -65,7 +72,8 @@ class MaskFormer(nn.Module):
     def forward(self, images: torch.Tensor,
                 deform_sample_mode: Union[str, Sequence[str]] = "bilinear",
                 quantize_deform_table: bool = False) -> Dict[str, object]:
-        """images: [N, H, W, 3], normalised and padded to /32 (:func:`preprocess`).
+        """images: [N, H, W, 3], normalised; padded to /32 (:func:`preprocess`) for
+        evaluation, or the unpadded crops of the instance trainer.
         ``deform_sample_mode``: a sample mode of ``ops.ms_deform_attn``
         (``bilinear``, exact, by default), or one per encoder layer;
         ``quantize_deform_table``: the int8 value table (``bilinear`` layers;
@@ -113,6 +121,9 @@ def inference(outputs: Dict[str, torch.Tensor], image_hw: Tuple[int, int],
     """
     if score_lowres and score_topq:
         raise ValueError("score_lowres and score_topq are exclusive; set one")
+    if "pred_logits_ood" not in outputs:
+        raise ValueError("inference scores anomalies with the GMA decoder's OOD head; "
+                         "the vanilla decoder has none")
     sem = semantic_inference_upsampled(outputs["pred_logits"], outputs["pred_masks"],
                                        image_hw, num_classes, _classes_only=_classes_only)
     cls, masks = outputs["pred_logits_ood"], outputs["pred_masks_ood"]

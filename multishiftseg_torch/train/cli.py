@@ -8,9 +8,10 @@
 The log goes to ``cfg.log_dir/log.txt`` (``outputs/<id>/`` by default) and to
 stderr; checkpoints and ``scalars.csv`` to ``cfg.model_dir`` (``ckpts/<id>/``).
 It trains on the card unless ``--device cpu`` is given, and raises when CUDA is
-asked for and absent. The instance, panoptic and vanilla Mask2Former
-configurations (``instance_trainer.py`` in the JAX package) are not ported
-(ROADMAP Queue 1 item 3).
+asked for and absent. The vanilla Mask2Former recipes
+(``exps/m2f_{instance,panoptic,semantic}.yaml``: ``instance_on``,
+``panoptic_on`` or ``ood_finetune: false``) train :class:`TrainM2FInstance`;
+``--run evaluate`` then reports its AP / PQ / mIoU on the val split.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ def trainer_class(model: str, cfg):
         return TrainDeepLabOOD
     m = cfg.model.m2f
     if m.instance_on or m.panoptic_on or not m.ood_finetune:
-        raise NotImplementedError(
-            "the instance, panoptic and vanilla Mask2Former configurations "
-            "(instance_trainer.py in the JAX package) are not ported: ROADMAP Queue 1 item 3")
+        from .instance_trainer import TrainM2FInstance
+
+        return TrainM2FInstance
     from .m2f_trainer import TrainM2FOOD
 
     return TrainM2FOOD

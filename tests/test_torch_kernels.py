@@ -540,6 +540,53 @@ def test_label_points_kernel_matches_plain(cuda):
     torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-6)
 
 
+@pytest.mark.cuda
+def test_label_points_instance_slots_match_plain(cuda):
+    """The instance criterion's shapes: segment id maps of 8 unpadded 700x700
+    crops with -1 (ignore) pixels, T = 48 slots, 12544 points; the match's
+    targets (every slot at every point) and the mask losses' rows (each
+    (image, slot) pair on its own points)."""
+    rng = np.random.RandomState(6)
+    b, t, p = 8, 48, 12544
+    ids = np.repeat(np.repeat(rng.randint(-1, t, (b, 44, 44)), 16, 1), 16, 2)[:, :700, :700]
+    lab = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    coords = torch.from_numpy(rng.rand(b, p, 2).astype(np.float32)).to(cuda)
+    got = criterion.sample_target_points(lab, coords, t)
+    want = criterion.sample_target_points_plain(lab, coords, t)
+    rows = torch.from_numpy((rng.rand(b * t, p, 2) * 1.2 - 0.1).astype(np.float32)).to(cuda)
+    slots = torch.arange(t, device=cuda).repeat(b)
+    got_r = criterion.sample_class_points(lab, rows, slots, rows_per_map=t)
+    want_r = criterion.sample_class_points_plain(lab, rows, slots, rows_per_map=t)
+    torch.cuda.synchronize()
+    # a sum of at most four corner weights in f32, in another order
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-6)
+    assert float(got.sum(1).max()) <= 1 + 1e-6 and float(got.sum(1).min()) == 0.0  # -1 pixels
+
+
+@pytest.mark.cuda
+def test_assignment_instance_shape_matches_plain(cuda):
+    """The instance match: 8 problems of 48 target slots x 100 queries, costs
+    from ``compute_match_cost`` with duplicate classes and -1 padding slots
+    (rows at BIG), made once on the CPU and solved by the kernel and the plain
+    version: the same assignment."""
+    rng = np.random.RandomState(7)
+    b, q, t, k, p = 8, 100, 48, 8, 256
+    matcher.check_assignment_shape(t, q)
+    classes = torch.from_numpy(rng.randint(0, k, (b, t)))
+    for i in range(b):
+        classes[i, 10 + 4 * i:] = -1  # 10..38 valid slots
+    cost = matcher.compute_match_cost(
+        torch.from_numpy(rng.randn(b, q, k + 1).astype(np.float32)),
+        torch.from_numpy(3 * rng.randn(b, q, p).astype(np.float32)),
+        torch.from_numpy((rng.rand(b, t, p) > 0.7).astype(np.float32)), classes >= 0,
+        2.0, 5.0, 5.0, tgt_classes=classes).transpose(1, 2).contiguous()
+    got = matcher.linear_sum_assignment(cost.to(cuda))
+    want = matcher.linear_sum_assignment_plain(cost)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
 # (N, H, W, Cin, Cout, rate): maps smaller and larger than the rate, H < rate <
 # W, odd sizes, channel counts off the 8 / 64 / 128 / 256 tiles, taps wholly
 # outside; the training map's width (88, not a multiple of the forward's 16-px

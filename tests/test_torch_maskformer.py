@@ -156,8 +156,12 @@ def test_nearest_mode_forward_runs(slice_run):
 def test_unported_options_raise(slice_run):
     with pytest.raises(NotImplementedError):
         MaskFormer(backbone="swin_tiny")
+    # the vanilla decoder is ported (test_torch_instance_model.py); MaskFormer-v1's
+    # decoder and the FPN pixel decoder are not
     with pytest.raises(NotImplementedError):
-        MaskFormer(predictor="vanilla")
+        MaskFormer(predictor="standard")
+    with pytest.raises(NotImplementedError):
+        MaskFormer(pixel_decoder="fpn")
     # both approximate tails at once (JAX lets score_topq win), an unknown mode
     with pytest.raises(ValueError, match="exclusive"):
         inference(slice_run["out"], (H, W), score_lowres=True, score_topq=4)

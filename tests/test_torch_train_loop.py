@@ -28,7 +28,7 @@ from multishiftseg_tpu.models.maskformer import MaskFormer as JaxMaskFormer
 from multishiftseg_torch.core.config import load_config
 from multishiftseg_torch.models.deeplab import DeepWV3Plus
 from multishiftseg_torch.models.maskformer import MaskFormer
-from multishiftseg_torch.tools.synthetic_tree import write_training_tree
+from multishiftseg_torch.tools.synthetic_tree import write_segments_tree, write_training_tree
 from multishiftseg_torch.train import cli
 from multishiftseg_torch.train.checkpoint import CheckpointManager
 from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD
@@ -300,22 +300,44 @@ def test_logging_helpers(tmp_path):
     assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
 
 
-def test_cli_routes_the_model_and_refuses_the_instance_configuration(tree, tmp_path):
+def test_cli_routes_the_model_and_refuses_the_instance_configuration(tree, tmp_path,
+                                                                     monkeypatch):
+    """The routing of ``--model`` and the configuration. The name is from
+    before the instance trainer was ported, when this test held that the CLI
+    refused the vanilla recipes; now each of exps/m2f_{instance,panoptic,
+    semantic}.yaml (``instance_on``, ``panoptic_on``, ``ood_finetune: false``)
+    builds ``TrainM2FInstance`` through the CLI with ``--device cpu``."""
+    from multishiftseg_torch.data.registry import DatasetCatalog
+    from multishiftseg_torch.train.instance_trainer import InstanceDataset, TrainM2FInstance
+
     cfg = load_config("exps/m2f.yaml")
     assert cli.trainer_class("m2f", cfg) is TrainM2FOOD
     assert cli.trainer_class("deeplab", cfg) is TrainDeepLabOOD
     for flag in ("instance_on", "panoptic_on"):
         c = load_config("exps/m2f.yaml")
         setattr(c.model.m2f, flag, True)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-            cli.trainer_class("m2f", c)
+        assert cli.trainer_class("m2f", c) is TrainM2FInstance
     c = load_config("exps/m2f.yaml")
     c.model.m2f.ood_finetune = False
-    with pytest.raises(NotImplementedError):
-        cli.trainer_class("m2f", c)
+    assert cli.trainer_class("m2f", c) is TrainM2FInstance
+    repo = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    monkeypatch.chdir(tmp_path)  # the recipes' root is ./datasets/cityscapes
+    write_segments_tree(tmp_path / "datasets", seed=0, frames={"train": 1}, hw=(64, 96),
+                        things=4)
+    try:
+        for name, task in (("instance", "instance"), ("panoptic", "panoptic"),
+                           ("semantic", "sem_seg")):
+            yaml_path = os.path.join(repo, "exps", f"m2f_{name}.yaml")
+            assert cli.trainer_class("m2f", load_config(yaml_path)) is TrainM2FInstance
+            ds = cli.main(["--model", "m2f", "--cfg", yaml_path, "--id", f"route_{name}",
+                           "--device", "cpu", "--run", "build_dataset"])
+            assert isinstance(ds, InstanceDataset) and ds.task == task and len(ds) == 1
+    finally:
+        for name in DatasetCatalog.list():
+            DatasetCatalog.remove(name)
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA"):
-            cli.main(["--model", "deeplab", "--cfg", "exps/deeplab.yaml",
+            cli.main(["--model", "deeplab", "--cfg", os.path.join(repo, "exps", "deeplab.yaml"),
                       "--id", str(tmp_path / "nocard")])
 
 
