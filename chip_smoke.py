@@ -95,8 +95,10 @@ exits non-zero and prints no result. Phases, one JSON line each:
    with TF32 off, card against CPU and a float64 CPU step from the same
    weights, batch and CPU-made draws, the CPU steps attending with the card's
    attention masks and matching with its assignments (each within 1e-5 of the
-   CPU's own optimum on the CPU's costs): losses, gradients, the AdamW update,
-   the launches (6 + 6 deformable, 10 assignments, 20 label points); then
+   CPU's own optimum on the CPU's costs): losses, the AdamW update, the
+   gradients against a float64 step on the card's ReLU branches (each
+   replayed unit's input within rounding of 0), the launches (6 + 6
+   deformable, 10 assignments, 20 label points); then
    ``instance_inference`` / ``panoptic_inference`` on the card against the
    CPU on the same logits (the model's at 256x512, and confident synthetic
    ones at 512x1024).
@@ -132,11 +134,13 @@ stage 1's shapes (the anomaly score, and the K class channels alone), the
 anomaly tail's backward there (d probs alone, and with d masks) and with
 forced ties, and
 the binned metrics' masked range and 8192-bin histogram at 720x1280 and
-1024x2048 (bit-for-bit equal to the plain versions); the vanilla recipes':
-the label points over 8 segment id maps of 700x700 with -1 pixels and 48
-slots, the assignment of 8 problems of 48 slots x 100 queries with
-duplicate classes and padding rows, and the semantic evaluation's K-class
-score tail at 1024x2048; and the eval fast
+1024x2048 (bit-for-bit equal to the plain versions); the vanilla recipes',
+at the instance and panoptic recipes' shapes (8 unpadded 700x700 crops, 48
+slots) and at the semantic recipe's (8 of 512x1024, 20 slots): the bilinear
+deformable forward and backward, the label points over 8 segment id maps
+with -1 pixels, the assignment of 8 problems of T slots x 100 queries with
+padding rows (duplicate classes at 48 slots), and the semantic evaluation's
+K-class score tail at 1024x2048; and the eval fast
 paths' at the main-path shapes: the int8 table's quantize (bit for bit) and
 forward, ``nearest_top6``, ``nearest_top6c`` and ``shared`` (the centroid modes
 held off their rounding boundaries, flips counted), with f32 edge cases
@@ -146,10 +150,11 @@ are those of the main paths: ``serve``, ``deeplab_serve``, ``validate`` and
 ``evaluate`` for the eval kernels, the timed steps of ``train``,
 ``deeplab_train`` and ``stage1_train`` and the epochs of ``train_loop`` for
 the training kernels, and ``instance_train``'s ``train()`` and ``evaluate()``
-calls for the vanilla recipes' (the dilated conv's, the bilinear deformable
-forward's, the anomaly tail's, the classes-only tail's, the label points'
-and the assignment's rows split them: eval paths, training steps, the
-vanilla recipes' shapes), each path run
+calls for the vanilla recipes', counted per recipe (the dilated conv's, the
+bilinear deformable forward's and backward's, the anomaly tail's, the
+classes-only tail's, the label points' and the assignment's rows split them:
+eval paths, training steps, each row of the vanilla recipes the recipes at
+its shapes), each path run
 with the counts set to 0 just before it and read just after.
 
 Every row's ``ms`` times single synchronised calls (the wrapper's host time
@@ -232,6 +237,16 @@ S1_MASK_HW = (TRAIN_HW[0] // 4, TRAIN_HW[1] // 4)
 # the vanilla recipes (exps/m2f_{instance,panoptic,semantic}.yaml): batch 8 of
 # unpadded 700x700 crops, 48 target slots (instance and panoptic), 8 thing classes
 INST_BATCH, INST_SLOTS, INST_CLASSES = 8, 48, 8
+# their step's shapes: the crop, the target slots and the recipes that run
+# them; the semantic recipe's crops are 512x1024 with 20 slots
+INST_SHAPES = {"instance": (CROP, INST_SLOTS, ("instance", "panoptic")),
+               "semantic": ((512, 1024), 20, ("semantic",))}
+
+
+def pyramid(crop):
+    """The deformable encoder's levels (strides 32, 16, 8) of an unpadded crop:
+    R-50's stride-2 stages round up."""
+    return [(-(-crop[0] // s), -(-crop[1] // s)) for s in (32, 16, 8)]
 # the binned validation metrics: 8192 bins; SMIYC RoadAnomaly21's validation
 # images are 720x1280, Cityscapes-sized ones 1024x2048
 NUM_BINS = 8192
@@ -744,34 +759,39 @@ def approx_kernel_rows(torch, dev, rows, check, checks):
                    "equal": same, "ok": same})
 
 
-def train_kernel_rows(torch, dev, rows, check, checks):
-    """The training slice's kernels at the stage-2 shapes (16 images at 704x704)."""
-    from multishiftseg_torch.losses import criterion, matcher
+def msda_train_rows(torch, dev, rows, check, levels, b, seed, shapes, paths):
+    """The bilinear deformable forward and backward of a training step over
+    ``b`` images with the pyramid ``levels``, bf16 as trained, against their
+    plain versions: rows ``ms_deform_attn_bilinear_backward`` and
+    ``ms_deform_attn_bilinear_train_shapes`` (``shapes`` empty), or
+    ``ms_deform_attn_bilinear_backward_{shapes}_shapes`` and
+    ``ms_deform_attn_bilinear_{shapes}_shapes``, which count the launches of
+    ``paths``."""
     from multishiftseg_torch.ops import ms_deform_attn as msda
 
-    b = 2 * TRAIN_PAIRS
-    # deformable backward, bf16 as trained. Tolerance: d value sums in f32 by
-    # atomics in run-to-run order and both sides round once to bf16 (one bf16
-    # step, 2^-8 relative); d loc and d attn reduce 32 channels in f32
-    lq = sum(h * w for h, w in TRAIN_LEVELS)
-    value, loc, attn = msda_inputs(torch, TRAIN_LEVELS, lq, torch.bfloat16, dev, SEED + 7,
-                                   batch=b)
-    g = torch.from_numpy(np.random.RandomState(SEED + 8).randn(
+    # deformable backward. Tolerance: d value sums in f32 by atomics in
+    # run-to-run order and both sides round once to bf16 (one bf16 step,
+    # 2^-8 relative); d loc and d attn reduce 32 channels in f32
+    lq = sum(h * w for h, w in levels)
+    value, loc, attn = msda_inputs(torch, levels, lq, torch.bfloat16, dev, seed, batch=b)
+    g = torch.from_numpy(np.random.RandomState(seed + 1).randn(
         b, lq, N_HEADS * HEAD_DIM).astype(np.float32)).to(dev, torch.bfloat16)
-    run = lambda: msda.ms_deform_attn_backward(value, TRAIN_LEVELS, loc, attn, g)
-    plain = lambda: msda.ms_deform_attn_backward_plain(value, TRAIN_LEVELS, loc, attn, g)
+    run = lambda: msda.ms_deform_attn_backward(value, levels, loc, attn, g)
+    plain = lambda: msda.ms_deform_attn_backward_plain(value, levels, loc, attn, g)
     got, want = run(), plain()
     torch.cuda.synchronize()
-    errs = [check(f"ms_deform_attn_bilinear_backward_{n}_main_shapes", x, y, 1e-2 * float(
-        y.float().abs().max()), 1e-2) for n, x, y in zip(("dvalue", "dloc", "dattn"), got, want)]
+    errs = [check(f"ms_deform_attn_bilinear_backward_{n}_{shapes or 'main'}_shapes", x, y,
+                  1e-2 * float(y.float().abs().max()), 1e-2)
+            for n, x, y in zip(("dvalue", "dloc", "dattn"), got, want)]
     del got, want
-    ops = msda_ops(torch, loc, TRAIN_LEVELS, "bilinear", backward=True)
+    ops = msda_ops(torch, loc, levels, "bilinear", backward=True)
     out_bytes = nbytes(value) + nbytes(loc) + nbytes(attn)  # d value, d loc, d attn
     b_ms, b_by = bound(nbytes(value, loc, attn, g) + out_bytes, ops)
-    rows["ms_deform_attn_bilinear_backward"] = {
-        "name": "ms_deform_attn_bilinear_backward", "route": "cuda",
-        "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
+    name = "ms_deform_attn_bilinear_backward" + (f"_{shapes}_shapes" if shapes else "")
+    rows[name] = {
+        "name": name, "route": "cuda", "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
         "replaces": "multishiftseg_tpu/ops/ms_deform_attn.py:587",
+        "counter": "ms_deform_attn_bilinear_backward", "paths": paths,
         "max_abs_err": max(errs), "ms": median_ms(torch, run, 10),
         "plain_ms": median_ms(torch, plain, 3), "bound_ms": b_ms, "bound_by": b_by,
         # no single PyTorch call computes this function (grid_sample's backward
@@ -779,25 +799,32 @@ def train_kernel_rows(torch, dev, rows, check, checks):
         "library_ms": None}
     # the bilinear forward at the same shapes, 6 launches in every M2F step;
     # tolerance as at the eval shapes (one bf16 step plus f32 order noise)
-    run = lambda: msda.ms_deform_attn_core(value, TRAIN_LEVELS, loc, attn, "bilinear")
-    plain = lambda: msda.ms_deform_attn_core_plain(value, TRAIN_LEVELS, loc, attn, "bilinear")
+    run = lambda: msda.ms_deform_attn_core(value, levels, loc, attn, "bilinear")
+    plain = lambda: msda.ms_deform_attn_core_plain(value, levels, loc, attn, "bilinear")
+    name = f"ms_deform_attn_bilinear_{shapes or 'train'}_shapes"
     with torch.no_grad():
         out = run()
-        err = check("ms_deform_attn_bilinear_train_shapes", out, plain(), 1e-3, 1e-2)
+        err = check(name, out, plain(), 1e-3, 1e-2)
         b_ms, b_by = bound(nbytes(value, loc, attn, out),
-                           msda_ops(torch, loc, TRAIN_LEVELS, "bilinear"))
-        rows["ms_deform_attn_bilinear_train_shapes"] = {
-            "name": "ms_deform_attn_bilinear_train_shapes", "route": "cuda",
-            "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
+                           msda_ops(torch, loc, levels, "bilinear"))
+        rows[name] = {
+            "name": name, "route": "cuda", "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
             "replaces": "multishiftseg_tpu/ops/ms_deform_attn.py:93",
-            "counter": "ms_deform_attn_bilinear",
-            "paths": ("train", "stage1_train", "train_loop", "instance_train"),
+            "counter": "ms_deform_attn_bilinear", "paths": paths,
             "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
-            "staged_levels": msda.staged_levels(TRAIN_LEVELS, HEAD_DIM, value.dtype)}
-        row = rows["ms_deform_attn_bilinear_train_shapes"]
-        time_redesigned(torch, row, run)
+            "staged_levels": msda.staged_levels(levels, HEAD_DIM, value.dtype)}
+        time_redesigned(torch, rows[name], run)
     del value, loc, attn, g, out
+
+
+def train_kernel_rows(torch, dev, rows, check, checks):
+    """The training slice's kernels at the stage-2 shapes (16 images at 704x704)."""
+    from multishiftseg_torch.losses import criterion, matcher
+
+    b = 2 * TRAIN_PAIRS
+    msda_train_rows(torch, dev, rows, check, TRAIN_LEVELS, b, SEED + 7, "",
+                    ("train", "stage1_train", "train_loop"))
 
     # batched assignment: 16 problems of 19 targets x 100 queries, about half
     # the rows at BIG (classes absent from the image); exact equality
@@ -1264,86 +1291,102 @@ def stage1_kernel_rows(torch, dev, rows, check, checks):
 
 
 def instance_kernel_rows(torch, dev, rows, check, checks):
-    """The vanilla recipes' kernels at their own shapes: the label points over
-    8 segment id maps of 700x700 crops with -1 (ignore) pixels, 48 slots; the
-    assignment of 8 problems of 48 slots x 100 queries, costs from
-    ``compute_match_cost`` with duplicate classes and -1 padding slots (rows
-    at BIG); and the semantic evaluation's K-class score tail (100 queries of
-    256x512 masks to 1024x2048). Against the plain versions: label points
-    within 1e-6 (four corner weights summed in f32), the assignment exactly,
-    the score tail within 1e-5 (f32 sums in another order)."""
+    """The vanilla recipes' kernels at their own shapes (:data:`INST_SHAPES`):
+    per pair of recipes that share them, the bilinear deformable forward and
+    backward over 8 unpadded crops (:func:`msda_train_rows`); the label points
+    over 8 segment id maps of the crop with -1 (ignore) pixels and T slots;
+    the assignment of 8 problems of T slots x 100 queries, costs from
+    ``compute_match_cost`` with -1 padding slots (rows at BIG) and, for the
+    instance and panoptic recipes, duplicate classes. Then the semantic
+    evaluation's K-class score tail (100 queries of 256x512 masks to
+    1024x2048). Against the plain versions: label points within 1e-6 (four
+    corner weights summed in f32), the assignment exactly, the score tail
+    within 1e-5 (f32 sums in another order). Each row counts the launches of
+    its own recipes' training paths."""
     from multishiftseg_torch.losses import criterion, matcher
     from multishiftseg_torch.ops import scores
 
-    b, t = INST_BATCH, INST_SLOTS
-    rs = np.random.RandomState(SEED + 80)
-    ids_np = np.repeat(np.repeat(rs.randint(-1, t, (b, 44, 44)), 16, 1), 16, 2)[:, :CROP[0],
-                                                                               :CROP[1]]
-    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
-    coords = torch.from_numpy(rs.rand(b, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
-    run = lambda: criterion.sample_target_points(ids, coords, t)
-    plain = lambda: criterion.sample_target_points_plain(ids, coords, t)
-    out = run()
-    err = check("label_points_classes_instance_shapes", out, plain(), 1e-6, 0.0)
-    rcoords = torch.from_numpy(rs.rand(b * t, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
-    slots = torch.arange(t, device=dev).repeat(b)
-    err = max(err, check("label_points_rows_instance_shapes",
-                         criterion.sample_class_points(ids, rcoords, slots, t),
-                         criterion.sample_class_points_plain(ids, rcoords, slots, t), 1e-6, 0.0))
-    label_bytes = label_sector_bytes(torch, ids, coords, torch.arange(b, device=dev))
-    b_ms, b_by = bound(label_bytes + nbytes(coords, out), b * TRAIN_POINTS * t * 8)
-    rows["label_points_instance_shapes"] = {
-        "name": "label_points_instance_shapes", "route": "cuda",
-        "source": "multishiftseg_torch/csrc/label_points.cu",
-        "replaces": "multishiftseg_tpu/losses/criterion.py:66",
-        "counter": "label_points", "paths": ("instance_train",),
-        "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}
-    time_redesigned(torch, rows["label_points_instance_shapes"], run)
-    del ids, coords, rcoords, out
+    for shapes, (crop, t, recipes) in INST_SHAPES.items():
+        paths = tuple(f"instance_train_{r}" for r in recipes)
+        b = INST_BATCH
+        msda_train_rows(torch, dev, rows, check, pyramid(crop), b, SEED + 82, shapes, paths)
+        rs = np.random.RandomState(SEED + 80)
+        blocks = (b, -(-crop[0] // 16), -(-crop[1] // 16))
+        ids_np = np.repeat(np.repeat(rs.randint(-1, t, blocks), 16, 1), 16, 2)[
+            :, :crop[0], :crop[1]]
+        ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+        coords = torch.from_numpy(rs.rand(b, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
+        run = lambda: criterion.sample_target_points(ids, coords, t)
+        plain = lambda: criterion.sample_target_points_plain(ids, coords, t)
+        out = run()
+        err = check(f"label_points_classes_{shapes}_shapes", out, plain(), 1e-6, 0.0)
+        rcoords = torch.from_numpy(rs.rand(b * t, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
+        slots = torch.arange(t, device=dev).repeat(b)
+        err = max(err, check(f"label_points_rows_{shapes}_shapes",
+                             criterion.sample_class_points(ids, rcoords, slots, t),
+                             criterion.sample_class_points_plain(ids, rcoords, slots, t),
+                             1e-6, 0.0))
+        label_bytes = label_sector_bytes(torch, ids, coords, torch.arange(b, device=dev))
+        b_ms, b_by = bound(label_bytes + nbytes(coords, out), b * TRAIN_POINTS * t * 8)
+        name = f"label_points_{shapes}_shapes"
+        rows[name] = {
+            "name": name, "route": "cuda", "source": "multishiftseg_torch/csrc/label_points.cu",
+            "replaces": "multishiftseg_tpu/losses/criterion.py:66",
+            "counter": "label_points", "paths": paths,
+            "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+        time_redesigned(torch, rows[name], run)
+        del ids, coords, rcoords, out
 
-    classes = torch.from_numpy(rs.randint(0, INST_CLASSES, (b, t)))
-    classes[:, 1] = classes[:, 0]  # duplicate classes
-    for i in range(b):
-        classes[i, 10 + 4 * i:] = -1  # 10..38 valid slots
-    p_match = 512
-    cost_cpu = matcher.compute_match_cost(
-        torch.from_numpy(rs.randn(b, QUERIES, INST_CLASSES + 1).astype(np.float32)),
-        torch.from_numpy(3 * rs.randn(b, QUERIES, p_match).astype(np.float32)),
-        torch.from_numpy((rs.rand(b, t, p_match) > 0.7).astype(np.float32)), classes >= 0,
-        2.0, 5.0, 5.0, tgt_classes=classes).transpose(1, 2).contiguous()
-    cost = cost_cpu.to(dev)
-    run = lambda: matcher.linear_sum_assignment(cost)
-    steps = []
-    want = matcher.linear_sum_assignment_plain(cost, steps)
-    got = run()
-    torch.cuda.synchronize()
-    same = bool(torch.equal(got.cpu(), want.cpu()))
-    from scipy.optimize import linear_sum_assignment as scipy_lsa
+        k = INST_CLASSES if shapes == "instance" else CLASSES
+        if shapes == "instance":
+            classes = torch.from_numpy(rs.randint(0, k, (b, t)))
+            classes[:, 1] = classes[:, 0]  # duplicate classes
+            for i in range(b):
+                classes[i, 10 + 4 * i:] = -1  # 10..38 valid slots
+        else:  # one segment a class present: 12..19 valid slots, distinct
+            classes = torch.full((b, t), -1, dtype=torch.int64)
+            for i in range(b):
+                n = 12 + i
+                classes[i, :n] = torch.from_numpy(rs.permutation(k)[:n])
+        p_match = 512
+        cost_cpu = matcher.compute_match_cost(
+            torch.from_numpy(rs.randn(b, QUERIES, k + 1).astype(np.float32)),
+            torch.from_numpy(3 * rs.randn(b, QUERIES, p_match).astype(np.float32)),
+            torch.from_numpy((rs.rand(b, t, p_match) > 0.7).astype(np.float32)), classes >= 0,
+            2.0, 5.0, 5.0, tgt_classes=classes).transpose(1, 2).contiguous()
+        cost = cost_cpu.to(dev)
+        run = lambda: matcher.linear_sum_assignment(cost)
+        steps = []
+        want = matcher.linear_sum_assignment_plain(cost, steps)
+        got = run()
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got.cpu(), want.cpu()))
+        from scipy.optimize import linear_sum_assignment as scipy_lsa
 
-    optimal, cost_np = True, cost_cpu.numpy()
-    for i in range(b):
-        valid = np.nonzero(classes[i].numpy() >= 0)[0]
-        r, c = scipy_lsa(cost_np[i][valid])
-        ours = cost_np[i][valid, got[i].cpu().numpy()[valid]].sum()
-        optimal &= bool(abs(ours - cost_np[i][valid][r, c].sum()) <= 1e-5 * abs(ours))
-    checks.append({"check": "linear_sum_assignment_instance_shapes", "equal_to_plain": same,
-                   "scipy_optimal_on_valid_rows": optimal,
-                   "shared_bytes": matcher.assignment_shared_bytes(t, QUERIES),
-                   "ok": same and optimal})
-    b_ms, b_by = bound(nbytes(cost, got), sum(steps) * QUERIES * 5)
-    row = rows["linear_sum_assignment_instance_shapes"] = {
-        "name": "linear_sum_assignment_instance_shapes", "route": "cuda",
-        "source": "multishiftseg_torch/csrc/assignment.cu",
-        "replaces": "multishiftseg_tpu/losses/matcher.py:28",
-        "counter": "linear_sum_assignment", "paths": ("instance_train",),
-        "max_abs_err": 0.0 if same else float("nan"),
-        "plain_ms": median_ms(torch, lambda: matcher.linear_sum_assignment_plain(cost), 3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    time_redesigned(torch, row, run)
-    row["max_steps"] = max(steps)
-    row["device_ns_per_step"] = row["device_ms"] * 1e6 / max(steps)
-    del cost
+        optimal, cost_np = True, cost_cpu.numpy()
+        for i in range(b):
+            valid = np.nonzero(classes[i].numpy() >= 0)[0]
+            r, c = scipy_lsa(cost_np[i][valid])
+            ours = cost_np[i][valid, got[i].cpu().numpy()[valid]].sum()
+            optimal &= bool(abs(ours - cost_np[i][valid][r, c].sum()) <= 1e-5 * abs(ours))
+        checks.append({"check": f"linear_sum_assignment_{shapes}_shapes",
+                       "equal_to_plain": same, "scipy_optimal_on_valid_rows": optimal,
+                       "shared_bytes": matcher.assignment_shared_bytes(t, QUERIES),
+                       "ok": same and optimal})
+        b_ms, b_by = bound(nbytes(cost, got), sum(steps) * QUERIES * 5)
+        name = f"linear_sum_assignment_{shapes}_shapes"
+        row = rows[name] = {
+            "name": name, "route": "cuda", "source": "multishiftseg_torch/csrc/assignment.cu",
+            "replaces": "multishiftseg_tpu/losses/matcher.py:28",
+            "counter": "linear_sum_assignment", "paths": paths,
+            "max_abs_err": 0.0 if same else float("nan"),
+            "plain_ms": median_ms(torch, lambda: matcher.linear_sum_assignment_plain(cost), 3),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        time_redesigned(torch, row, run)
+        row["max_steps"] = max(steps)
+        row["device_ns_per_step"] = row["device_ms"] * 1e6 / max(steps)
+        del cost
 
     g = np.random.RandomState(SEED + 81)
     masks = torch.from_numpy(3 * g.randn(1, QUERIES, H // 4, W // 4).astype(np.float32)).to(dev)
@@ -1894,7 +1937,9 @@ def recorded_step(torch, tr, step, card=None):
 def compare_steps(torch, runs, optimizer, m2f, res):
     """What both M2F step parities hold: ``runs`` are the records
     (:func:`recorded_step`) of the card's f32 step, the CPU's and the CPU's
-    float64 step from the same weights, batch and draws; ``optimizer`` gives
+    float64 step from the same weights, batch and draws, and optionally
+    (``cpu_f64_card_branches``) a float64 step on the card's ReLU branches,
+    which the card's gradients are then held against; ``optimizer`` gives
     the parameter groups; ``m2f`` the config's learning rate and clip. Adds
     the readings to ``res`` and returns the checks."""
     g, c, f = runs["card"], runs["cpu"], runs["cpu_f64"]
@@ -1926,6 +1971,10 @@ def compare_steps(torch, runs, optimizer, m2f, res):
     res["grad_rel_err_by_group"] = grad_errs(g, c)
     vs_f64 = {"card": grad_errs(g, f), "cpu": grad_errs(c, f)}
     res["grad_rel_err_vs_f64_by_group"] = vs_f64
+    twin = runs.get("cpu_f64_card_branches")
+    if twin is not None:
+        vs_twin = grad_errs(g, twin)
+        res["grad_rel_err_vs_f64_on_card_branches_by_group"] = vs_twin
     # the card's gradients reach every module upstream of the deformable core
     upstream = ("value_proj", "sampling_offsets", "attention_weights", "input_proj", "backbone")
     res["upstream_grads_nonzero"] = {
@@ -1947,14 +1996,20 @@ def compare_steps(torch, runs, optimizer, m2f, res):
     # moves the whole gradient path below it, on the card as on the CPU (up to
     # 1.3e-2 of a backbone tensor's scale between them; readings in PERF.md).
     # So each f32 step is held against the float64 step: in every group the
-    # card's error may be at most 4x the CPU's, plus 1e-3 of scale.
-    grad_ok = all(v["err"] <= 4 * vs_f64["cpu"][k]["err"] + 1e-3
-                  for k, v in vs_f64["card"].items())
+    # card's error may be at most 4x the CPU's, plus 1e-3 of scale; or, given
+    # a float64 twin on the card's ReLU branches, the card's error against it
+    # at most 1e-3 of scale (as deeplab_train_parity's stage 1)
+    if twin is None:
+        grad_check = ("grad_err_vs_f64<=4x_cpu+1e-3", all(
+            v["err"] <= 4 * vs_f64["cpu"][k]["err"] + 1e-3 for k, v in vs_f64["card"].items()))
+    else:
+        grad_check = ("grad_err_vs_f64_on_card_branches<=1e-3",
+                      all(v["err"] <= 1e-3 for v in vs_twin.values()))
     return {
         "pixel_decoder_rel_err<=1e-3": res["pixel_decoder_rel_err"] <= 1e-3,
         "mask_logits_within_rounding": all(x["within_rounding"] for x in layers),
         "loss_rel_err<=1e-3": max(res["loss_rel_err"].values()) <= 1e-3,
-        "grad_err_vs_f64<=4x_cpu+1e-3": grad_ok,
+        grad_check[0]: grad_check[1],
         "param_update_err<=1e-2*lr": upd <= 1e-2 * lr,
         "finite": all(np.isfinite(v) for v in list(g["losses"].values()) + [g["gnorm"]]),
         "upstream_grads_nonzero": all(res["upstream_grads_nonzero"].values())}
@@ -2179,7 +2234,9 @@ def phase_deeplab_train_parity(torch, seed, pairs=2, crop=(200, 200), card="cuda
     input within f32 rounding of 0 moves a whole gradient path: the phase
     counts those flips (and the pixel selection's) between the steps, and
     holds the card's gradients against a float64 step on the card's ReLU
-    branches (``relu_sign_hooks``). ``card="cpu"`` rehearses the control flow."""
+    branches (``relu_sign_hooks``), each replayed unit's input within
+    LOGIT_RTOL of its call's largest |input|. ``card="cpu"`` rehearses the
+    control flow."""
     from multishiftseg_torch.ops import launch_counts, reset_launch_counts
     from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD, synthetic_batch
     from multishiftseg_torch.utils import relu_sign_hooks
@@ -2205,7 +2262,7 @@ def phase_deeplab_train_parity(torch, seed, pairs=2, crop=(200, 200), card="cuda
             twin.model.double()
             twin.model.load_state_dict(trainers["cpu_f64"].model.state_dict())
             steps.append(("cpu_f64_card_branches", twin))
-        runs, signs = {}, {}
+        runs, signs, replayed = {}, {}, {}
         for side, tr in steps:
             tr.set_stage(stage)
             dev = tr.device
@@ -2214,7 +2271,7 @@ def phase_deeplab_train_parity(torch, seed, pairs=2, crop=(200, 200), card="cuda
             before = {n: snap(p) for n, p in tr.model.named_parameters()}
             signs[side], out = {}, {}
             hooks = relu_sign_hooks(tr.model, signs[side], replay=signs["card"] if (
-                side == "cpu_f64_card_branches") else None)
+                side == "cpu_f64_card_branches") else None, flips=replayed)
             hooks.append(tr.model.register_forward_hook(
                 lambda m, a, o, out=out: out.update(logit=o[1].detach().float().cpu())))
             reset_launch_counts()
@@ -2279,6 +2336,12 @@ def phase_deeplab_train_parity(torch, seed, pairs=2, crop=(200, 200), card="cuda
         if stage == 1:
             st["grad_err_vs_f64_on_card_branches_worst"] = {
                 "tensor": worst_ref, "card": vs_ref[worst_ref]}
+            # the twin's replayed units: each call's largest |input| at a flip
+            # over that call's largest |input|
+            st["relu_replayed_flips"] = {
+                "units": sum(v["units"] for v in replayed.values()), "calls": len(replayed),
+                "max_abs_over_scale": max((v["max_abs_over_scale"] for v in replayed.values()),
+                                          default=0.0)}
         st["checks"] = {
             "loss_rel_err<=1e-5": all(abs(g["aux"][k] - v) <= 1e-5 * max(abs(v), 1e-6)
                                       for k, v in c["aux"].items())
@@ -2286,6 +2349,9 @@ def phase_deeplab_train_parity(torch, seed, pairs=2, crop=(200, 200), card="cuda
             # stage 0: against the float64 step; stage 1: against the float64
             # step on the card's ReLU branches
             "grad_err_vs_f64<=1e-3": all(e <= 1e-3 for e in vs_ref.values()),
+            # every replayed branch within rounding of 0
+            "relu_replayed_flips_within_rounding": stage == 0 or (
+                st["relu_replayed_flips"]["max_abs_over_scale"] <= LOGIT_RTOL),
             "running_stats_rel_err<=1e-4": stat_err <= 1e-4,
             "param_update_err<=1e-2*lr+4ulp": upd <= upd_atol,
             "frozen_unchanged": frozen_same,
@@ -3050,57 +3116,27 @@ def criterion_replay(torch, replay, log):
     return restore
 
 
-def relu_replay(torch, model, replay, log):
-    """Route every ReLU of a step (``torch.nn.functional.relu``, and the
-    modules of ``model`` that hold it as their ``activation``) through a
-    recorder: each call appends its input's sign pattern (on the CPU) to
-    ``log["signs"]``. Given ``replay``, another run's ``log``, the call keeps
-    the units that run kept instead of its own (``x * sign``), in call order,
-    so that the step follows that run's branch of the piecewise-linear
-    model, and ``log["flips"]`` counts the units whose own sign differs (as
-    ``utils.relu_sign_hooks`` does for DeepLab's ``nn.ReLU`` modules).
-    Returns a function that restores the ReLUs."""
-    functional = torch.nn.functional
-    orig = functional.relu
-
-    def relu(x, inplace=False):
-        sign = x > 0
-        log["signs"].append(sign.cpu())
-        if replay is None:
-            return orig(x, inplace=inplace)
-        theirs = replay["signs"][len(log["signs"]) - 1].to(x.device)
-        log["flips"] += int((theirs != sign).sum())
-        return x * theirs.to(x.dtype)
-
-    held = [m for m in model.modules() if getattr(m, "activation", None) is orig]
-    functional.relu = relu
-    for m in held:
-        m.activation = relu
-
-    def restore():
-        functional.relu = orig
-        for m in held:
-            m.activation = orig
-
-    return restore
-
-
 def phase_instance_parity(torch, seed=SEED + 90, batch=2, crop=(200, 200), card="cuda"):
     """One ``TrainM2FInstance`` step of the instance recipe at full widths on
     2 unpadded 200x200 crops (pyramid 7 / 13 / 25, masks 50x50) with 48 slots,
     f32 with TF32 off: the card (kernels) against the CPU (plain versions) and
     a float64 CPU step, same weights, batch and CPU-made draws, the CPU steps
-    attending with the card's attention masks, following the card's ReLU
-    branches (:func:`relu_replay`, flips counted: an input within f32
-    rounding of 0 moves the whole gradient path below it; the first card
-    run without this held the decoder's ``query_embed`` 10x further from the
-    float64 step than the CPU) and taking the card's matches
+    attending with the card's attention masks and taking the card's matches
     and uncertain points (:func:`criterion_replay`: the random-weight queries
     are alike, so 48-slot problems meet near-ties, and the top-k of |logit|
     meets near-equal logits, that rounding decides; each replayed assignment
     must cost within 1e-5 of the CPU's own optimum on the CPU's costs, and
     each replayed point lie within LOGIT_RTOL of the largest |logit| of the
-    CPU's own selection threshold); held as ``train_parity`` holds the
+    CPU's own selection threshold). The f32 and float64 CPU steps take their
+    own ReLU branches; an input within f32 rounding of 0 moves the whole
+    gradient path below it (the first card runs held the card's gradients up
+    to 10x further from the float64 step than the CPU's), so, as in
+    ``deeplab_train_parity``, the card's gradients are held against a float64
+    twin that follows the card's ReLU branches (``utils.relu_sign_hooks``),
+    and every unit whose sign the twin replays against its own must have an
+    input within LOGIT_RTOL of its call's largest |input|. Held otherwise as
+    ``train_parity`` holds the
+    stage-2 step. Then the
     stage-2 step. Then the
     eval forward of one 256x512 image on the card and ``instance_inference`` /
     ``panoptic_inference`` on its logits, and on confident synthetic logits at
@@ -3109,34 +3145,38 @@ def phase_instance_parity(torch, seed=SEED + 90, batch=2, crop=(200, 200), card=
     from multishiftseg_torch.models.inference_extras import CITYSCAPES_THING_IDS
     from multishiftseg_torch.ops.resize import resize_bilinear_nchw
     from multishiftseg_torch.train.instance_trainer import TrainM2FInstance
+    from multishiftseg_torch.utils import relu_sign_hooks
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = instance_config("instance", batch, crop, bf16=False)
     base = seeded_model(torch, seed, num_classes=INST_CLASSES, predictor="vanilla")
     img, ids, classes = instance_batch(batch, crop, INST_SLOTS, seed + 1)
+    twin = "cpu_f64_card_branches"
     trainers = {side: TrainM2FInstance(cfg, model=copy.deepcopy(base), dataset_name="unused",
                                        device=dev)
-                for side, dev in (("card", card), ("cpu", "cpu"), ("cpu_f64", "cpu"))}
-    trainers["cpu_f64"].model.double()  # in place: the optimizer keeps the same parameters
-    draws = trainers["cpu"].draws(batch, INST_SLOTS)  # CPU-made, used by all three
+                for side, dev in (("card", card), ("cpu", "cpu"), ("cpu_f64", "cpu"),
+                                  (twin, "cpu"))}
+    for side in ("cpu_f64", twin):
+        trainers[side].model.double()  # in place: the optimizer keeps the same parameters
+    draws = trainers["cpu"].draws(batch, INST_SLOTS)  # CPU-made, used by all four
     runs, matches, relus = {}, {}, {}
     for side, tr in trainers.items():
         card_run = runs.get("card")
         matches[side] = {"assign": [], "coords": [], "assign_gaps": [], "point_gaps": []}
-        relus[side] = {"signs": [], "flips": 0}
+        relus[side] = {"signs": {}, "flips": {}}
 
         def step(tr=tr, side=side):
-            card_side = side != "card"
-            restores = [criterion_replay(torch, matches["card"] if card_side else None,
-                                         matches[side]),
-                        relu_replay(torch, tr.model, relus["card"] if card_side else None,
-                                    relus[side])]
+            restore = criterion_replay(torch, matches["card"] if side != "card" else None,
+                                       matches[side])
+            hooks = relu_sign_hooks(tr.model, relus[side]["signs"], replay=(
+                relus["card"]["signs"] if side == twin else None), flips=relus[side]["flips"])
             try:
                 return tr.step(img, ids, classes, draws=tree_to(draws, tr.device))
             finally:
-                for restore in restores:
-                    restore()
+                restore()
+                for h in hooks:
+                    h.remove()
 
         runs[side] = recorded_step(torch, tr, step, card_run)
     g, c = runs["card"], runs["cpu"]
@@ -3148,12 +3188,27 @@ def phase_instance_parity(torch, seed=SEED + 90, batch=2, crop=(200, 200), card=
            "loss_card": g["loss"], "loss_cpu": c["loss"], "grad_norm_card": g["gnorm"],
            "grad_norm_cpu": c["gnorm"]}
     checks = compare_steps(torch, runs, trainers["cpu"].optimizer, cfg.model.m2f, res)
-    res["assignment_replay"] = {side: matches[side]["assign_gaps"] for side in ("cpu", "cpu_f64")}
-    res["point_replay"] = {side: matches[side]["point_gaps"] for side in ("cpu", "cpu_f64")}
+    replayed = ("cpu", "cpu_f64", twin)
+    res["assignment_replay"] = {side: matches[side]["assign_gaps"] for side in replayed}
+    res["point_replay"] = {side: matches[side]["point_gaps"] for side in replayed}
+    card_signs = relus["card"]["signs"]
     res["relu_calls"] = {side: len(v["signs"]) for side, v in relus.items()}
-    res["relu_flips"] = {side: relus[side]["flips"] for side in ("cpu", "cpu_f64")}
+    res["relu_units"] = sum(int(v.numel()) for v in card_signs.values())
+    # units on other sides of 0 than on the card, each CPU step on its own
+    # branches; the twin's, with each call's largest |input| at a flip over
+    # that call's largest |input|
+    res["relu_sign_flips_vs_card"] = {side: sum(int((v != card_signs[k]).sum()) for k, v in
+                                                relus[side]["signs"].items())
+                                      for side in ("cpu", "cpu_f64")}
+    flips = relus[twin]["flips"]
+    res["relu_replayed_flips"] = {
+        "units": sum(f["units"] for f in flips.values()), "calls": len(flips),
+        "max_abs_over_scale": max((f["max_abs_over_scale"] for f in flips.values()),
+                                  default=0.0)}
     res["checks"] = {
-        "relu_calls_equal": len(set(res["relu_calls"].values())) == 1,
+        "relu_calls_equal": all(set(v["signs"]) == set(card_signs) for v in relus.values()),
+        "relu_replayed_flips_within_rounding": (
+            res["relu_replayed_flips"]["max_abs_over_scale"] <= LOGIT_RTOL),
         **checks,
         "assignments_within_rounding": all(
             len(gaps) == n_out and all(x["equal"] or x["rel_cost_gap"] <= 1e-5 for x in gaps)
@@ -3223,7 +3278,7 @@ def phase_instance_train(torch):
     here = Path(__file__).resolve().parent
     res = {"phase": "instance_train", "card": nvidia_smi(), "frames": INSTANCE_FRAMES,
            "frame_hw": [H, W], "recipes": {}}
-    totals = {"train": {}, "eval": {}}
+    totals = {"instance_eval": {}}
     ok = True
 
     def add(into, counts):
@@ -3269,7 +3324,8 @@ def phase_instance_train(torch):
             m = {"model_build_seconds": time.perf_counter() - t0,
                  "crop": list(tr.cfg.data.crop_size), "slots": tr.cfg.model.m2f.max_instances,
                  "classes": tr.cfg.model.m2f.num_classes}
-            first, m["train"] = measured(tr.train, totals["train"])
+            train_counts = totals[f"instance_train_{recipe}"] = {}
+            first, m["train"] = measured(tr.train, train_counts)
             m["train"]["epochs"] = epochs(tr)
             checks = {"finite_loss": bool(np.isfinite(first["loss"])),
                       "three_steps": [e["steps"] for e in m["train"]["epochs"]] == [3]}
@@ -3278,7 +3334,7 @@ def phase_instance_train(torch):
                 saved = CheckpointManager(config(2).model_dir).restore("last")
                 tr = TrainM2FInstance(config(2))
                 second, m["resume"] = measured(lambda: tr.train(resume="last"),
-                                               totals["train"])
+                                               train_counts)
                 m["resume"]["epochs"] = epochs(tr)
                 resumed = CheckpointManager(tr.cfg.model_dir).restore("last")
                 checks["resume"] = (saved["epoch"] == 0 and saved["step"] == 3
@@ -3288,7 +3344,7 @@ def phase_instance_train(torch):
                                         for st in resumed["optimizer"]["state"].values())
                                     and bool(np.isfinite(second["loss"])))
             metrics, m["evaluate"] = measured(lambda: tr.evaluate(max_images=2),
-                                              totals["eval"])
+                                              totals["instance_eval"])
             m["metrics"] = metrics
             launched = m["train"]["launches"]
             eval_l = m["evaluate"]["launches"]
@@ -3410,8 +3466,9 @@ def main(argv=None):
     paths = {"serve": launches, "train": train_launches, "deeplab_serve": dl_launches,
              "deeplab_train": dl_train_launches, "stage1_train": s1_launches,
              "validate": val_launches, "evaluate": eval_launches,
-             "train_loop": loop_launches, "instance_train": inst_launches.get("train", {}),
-             "instance_eval": inst_launches.get("eval", {})}
+             "train_loop": loop_launches, "instance_eval": inst_launches.get("instance_eval", {}),
+             **{p: inst_launches.get(p, {}) for p in (f"instance_train_{r}"
+                                                      for r in INSTANCE_RECIPES)}}
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))

@@ -7,8 +7,8 @@ shuffling :class:`Loader` onto the trainer's device, the resume from a named
 checkpoint, the switch to stage 1 at ``warmup_epoch``, one validation a epoch,
 the scalar curves, ``AUPRC_best`` on improvement and ``last`` every epoch.
 Each epoch's steps, stage, times and metrics go to ``trainer.history``. As in
-JAX, no step waits for the device: the epoch's ``float(loss)`` is its one
-wait, and each step's span on the card comes from CUDA events read after it.
+JAX, no step waits for the device (:func:`run_epoch`, which the instance
+trainer's loop shares).
 """
 
 from __future__ import annotations
@@ -23,6 +23,31 @@ from ..data.loader import Loader
 from .checkpoint import CheckpointManager
 
 log = logging.getLogger(__name__)
+
+
+def run_epoch(trainer, loader: Loader, step: Callable) -> Dict[str, float]:
+    """One epoch's steps over ``loader``: ``step(*batch)`` takes one batch
+    (device tensors) and returns (its loss, its images). No step waits for
+    the card: the epoch's ``float(loss)`` is its one wait, inside its time,
+    and each step's span on the card comes from CUDA events read after it.
+    Returns the epoch's steps, images, seconds, img_per_s, step_ms_median,
+    loader_wait_s and loss. Raises when the loader yields no batch."""
+    timer = StreamStepTimer(trainer.device)
+    wait0, t0, n_img, loss = loader.wait_seconds, time.perf_counter(), 0, None
+    for batch in loader:
+        timer.start()
+        loss, images = step(*batch)
+        timer.stop()
+        n_img += images
+    if n_img == 0:
+        raise RuntimeError(f"loader produced no batches (dataset size {len(loader.dataset)} "
+                           f"< batch {loader.batch_size} with drop_last)")
+    loss = float(loss)
+    seconds = time.perf_counter() - t0
+    step_ms = timer.times_ms()
+    return {"steps": len(step_ms), "images": n_img, "seconds": seconds,
+            "img_per_s": n_img / max(seconds, 1e-9), "step_ms_median": statistics.median(step_ms),
+            "loader_wait_s": loader.wait_seconds - wait0, "loss": loss}
 
 
 def train_epochs(trainer, start_epoch: int, resume: Optional[str],
@@ -50,20 +75,9 @@ def train_epochs(trainer, start_epoch: int, resume: Optional[str],
             trainer.set_stage(1)
             log.warning("epoch %d: switched to stage 1", epoch)
         train_ds.set_epoch(epoch)
-        timer = StreamStepTimer(trainer.device)  # no step waits for the card
-        wait0, t0, n_img, loss = loader.wait_seconds, time.perf_counter(), 0, None
-        for img_c, tgt_c, img_g, tgt_g in loader:
-            timer.start()
-            loss = step(stage, img_c, img_g, tgt_c, tgt_g)
-            timer.stop()
-            n_img += 2 * img_c.shape[0]
-        if n_img == 0:
-            raise RuntimeError(f"loader produced no batches (dataset size {len(train_ds)} "
-                               f"< batch {cfg.train.train_batch} with drop_last)")
-        loss = float(loss)  # the epoch's one wait for the card, inside its time
-        seconds = time.perf_counter() - t0
-        img_per_s = n_img / max(seconds, 1e-9)
-        step_ms = timer.times_ms()
+        rec = run_epoch(trainer, loader, lambda img_c, tgt_c, img_g, tgt_g: (
+            step(stage, img_c, img_g, tgt_c, tgt_g), 2 * img_c.shape[0]))
+        loss, img_per_s = rec["loss"], rec["img_per_s"]
         log.warning("epoch %d stage %d loss %.4f (%.1f img/s)", epoch, stage, loss, img_per_s)
         t1 = time.perf_counter()
         metrics = trainer.valid(val_ds)
@@ -83,11 +97,8 @@ def train_epochs(trainer, start_epoch: int, resume: Optional[str],
         # the fault-tolerance checkpoint, overwritten every epoch (--resume last)
         ckpt.save("last", trainer, epoch=epoch, best_auprc=trainer.best["AUPRC"])
         trainer.history.append({
-            "epoch": epoch, "stage": stage, "steps": len(step_ms), "images": n_img,
-            "seconds": seconds, "img_per_s": img_per_s,
-            "step_ms_median": statistics.median(step_ms),
+            "epoch": epoch, "stage": stage, **rec,
             "optimizer": type(trainer.optimizer).__name__,
-            "loader_wait_s": loader.wait_seconds - wait0, "loss": loss,
             "valid_seconds": valid_seconds, "metrics": metrics, "saved": saved})
     if writer is not None:
         writer.close()

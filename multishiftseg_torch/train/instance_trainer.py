@@ -24,8 +24,6 @@ from __future__ import annotations
 
 import logging
 import os
-import statistics
-import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -34,7 +32,7 @@ from PIL import Image
 
 from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
-from ..core.logging import ScalarWriter, StreamStepTimer
+from ..core.logging import ScalarWriter
 from ..data.cityscapes import LABELS
 from ..data.loader import Loader, pad_to_multiple
 from ..data.mappers import (SegmentTargets, instance_to_targets, panoptic_to_targets,
@@ -53,6 +51,7 @@ from ..ops.resize import resize_bilinear_nchw
 from ..ops.scores import semantic_inference_upsampled
 from ..utils import resolve_device
 from .checkpoint import CheckpointManager, restore_checkpoint
+from .epochs import run_epoch
 from .state import build_m2f_official_optimizer, clip_grad_norm
 
 log = logging.getLogger(__name__)
@@ -287,9 +286,9 @@ class TrainM2FInstance:
         """Epochs ``start_epoch`` (or the one after checkpoint ``resume``'s)
         to ``cfg.train.n_epochs``: a shuffling loader onto the device, the
         steps, ``train/loss`` in ``scalars.csv`` and the ``last`` checkpoint
-        (model, optimizer, generator) every epoch. As in the OOD trainers, no
-        step waits for the device: the epoch's ``float(loss)`` is its one
-        wait. Each epoch's numbers go to ``self.history``. Returns
+        (model, optimizer, generator) every epoch. Each epoch's steps, times
+        and loss come from :func:`~.epochs.run_epoch`, as the OOD trainers'
+        (no step waits for the device), and go to ``self.history``. Returns
         ``{"loss": the last epoch's}``."""
         cfg = self.cfg
         ds = self.build_dataset()
@@ -306,29 +305,14 @@ class TrainM2FInstance:
         last_loss = float("nan")
         for epoch in range(start_epoch, cfg.train.n_epochs):
             ds.set_epoch(epoch)
-            timer = StreamStepTimer(self.device)
-            wait0, t0, n_img, loss = loader.wait_seconds, time.perf_counter(), 0, None
-            for img, id_map, classes in loader:
-                timer.start()
-                loss = self.step(img, id_map, classes)[0]
-                timer.stop()
-                n_img += img.shape[0]
-            if n_img == 0:
-                raise RuntimeError(f"loader produced no batches (dataset size {len(ds)} < "
-                                   f"batch {cfg.train.train_batch} with drop_last)")
-            last_loss = float(loss)  # the epoch's one wait for the card
-            seconds = time.perf_counter() - t0
-            step_ms = timer.times_ms()
-            log.warning("epoch %d loss %.4f (%.1f img/s)", epoch, last_loss,
-                        n_img / max(seconds, 1e-9))
+            rec = run_epoch(self, loader, lambda img, id_map, classes: (
+                self.step(img, id_map, classes)[0], img.shape[0]))
+            last_loss = rec["loss"]
+            log.warning("epoch %d loss %.4f (%.1f img/s)", epoch, last_loss, rec["img_per_s"])
             if writer is not None:
                 writer.add_scalar("train/loss", last_loss, epoch)
             ckpt.save("last", self, epoch=epoch)
-            self.history.append({
-                "epoch": epoch, "steps": len(step_ms), "images": n_img, "seconds": seconds,
-                "img_per_s": n_img / max(seconds, 1e-9),
-                "step_ms_median": statistics.median(step_ms),
-                "loader_wait_s": loader.wait_seconds - wait0, "loss": last_loss})
+            self.history.append({"epoch": epoch, **rec})
         if writer is not None:
             writer.close()
         return {"loss": last_loss}

@@ -57,26 +57,72 @@ def tune_host_allocator() -> bool:
     return _ALLOCATOR_TUNED
 
 
-def relu_sign_hooks(model: torch.nn.Module, signs: dict, replay: dict = None) -> list:
-    """Forward hooks on every ``nn.ReLU`` of ``model``: each stores its input's
-    sign pattern (input > 0, on the CPU) in ``signs`` under the module's name.
+def relu_sign_hooks(model: torch.nn.Module, signs: dict, replay: dict = None,
+                    flips: dict = None) -> list:
+    """Record every ReLU that runs inside ``model``'s forward: ``nn.ReLU``
+    modules and ``torch.nn.functional.relu`` calls alike (modules that hold
+    the function as an attribute, e.g. an ``activation``, included). Each call
+    stores its input's sign pattern (input > 0, on the CPU) in ``signs`` under
+    the name of the innermost module running it, ``#n`` added for its n-th
+    call after the first while the hooks are in place.
 
     Given ``replay``, another run's ``signs``, each ReLU keeps the units that
     run kept instead of its own, so that a step follows that run's branch of
     the piecewise-linear model: two steps in different precisions or on
     different devices then differ by rounding alone, where an input within
-    rounding of 0 would otherwise move a whole gradient path. Returns the
-    handles; remove them after the step.
+    rounding of 0 would otherwise move a whole gradient path. ``flips`` then
+    receives, per call whose own signs differ, the units that differ and the
+    largest |input| among them over the largest |input| of the call, which
+    says whether each replayed branch lies within rounding of 0. Returns the
+    handles; remove them after the step (that also restores the function).
     """
-    def hook(module, args, out, name):
-        x = args[0]
-        signs[name] = (x > 0).cpu()
-        if replay is not None:
-            return x * replay[name].to(x.device, x.dtype)
-        return None
+    functional = torch.nn.functional
+    orig = functional.relu
+    stack, seen = [], {}
 
-    return [m.register_forward_hook(functools.partial(hook, name=n))
-            for n, m in model.named_modules() if isinstance(m, torch.nn.ReLU)]
+    def relu(x, inplace=False):
+        if not stack:  # outside the model (a loss): untouched
+            return orig(x, inplace=inplace)
+        name = stack[-1]
+        n = seen.get(name, 0)
+        seen[name] = n + 1
+        key = name if n == 0 else f"{name}#{n}"
+        own = x > 0
+        signs[key] = own.cpu()
+        if replay is None:
+            return orig(x, inplace=inplace)
+        theirs = replay[key].to(x.device)
+        if flips is not None:
+            differ = own != theirs
+            if differ.any():
+                mag = x.detach().abs()
+                flips[key] = {"units": int(differ.sum()), "max_abs_over_scale": float(
+                    mag[differ].max() / mag.max().clamp_min(1e-30))}
+        keep = theirs.to(x.dtype)
+        return x.mul_(keep) if inplace else x * keep
+
+    held = [(m, k) for m in model.modules() for k, v in vars(m).items() if v is orig]
+    functional.relu = relu
+    for m, k in held:
+        setattr(m, k, relu)
+
+    class _Restore:
+        def remove(self):
+            functional.relu = orig
+            for m, k in held:
+                setattr(m, k, orig)
+
+    def enter(module, args, name):
+        stack.append(name)
+
+    def leave(module, args, out):
+        stack.pop()
+
+    handles = [_Restore()]
+    for name, m in model.named_modules():
+        handles.append(m.register_forward_pre_hook(functools.partial(enter, name=name)))
+        handles.append(m.register_forward_hook(leave))
+    return handles
 
 
 def map2citycolor(pred: np.ndarray) -> np.ndarray:

@@ -11,6 +11,7 @@ held with the port's step in float64.
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -139,3 +140,54 @@ def test_instance_step_adamw_update_matches_jax(step_run):
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-3 * BASE_LR, err_msg=name)
         checked += int(sel.sum())
     assert checked > 10000
+
+
+def test_instance_step_f32_meets_float64_on_the_same_relu_branches(jax_model):
+    """The f32 and float64 steps of the port differ by rounding alone once the
+    float64 step follows the f32 step's ReLU branches (``relu_sign_hooks``,
+    which reaches the backbone's, the pixel decoder's and the decoder's
+    functional ReLUs as well as ``nn.ReLU`` modules): every input whose sign
+    differs lies within 1e-6 of its call's largest |input|, and every
+    gradient within 1e-4 of its tensor's scale (the input projections' conv
+    biases, 0 in exact arithmetic, within 1e-8 of the largest gradient, as
+    above)."""
+    from multishiftseg_torch.utils import relu_sign_hooks
+
+    _, variables = jax_model
+    img = np.random.RandomState(11).randn(B, *CROP, 3).astype(np.float32)
+    id_map, classes = instance_targets(12)
+    signs, flips, grads = {}, {}, {}
+    for dtype in ("float32", "float64"):
+        tr = TrainM2FInstance(_tiny_cfg(), model=MaskFormer(**CFG, predictor="vanilla"),
+                              dataset_name="unused", device="cpu")
+        tr.model.load_state_dict(maskformer_from_jax(variables), strict=True)
+        if dtype == "float64":
+            tr.model.double()
+        draws = tr.draws(B, T)  # the same generator state on both
+        hooks = relu_sign_hooks(tr.model, signs.setdefault(dtype, {}),
+                                replay=signs["float32"] if dtype == "float64" else None,
+                                flips=flips)
+        try:
+            tr.step(img, id_map, classes, draws=draws)
+        finally:
+            for h in hooks:
+                h.remove()
+        grads[dtype] = {n: p.grad.double() for n, p in tr.model.named_parameters()}
+    assert torch.nn.functional.relu.__module__ == "torch.nn.functional"  # restored
+    names = set(signs["float32"])
+    assert names == set(signs["float64"])
+    assert any(n.startswith("backbone.") for n in names)
+    assert any(n.startswith("sem_seg_head.pixel_decoder.") for n in names)
+    assert any(n.startswith("sem_seg_head.predictor.transformer_ffn_layers.") for n in names)
+    assert all(f["max_abs_over_scale"] <= 1e-6 for f in flips.values()), flips
+    top = max(float(g.abs().max()) for g in grads["float64"].values())
+    bad = []
+    for name, exact in grads["float64"].items():
+        got = grads["float32"][name]
+        if "input_proj" in name and name.endswith(".0.bias"):  # 0 in exact arithmetic
+            assert max(float(got.abs().max()), float(exact.abs().max())) < 1e-8 * top, name
+            continue
+        err = float((got - exact).abs().max() / exact.abs().max().clamp_min(1e-30))
+        if err > 1e-4:
+            bad.append((name, err))
+    assert not bad, bad[:5]
