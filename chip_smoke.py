@@ -112,6 +112,23 @@ exits non-zero and prints no result. Phases, one JSON line each:
    or mIoU; random weights: the values mean nothing). Per recipe: epoch
    seconds, images/s, the median step, the loader's wait, peak memory, the
    launches of train and of evaluate.
+18. ``alt_parity``: the alternates in f32 (TF32 off), card against CPU from
+   the same seeded weights on a 256x512 image: Swin-L and R-101 MaskFormer at
+   full widths (MSDeformAttn + GMA, the CPU attending with the card's masks),
+   the FPN pixel decoder (under the GMA decoder) and the transformer-encoder
+   one (under the MaskFormer-v1 predictor) at full widths over R-50 with 3
+   decoder and 2 encoder layers, and DeepV3Plus on R-101 and SEResNeXt-101.
+19. ``alt_serve``: 1024x2048 requests, batch 1, bf16: ``build_m2f_request_forward``
+   on the Swin-L and the R-101 MaskFormer, and DeepV3Plus on SEResNeXt-101
+   (its ASPP's dilated convs at 2048 channels): latency, launches, peak
+   memory, one profiled request, and Swin-L's window attention's device time
+   between CUDA events and its share of the device's busy time.
+20. ``alt_train``: exps/m2f_swin_large.yaml's stage-2 step (exps/m2f.yaml's
+   8 pairs of 700x700 crops, the backbone trained, drop path),
+   exps/m2f_instance_swin_large.yaml's step (8 unpadded 700x700 crops, 48
+   slots) and exps/m2f_semantic_r101.yaml's (8 crops of 512x1024, 20 slots),
+   bf16: step ms, launches, peak memory, a profiled step; where 80 GB does not
+   hold the recipe's batch, the largest batch that does, the cut listed.
 
 ``slice_parity``, ``train_parity`` and ``instance_parity`` run the CPU's
 decoder on the card's attention masks, and hold every bit that differs to a
@@ -123,7 +140,10 @@ forward (a row of its own beside the eval shapes'), the batched
 assignment (and scipy's optimum on the valid rows) and the label points; and
 DeepLab's: the ASPP's dilated conv at the eval shapes (its three rates timed
 together, beside cuDNN's dilated ``conv2d`` in benchmark mode, channels-last
-and NCHW) and at the training shapes (a row of its own, beside cuDNN's), its
+and NCHW), at DeepV3Plus's eval shapes (2048 input channels, a row of its
+own counting the ``alt_serve`` DeepV3Plus request's launches, beside cuDNN's
+in the faster layout) and at the training shapes (a row of its own, beside
+cuDNN's), its
 weight gradient at the training shapes (beside cuDNN's), each with its
 achieved TFLOP/s (the build line carries their registers and spills), and
 the pixel selection, forward and backward, over 8 x 700 x 700 values, their
@@ -229,6 +249,8 @@ BF16_TC_OPS_PER_S = 989e12  # H100 SXM data sheet, dense bf16 on the tensor core
 DL_RATES, DL_CIN, DL_COUT = (12, 24, 36), 4096, 256
 DL_EVAL_MAP, DL_TRAIN_MAP = (H // 8, W // 8), (88, 88)
 DL_TRAIN_PAIRS, DL_CROP = 8, (700, 700)
+# DeepV3Plus (SEResNeXt / ResNet trunks): the same ASPP over 2048 channels
+DV3_CIN = 2048
 # deeplab_train_parity's seeds: each costs seven full-width steps on the CPU
 DL_TRAIN_PARITY_SEEDS = (SEED + 27, SEED + 37)
 # M2F stage 1 (exps/m2f.yaml): the anomaly tail's backward at the stage-1 shapes,
@@ -985,6 +1007,49 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
                    "library_layout": best, "ok": True})
     del x, outs
 
+    # forward at DeepV3Plus's eval shapes (the ASPP over an SEResNeXt-101 or
+    # R-101 layer4 / res5 at output stride 8: 2048 -> 256 channels at 128x256),
+    # bf16 as served; the same tolerance; cuDNN in the faster layout above
+    xd = torch.randn((1, *DL_EVAL_MAP, DV3_CIN), generator=gen, device=dev).to(torch.bfloat16)
+    kd = [torch.randn((3, 3, DV3_CIN, DL_COUT), generator=gen, device=dev) / 64
+          for _ in DL_RATES]
+    with torch.no_grad():
+        run = lambda: [dconv.dilated_conv3x3(xd, k, r) for k, r in zip(kd, DL_RATES)]
+        plain = lambda: [dconv.dilated_conv3x3_plain(xd, k, r) for k, r in zip(kd, DL_RATES)]
+        outs, refs = run(), plain()
+        torch.cuda.synchronize()
+        err = max(check(f"dilated_conv3x3_rate{r}_deepv3_shapes", o, ref,
+                        1e-3 * float(ref.float().abs().max()), 2 ** -7)
+                  for r, o, ref in zip(DL_RATES, outs, refs))
+        del refs
+        times = (median_ms(torch, run, 10), median_ms(torch, plain, 2))
+        fmt = torch.channels_last if best == "channels_last" else torch.contiguous_format
+        xc = xd.permute(0, 3, 1, 2).contiguous(memory_format=fmt)
+        wc = [k.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(memory_format=fmt)
+              for k in kd]
+        torch.backends.cudnn.benchmark = True
+        lib = lambda: [F.conv2d(xc, w, padding=r, dilation=r) for w, r in zip(wc, DL_RATES)]
+        lib()
+        lib_ms = median_ms(torch, lib, 2)
+        torch.backends.cudnn.benchmark = False
+        del xc, wc
+    taps = sum(in_map_taps(1, DL_EVAL_MAP, r) for r in DL_RATES)
+    flop = 2 * taps * DV3_CIN * DL_COUT
+    b_ms, b_by = bound(nbytes(xd, *outs) + sum(k.numel() * 2 for k in kd), flop,
+                       BF16_TC_OPS_PER_S)
+    rows["dilated_conv3x3_deepv3"] = {
+        "name": "dilated_conv3x3_deepv3", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/dilated_conv.cu",
+        "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
+        "counter": "dilated_conv3x3", "paths": ("alt_serve_deepv3",),
+        "max_abs_err": err, "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": lib_ms}
+    checks.append({"check": "dilated_conv3x3_deepv3_work", "cin": DV3_CIN,
+                   "tflop": flop / 1e12, "kernel_tflop_per_s": flop / times[0] / 1e9,
+                   "library_tflop_per_s": flop / lib_ms / 1e9, "library_layout": best,
+                   "ok": True})
+    del xd, kd, outs
+
     # weight gradient, training shapes (16 x 88 x 88), bf16 inputs, f32 result
     # by atomics; tolerance: the same exact products summed in f32 in another order
     b = 2 * DL_TRAIN_PAIRS
@@ -1576,7 +1641,12 @@ def seeded_model(torch, seed, **cfg):
     from multishiftseg_torch.models.maskformer import MaskFormer
 
     torch.manual_seed(seed)
-    model = MaskFormer(**cfg)
+    return seeded(torch, MaskFormer(**cfg), seed)
+
+
+def seeded(torch, model, seed):
+    """``model`` with numpy noise from ``seed`` on every state entry, as
+    :func:`seeded_model`; in eval mode."""
     g = np.random.RandomState(seed)
     with torch.no_grad():
         for name, t in sorted(model.state_dict().items()):
@@ -1894,7 +1964,7 @@ def tree_to(tree, dev):
         return {k: tree_to(v, dev) for k, v in tree.items()}
     if isinstance(tree, list):
         return [tree_to(v, dev) for v in tree]
-    return tree.to(dev)
+    return None if tree is None else tree.to(dev)
 
 
 def recorded_step(torch, tr, step, card=None):
@@ -3377,10 +3447,370 @@ def phase_instance_train(torch):
     return res, totals
 
 
+# ---------------------------------------------------------------------------
+# the alternate backbones and heads: Swin-L and R-101 MaskFormer, the FPN and
+# transformer-encoder pixel decoders, the MaskFormer-v1 predictor, DeepV3Plus
+
+
+ALT_SWIN = "swin_large"  # exps/m2f_swin_large.yaml's backbone
+# the alternates' main paths, each run with the launch counts set to 0 before it
+ALT_PATHS = ("alt_serve_swin_large", "alt_serve_resnet101", "alt_serve_deepv3",
+             "alt_train_m2f_swin_large_stage2", "alt_train_m2f_instance_swin_large",
+             "alt_train_m2f_semantic_r101")
+DV3_TRUNKS = ("resnet-101", "seresnext-101")
+
+
+def seeded_deepv3(torch, trunk, seed):
+    """Port DeepV3Plus at full widths with seeded weights: the modules' own init,
+    each residual branch's last BatchNorm scale at 0.2 (a random 100-layer trunk
+    at unit scales amplifies rounding from layer to layer), and running
+    statistics as :func:`seeded_deeplab`'s."""
+    from multishiftseg_torch.models.deepv3_generic import DeepV3Plus
+
+    torch.manual_seed(seed)
+    model = DeepV3Plus(trunk=trunk)
+    g = np.random.RandomState(seed)
+    with torch.no_grad():
+        for name, t in sorted(model.state_dict().items()):
+            if name.endswith(("conv3.norm.weight", "bn3.weight")):
+                t.mul_(0.2)
+            elif name.endswith(("running_mean", "running_var")):
+                noise = torch.from_numpy((0.1 * g.randn(*t.shape)).astype(np.float32))
+                t.add_(noise.abs() if name.endswith("running_var") else noise)
+    return model.eval()
+
+
+def maskformer_parity(torch, model, images):
+    """``model`` (f32, on the CPU) on the card and on the CPU in f32 with TF32
+    off, the CPU attending with the card's attention masks where the decoder
+    masks its attention: the pixel decoder's outputs, the masks' deciding
+    logits (:func:`mask_logit_layers`), every prediction, and for the GMA
+    decoder the eval tail."""
+    from multishiftseg_torch.models.maskformer import inference, preprocess
+
+    gpu_model = copy.deepcopy(model).cuda()
+    hw = images.shape[1:3]
+    masked = hasattr(model.sem_seg_head.predictor, "transformer_cross_attention_layers")
+
+    def run(m, dev, replay=None):
+        rec = {"embeds": [], "masks": []}
+        pred = m.sem_seg_head.predictor
+
+        def pd_hook(mod, i, o):
+            rec["mask_features"] = o[0].float().cpu()
+            rec["ms"] = [t.float().cpu() for t in o[2]]
+
+        hooks = [pred.mask_embed.register_forward_hook(
+                     lambda mod, i, o: rec["embeds"].append(o.float().cpu())),
+                 m.sem_seg_head.pixel_decoder.register_forward_hook(pd_hook)]
+        if masked:
+            hooks += attention_mask_hooks(pred, rec["masks"], replay)
+        with torch.no_grad():
+            out = m(preprocess(torch.from_numpy(images).to(dev)))
+            if "pred_logits_ood" in out:
+                rec["sem"], rec["anomaly"] = (t.float().cpu() for t in inference(out, hw))
+        for h in hooks:
+            h.remove()
+        rec["out"] = {k: v.float().cpu() for k, v in out.items() if k != "aux_outputs"}
+        rec["aux"] = [{k: v.float().cpu() for k, v in a.items()} for a in out["aux_outputs"]]
+        return rec
+
+    g = run(gpu_model, "cuda")
+    c = run(model, "cpu", replay=g["masks"] if masked else None)
+    del gpu_model
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
+
+    res = {"pixel_decoder_rel_err": max([rel(g["mask_features"], c["mask_features"])]
+                                        + [rel(a, b) for a, b in zip(g["ms"], c["ms"])]),
+           "pred_rel_err": max(rel(g["out"][k], c["out"][k]) for k in c["out"]),
+           "aux_rel_err": max([rel(a[k], b[k]) for a, b in zip(g["aux"], c["aux"]) for k in b]
+                              or [0.0])}
+    checks = {"pixel_decoder_rel_err<=1e-3": res["pixel_decoder_rel_err"] <= 1e-3,
+              "predictions_rel_err<=1e-3": max(res["pred_rel_err"], res["aux_rel_err"]) <= 1e-3}
+    if masked:
+        layers = mask_logit_layers(torch, g, c, [tuple(t.shape[-2:]) for t in c["ms"]])
+        res["attention_mask_flips"] = [x["flips"] for x in layers]
+        res["max_diff_over_scale"] = max(x["max_diff_over_scale"] for x in layers)
+        checks["mask_logits_within_rounding"] = all(x["within_rounding"] for x in layers)
+    if "anomaly" in c:
+        res["anomaly_max_abs_err"] = float((g["anomaly"] - c["anomaly"]).abs().max())
+        res["sem_max_abs_err"] = float((g["sem"] - c["sem"]).abs().max())
+        checks["tail<=1e-3"] = max(res["anomaly_max_abs_err"], res["sem_max_abs_err"]) <= 1e-3
+    res["checks"] = checks
+    res["ok"] = bool(all(checks.values()))
+    return res
+
+
+def phase_alt_parity(torch, hw=(256, 512)):
+    """The alternates in f32 (TF32 off), card (kernels) against CPU (plain
+    versions) from the same weights: Swin-L and R-101 MaskFormer at full
+    widths (GMA, MSDeformAttn); the three new heads at full widths and a small
+    depth over R-50 (the FPN pixel decoder under the GMA decoder; the
+    transformer-encoder pixel decoder under the MaskFormer-v1 predictor);
+    DeepV3Plus on R-101 and SEResNeXt-101 (logits)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images = np.random.RandomState(SEED + 61).randint(0, 256, (1, *hw, 3)).astype(np.uint8)
+    res = {"phase": "alt_parity", "image_hw": list(hw), "dtype": "float32", "tf32": False,
+           "models": {}}
+    small = dict(dec_layers=3, transformer_enc_layers=2)
+    for seed, (name, cfg) in enumerate((
+            ("swin_large_msdeformattn_gma", dict(backbone=ALT_SWIN)),
+            ("resnet101_msdeformattn_gma", dict(backbone="resnet101")),
+            ("resnet50_fpn_gma_3_layers", dict(small, pixel_decoder="fpn")),
+            ("resnet50_transformer_encoder_standard_3_layers",
+             dict(small, pixel_decoder="transformer_encoder", predictor="standard")))):
+        res["models"][name] = maskformer_parity(
+            torch, seeded_model(torch, SEED + 62 + seed, **cfg), images)
+    from multishiftseg_torch.models.maskformer import preprocess
+
+    x = preprocess(torch.from_numpy(images)).permute(0, 3, 1, 2)
+    for seed, trunk in enumerate(DV3_TRUNKS):
+        model = seeded_deepv3(torch, trunk, SEED + 70 + seed)
+        with torch.no_grad():
+            want = model(x)
+            got = copy.deepcopy(model).cuda()(x.cuda()).cpu()
+        torch.cuda.empty_cache()
+        err = float((got - want).abs().max() / want.abs().max())
+        res["models"][f"deepv3plus_{trunk}"] = {"logits_rel_err": err,
+                                                "ok": bool(err <= 1e-3 and got.shape == want.shape)}
+    res["ok"] = all(m["ok"] for m in res["models"].values())
+    return res
+
+
+@contextlib.contextmanager
+def window_attention_events(torch, model):
+    """CUDA events around every Swin window attention of ``model``'s forwards:
+    yields the list of (start, end) pairs they record (no host sync)."""
+    from multishiftseg_torch.models.swin import WindowAttention
+
+    pairs = []
+
+    def pre(mod, args):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        pairs.append([e, None])
+
+    def post(mod, args, out):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        pairs[-1][1] = e
+
+    handles = [h for m in model.modules() if isinstance(m, WindowAttention)
+               for h in (m.register_forward_pre_hook(pre), m.register_forward_hook(post))]
+    try:
+        yield pairs
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def serve_requests(torch, fwd, images, warmup=2):
+    """``fwd`` over ``images`` after ``warmup`` of them: latencies (ms, each
+    synchronised), the launch counts, the outputs' finiteness, peak memory."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    for im in images[:warmup]:
+        fwd(im)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    latencies, finite = [], True
+    for im in images:
+        t0 = time.perf_counter()
+        outs = fwd(im)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        finite &= all(bool(torch.isfinite(o).all()) for o in outs)
+    counts = launch_counts()
+    return {"latency_ms": latencies, "images_per_s": len(images) / (sum(latencies) / 1e3),
+            "finite": finite, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {k: v for k, v in counts.items() if v}, "shapes": [list(o.shape)
+                                                                      for o in outs]}, counts
+
+
+def phase_alt_serve(torch, requests=3):
+    """One request path per alternate at 1024x2048, batch 1, bf16:
+    ``build_m2f_request_forward`` (``bilinear``) on the Swin-L and the R-101
+    MaskFormer (GMA, full widths; bf16 weights, as ``serve``), and DeepV3Plus on
+    SEResNeXt-101 (bf16 autocast over f32 weights), each 3 requests after 2
+    warm-up: latency, launches (6 deformable forwards, one anomaly and one
+    semantic tail a MaskFormer request; 3 dilated convs a DeepV3Plus one, and
+    nothing else), peak memory, one profiled request (device busy share, top
+    kernels); for Swin-L also the device time between CUDA events around its
+    window attentions, a request's and its share of the device's busy time."""
+    from multishiftseg_torch.models.maskformer import preprocess
+    from multishiftseg_torch.train.test_runner import build_m2f_request_forward
+
+    torch.backends.cudnn.allow_tf32 = True
+    g = np.random.RandomState(SEED + 63)
+    images = [g.randint(0, 256, (1, H, W, 3)).astype(np.uint8) for _ in range(requests)]
+    res = {"phase": "alt_serve", "image_hw": [H, W], "batch": 1, "models": {}}
+    counts_by_path, ok = {}, True
+    for name, backbone in (("swin_large", ALT_SWIN), ("resnet101", "resnet101")):
+        model = seeded_model(torch, SEED + 64, backbone=backbone).to(torch.bfloat16)
+        fwd = build_m2f_request_forward(model)
+        r, counts = serve_requests(torch, fwd, images)
+        want = {"ms_deform_attn_bilinear": 6 * requests, "mask_scores_anomaly": requests,
+                "mask_scores_semantic": requests}
+        r["launches_per_image_ok"] = {k: v for k, v in counts.items() if v} == want
+        r["profiled_request"] = profile_request(torch, fwd, images[0], focus=FWD_FOCUS)
+        if backbone.startswith("swin"):
+            with window_attention_events(torch, model) as pairs:
+                t0 = time.perf_counter()
+                fwd(images[0])
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            attn_ms = sum(a.elapsed_time(b) for a, b in pairs)
+            busy = r["profiled_request"]["device_busy_ms"]
+            r["window_attention"] = {"calls": len(pairs), "ms": attn_ms, "request_wall_ms": wall,
+                                     "share_of_device_busy": attn_ms / busy if busy else None}
+        r["model"] = f"MaskFormer {backbone} MSDeformAttn+GMA, full widths"
+        r["dtype"] = "bfloat16 weights"
+        r["ok"] = bool(r["finite"] and r["launches_per_image_ok"]
+                       and r["shapes"] == [[1, H, W], [1, CLASSES + QUERIES, H, W]])
+        ok &= r["ok"]
+        res["models"][name] = r
+        counts_by_path[f"alt_serve_{name}"] = counts
+        del model, fwd
+        torch.cuda.empty_cache()
+    model = seeded_deepv3(torch, DV3_TRUNKS[1], SEED + 65).cuda()
+
+    @torch.inference_mode()
+    def dv3(im):
+        x = preprocess(torch.from_numpy(im).cuda()).permute(0, 3, 1, 2)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return (model(x),)
+
+    r, counts = serve_requests(torch, dv3, images)
+    r["launches_per_image_ok"] = {k: v for k, v in counts.items() if v} == {
+        "dilated_conv3x3": 3 * requests}
+    r["profiled_request"] = profile_request(torch, dv3, images[0], focus="dconv")
+    r.update(model=f"DeepV3Plus {DV3_TRUNKS[1]}, full widths",
+             dtype="bfloat16 autocast, f32 weights")
+    r["ok"] = bool(r["finite"] and r["launches_per_image_ok"]
+                   and r["shapes"] == [[1, CLASSES, H, W]])
+    ok &= r["ok"]
+    res["models"]["deepv3plus_seresnext101"] = r
+    counts_by_path["alt_serve_deepv3"] = counts
+    res["ok"] = bool(ok)
+    return res, counts_by_path
+
+
+def timed_steps(torch, step, warmup=1, timed=2):
+    """``step()`` (-> loss, components, gradient norm, assignments) ``warmup``
+    times, then ``timed`` times, each synchronised: step ms, finite losses,
+    launches, peak memory, and one profiled step."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, finite = [], True
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss, losses, gnorm, _ = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        finite &= bool(np.isfinite(float(loss)) and np.isfinite(float(gnorm))
+                       and all(np.isfinite(float(v)) for v in losses.values()))
+    counts = launch_counts()
+    res = {"step_ms": times, "finite": finite,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_per_step": {k: v / timed for k, v in counts.items() if v},
+           "profiled_step": profile_request(torch, lambda _: step(), None, focus=STEP_FOCUS)}
+    res["training_kernels_ok"] = all(counts[k] > 0 for k in (
+        "ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward", "linear_sum_assignment",
+        "label_points"))
+    return res, counts
+
+
+def largest_batch_that_fits(torch, make, sizes):
+    """``make(b)`` -> (result, counts) at the first of ``sizes`` (descending)
+    that does not run out of device memory; the sizes that did are listed."""
+    oom = []
+    for b in sizes:
+        try:
+            r, counts = make(b)
+            r["batch_cut_from"] = oom
+            return r, counts
+        except torch.cuda.OutOfMemoryError:
+            oom.append(b)
+            torch.cuda.empty_cache()
+    return {"ok": False, "out_of_memory_at": oom}, {}
+
+
+def phase_alt_train(torch):
+    """The alternates' training steps at full widths on the card (bf16
+    autocast, f32 master weights), 1 warm-up and 2 timed steps each:
+    exps/m2f_swin_large.yaml's stage-2 step (exps/m2f.yaml's 8 pairs of
+    700x700 crops padded to 704, every parameter trained, the backbone too,
+    with drop path); exps/m2f_instance_swin_large.yaml's step (8 unpadded
+    700x700 crops, 48 slots, drop path); exps/m2f_semantic_r101.yaml's step
+    (8 crops of 512x1024, 20 slots). Where 80 GB does not hold the recipe's
+    batch, the largest batch that does, with the cut listed."""
+    from multishiftseg_torch.models.maskformer import maskformer_from_config
+    from multishiftseg_torch.train.instance_trainer import TrainM2FInstance
+    from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"phase": "alt_train", "dtype": "bfloat16 autocast, f32 master weights",
+           "recipes": {}}
+    counts_by_path = {}
+
+    def stage2(pairs):
+        cfg = instance_config("swin_large", pairs, CROP, bf16=True)
+        tr = TrainM2FOOD(cfg, model=seeded(torch, maskformer_from_config(cfg.model.m2f),
+                                           SEED + 66).train(), device="cuda")
+        tr.set_stage(1)
+        batch = [torch.from_numpy(x).cuda() for x in synthetic_batch(pairs, CROP, CLASSES,
+                                                                     SEED + 67)]
+        try:
+            r, counts = timed_steps(torch, lambda: tr.stage2_step(*batch))
+        finally:
+            del tr, batch
+        r.update(images_per_step=2 * pairs, crop=list(CROP), padded=list(TRAIN_HW))
+        return r, counts
+
+    def vanilla(recipe, crop, slots, seed):
+        def make(batch):
+            cfg = instance_config(recipe, batch, crop, bf16=True)
+            tr = TrainM2FInstance(cfg, model=seeded(torch, maskformer_from_config(
+                cfg.model.m2f), seed).train(), dataset_name="unused", device="cuda")
+            data = instance_batch(batch, crop, slots, seed + 1)
+            try:
+                r, counts = timed_steps(torch, lambda: tr.step(*data))
+            finally:
+                del tr
+            r.update(images_per_step=batch, crop=list(crop), slots=slots)
+            return r, counts
+        return make
+
+    for name, make, sizes in (
+            ("m2f_swin_large_stage2", stage2, (TRAIN_PAIRS, 7, 6, 4, 2)),
+            ("m2f_instance_swin_large", vanilla("instance_swin_large", CROP, INST_SLOTS,
+                                                SEED + 68), (INST_BATCH, 6, 4, 2)),
+            ("m2f_semantic_r101", vanilla("semantic_r101", (512, 1024), 20, SEED + 71),
+             (INST_BATCH, 6, 4, 2))):
+        r, counts = largest_batch_that_fits(torch, make, sizes)
+        torch.cuda.empty_cache()
+        r["ok"] = bool(r.get("finite") and r.get("training_kernels_ok"))
+        res["recipes"][name] = r
+        counts_by_path[f"alt_train_{name}"] = counts
+    res["ok"] = all(r["ok"] for r in res["recipes"].values())
+    return res, counts_by_path
+
+
 PHASES = ("kernels", "slice_parity", "serve", "train_parity", "train", "deeplab_parity",
           "deeplab_serve", "deeplab_train_parity", "deeplab_train", "stage1_parity",
           "stage1_train", "validate", "evaluate", "train_loop", "instance_parity",
-          "instance_train")
+          "instance_train", "alt_parity", "alt_serve", "alt_train")
 
 
 def parse_args(argv):
@@ -3460,6 +3890,8 @@ def main(argv=None):
     loop_launches = run("train_loop", phase_train_loop)
     run("instance_parity", phase_instance_parity)
     inst_launches = run("instance_train", phase_instance_train)
+    run("alt_parity", phase_alt_parity)
+    alt_launches = {**run("alt_serve", phase_alt_serve), **run("alt_train", phase_alt_train)}
 
     # each main path was run with the counts set to 0 just before it; a row
     # counts its counter over its paths (default: every path)
@@ -3468,7 +3900,8 @@ def main(argv=None):
              "validate": val_launches, "evaluate": eval_launches,
              "train_loop": loop_launches, "instance_eval": inst_launches.get("instance_eval", {}),
              **{p: inst_launches.get(p, {}) for p in (f"instance_train_{r}"
-                                                      for r in INSTANCE_RECIPES)}}
+                                                      for r in INSTANCE_RECIPES)},
+             **{p: alt_launches.get(p, {}) for p in ALT_PATHS}}
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))

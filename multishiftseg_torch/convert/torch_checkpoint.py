@@ -36,13 +36,16 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
 def reference_state_dict(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """``state`` with DataParallel's ``module.`` prefix stripped and the
     entries that are neither parameters nor buffers of the port dropped:
-    torch BatchNorm's step counters (the port's BatchNorm has a fixed momentum)
-    and the loss module's buffers (detectron2's ``criterion.empty_weight``; the
-    port's criterion is a function). Every other key must match the port."""
+    torch BatchNorm's step counters (the port's BatchNorm has a fixed momentum),
+    the loss module's buffers (detectron2's ``criterion.empty_weight``; the
+    port's criterion is a function) and Swin's ``relative_position_index``
+    buffers (index tables the port builds itself, as JAX skips them,
+    ``torch2jax.py:150-151``). Every other key must match the port."""
     out = {}
     for k, v in state.items():
         k = k[len(_DP_PREFIX):] if k.startswith(_DP_PREFIX) else k
-        if k.endswith("num_batches_tracked") or k.startswith("criterion."):
+        if (k.endswith(("num_batches_tracked", "relative_position_index"))
+                or k.startswith("criterion.")):
             continue
         out[k] = v
     return out

@@ -53,7 +53,7 @@ class M2FModelConfig:
     exercises.
     """
 
-    backbone: str = "resnet50"  # resnet50 | swin_{tiny,small,base,large}
+    backbone: str = "resnet50"  # resnet{18,34,50,101,152} | swin_{tiny,small,base,large}
     freeze_at: int = 5  # MODEL.BACKBONE.FREEZE_AT
     pixel_mean: Tuple[float, float, float] = (123.675, 116.280, 103.530)
     pixel_std: Tuple[float, float, float] = (58.395, 57.120, 57.375)

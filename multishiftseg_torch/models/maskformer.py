@@ -1,17 +1,18 @@
 """MaskFormer meta-architecture (Mask2Anomaly variant): backbone -> pixel decoder ->
-GMA or vanilla transformer decoder, plus preprocessing and semantic / anomaly
-inference.
+transformer decoder, plus preprocessing and semantic / anomaly inference.
 
-Counterpart of ``multishiftseg_tpu/models/maskformer.py`` for backbone
-``resnet50``, pixel decoder ``msdeformattn`` and predictors ``gma`` and
-``vanilla`` (the latter's prediction dict has no ``pred_*_ood`` keys). Module names
-follow the reference: ``backbone.*``, ``sem_seg_head.pixel_decoder.*``,
+Counterpart of ``multishiftseg_tpu/models/maskformer.py`` with its routings
+(:73-136): backbone ``resnet{18,34,50,101,152}`` or ``swin_{tiny,small,base,
+large}``; pixel decoder ``msdeformattn``, ``fpn`` or ``transformer_encoder``;
+predictor ``gma`` (dual OOD heads), ``vanilla`` (no ``pred_*_ood`` keys) or
+``standard`` (MaskFormer-v1, fed the pixel decoder's encoder feature). Module
+names follow the reference: ``backbone.*``, ``sem_seg_head.pixel_decoder.*``,
 ``sem_seg_head.predictor.*``. Images enter as ``[N, H, W, 3]``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -20,17 +21,32 @@ import torch.nn.functional as F
 from ..ops.scores import (anomaly_score_lowres, anomaly_score_topq,  # noqa: F401
                           anomaly_score_upsampled, semantic_inference,
                           semantic_inference_upsampled)
+from .fpn_decoder import BasePixelDecoder, TransformerEncoderPixelDecoder
+from .maskformer_v1_decoder import StandardTransformerDecoder
 from .pixel_decoder import MSDeformAttnPixelDecoder
-from .resnet import ResNet
+from .resnet import RESNET_STAGES, ResNet, resnet_feature_channels
+from .swin import SWIN_CONFIGS, SWIN_FEATURE_CHANNELS, SwinTransformer
 from .transformer_decoder import (MultiScaleMaskedTransformerDecoder,
                                   MultiScaleMaskedTransformerDecoderGMA)
 
 PREDICTORS = {"gma": MultiScaleMaskedTransformerDecoderGMA,
-              "vanilla": MultiScaleMaskedTransformerDecoder}
+              "vanilla": MultiScaleMaskedTransformerDecoder,
+              "standard": StandardTransformerDecoder}
+PIXEL_DECODERS = ("msdeformattn", "fpn", "transformer_encoder")
 
 PIXEL_MEAN = (123.675, 116.280, 103.530)
 PIXEL_STD = (58.395, 57.120, 57.375)
 SIZE_DIVISIBILITY = 32
+
+
+def build_backbone(name: str) -> Tuple[nn.Module, Dict[str, int]]:
+    """(backbone, its res2..res5 channels) for ``resnet{N}`` (frozen BN,
+    output stride 32) or ``swin_{tiny,small,base,large}``."""
+    if name.startswith("resnet") and name[6:].isdigit() and int(name[6:]) in RESNET_STAGES:
+        return ResNet(depth=int(name[6:])), resnet_feature_channels(int(name[6:]))
+    if name.startswith("swin_") and name[5:] in SWIN_CONFIGS:
+        return SwinTransformer(**SWIN_CONFIGS[name[5:]]), SWIN_FEATURE_CHANNELS[name[5:]]
+    raise ValueError(f"unknown backbone {name!r}")
 
 
 class MaskFormerHead(nn.Module):
@@ -43,8 +59,9 @@ class MaskFormerHead(nn.Module):
 
 
 class MaskFormer(nn.Module):
-    """Prediction dict of the ``predictor`` decoder (``gma``, the default, or
-    ``vanilla``) for preprocessed ``[N, H, W, 3]`` images."""
+    """Prediction dict of the ``predictor`` decoder for preprocessed
+    ``[N, H, W, 3]`` images (the GMA decoder over R-50 and the MSDeformAttn
+    pixel decoder by default)."""
 
     def __init__(self, num_classes: int = 19, backbone: str = "resnet50",
                  hidden_dim: int = 256, num_queries: int = 100, nheads: int = 8,
@@ -52,37 +69,80 @@ class MaskFormer(nn.Module):
                  transformer_enc_layers: int = 6, pixel_decoder: str = "msdeformattn",
                  predictor: str = "gma"):
         super().__init__()
-        if backbone != "resnet50":
-            raise NotImplementedError(f"backbone {backbone!r} is not ported")
-        if pixel_decoder != "msdeformattn":
-            raise NotImplementedError(f"pixel_decoder {pixel_decoder!r} is not ported")
+        if pixel_decoder not in PIXEL_DECODERS:
+            raise ValueError(f"unknown pixel_decoder {pixel_decoder!r}")
         if predictor not in PREDICTORS:
-            raise NotImplementedError(f"predictor {predictor!r} is not ported")
+            raise ValueError(f"unknown predictor {predictor!r}")
         self.num_classes = num_classes
-        self.backbone = ResNet(depth=50)
-        # the JAX MaskFormer leaves the pixel decoder's 8 heads at their default
-        self.sem_seg_head = MaskFormerHead(
-            MSDeformAttnPixelDecoder(conv_dim=hidden_dim, mask_dim=mask_dim,
-                                     transformer_enc_layers=transformer_enc_layers),
-            PREDICTORS[predictor](
-                num_classes=num_classes, hidden_dim=hidden_dim, num_queries=num_queries,
-                nheads=nheads, dim_feedforward=dim_feedforward, dec_layers=dec_layers,
-                mask_dim=mask_dim))
+        self.backbone, channels = build_backbone(backbone)
+        self.pixel_decoder_name = pixel_decoder
+        # the JAX MaskFormer leaves the pixel decoders' heads (8) at their default
+        if pixel_decoder == "msdeformattn":
+            pd = MSDeformAttnPixelDecoder(conv_dim=hidden_dim, mask_dim=mask_dim,
+                                          transformer_enc_layers=transformer_enc_layers,
+                                          feature_channels=channels)
+        elif pixel_decoder == "fpn":
+            pd = BasePixelDecoder(channels, conv_dim=hidden_dim, mask_dim=mask_dim)
+        else:
+            pd = TransformerEncoderPixelDecoder(channels, conv_dim=hidden_dim,
+                                                mask_dim=mask_dim,
+                                                transformer_enc_layers=transformer_enc_layers)
+        self.predictor_name = predictor
+        self.sem_seg_head = MaskFormerHead(pd, PREDICTORS[predictor](
+            num_classes=num_classes, hidden_dim=hidden_dim, num_queries=num_queries,
+            nheads=nheads, dim_feedforward=dim_feedforward, dec_layers=dec_layers,
+            mask_dim=mask_dim))
+
+    def draw_drop_path_masks(self, batch: int, generator: Optional[torch.Generator],
+                             device) -> Optional[torch.Tensor]:
+        """The backbone's drop-path keep masks for one training forward
+        (Swin's; None for a ResNet, which has no stochastic depth)."""
+        if isinstance(self.backbone, SwinTransformer):
+            return self.backbone.draw_drop_path_masks(batch, generator, device)
+        return None
 
     def forward(self, images: torch.Tensor,
                 deform_sample_mode: Union[str, Sequence[str]] = "bilinear",
-                quantize_deform_table: bool = False) -> Dict[str, object]:
+                quantize_deform_table: bool = False,
+                drop_path_masks: Optional[torch.Tensor] = None) -> Dict[str, object]:
         """images: [N, H, W, 3], normalised; padded to /32 (:func:`preprocess`) for
         evaluation, or the unpadded crops of the instance trainer.
         ``deform_sample_mode``: a sample mode of ``ops.ms_deform_attn``
         (``bilinear``, exact, by default), or one per encoder layer;
         ``quantize_deform_table``: the int8 value table (``bilinear`` layers;
-        one scale over the batch, as JAX's model)."""
-        x = images.permute(0, 3, 1, 2).to(self.backbone.stem.conv1.weight.dtype)
-        feats = self.backbone(x)
-        mask_features, _, multi_scale = self.sem_seg_head.pixel_decoder(
-            feats, deform_sample_mode, quantize_deform_table)
+        one scale over the batch, as JAX's model); both for the
+        ``msdeformattn`` pixel decoder. ``drop_path_masks``: a Swin backbone's
+        keep masks in training (:meth:`draw_drop_path_masks`)."""
+        deformable = self.pixel_decoder_name == "msdeformattn"
+        if not deformable and (deform_sample_mode != "bilinear" or quantize_deform_table):
+            raise ValueError(f"the {self.pixel_decoder_name} pixel decoder has no "
+                             "deformable attention to sample")
+        x = images.permute(0, 3, 1, 2).to(next(self.backbone.parameters()).dtype)
+        if isinstance(self.backbone, SwinTransformer):
+            feats = self.backbone(x, drop_path_masks)
+        else:
+            feats = self.backbone(x)
+        pd = self.sem_seg_head.pixel_decoder
+        if deformable:
+            mask_features, encoder_feat, multi_scale = pd(feats, deform_sample_mode,
+                                                          quantize_deform_table)
+        else:
+            mask_features, encoder_feat, multi_scale = pd(feats)
+        if self.predictor_name == "standard":
+            return self.sem_seg_head.predictor(encoder_feat, mask_features)
         return self.sem_seg_head.predictor(multi_scale, mask_features)
+
+
+def maskformer_from_config(m) -> "MaskFormer":
+    """The MaskFormer of a recipe's ``model.m2f`` section (``M2FModelConfig``),
+    as both trainers build it: ``dec_layers - 1`` decoder layers (the config
+    counts the learnable-query prediction), the configured backbone, pixel
+    decoder and predictor (``transformer_decoder``)."""
+    return MaskFormer(num_classes=m.num_classes, backbone=m.backbone, hidden_dim=m.hidden_dim,
+                      num_queries=m.num_queries, nheads=m.nheads,
+                      dim_feedforward=m.dim_feedforward, dec_layers=m.dec_layers - 1,
+                      mask_dim=m.mask_dim, transformer_enc_layers=m.transformer_enc_layers,
+                      pixel_decoder=m.pixel_decoder, predictor=m.transformer_decoder)
 
 
 def preprocess(images_uint8: torch.Tensor, pixel_mean: Tuple[float, ...] = PIXEL_MEAN,

@@ -9,7 +9,7 @@ reference ``MSDeformAttnPixelDecoder``: ``input_proj.{i}.{0,1}``,
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,17 +85,21 @@ DEFORM_POINTS = len(ENCODER_FEATURES) * N_POINTS
 
 class MSDeformAttnPixelDecoder(nn.Module):
     def __init__(self, conv_dim: int = 256, mask_dim: int = 256,
-                 transformer_enc_layers: int = 6):
+                 transformer_enc_layers: int = 6,
+                 feature_channels: Optional[Mapping[str, int]] = None):
+        """``feature_channels``: the backbone's channels by feature name (R-50's
+        by default), which the input projections take."""
         super().__init__()
+        chans = dict(feature_channels or RESNET_FEATURE_CHANNELS)
         self.conv_dim = conv_dim
         self.input_proj = nn.ModuleList(
-            nn.Sequential(he_normal_(nn.Conv2d(RESNET_FEATURE_CHANNELS[name], conv_dim, 1)),
+            nn.Sequential(he_normal_(nn.Conv2d(chans[name], conv_dim, 1)),
                           _group_norm(conv_dim))
             for name in ENCODER_FEATURES)
         self.transformer = MSDeformAttnTransformerEncoderOnly(
             conv_dim, len(ENCODER_FEATURES), transformer_enc_layers, d_ffn=D_FFN,
             n_heads=N_HEADS, n_points=N_POINTS)
-        self.adapter_1 = he_normal_(Conv2d(RESNET_FEATURE_CHANNELS[FPN_FEATURE], conv_dim, 1,
+        self.adapter_1 = he_normal_(Conv2d(chans[FPN_FEATURE], conv_dim, 1,
                                            bias=False, norm=_group_norm(conv_dim)))
         self.layer_1 = he_normal_(Conv2d(conv_dim, conv_dim, 3, padding=1, bias=False,
                                          norm=_group_norm(conv_dim), activation=F.relu))

@@ -46,7 +46,7 @@ from ..evals.panoptic_metrics import PanopticEvaluator, targets_to_panoptic
 from ..evals.seg_metrics import compute_metric, hist_info
 from ..losses.criterion import CriterionConfig, criterion_draws, set_criterion_instance
 from ..models.inference_extras import instance_inference, panoptic_inference
-from ..models.maskformer import MaskFormer
+from ..models.maskformer import MaskFormer, maskformer_from_config
 from ..ops.resize import resize_bilinear_nchw
 from ..ops.scores import semantic_inference_upsampled
 from ..utils import resolve_device
@@ -170,12 +170,7 @@ class TrainM2FInstance:
                      else "instance" if m.instance_on else "semantic")
         if model is None:
             torch.manual_seed(cfg.train.seed)
-            model = MaskFormer(num_classes=m.num_classes, backbone=m.backbone,
-                               hidden_dim=m.hidden_dim, num_queries=m.num_queries,
-                               nheads=m.nheads, dim_feedforward=m.dim_feedforward,
-                               dec_layers=m.dec_layers - 1, mask_dim=m.mask_dim,
-                               transformer_enc_layers=m.transformer_enc_layers,
-                               pixel_decoder=m.pixel_decoder, predictor=m.transformer_decoder)
+            model = maskformer_from_config(m)
         if weight_path:
             load_reference_weights(model, weight_path)
         self.model = model.to(self.device).float()
@@ -250,10 +245,13 @@ class TrainM2FInstance:
     def draws(self, batch: int, slots: int) -> Dict[str, object]:
         """One step's criterion draws from the trainer's generator: the match
         points and, per (image, slot), the uncertain-point candidates and
-        fill; the same again per auxiliary output."""
+        fill; the same again per auxiliary output; then a Swin backbone's
+        drop-path keep masks (``drop_path``)."""
         n_aux = len(self.model.sem_seg_head.predictor.transformer_cross_attention_layers)
-        return criterion_draws(self.generator, batch, self.crit_cfg, (0, 0), num_aux=n_aux,
-                               device=self.device, slots=slots)
+        out = criterion_draws(self.generator, batch, self.crit_cfg, (0, 0), num_aux=n_aux,
+                              device=self.device, slots=slots)
+        out["drop_path"] = self.model.draw_drop_path_masks(batch, self.generator, self.device)
+        return out
 
     def step(self, img, id_map, classes, draws: Optional[Dict[str, object]] = None
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor, list]:
@@ -270,7 +268,7 @@ class TrainM2FInstance:
             draws = self.draws(img.shape[0], classes.shape[1])
         self.model.train()
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
-            outputs = self.model(img)
+            outputs = self.model(img, drop_path_masks=draws.get("drop_path"))
         total, losses, assignments = set_criterion_instance(outputs, id_map, classes, draws,
                                                             self.crit_cfg)
         self.optimizer.zero_grad(set_to_none=True)

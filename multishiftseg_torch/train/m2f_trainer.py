@@ -37,7 +37,7 @@ from ..data.transforms import (AutoContrast, ColorJitter, Compose, Equalize, Gau
                                RandRotate, RandSharpness, RandVerticalFlip, ToTensor)
 from ..losses.criterion import CriterionConfig, criterion_draws, set_criterion
 from ..losses.rcl import make_rcl_params, rel_contrastive_loss
-from ..models.maskformer import MaskFormer, inference
+from ..models.maskformer import MaskFormer, inference, maskformer_from_config
 from ..models.pixel_decoder import DEFORM_POINTS
 from ..ops.ms_deform_attn import parse_eval_sample_mode
 from ..ops.scores import anomaly_score_upsampled
@@ -88,12 +88,7 @@ class TrainM2FOOD:
                    for k in ("class", "mask", "dice", "ood")}
         if model is None:
             torch.manual_seed(cfg.train.seed)
-            model = MaskFormer(num_classes=m.num_classes, backbone=m.backbone,
-                               hidden_dim=m.hidden_dim, num_queries=m.num_queries,
-                               nheads=m.nheads, dim_feedforward=m.dim_feedforward,
-                               dec_layers=m.dec_layers - 1, mask_dim=m.mask_dim,
-                               transformer_enc_layers=m.transformer_enc_layers,
-                               pixel_decoder=m.pixel_decoder, predictor=m.transformer_decoder)
+            model = maskformer_from_config(m)
         if weight_path:
             load_reference_weights(model, weight_path, fill=_ood_head_from_class_head)
             copy_class_embed_to_ood(model)
@@ -192,14 +187,19 @@ class TrainM2FOOD:
 
     def draws(self, batch: int, label_hw: Tuple[int, int]) -> Dict[str, object]:
         """The current stage's draws for one step, from the trainer's generator:
-        stage 0 the RCL noise [3, batch * crop_h * crop_w], stage 1 the criterion's."""
+        stage 0 the RCL noise [3, batch * crop_h * crop_w], stage 1 the criterion's;
+        then, in both, a Swin backbone's drop-path keep masks (``drop_path``), as
+        JAX's steps run the model with ``train=True`` and a dropout key."""
         if self.stage == 0:
             ch, cw = self.crop_hw
-            return {"rcl_noise": torch.rand((3, batch * ch * cw), generator=self.generator,
-                                            device=self.device)}
-        n_aux = len(self.model.sem_seg_head.predictor.transformer_cross_attention_layers) - 1
-        return criterion_draws(self.generator, batch, self.crit_cfg, label_hw,
-                               crop_hw=self.crop_hw, num_aux=n_aux, device=self.device)
+            out = {"rcl_noise": torch.rand((3, batch * ch * cw), generator=self.generator,
+                                           device=self.device)}
+        else:
+            n_aux = len(self.model.sem_seg_head.predictor.transformer_cross_attention_layers) - 1
+            out = criterion_draws(self.generator, batch, self.crit_cfg, label_hw,
+                                  crop_hw=self.crop_hw, num_aux=n_aux, device=self.device)
+        out["drop_path"] = self.model.draw_drop_path_masks(batch, self.generator, self.device)
+        return out
 
     def _pair(self, img_c, img_g, tgt_c, tgt_g):
         img = torch.cat([torch.as_tensor(img_c), torch.as_tensor(img_g)]).to(
@@ -232,7 +232,7 @@ class TrainM2FOOD:
             draws = self.draws(img.shape[0], tuple(tgt.shape[1:]))
         self.model.train()
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
-            outputs = self.model(img)
+            outputs = self.model(img, drop_path_masks=draws.get("drop_path"))
         sem, anomaly = inference(outputs, tuple(img.shape[1:3]),
                                  num_classes=self.model.num_classes, _classes_only=True)
         ch, cw = self.crop_hw
@@ -264,7 +264,7 @@ class TrainM2FOOD:
             draws = self.draws(img.shape[0], tuple(tgt.shape[1:]))
         self.model.train()
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
-            outputs = self.model(img)
+            outputs = self.model(img, drop_path_masks=draws.get("drop_path"))
         total, losses, assignments = set_criterion(outputs, tgt, draws, self.crit_cfg,
                                                    self.rcl_params, crop_hw=self.crop_hw)
         self.optimizer.zero_grad(set_to_none=True)

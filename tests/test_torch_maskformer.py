@@ -154,14 +154,18 @@ def test_nearest_mode_forward_runs(slice_run):
 
 
 def test_unported_options_raise(slice_run):
-    with pytest.raises(NotImplementedError):
-        MaskFormer(backbone="swin_tiny")
-    # the vanilla decoder is ported (test_torch_instance_model.py); MaskFormer-v1's
-    # decoder and the FPN pixel decoder are not
-    with pytest.raises(NotImplementedError):
-        MaskFormer(predictor="standard")
-    with pytest.raises(NotImplementedError):
-        MaskFormer(pixel_decoder="fpn")
+    # every routing of JAX's MaskFormer is ported (test_torch_alternates.py); what
+    # JAX refuses, the port refuses with JAX's ValueError: an unknown backbone,
+    # pixel decoder or predictor; and a deformable sample mode or the int8 table
+    # on a pixel decoder without deformable attention
+    for kw in (dict(backbone="swin_huge"), dict(backbone="resnet77"),
+               dict(pixel_decoder="bifpn"), dict(predictor="detr")):
+        with pytest.raises(ValueError, match="unknown"):
+            MaskFormer(**kw)
+    fpn = MaskFormer(**dict(CFG, pixel_decoder="fpn"))
+    for kw in (dict(deform_sample_mode="nearest"), dict(quantize_deform_table=True)):
+        with pytest.raises(ValueError, match="no deformable attention"):
+            fpn(torch.zeros(1, 64, 64, 3), **kw)
     # both approximate tails at once (JAX lets score_topq win), an unknown mode
     with pytest.raises(ValueError, match="exclusive"):
         inference(slice_run["out"], (H, W), score_lowres=True, score_topq=4)
