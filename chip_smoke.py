@@ -121,10 +121,11 @@ exits non-zero and prints no result. Phases, one JSON line each:
 19. ``alt_serve``: 1024x2048 requests, batch 1, bf16: ``build_m2f_request_forward``
    on the Swin-L and the R-101 MaskFormer, and DeepV3Plus on SEResNeXt-101
    (its ASPP's dilated convs at 2048 channels): latency, launches, peak
-   memory, one profiled request, and Swin-L's window attention's device time
-   between CUDA events and its share of the device's busy time.
+   memory, one profiled request, and in Swin-L's the device time of the
+   kernels its window attentions launch and its share of the busy time.
 20. ``alt_train``: exps/m2f_swin_large.yaml's stage-2 step (exps/m2f.yaml's
-   8 pairs of 700x700 crops, the backbone trained, drop path),
+   crops, the backbone trained, drop path; 7 pairs, ``ALT_STAGE2_PAIRS``,
+   where 8 do not fit in 80 GB),
    exps/m2f_instance_swin_large.yaml's step (8 unpadded 700x700 crops, 48
    slots) and exps/m2f_semantic_r101.yaml's (8 crops of 512x1024, 20 slots),
    bf16: step ms, launches, peak memory, a profiled step; where 80 GB does not
@@ -137,7 +138,9 @@ logit within rounding of 0.
 The ``kernels`` phase also holds the training slice's kernels at its shapes
 (16 images at 704x704): the deformable-attention backward and the bilinear
 forward (a row of its own beside the eval shapes'), the batched
-assignment (and scipy's optimum on the valid rows) and the label points; and
+assignment (and scipy's optimum on the valid rows) and the label points, and
+the same four again at Swin-L's stage-2 batch (14 images, rows
+``*_alt_stage2_shapes`` counting ``alt_train``'s stage-2 step); and
 DeepLab's: the ASPP's dilated conv at the eval shapes (its three rates timed
 together, beside cuDNN's dilated ``conv2d`` in benchmark mode, channels-last
 and NCHW), at DeepV3Plus's eval shapes (2048 input channels, a row of its
@@ -259,10 +262,16 @@ S1_MASK_HW = (TRAIN_HW[0] // 4, TRAIN_HW[1] // 4)
 # the vanilla recipes (exps/m2f_{instance,panoptic,semantic}.yaml): batch 8 of
 # unpadded 700x700 crops, 48 target slots (instance and panoptic), 8 thing classes
 INST_BATCH, INST_SLOTS, INST_CLASSES = 8, 48, 8
-# their step's shapes: the crop, the target slots and the recipes that run
-# them; the semantic recipe's crops are 512x1024 with 20 slots
-INST_SHAPES = {"instance": (CROP, INST_SLOTS, ("instance", "panoptic")),
-               "semantic": ((512, 1024), 20, ("semantic",))}
+# their step's shapes: the crop, the target slots and the training paths
+# that run them (the R-50 recipes' and the Swin-L / R-101 alternates'); the
+# semantic recipe's crops are 512x1024 with 20 slots
+INST_SHAPES = {"instance": (CROP, INST_SLOTS, ("instance_train_instance", "instance_train_panoptic",
+                                               "alt_train_m2f_instance_swin_large")),
+               "semantic": ((512, 1024), 20, ("instance_train_semantic",
+                                              "alt_train_m2f_semantic_r101"))}
+# Swin-L's stage-2 step (exps/m2f_swin_large.yaml) at the largest batch 80 GB
+# holds: 7 pairs (8 pairs run out of memory; 70.4 GiB at 7 on the H100)
+ALT_STAGE2_PAIRS = 7
 
 
 def pyramid(crop):
@@ -525,7 +534,8 @@ def phase_kernels(torch):
             "replaces": f"multishiftseg_tpu/ops/ms_deform_attn.py:{line}",
             # the eval paths; the training steps' launches are the
             # training-shape row's
-            "paths": ("serve", "validate", "evaluate", "instance_eval"), "max_abs_err": err,
+            "paths": ("serve", "validate", "evaluate", "instance_eval", "alt_serve_swin_large",
+                      "alt_serve_resnet101"), "max_abs_err": err,
             "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
         row = rows[f"ms_deform_attn_{mode}"]
@@ -592,10 +602,14 @@ def phase_kernels(torch):
             "bound_by": b_by, "library_ms": None}
         time_redesigned(torch, rows[f"mask_scores_{head}"], run)
         if head == "anomaly":  # the eval paths; stage 1's launches are its own row's
-            rows["mask_scores_anomaly"]["paths"] = ("serve", "validate", "evaluate")
+            rows["mask_scores_anomaly"]["paths"] = ("serve", "validate", "evaluate",
+                                                    "alt_serve_swin_large", "alt_serve_resnet101")
         del out
     approx_kernel_rows(torch, dev, rows, check, checks)
     train_kernel_rows(torch, dev, rows, check, checks)
+    # Swin-L's stage-2 step runs them at its own batch (ALT_STAGE2_PAIRS)
+    train_kernel_rows(torch, dev, rows, check, checks, ALT_STAGE2_PAIRS, "alt_stage2",
+                      ("alt_train_m2f_swin_large_stage2",))
     deeplab_kernel_rows(torch, dev, rows, check, checks)
     stage1_kernel_rows(torch, dev, rows, check, checks)
     instance_kernel_rows(torch, dev, rows, check, checks)
@@ -840,13 +854,21 @@ def msda_train_rows(torch, dev, rows, check, levels, b, seed, shapes, paths):
     del value, loc, attn, g, out
 
 
-def train_kernel_rows(torch, dev, rows, check, checks):
-    """The training slice's kernels at the stage-2 shapes (16 images at 704x704)."""
+def train_kernel_rows(torch, dev, rows, check, checks, pairs=TRAIN_PAIRS, shapes="",
+                      paths=("train", "stage1_train", "train_loop")):
+    """The training slice's kernels at the stage-2 shapes (``pairs`` pairs of
+    700x700 crops padded to 704x704, 16 images by default): the deformable
+    forward and backward, the assignment and the label points. Rows named
+    after the kernel, or with ``shapes`` after ``{kernel}_{shapes}_shapes``;
+    they count the launches of ``paths``."""
     from multishiftseg_torch.losses import criterion, matcher
 
-    b = 2 * TRAIN_PAIRS
-    msda_train_rows(torch, dev, rows, check, TRAIN_LEVELS, b, SEED + 7, "",
-                    ("train", "stage1_train", "train_loop"))
+    b = 2 * pairs
+
+    def named(kernel):
+        return f"{kernel}_{shapes}_shapes" if shapes else kernel
+
+    msda_train_rows(torch, dev, rows, check, TRAIN_LEVELS, b, SEED + 7, shapes, paths)
 
     # batched assignment: 16 problems of 19 targets x 100 queries, about half
     # the rows at BIG (classes absent from the image); exact equality
@@ -869,16 +891,19 @@ def train_kernel_rows(torch, dev, rows, check, checks):
         r, c = scipy_lsa(cost_np[i][valid])
         ours = cost_np[i][valid, got[i].cpu().numpy()[valid]].sum()
         optimal &= bool(abs(ours - cost_np[i][valid][r, c].sum()) <= 1e-5 * abs(ours))
-    checks.append({"check": "linear_sum_assignment_main_shapes", "equal_to_plain": same,
-                   "scipy_optimal_on_valid_rows": optimal, "ok": same and optimal})
+    checks.append({"check": f"linear_sum_assignment_{shapes or 'main'}_shapes",
+                   "equal_to_plain": same, "scipy_optimal_on_valid_rows": optimal,
+                   "ok": same and optimal})
     # each Dijkstra step reduces over every column: about 5 f32 operations each
     b_ms, b_by = bound(nbytes(cost, got), sum(steps) * QUERIES * 5)
-    row = rows["linear_sum_assignment"] = {
-        "name": "linear_sum_assignment", "route": "cuda",
+    name = named("linear_sum_assignment")
+    row = rows[name] = {
+        "name": name, "route": "cuda",
         "source": "multishiftseg_torch/csrc/assignment.cu",
         "replaces": "multishiftseg_tpu/losses/matcher.py:28",
-        # the OOD trainers' steps; the vanilla recipes' are their own row's
-        "paths": ("train", "stage1_train", "train_loop"),
+        # the OOD trainers' steps at these shapes; the vanilla recipes' are
+        # their own rows'
+        "counter": "linear_sum_assignment", "paths": paths,
         "max_abs_err": 0.0 if same else float("nan"), "ms": median_ms(torch, run, 20),
         "plain_ms": median_ms(torch, lambda: matcher.linear_sum_assignment_plain(cost), 3),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -891,7 +916,7 @@ def train_kernel_rows(torch, dev, rows, check, checks):
     row["max_steps"] = max(steps)
     row["device_ns_per_step"] = row["device_ms"] * 1e6 / max(steps)
 
-    # label points on 16 label maps at 704x704: every class at the matcher's
+    # label points on the label maps at 704x704: every class at the matcher's
     # points, and one class per row at the augmented half's clean candidates
     labels_np = rs.randint(0, CLASSES + 3, (b, *TRAIN_HW)).astype(np.int32)
     labels_np[:, :, CROP[1]:] = 255
@@ -901,30 +926,31 @@ def train_kernel_rows(torch, dev, rows, check, checks):
     plain = lambda: criterion.sample_target_points_plain(labels, coords, CLASSES)
     out = run()
     # at most four corner weights summed in f32, in another order
-    err = check("label_points_classes_main_shapes", out, plain(), 1e-6, 0.0)
-    n_rows = TRAIN_PAIRS * CLASSES
+    err = check(f"label_points_classes_{shapes or 'main'}_shapes", out, plain(), 1e-6, 0.0)
+    n_rows = pairs * CLASSES
     rcoords = torch.from_numpy(rs.rand(n_rows, int(TRAIN_POINTS * 1.25), 2).astype(
         np.float32)).to(dev)
-    ids = torch.arange(CLASSES, device=dev).repeat(TRAIN_PAIRS)
-    err = max(err, check("label_points_rows_main_shapes",
-                         criterion.sample_class_points(labels, rcoords, ids, CLASSES, TRAIN_PAIRS),
+    ids = torch.arange(CLASSES, device=dev).repeat(pairs)
+    err = max(err, check(f"label_points_rows_{shapes or 'main'}_shapes",
+                         criterion.sample_class_points(labels, rcoords, ids, CLASSES, pairs),
                          criterion.sample_class_points_plain(labels, rcoords, ids, CLASSES,
-                                                             TRAIN_PAIRS), 1e-6, 0.0))
+                                                             pairs), 1e-6, 0.0))
     # bytes: the label sectors the corners touch, the coordinates, the samples;
     # operations: 4 compares and 4 adds per point and class
     label_bytes = label_sector_bytes(torch, labels, coords, torch.arange(b, device=dev))
     b_ms, b_by = bound(label_bytes + nbytes(coords, out), b * TRAIN_POINTS * CLASSES * 8)
-    rows["label_points"] = {
-        "name": "label_points", "route": "cuda",
+    name = named("label_points")
+    rows[name] = {
+        "name": name, "route": "cuda",
         "source": "multishiftseg_torch/csrc/label_points.cu",
         "replaces": "multishiftseg_tpu/losses/criterion.py:66",
-        "paths": ("train", "stage1_train", "train_loop"),
+        "counter": "label_points", "paths": paths,
         "max_abs_err": err, "ms": median_ms(torch, run, 20),
         "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
         # the one-call equivalent, grid_sample of [B, K, H, W] one-hot masks,
         # takes other inputs (the masks, not the label map)
         "library_ms": None}
-    time_redesigned(torch, rows["label_points"], run)
+    time_redesigned(torch, rows[name], run)
 
 
 def in_map_taps(n, hw, rate):
@@ -1367,12 +1393,11 @@ def instance_kernel_rows(torch, dev, rows, check, checks):
     1024x2048). Against the plain versions: label points within 1e-6 (four
     corner weights summed in f32), the assignment exactly, the score tail
     within 1e-5 (f32 sums in another order). Each row counts the launches of
-    its own recipes' training paths."""
+    the training paths at its shapes, the alternates' included."""
     from multishiftseg_torch.losses import criterion, matcher
     from multishiftseg_torch.ops import scores
 
-    for shapes, (crop, t, recipes) in INST_SHAPES.items():
-        paths = tuple(f"instance_train_{r}" for r in recipes)
+    for shapes, (crop, t, paths) in INST_SHAPES.items():
         b = INST_BATCH
         msda_train_rows(torch, dev, rows, check, pyramid(crop), b, SEED + 82, shapes, paths)
         rs = np.random.RandomState(SEED + 80)
@@ -1718,80 +1743,101 @@ def mask_logit_layers(torch, card, cpu, sizes):
     return layers
 
 
-def phase_slice_parity(torch, hw=(256, 512)):
-    """Full-width MaskFormer in f32: card with kernels vs CPU with plain versions."""
+def maskformer_parity(torch, model, images):
+    """``model`` (f32, on the CPU) on the card and on the CPU in f32 with TF32
+    off, the CPU attending with the card's attention masks where the decoder
+    masks its attention: the pixel decoder's outputs (backbone, deformable
+    encoder and FPN: conv algorithms and sums in another order, within 1e-3 of
+    scale), the masks' deciding logits (:func:`mask_logit_layers`), every
+    prediction within 1e-3 of scale, and for the GMA decoder the eval tail:
+    the card's score kernels on the CPU run's predictions within 1e-5 of the
+    CPU's tail, and each side's own within 1e-3."""
     from multishiftseg_torch.models.maskformer import inference, preprocess
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    cpu_model = seeded_model(torch, SEED + 3)
-    gpu_model = copy.deepcopy(cpu_model).cuda()
-    images = np.random.RandomState(SEED + 4).randint(0, 256, (1, *hw, 3)).astype(np.uint8)
+    gpu_model = copy.deepcopy(model).cuda()
+    hw = images.shape[1:3]
+    masked = hasattr(model.sem_seg_head.predictor, "transformer_cross_attention_layers")
 
-    def run(model, dev, replay=None):
-        embeds, masks = [], []
-        pred = model.sem_seg_head.predictor
+    def run(m, dev, replay=None):
+        rec = {"embeds": [], "masks": []}
+        pred = m.sem_seg_head.predictor
+
+        def pd_hook(mod, i, o):
+            rec["mask_features"] = o[0].float().cpu()
+            rec["ms"] = [t.float().cpu() for t in o[2]]
+
         hooks = [pred.mask_embed.register_forward_hook(
-            lambda m, i, o: embeds.append(o.float().cpu()))]
-        hooks += attention_mask_hooks(pred, masks, replay)
+                     lambda mod, i, o: rec["embeds"].append(o.float().cpu())),
+                 m.sem_seg_head.pixel_decoder.register_forward_hook(pd_hook)]
+        if masked:
+            hooks += attention_mask_hooks(pred, rec["masks"], replay)
         with torch.no_grad():
-            x = preprocess(torch.from_numpy(images).to(dev))
-            feats = model.backbone(x.permute(0, 3, 1, 2))
-            mf, _, ms = model.sem_seg_head.pixel_decoder(feats)
-            out = pred(ms, mf)
-            sem, anomaly = inference(out, hw)
+            out = m(preprocess(torch.from_numpy(images).to(dev)))
+            if "pred_logits_ood" in out:
+                rec["sem"], rec["anomaly"] = (t.float().cpu() for t in inference(out, hw))
         for h in hooks:
             h.remove()
-        cpu = lambda t: t.float().cpu()
-        return dict(mask_features=cpu(mf), ms=[cpu(t) for t in ms],
-                    out={k: cpu(out[k]) for k in ("pred_logits", "pred_masks",
-                                                  "pred_logits_ood", "pred_masks_ood")},
-                    raw_out=out, sem=cpu(sem), anomaly=cpu(anomaly), embeds=embeds,
-                    masks=masks)
+        rec["out"] = {k: v.float().cpu() for k, v in out.items() if k != "aux_outputs"}
+        rec["aux"] = [{k: v.float().cpu() for k, v in a.items()} for a in out["aux_outputs"]]
+        return rec
 
     g = run(gpu_model, "cuda")
-    c = run(cpu_model, "cpu", replay=g["masks"])
-    torch.cuda.synchronize()
+    c = run(model, "cpu", replay=g["masks"] if masked else None)
+    del gpu_model
+    torch.cuda.empty_cache()
 
     def rel(a, b):
         return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
 
-    res = {"phase": "slice_parity", "image_hw": list(hw), "widths": "full",
-           "dtype": "float32", "tf32": False}
-    # 1. pixel decoder (backbone + 6 deformable encoder layers + FPN): f32 on
-    # both sides, conv algorithms and sums in another order
-    res["pixel_decoder_rel_err"] = max([rel(g["mask_features"], c["mask_features"])]
-                                       + [rel(a, b) for a, b in zip(g["ms"], c["ms"])])
-    # 2. score tail: the card's kernels on the CPU run's predictions
-    with torch.no_grad():
-        out_c = {k: v.cuda() for k, v in c["raw_out"].items() if k != "aux_outputs"}
-        sem_k, an_k = inference(out_c, hw)
-    res["tail_max_abs_err"] = max(float((sem_k.cpu() - c["sem"]).abs().max()),
-                                  float((an_k.cpu() - c["anomaly"]).abs().max()))
-    # 3. the attention masks: a bit may differ only at a logit within rounding
-    # of 0, and the CPU then attends with the card's bit
-    layers = mask_logit_layers(torch, g, c, [tuple(t.shape[-2:]) for t in c["ms"]])
-    res["attention_masks"] = layers
-    # 4. end to end
-    res["pred_rel_err"] = {k: rel(g["out"][k], c["out"][k]) for k in g["out"]}
-    res["sem_max_abs_err"] = float((g["sem"] - c["sem"]).abs().max())
-    res["anomaly_max_abs_err"] = float((g["anomaly"] - c["anomaly"]).abs().max())
-    res["checks"] = {"pixel_decoder_rel_err<=1e-3": res["pixel_decoder_rel_err"] <= 1e-3,
-                     "tail_max_abs_err<=1e-5": res["tail_max_abs_err"] <= 1e-5,
-                     "mask_logits_within_rounding": all(x["within_rounding"] for x in layers),
-                     "end_to_end": (max(res["pred_rel_err"].values()) <= 1e-3
-                                    and res["sem_max_abs_err"] <= 1e-3
-                                    and res["anomaly_max_abs_err"] <= 1e-3)}
-    res["ok"] = bool(all(res["checks"].values()))
+    res = {"pixel_decoder_rel_err": max([rel(g["mask_features"], c["mask_features"])]
+                                        + [rel(a, b) for a, b in zip(g["ms"], c["ms"])]),
+           "pred_rel_err": max(rel(g["out"][k], c["out"][k]) for k in c["out"]),
+           "aux_rel_err": max([rel(a[k], b[k]) for a, b in zip(g["aux"], c["aux"]) for k in b]
+                              or [0.0])}
+    checks = {"pixel_decoder_rel_err<=1e-3": res["pixel_decoder_rel_err"] <= 1e-3,
+              "predictions_rel_err<=1e-3": max(res["pred_rel_err"], res["aux_rel_err"]) <= 1e-3}
+    if masked:
+        # a bit may differ only at a logit within rounding of 0, and the CPU
+        # then attends with the card's bit
+        layers = mask_logit_layers(torch, g, c, [tuple(t.shape[-2:]) for t in c["ms"]])
+        res["attention_masks"] = layers
+        res["max_diff_over_scale"] = max(x["max_diff_over_scale"] for x in layers)
+        checks["mask_logits_within_rounding"] = all(x["within_rounding"] for x in layers)
+    if "anomaly" in c:
+        with torch.no_grad():
+            sem_k, an_k = inference({k: v.cuda() for k, v in c["out"].items()}, hw)
+        res["tail_max_abs_err"] = max(float((sem_k.cpu() - c["sem"]).abs().max()),
+                                      float((an_k.cpu() - c["anomaly"]).abs().max()))
+        res["anomaly_max_abs_err"] = float((g["anomaly"] - c["anomaly"]).abs().max())
+        res["sem_max_abs_err"] = float((g["sem"] - c["sem"]).abs().max())
+        checks["tail_max_abs_err<=1e-5"] = res["tail_max_abs_err"] <= 1e-5
+        checks["tail<=1e-3"] = max(res["anomaly_max_abs_err"], res["sem_max_abs_err"]) <= 1e-3
+    res["checks"] = checks
+    res["ok"] = bool(all(checks.values()))
     return res
 
 
-def profile_request(torch, fwd, image, focus=None):
+def phase_slice_parity(torch, hw=(256, 512)):
+    """Full-width MaskFormer (R-50, GMA) in f32: card with kernels vs CPU with
+    plain versions (:func:`maskformer_parity`)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images = np.random.RandomState(SEED + 4).randint(0, 256, (1, *hw, 3)).astype(np.uint8)
+    res = {"phase": "slice_parity", "image_hw": list(hw), "widths": "full",
+           "dtype": "float32", "tf32": False}
+    res.update(maskformer_parity(torch, seeded_model(torch, SEED + 3), images))
+    return res
+
+
+def profile_request(torch, fwd, image, focus=None, ranges=()):
     """``fwd(image)`` (a request, or a training step) once under torch.profiler:
     device time by kernel name (top 12), the device's busy share of the wall
     time, the device events and the launch calls (see ``launch_calls``) and,
     with ``focus`` (a string or several), the device time of the kernels whose
-    name holds each string and its share of the busy time."""
+    name holds each string and its share of the busy time; for each name in
+    ``ranges`` (``record_function`` ranges, e.g. :func:`module_ranges`), the
+    ranges, the device time of the kernels launched inside them (the gaps
+    between those kernels not counted) and its share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1829,7 +1875,40 @@ def profile_request(torch, fwd, image, focus=None):
         ms = sum(v[0] for k, v in by_name.items() if name in k)
         res[f"{name}_ms"] = ms
         res[f"{name}_share_of_busy"] = ms * 1e3 / busy if busy else None
+    for name in ranges:
+        # the host-side range: its kernels are those its ops (and their
+        # children) launched; the device-side copy of the range spans gaps
+        spans = [e for e in prof.events() if e.name == name and e.device_type == DeviceType.CPU]
+        ms = sum(e.device_time_total for e in spans) / 1e3
+        res[f"{name}_ranges"] = len(spans)
+        res[f"{name}_device_ms"] = ms
+        res[f"{name}_share_of_busy"] = ms * 1e3 / busy if busy else None
     return res
+
+
+@contextlib.contextmanager
+def module_ranges(model, cls, name):
+    """Every forward of ``model``'s ``cls`` modules inside a profiler range
+    ``name`` (forward hooks, removed on exit)."""
+    from torch.profiler import record_function
+
+    open_ranges = []
+
+    def enter(module, args):
+        r = record_function(name)
+        r.__enter__()
+        open_ranges.append(r)
+
+    def leave(module, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    handles = [h for m in model.modules() if isinstance(m, cls)
+               for h in (m.register_forward_pre_hook(enter), m.register_forward_hook(leave))]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
 
 
 # device time by kernel name: in the M2F request's profile the forward score
@@ -1875,6 +1954,35 @@ def tail_launch_shapes(scores):
         scores._mask_scores_cuda = orig
 
 
+SERVE_WARMUP = 2  # requests before the timed ones
+
+
+def serve_requests(torch, fwd, images, warmup=SERVE_WARMUP):
+    """``fwd`` (-> a tuple of outputs) over ``images`` after ``warmup`` of
+    them: latencies (ms, each synchronised), the launch counts of the timed
+    requests, their outputs' finiteness, the last one's shapes, peak memory.
+    Returns (result, counts, the last request's outputs)."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    for im in images[:warmup]:
+        fwd(im)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    latencies, finite = [], True
+    for im in images:
+        t0 = time.perf_counter()
+        outs = fwd(im)
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        finite &= all(bool(torch.isfinite(o).all()) for o in outs)
+    counts = launch_counts()
+    return {"latency_ms": latencies, "images_per_s": len(images) / (sum(latencies) / 1e3),
+            "finite": finite, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches": {k: v for k, v in counts.items() if v},
+            "shapes": [list(o.shape) for o in outs]}, counts, outs
+
+
 def phase_serve(torch, requests=3):
     """``build_m2f_request_forward`` in every setting of ``SERVE_SETTINGS``:
     launch counts per request (the setting's deformable entries, one anomaly
@@ -1882,7 +1990,7 @@ def phase_serve(torch, requests=3):
     resize for ``score_lowres`` and on 32 queries for ``score_topq``), finite
     outputs of the input's shape, latency, and one profiled request."""
     from multishiftseg_torch.evals.ood_metrics import eval_ood_measure
-    from multishiftseg_torch.ops import launch_counts, reset_launch_counts, scores
+    from multishiftseg_torch.ops import scores
     from multishiftseg_torch.train.test_runner import build_m2f_request_forward
 
     model = seeded_model(torch, SEED + 5).to(torch.bfloat16)
@@ -1901,48 +2009,31 @@ def phase_serve(torch, requests=3):
     for name, ((mode, lowres, topq), deform) in SERVE_SETTINGS.items():
         fwd = build_m2f_request_forward(model, sample_mode=mode,
                                         score_lowres=lowres, score_topq=topq)
-        for im in images[:2]:  # warm-up
-            fwd(im)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        latencies, outs = [], []
         with tail_launch_shapes(scores) as tails:
-            for im in images:
-                t0 = time.perf_counter()
-                anomaly, sem = fwd(im)
-                torch.cuda.synchronize()
-                latencies.append((time.perf_counter() - t0) * 1e3)
-                outs.append((anomaly, sem))
-        counts = launch_counts()
+            r, counts, (anomaly, sem) = serve_requests(torch, fwd, images)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
-        anomaly, sem = outs[-1]
-        finite = all(bool(torch.isfinite(a).all() and torch.isfinite(s).all()) for a, s in outs)
         shapes_ok = (tuple(anomaly.shape) == (1, h, w)
                      and tuple(sem.shape) == (1, CLASSES + n_queries, h, w))
         want = {k: 0 for k in counts}
         want.update({k: v * requests for k, v in deform.items()})
         want.update(mask_scores_anomaly=requests, mask_scores_semantic=requests)
-        # the anomaly tail: on Q queries (score_topq's), from the stride-4
-        # masks of the /32-padded input, to the padded input or (score_lowres)
-        # to the masks' own size
+        # the anomaly tail (warm-up requests included): on Q queries
+        # (score_topq's), from the stride-4 masks of the /32-padded input, to
+        # the padded input or (score_lowres) to the masks' own size
         mask_hw = (-(-h // 32) * 8, -(-w // 32) * 8)
         out_hw = mask_hw if lowres else (-(-h // 32) * 32, -(-w // 32) * 32)
-        tails_ok = len(tails) == requests and all(
+        tails_ok = len(tails) == SERVE_WARMUP + requests and all(
             t == (topq or n_queries, *mask_hw, *out_hw) for t in tails)
         counts_ok = counts == want and tails_ok
         metrics = eval_ood_measure(anomaly[0].float().cpu().numpy(), label)
-        mode_ok = finite and shapes_ok and counts_ok and metrics is not None
+        mode_ok = r["finite"] and shapes_ok and counts_ok and metrics is not None
         ok &= mode_ok
         res["modes"][name] = {
-            "sample_mode": mode, "score_lowres": lowres, "score_topq": topq,
-            "latency_ms": latencies, "images_per_s": requests / (sum(latencies) / 1e3),
-            "launches": {k: v for k, v in counts.items() if v}, "launches_per_image_ok": counts_ok,
+            "sample_mode": mode, "score_lowres": lowres, "score_topq": topq, **r,
+            "launches_per_image_ok": counts_ok,
             "anomaly_tail_launches_q_h_w_H_W": [list(t) for t in tails[:1]],
-            "finite": finite, "shapes_ok": shapes_ok,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "auroc_auprc_fpr95_random_weights": metrics, "ok": mode_ok,
+            "shapes_ok": shapes_ok, "auroc_auprc_fpr95_random_weights": metrics, "ok": mode_ok,
             "profiled_request": profile_request(torch, fwd, images[0], focus=FWD_FOCUS)}
     res["ok"] = ok
     return res, totals
@@ -2128,9 +2219,39 @@ def phase_train_parity(torch, seed, pairs=2, crop=(256, 256), card="cuda"):
     return res
 
 
+def timed_steps(torch, step, warmup=1, timed=2):
+    """``step()`` (-> loss, components, gradient norm, assignments) ``warmup``
+    times, then ``timed`` times, each synchronised: step ms, each timed step's
+    loss, gradient norm and components, whether all are finite, peak memory,
+    the launches a step and one profiled step. Returns (result, the launch
+    counts of the timed steps)."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, steps = [], []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        loss, losses, gnorm, _ = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        steps.append({"loss": float(loss), "grad_norm": float(gnorm),
+                      "losses": {k: float(v) for k, v in losses.items()}})
+    counts = launch_counts()
+    finite = all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
+                 and all(np.isfinite(v) for v in x["losses"].values()) for x in steps)
+    return {"step_ms": times, "steps": steps, "finite": bool(finite),
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launches_per_step": {k: v / timed for k, v in counts.items() if v},
+            "profiled_step": profile_request(torch, lambda _: step(), None,
+                                             focus=STEP_FOCUS)}, counts
+
+
 def phase_train(torch, pairs=TRAIN_PAIRS, warmup=2, timed=3):
     """The stage-2 step at exps/m2f.yaml's settings in bf16 on the card."""
-    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
     from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
 
     torch.backends.cudnn.allow_tf32 = True
@@ -2141,36 +2262,17 @@ def phase_train(torch, pairs=TRAIN_PAIRS, warmup=2, timed=3):
                           model=seeded_model(torch, SEED + 12).train(), device="cuda")
     trainer.set_stage(1)
     batch = [torch.from_numpy(x).cuda() for x in synthetic_batch(pairs, CROP, CLASSES, SEED + 13)]
-    for _ in range(warmup):
-        trainer.stage2_step(*batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    times, steps = [], []
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        loss, losses, gnorm, _ = trainer.stage2_step(*batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        steps.append({"loss": float(loss), "grad_norm": float(gnorm),
-                      "losses": {k: float(v) for k, v in losses.items()}})
-    counts = launch_counts()
-    per_step = {k: v / timed for k, v in counts.items()}
+    r, counts = timed_steps(torch, lambda: trainer.stage2_step(*batch), warmup, timed)
     res.update(pairs=pairs, images_per_step=2 * pairs, crop=list(CROP), padded=list(TRAIN_HW),
-               step_ms=times, images_per_s=2 * pairs * timed / (sum(times) / 1e3),
-               peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, steps=steps,
-               launches=counts, launches_per_step=per_step)
-    finite = all(np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])
-                 and all(np.isfinite(v) for v in x["losses"].values()) for x in steps)
-    launches_ok = (per_step["ms_deform_attn_bilinear"] == 6
-                   and per_step["ms_deform_attn_bilinear_backward"] == 6
-                   and per_step["linear_sum_assignment"] >= 1 and per_step["label_points"] >= 4
+               images_per_s=2 * pairs * timed / (sum(r["step_ms"]) / 1e3), launches=counts, **r)
+    launches_ok = (counts["ms_deform_attn_bilinear"] == 6 * timed
+                   and counts["ms_deform_attn_bilinear_backward"] == 6 * timed
+                   and counts["linear_sum_assignment"] >= timed
+                   and counts["label_points"] >= 4 * timed
                    and counts["ms_deform_attn_nearest"] == 0
                    and counts["mask_scores_anomaly"] + counts["mask_scores_semantic"]
                    + counts["mask_scores_semantic_classes"] == 0)
-    res["profiled_step"] = profile_request(torch, lambda _: trainer.stage2_step(*batch), None,
-                                           focus=STEP_FOCUS)
-    res["checks"] = {"finite": finite, "launches_ok": launches_ok}
+    res["checks"] = {"finite": r["finite"], "launches_ok": launches_ok}
     res["ok"] = bool(all(res["checks"].values()))
     return res, counts
 
@@ -3480,70 +3582,6 @@ def seeded_deepv3(torch, trunk, seed):
     return model.eval()
 
 
-def maskformer_parity(torch, model, images):
-    """``model`` (f32, on the CPU) on the card and on the CPU in f32 with TF32
-    off, the CPU attending with the card's attention masks where the decoder
-    masks its attention: the pixel decoder's outputs, the masks' deciding
-    logits (:func:`mask_logit_layers`), every prediction, and for the GMA
-    decoder the eval tail."""
-    from multishiftseg_torch.models.maskformer import inference, preprocess
-
-    gpu_model = copy.deepcopy(model).cuda()
-    hw = images.shape[1:3]
-    masked = hasattr(model.sem_seg_head.predictor, "transformer_cross_attention_layers")
-
-    def run(m, dev, replay=None):
-        rec = {"embeds": [], "masks": []}
-        pred = m.sem_seg_head.predictor
-
-        def pd_hook(mod, i, o):
-            rec["mask_features"] = o[0].float().cpu()
-            rec["ms"] = [t.float().cpu() for t in o[2]]
-
-        hooks = [pred.mask_embed.register_forward_hook(
-                     lambda mod, i, o: rec["embeds"].append(o.float().cpu())),
-                 m.sem_seg_head.pixel_decoder.register_forward_hook(pd_hook)]
-        if masked:
-            hooks += attention_mask_hooks(pred, rec["masks"], replay)
-        with torch.no_grad():
-            out = m(preprocess(torch.from_numpy(images).to(dev)))
-            if "pred_logits_ood" in out:
-                rec["sem"], rec["anomaly"] = (t.float().cpu() for t in inference(out, hw))
-        for h in hooks:
-            h.remove()
-        rec["out"] = {k: v.float().cpu() for k, v in out.items() if k != "aux_outputs"}
-        rec["aux"] = [{k: v.float().cpu() for k, v in a.items()} for a in out["aux_outputs"]]
-        return rec
-
-    g = run(gpu_model, "cuda")
-    c = run(model, "cpu", replay=g["masks"] if masked else None)
-    del gpu_model
-    torch.cuda.empty_cache()
-
-    def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-6))
-
-    res = {"pixel_decoder_rel_err": max([rel(g["mask_features"], c["mask_features"])]
-                                        + [rel(a, b) for a, b in zip(g["ms"], c["ms"])]),
-           "pred_rel_err": max(rel(g["out"][k], c["out"][k]) for k in c["out"]),
-           "aux_rel_err": max([rel(a[k], b[k]) for a, b in zip(g["aux"], c["aux"]) for k in b]
-                              or [0.0])}
-    checks = {"pixel_decoder_rel_err<=1e-3": res["pixel_decoder_rel_err"] <= 1e-3,
-              "predictions_rel_err<=1e-3": max(res["pred_rel_err"], res["aux_rel_err"]) <= 1e-3}
-    if masked:
-        layers = mask_logit_layers(torch, g, c, [tuple(t.shape[-2:]) for t in c["ms"]])
-        res["attention_mask_flips"] = [x["flips"] for x in layers]
-        res["max_diff_over_scale"] = max(x["max_diff_over_scale"] for x in layers)
-        checks["mask_logits_within_rounding"] = all(x["within_rounding"] for x in layers)
-    if "anomaly" in c:
-        res["anomaly_max_abs_err"] = float((g["anomaly"] - c["anomaly"]).abs().max())
-        res["sem_max_abs_err"] = float((g["sem"] - c["sem"]).abs().max())
-        checks["tail<=1e-3"] = max(res["anomaly_max_abs_err"], res["sem_max_abs_err"]) <= 1e-3
-    res["checks"] = checks
-    res["ok"] = bool(all(checks.values()))
-    return res
-
-
 def phase_alt_parity(torch, hw=(256, 512)):
     """The alternates in f32 (TF32 off), card (kernels) against CPU (plain
     versions) from the same weights: Swin-L and R-101 MaskFormer at full
@@ -3581,57 +3619,6 @@ def phase_alt_parity(torch, hw=(256, 512)):
     return res
 
 
-@contextlib.contextmanager
-def window_attention_events(torch, model):
-    """CUDA events around every Swin window attention of ``model``'s forwards:
-    yields the list of (start, end) pairs they record (no host sync)."""
-    from multishiftseg_torch.models.swin import WindowAttention
-
-    pairs = []
-
-    def pre(mod, args):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        pairs.append([e, None])
-
-    def post(mod, args, out):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        pairs[-1][1] = e
-
-    handles = [h for m in model.modules() if isinstance(m, WindowAttention)
-               for h in (m.register_forward_pre_hook(pre), m.register_forward_hook(post))]
-    try:
-        yield pairs
-    finally:
-        for h in handles:
-            h.remove()
-
-
-def serve_requests(torch, fwd, images, warmup=2):
-    """``fwd`` over ``images`` after ``warmup`` of them: latencies (ms, each
-    synchronised), the launch counts, the outputs' finiteness, peak memory."""
-    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
-
-    for im in images[:warmup]:
-        fwd(im)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    latencies, finite = [], True
-    for im in images:
-        t0 = time.perf_counter()
-        outs = fwd(im)
-        torch.cuda.synchronize()
-        latencies.append((time.perf_counter() - t0) * 1e3)
-        finite &= all(bool(torch.isfinite(o).all()) for o in outs)
-    counts = launch_counts()
-    return {"latency_ms": latencies, "images_per_s": len(images) / (sum(latencies) / 1e3),
-            "finite": finite, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "launches": {k: v for k, v in counts.items() if v}, "shapes": [list(o.shape)
-                                                                      for o in outs]}, counts
-
-
 def phase_alt_serve(torch, requests=3):
     """One request path per alternate at 1024x2048, batch 1, bf16:
     ``build_m2f_request_forward`` (``bilinear``) on the Swin-L and the R-101
@@ -3640,9 +3627,11 @@ def phase_alt_serve(torch, requests=3):
     warm-up: latency, launches (6 deformable forwards, one anomaly and one
     semantic tail a MaskFormer request; 3 dilated convs a DeepV3Plus one, and
     nothing else), peak memory, one profiled request (device busy share, top
-    kernels); for Swin-L also the device time between CUDA events around its
-    window attentions, a request's and its share of the device's busy time."""
+    kernels); for Swin-L the profiled request also holds each window attention
+    in a range, and gives the device time of the kernels they launch and its
+    share of the request's busy time."""
     from multishiftseg_torch.models.maskformer import preprocess
+    from multishiftseg_torch.models.swin import WindowAttention
     from multishiftseg_torch.train.test_runner import build_m2f_request_forward
 
     torch.backends.cudnn.allow_tf32 = True
@@ -3653,21 +3642,13 @@ def phase_alt_serve(torch, requests=3):
     for name, backbone in (("swin_large", ALT_SWIN), ("resnet101", "resnet101")):
         model = seeded_model(torch, SEED + 64, backbone=backbone).to(torch.bfloat16)
         fwd = build_m2f_request_forward(model)
-        r, counts = serve_requests(torch, fwd, images)
+        r, counts, _ = serve_requests(torch, fwd, images)
         want = {"ms_deform_attn_bilinear": 6 * requests, "mask_scores_anomaly": requests,
                 "mask_scores_semantic": requests}
         r["launches_per_image_ok"] = {k: v for k, v in counts.items() if v} == want
-        r["profiled_request"] = profile_request(torch, fwd, images[0], focus=FWD_FOCUS)
-        if backbone.startswith("swin"):
-            with window_attention_events(torch, model) as pairs:
-                t0 = time.perf_counter()
-                fwd(images[0])
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            attn_ms = sum(a.elapsed_time(b) for a, b in pairs)
-            busy = r["profiled_request"]["device_busy_ms"]
-            r["window_attention"] = {"calls": len(pairs), "ms": attn_ms, "request_wall_ms": wall,
-                                     "share_of_device_busy": attn_ms / busy if busy else None}
+        with module_ranges(model, WindowAttention, "window_attention"):
+            r["profiled_request"] = profile_request(torch, fwd, images[0], focus=FWD_FOCUS,
+                                                    ranges=("window_attention",))
         r["model"] = f"MaskFormer {backbone} MSDeformAttn+GMA, full widths"
         r["dtype"] = "bfloat16 weights"
         r["ok"] = bool(r["finite"] and r["launches_per_image_ok"]
@@ -3685,7 +3666,7 @@ def phase_alt_serve(torch, requests=3):
         with torch.autocast("cuda", dtype=torch.bfloat16):
             return (model(x),)
 
-    r, counts = serve_requests(torch, dv3, images)
+    r, counts, _ = serve_requests(torch, dv3, images)
     r["launches_per_image_ok"] = {k: v for k, v in counts.items() if v} == {
         "dilated_conv3x3": 3 * requests}
     r["profiled_request"] = profile_request(torch, dv3, images[0], focus="dconv")
@@ -3698,36 +3679,6 @@ def phase_alt_serve(torch, requests=3):
     counts_by_path["alt_serve_deepv3"] = counts
     res["ok"] = bool(ok)
     return res, counts_by_path
-
-
-def timed_steps(torch, step, warmup=1, timed=2):
-    """``step()`` (-> loss, components, gradient norm, assignments) ``warmup``
-    times, then ``timed`` times, each synchronised: step ms, finite losses,
-    launches, peak memory, and one profiled step."""
-    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
-
-    for _ in range(warmup):
-        step()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    times, finite = [], True
-    for _ in range(timed):
-        t0 = time.perf_counter()
-        loss, losses, gnorm, _ = step()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        finite &= bool(np.isfinite(float(loss)) and np.isfinite(float(gnorm))
-                       and all(np.isfinite(float(v)) for v in losses.values()))
-    counts = launch_counts()
-    res = {"step_ms": times, "finite": finite,
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches_per_step": {k: v / timed for k, v in counts.items() if v},
-           "profiled_step": profile_request(torch, lambda _: step(), None, focus=STEP_FOCUS)}
-    res["training_kernels_ok"] = all(counts[k] > 0 for k in (
-        "ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward", "linear_sum_assignment",
-        "label_points"))
-    return res, counts
 
 
 def largest_batch_that_fits(torch, make, sizes):
@@ -3748,12 +3699,13 @@ def largest_batch_that_fits(torch, make, sizes):
 def phase_alt_train(torch):
     """The alternates' training steps at full widths on the card (bf16
     autocast, f32 master weights), 1 warm-up and 2 timed steps each:
-    exps/m2f_swin_large.yaml's stage-2 step (exps/m2f.yaml's 8 pairs of
-    700x700 crops padded to 704, every parameter trained, the backbone too,
-    with drop path); exps/m2f_instance_swin_large.yaml's step (8 unpadded
-    700x700 crops, 48 slots, drop path); exps/m2f_semantic_r101.yaml's step
-    (8 crops of 512x1024, 20 slots). Where 80 GB does not hold the recipe's
-    batch, the largest batch that does, with the cut listed."""
+    exps/m2f_swin_large.yaml's stage-2 step (exps/m2f.yaml's 700x700 crops
+    padded to 704, every parameter trained, the backbone too, with drop path;
+    8 pairs, else ALT_STAGE2_PAIRS, the batch the kernels' rows hold, and the
+    phase fails at any other); exps/m2f_instance_swin_large.yaml's step (8
+    unpadded 700x700 crops, 48 slots, drop path); exps/m2f_semantic_r101.yaml's
+    step (8 crops of 512x1024, 20 slots). Where 80 GB does not hold the
+    recipe's batch, the largest batch that does, with the cut listed."""
     from multishiftseg_torch.models.maskformer import maskformer_from_config
     from multishiftseg_torch.train.instance_trainer import TrainM2FInstance
     from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
@@ -3775,7 +3727,9 @@ def phase_alt_train(torch):
             r, counts = timed_steps(torch, lambda: tr.stage2_step(*batch))
         finally:
             del tr, batch
-        r.update(images_per_step=2 * pairs, crop=list(CROP), padded=list(TRAIN_HW))
+        r.update(images_per_step=2 * pairs, crop=list(CROP), padded=list(TRAIN_HW),
+                 # the kernels' rows hold this step's shapes at ALT_STAGE2_PAIRS
+                 at_kernel_rows_batch=pairs == ALT_STAGE2_PAIRS)
         return r, counts
 
     def vanilla(recipe, crop, slots, seed):
@@ -3793,14 +3747,18 @@ def phase_alt_train(torch):
         return make
 
     for name, make, sizes in (
-            ("m2f_swin_large_stage2", stage2, (TRAIN_PAIRS, 7, 6, 4, 2)),
+            ("m2f_swin_large_stage2", stage2, (TRAIN_PAIRS, ALT_STAGE2_PAIRS)),
             ("m2f_instance_swin_large", vanilla("instance_swin_large", CROP, INST_SLOTS,
                                                 SEED + 68), (INST_BATCH, 6, 4, 2)),
             ("m2f_semantic_r101", vanilla("semantic_r101", (512, 1024), 20, SEED + 71),
              (INST_BATCH, 6, 4, 2))):
         r, counts = largest_batch_that_fits(torch, make, sizes)
         torch.cuda.empty_cache()
-        r["ok"] = bool(r.get("finite") and r.get("training_kernels_ok"))
+        r["training_kernels_ok"] = all(counts.get(k, 0) > 0 for k in (
+            "ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward",
+            "linear_sum_assignment", "label_points"))
+        r["ok"] = bool(r.get("finite") and r["training_kernels_ok"]
+                       and r.get("at_kernel_rows_batch", True))
         res["recipes"][name] = r
         counts_by_path[f"alt_train_{name}"] = counts
     res["ok"] = all(r["ok"] for r in res["recipes"].values())

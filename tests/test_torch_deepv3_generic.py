@@ -20,21 +20,26 @@ from multishiftseg_torch.models.deepv3_generic import DeepV3Plus
 from test_torch_swin import rel_err, seeded_variables
 
 
-@pytest.mark.parametrize("trunk,train", [("resnet-50", True), ("seresnext-50", True),
-                                         ("resnet-101", False), ("seresnext-101", False)])
-def test_deepv3plus_matches_jax(trunk, train):
-    """Eval logits within 1e-4 of scale, on 4 images of 32x32 (a 4x4 map at
-    output stride 8, so the ASPP's dilated taps fall outside it but the centre).
-    On the 50-layer trunks also the train-mode forward (batch statistics in
-    every BatchNorm, the trunk's included) and its updated running statistics:
-    the port's f32 within 1e-4 of its float64 run, and JAX's f32 within 3e-3 of
+@pytest.mark.parametrize("trunk,train,shape", [
+    ("resnet-50", True, (4, 32, 32)), ("seresnext-50", False, (4, 32, 32)),
+    ("resnet-101", False, (4, 32, 32)), ("seresnext-101", False, (4, 32, 32)),
+    ("resnet-50", False, (1, 112, 224))])
+def test_deepv3plus_matches_jax(trunk, train, shape):
+    """Eval logits within 1e-4 of scale. On 4 images of 32x32 (a 4x4 map at
+    output stride 8) every trunk, the ASPP's dilated 3x3 convs taking 2048
+    channels on all four; there the dilated taps fall outside the map but the
+    centre. On one 112x224 image (a 14x28 map) res5's dilation-4 taps and the
+    ASPP's rate-12 and rate-24 taps land in the map, so the dilations are held
+    too. On ResNet-50 also the train-mode forward (batch statistics in every
+    BatchNorm, the trunk's included) and its updated running statistics: the
+    port's f32 within 1e-4 of its float64 run, and JAX's f32 within 3e-3 of
     that float64 run. flax takes each batch variance in one pass, E[x^2] -
     E[x]^2 in f32, and over about 60 train-mode BatchNorms (and the
     image-pooling branch's statistics over the batch's 4 values) that rounding
-    grows to about 1e-3 of scale. The 101-layer trunks differ from the 50-layer
-    ones only in their stage tables; the ASPP's dilated 3x3 convs take 2048
-    channels on all four."""
-    img = np.random.RandomState(3).randn(4, 32, 32, 3).astype(np.float32)
+    grows to about 1e-3 of scale. SEResNeXt's BatchNorms are the same module
+    (``layers.BatchNorm2d``) and the 101-layer trunks differ from the 50-layer
+    ones only in their stage tables."""
+    img = np.random.RandomState(3).randn(*shape, 3).astype(np.float32)
     jm = JaxDeepV3Plus(trunk=trunk)
     variables = seeded_variables(jm, 4, jnp.asarray(img[:1]))
     # each residual branch's last BatchNorm at scale 0.2: a random deep trunk
@@ -64,7 +69,7 @@ def test_deepv3plus_matches_jax(trunk, train):
                            dict(port.named_buffers()))
     assert port.aspp.features[1][0].weight.shape[1] == 2048
     ev = runs[torch.float32][0]
-    assert tuple(ev.shape) == (4, 19, 32, 32) and ev.dtype == torch.float32
+    assert tuple(ev.shape) == (shape[0], 19, *shape[1:]) and ev.dtype == torch.float32
     assert rel_err(ev.numpy(), np.asarray(ref_eval).transpose(0, 3, 1, 2)) < 1e-4
     if not train:
         return
