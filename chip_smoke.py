@@ -35,7 +35,8 @@ exits non-zero and prints no result. Phases, one JSON line each:
    gradients per parameter group (both f32 steps against a float64 step on the
    CPU) and updated parameters.
 6. ``train``: the stage-2 step at exps/m2f.yaml's settings (8 pairs of 700x700
-   crops padded to 704, bf16 autocast, f32 master weights): 2 warm-up and 3
+   crops padded to 704, bf16 autocast, f32 master weights; the deformable
+   encoder rematerialised, as in every training step): 2 warm-up and 3
    timed steps, with the launch counts of the timed steps, the losses, the
    gradient norm, peak memory and one profiled step.
 
@@ -76,7 +77,11 @@ exits non-zero and prints no result. Phases, one JSON line each:
    ``multishiftseg_torch.tools.validate_release.qualify_sampling_modes`` over
    its six settings on the same folder against the ``bilinear`` run, writing
    the artifact, after which the gate must refuse exactly the settings
-   recorded unqualified.
+   recorded unqualified; and ``OODEvaluator`` on the m2f run: seconds per
+   image and the route of its exact metrics (the native one must run: the
+   folder holds over 2,000,000 labelled pixels), then ``eval_ood_measure``
+   on the evaluator's own scores and labels by that route and with
+   ``use_native=False``: seconds each.
 15. ``train_loop``: both trainers' ``train()``, the epoch loop a user runs
    (``python -m multishiftseg_torch.train.cli``), from their recipes' yaml with
    only the dataset roots, ``n_epochs = 2`` and ``warmup_epoch = 1`` overridden
@@ -124,12 +129,34 @@ exits non-zero and prints no result. Phases, one JSON line each:
    memory, one profiled request, and in Swin-L's the device time of the
    kernels its window attentions launch and its share of the busy time.
 20. ``alt_train``: exps/m2f_swin_large.yaml's stage-2 step (exps/m2f.yaml's
-   crops, the backbone trained, drop path; 7 pairs, ``ALT_STAGE2_PAIRS``,
-   where 8 do not fit in 80 GB),
-   exps/m2f_instance_swin_large.yaml's step (8 unpadded 700x700 crops, 48
+   8 pairs of crops, the backbone trained, drop path; it fits 80 GB with the
+   encoder's remat), exps/m2f_instance_swin_large.yaml's step (8 unpadded 700x700 crops, 48
    slots) and exps/m2f_semantic_r101.yaml's (8 crops of 512x1024, 20 slots),
    bf16: step ms, launches, peak memory, a profiled step; where 80 GB does not
-   hold the recipe's batch, the largest batch that does, the cut listed.
+   hold a vanilla recipe's batch, the largest batch that does, the cut listed.
+21. ``dp_train``: the data-parallel path (``multishiftseg_torch/core/mesh.py``).
+   (a) A world of 1 over NCCL: exps/deeplab.yaml's stage-2 step,
+   exps/m2f.yaml's R-50 stage-2 step and exps/m2f_instance.yaml's step at
+   full widths and the recipes' batches through DDP, whose reductions a
+   world of 1 keeps on their single-process routes (``F.batch_norm``, the
+   one-launch bottom-k), each held to the single-process step from the same
+   weights, batch and draws in f32 (gradients too) and in bf16 (the losses),
+   with both bf16 steps' times and the launches of 3 timed DP steps (paths
+   ``dp_train_<recipe>``); the DeepLab DP step with its BatchNorms on
+   the single-process route and forced onto the global one, each timed and
+   profiled;
+   and the global bottom-k's kernel row (``bottom_k_sum_global``: its route
+   at world 1 against its plain version over 8 x 700 x 700 values, timed as
+   the single-process row). (b) Two ranks on the one card over gloo
+   (``torch.multiprocessing``; NCCL refuses two ranks on one device): each
+   recipe's f32 step of its parity batch (2 pairs or 2 images at 200² /
+   256²) split in two through the global reductions (BatchNorm, RCL's
+   bottom-k and pairs, the criterion's normalisers), against the
+   single-process step of the same global batch, both ranks ending with the
+   same parameters, rank 0's launches the path ``dp_train_two_ranks`` (the
+   global bottom-k's row counts them); and in each rank the global
+   bottom-k's kernels against their plain version, at the main-path size,
+   with ties and with select_num 0.
 
 ``slice_parity``, ``train_parity`` and ``instance_parity`` run the CPU's
 decoder on the card's attention masks, and hold every bit that differs to a
@@ -138,9 +165,8 @@ logit within rounding of 0.
 The ``kernels`` phase also holds the training slice's kernels at its shapes
 (16 images at 704x704): the deformable-attention backward and the bilinear
 forward (a row of its own beside the eval shapes'), the batched
-assignment (and scipy's optimum on the valid rows) and the label points, and
-the same four again at Swin-L's stage-2 batch (14 images, rows
-``*_alt_stage2_shapes`` counting ``alt_train``'s stage-2 step); and
+assignment (and scipy's optimum on the valid rows) and the label points (the
+rows count Swin-L's stage-2 step and ``dp_train``'s M2F step too); and
 DeepLab's: the ASPP's dilated conv at the eval shapes (its three rates timed
 together, beside cuDNN's dilated ``conv2d`` in benchmark mode, channels-last
 and NCHW), at DeepV3Plus's eval shapes (2048 input channels, a row of its
@@ -266,12 +292,10 @@ INST_BATCH, INST_SLOTS, INST_CLASSES = 8, 48, 8
 # that run them (the R-50 recipes' and the Swin-L / R-101 alternates'); the
 # semantic recipe's crops are 512x1024 with 20 slots
 INST_SHAPES = {"instance": (CROP, INST_SLOTS, ("instance_train_instance", "instance_train_panoptic",
-                                               "alt_train_m2f_instance_swin_large")),
+                                               "alt_train_m2f_instance_swin_large",
+                                               "dp_train_instance")),
                "semantic": ((512, 1024), 20, ("instance_train_semantic",
                                               "alt_train_m2f_semantic_r101"))}
-# Swin-L's stage-2 step (exps/m2f_swin_large.yaml) at the largest batch 80 GB
-# holds: 7 pairs (8 pairs run out of memory; 70.4 GiB at 7 on the H100)
-ALT_STAGE2_PAIRS = 7
 
 
 def pyramid(crop):
@@ -607,9 +631,6 @@ def phase_kernels(torch):
         del out
     approx_kernel_rows(torch, dev, rows, check, checks)
     train_kernel_rows(torch, dev, rows, check, checks)
-    # Swin-L's stage-2 step runs them at its own batch (ALT_STAGE2_PAIRS)
-    train_kernel_rows(torch, dev, rows, check, checks, ALT_STAGE2_PAIRS, "alt_stage2",
-                      ("alt_train_m2f_swin_large_stage2",))
     deeplab_kernel_rows(torch, dev, rows, check, checks)
     stage1_kernel_rows(torch, dev, rows, check, checks)
     instance_kernel_rows(torch, dev, rows, check, checks)
@@ -854,21 +875,21 @@ def msda_train_rows(torch, dev, rows, check, levels, b, seed, shapes, paths):
     del value, loc, attn, g, out
 
 
-def train_kernel_rows(torch, dev, rows, check, checks, pairs=TRAIN_PAIRS, shapes="",
-                      paths=("train", "stage1_train", "train_loop")):
-    """The training slice's kernels at the stage-2 shapes (``pairs`` pairs of
-    700x700 crops padded to 704x704, 16 images by default): the deformable
-    forward and backward, the assignment and the label points. Rows named
-    after the kernel, or with ``shapes`` after ``{kernel}_{shapes}_shapes``;
-    they count the launches of ``paths``."""
+# the paths that run the stage-2 shapes (16 images of 704x704)
+TRAIN_PATHS = ("train", "stage1_train", "train_loop", "dp_train_m2f",
+               "alt_train_m2f_swin_large_stage2")
+
+
+def train_kernel_rows(torch, dev, rows, check, checks):
+    """The training slice's kernels at the stage-2 shapes (8 pairs of 700x700
+    crops padded to 704x704): the deformable forward and backward, the
+    assignment and the label points, counting the launches of
+    ``TRAIN_PATHS``."""
     from multishiftseg_torch.losses import criterion, matcher
 
+    pairs, paths = TRAIN_PAIRS, TRAIN_PATHS
     b = 2 * pairs
-
-    def named(kernel):
-        return f"{kernel}_{shapes}_shapes" if shapes else kernel
-
-    msda_train_rows(torch, dev, rows, check, TRAIN_LEVELS, b, SEED + 7, shapes, paths)
+    msda_train_rows(torch, dev, rows, check, TRAIN_LEVELS, b, SEED + 7, "", paths)
 
     # batched assignment: 16 problems of 19 targets x 100 queries, about half
     # the rows at BIG (classes absent from the image); exact equality
@@ -891,12 +912,12 @@ def train_kernel_rows(torch, dev, rows, check, checks, pairs=TRAIN_PAIRS, shapes
         r, c = scipy_lsa(cost_np[i][valid])
         ours = cost_np[i][valid, got[i].cpu().numpy()[valid]].sum()
         optimal &= bool(abs(ours - cost_np[i][valid][r, c].sum()) <= 1e-5 * abs(ours))
-    checks.append({"check": f"linear_sum_assignment_{shapes or 'main'}_shapes",
+    checks.append({"check": "linear_sum_assignment_main_shapes",
                    "equal_to_plain": same, "scipy_optimal_on_valid_rows": optimal,
                    "ok": same and optimal})
     # each Dijkstra step reduces over every column: about 5 f32 operations each
     b_ms, b_by = bound(nbytes(cost, got), sum(steps) * QUERIES * 5)
-    name = named("linear_sum_assignment")
+    name = "linear_sum_assignment"
     row = rows[name] = {
         "name": name, "route": "cuda",
         "source": "multishiftseg_torch/csrc/assignment.cu",
@@ -926,12 +947,12 @@ def train_kernel_rows(torch, dev, rows, check, checks, pairs=TRAIN_PAIRS, shapes
     plain = lambda: criterion.sample_target_points_plain(labels, coords, CLASSES)
     out = run()
     # at most four corner weights summed in f32, in another order
-    err = check(f"label_points_classes_{shapes or 'main'}_shapes", out, plain(), 1e-6, 0.0)
+    err = check("label_points_classes_main_shapes", out, plain(), 1e-6, 0.0)
     n_rows = pairs * CLASSES
     rcoords = torch.from_numpy(rs.rand(n_rows, int(TRAIN_POINTS * 1.25), 2).astype(
         np.float32)).to(dev)
     ids = torch.arange(CLASSES, device=dev).repeat(pairs)
-    err = max(err, check(f"label_points_rows_{shapes or 'main'}_shapes",
+    err = max(err, check("label_points_rows_main_shapes",
                          criterion.sample_class_points(labels, rcoords, ids, CLASSES, pairs),
                          criterion.sample_class_points_plain(labels, rcoords, ids, CLASSES,
                                                              pairs), 1e-6, 0.0))
@@ -939,7 +960,7 @@ def train_kernel_rows(torch, dev, rows, check, checks, pairs=TRAIN_PAIRS, shapes
     # operations: 4 compares and 4 adds per point and class
     label_bytes = label_sector_bytes(torch, labels, coords, torch.arange(b, device=dev))
     b_ms, b_by = bound(label_bytes + nbytes(coords, out), b * TRAIN_POINTS * CLASSES * 8)
-    name = named("label_points")
+    name = "label_points"
     rows[name] = {
         "name": name, "route": "cuda",
         "source": "multishiftseg_torch/csrc/label_points.cu",
@@ -1140,7 +1161,8 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
         "name": "dilated_conv3x3_train", "route": "cuda",
         "source": "multishiftseg_torch/csrc/dilated_conv.cu",
         "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
-        "counter": "dilated_conv3x3", "paths": ("deeplab_train", "train_loop"),
+        "counter": "dilated_conv3x3", "paths": ("deeplab_train", "train_loop",
+                                                "dp_train_deeplab"),
         "max_abs_err": max(errs), "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
         "bound_by": b_by,
         # cuDNN's dilated conv2d, bf16 channels-last: the same function
@@ -2926,6 +2948,9 @@ def phase_evaluate(torch, device="cuda", hw=VAL_HW[0], n_images=4, m2f=None, dee
             res["models"][name] = m
             runs[name] = (cfg_path, weights, metrics)
         cfg_path, weights, metrics = runs["m2f"]
+        res["metrics_routes"] = evaluate_routes(torch, device, tmp, root, cfg_path, weights,
+                                                metrics, n_images)
+        ok &= res["metrics_routes"]["ok"]
         approx, counts = evaluate_approximate(torch, device, tmp, root, cfg_path, weights, metrics)
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
@@ -2933,6 +2958,59 @@ def phase_evaluate(torch, device="cuda", hw=VAL_HW[0], n_images=4, m2f=None, dee
         ok &= approx["ok"]
     res["ok"] = bool(ok)
     return res, totals
+
+
+def evaluate_routes(torch, device, tmp, root, cfg_path, weights, cli_metrics, n_images):
+    """``OODEvaluator`` on the m2f run's folder, weights and forward (built
+    once, warmed by a first pass): seconds per image (forward included), the
+    route its exact metrics took (native: the folder holds over 2,000,000
+    labelled pixels), its metrics equal to the CLI's within 1e-6. Then
+    ``eval_ood_measure`` on the scores and labels the evaluator passed it, by
+    the default route and with ``use_native=False``: seconds each (median of
+    3), the two results within 1e-6, and the evaluator's seconds per image
+    had it taken numpy (its time with the native call's swapped for numpy's)."""
+    import os
+
+    from multishiftseg_torch.core.config import load_config
+    from multishiftseg_torch.evals import ood_metrics
+    from multishiftseg_torch.train import test_runner
+
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    passed, real = [], test_runner.eval_ood_measure
+    test_runner.eval_ood_measure = lambda s, g, **kw: passed.append((s, g)) or real(s, g, **kw)
+    try:
+        cfg = load_config(str(cfg_path), "routes")
+        fwd = test_runner.build_m2f_forward(cfg, str(weights), device=device)
+        for _ in range(2):  # a warm-up pass, then the timed one
+            ev = test_runner.OODEvaluator(cfg, fwd, {"RoadAnomaly21": str(root)})
+            t0 = time.perf_counter()
+            metrics = ev.test("RoadAnomaly21")
+            seconds = time.perf_counter() - t0
+    finally:
+        test_runner.eval_ood_measure = real
+        os.chdir(cwd)
+    scores, labels = passed[-1]
+    out = {"route": ev.metric_routes["RoadAnomaly21"], "seconds_per_image": seconds / n_images,
+           "labelled_pixels": int(np.count_nonzero(labels <= 1)),
+           "metrics_equal_cli": all(abs(metrics[k] - v) <= 1e-6
+                                    for k, v in cli_metrics.items())}
+    results, metric_s = {}, {}
+    for label, kw in (("default", {}), ("numpy", {"use_native": False})):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            results[label] = ood_metrics.eval_ood_measure(scores, labels, **kw)
+            times.append(time.perf_counter() - t0)
+        metric_s[label] = statistics.median(times)
+    out["metrics_seconds"] = metric_s
+    out["seconds_per_image_had_it_taken_numpy"] = (
+        seconds - metric_s["default"] + metric_s["numpy"]) / n_images
+    out["routes_agree"] = bool(np.allclose(results["default"], results["numpy"], rtol=0,
+                                           atol=1e-6))
+    out["ok"] = bool(out["route"] == "native" and out["metrics_equal_cli"]
+                     and out["routes_agree"])
+    return out
 
 
 def evaluate_approximate(torch, device, tmp, root, cfg_path, weights, bilinear):
@@ -3699,10 +3777,10 @@ def largest_batch_that_fits(torch, make, sizes):
 def phase_alt_train(torch):
     """The alternates' training steps at full widths on the card (bf16
     autocast, f32 master weights), 1 warm-up and 2 timed steps each:
-    exps/m2f_swin_large.yaml's stage-2 step (exps/m2f.yaml's 700x700 crops
-    padded to 704, every parameter trained, the backbone too, with drop path;
-    8 pairs, else ALT_STAGE2_PAIRS, the batch the kernels' rows hold, and the
-    phase fails at any other); exps/m2f_instance_swin_large.yaml's step (8
+    exps/m2f_swin_large.yaml's stage-2 step (exps/m2f.yaml's 8 pairs of
+    700x700 crops padded to 704, every parameter trained, the backbone too,
+    with drop path; the phase fails if it does not fit, the batch the
+    stage-2 kernels' rows hold); exps/m2f_instance_swin_large.yaml's step (8
     unpadded 700x700 crops, 48 slots, drop path); exps/m2f_semantic_r101.yaml's
     step (8 crops of 512x1024, 20 slots). Where 80 GB does not hold the
     recipe's batch, the largest batch that does, with the cut listed."""
@@ -3727,9 +3805,7 @@ def phase_alt_train(torch):
             r, counts = timed_steps(torch, lambda: tr.stage2_step(*batch))
         finally:
             del tr, batch
-        r.update(images_per_step=2 * pairs, crop=list(CROP), padded=list(TRAIN_HW),
-                 # the kernels' rows hold this step's shapes at ALT_STAGE2_PAIRS
-                 at_kernel_rows_batch=pairs == ALT_STAGE2_PAIRS)
+        r.update(images_per_step=2 * pairs, crop=list(CROP), padded=list(TRAIN_HW))
         return r, counts
 
     def vanilla(recipe, crop, slots, seed):
@@ -3747,7 +3823,7 @@ def phase_alt_train(torch):
         return make
 
     for name, make, sizes in (
-            ("m2f_swin_large_stage2", stage2, (TRAIN_PAIRS, ALT_STAGE2_PAIRS)),
+            ("m2f_swin_large_stage2", stage2, (TRAIN_PAIRS,)),
             ("m2f_instance_swin_large", vanilla("instance_swin_large", CROP, INST_SLOTS,
                                                 SEED + 68), (INST_BATCH, 6, 4, 2)),
             ("m2f_semantic_r101", vanilla("semantic_r101", (512, 1024), 20, SEED + 71),
@@ -3757,18 +3833,427 @@ def phase_alt_train(torch):
         r["training_kernels_ok"] = all(counts.get(k, 0) > 0 for k in (
             "ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward",
             "linear_sum_assignment", "label_points"))
-        r["ok"] = bool(r.get("finite") and r["training_kernels_ok"]
-                       and r.get("at_kernel_rows_batch", True))
+        r["ok"] = bool(r.get("finite") and r["training_kernels_ok"])
         res["recipes"][name] = r
         counts_by_path[f"alt_train_{name}"] = counts
     res["ok"] = all(r["ok"] for r in res["recipes"].values())
     return res, counts_by_path
 
 
+# ---------------------------------------------------------------------------
+# dp_train: the data-parallel path (multishiftseg_torch/core/mesh.py)
+
+DP_RECIPES = ("deeplab", "m2f", "instance")
+# the global bottom-k's inputs: the augmented half's CE values of
+# exps/deeplab.yaml's step (8 x 700 x 700), split over the ranks
+DP_BOTTOM_K_N = DL_TRAIN_PAIRS * DL_CROP[0] * DL_CROP[1]
+
+
+def dp_setup(torch, name, full, dtype=None, bf16=None):
+    """One of dp_train's recipes at full widths on the card from seeded weights:
+    (trainer, ``step()`` -> (loss, components)), the step on this process's
+    rows of the recipe's global batch (its Loader shard) with the global
+    draws of the trainer's generator. ``full``: the recipe's batch and crops in
+    bf16 autocast (DeepLab's stage 2, M2F R-50's stage 2, the instance step;
+    ``bf16=False`` in f32); else the parity batch (2 pairs, 2 images) and
+    crops in ``dtype``. Inside a process group the trainer wraps the model in
+    DDP."""
+    from multishiftseg_torch.core.mesh import local_batch_slice
+    from multishiftseg_torch.models.maskformer import maskformer_from_config
+    from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD
+    from multishiftseg_torch.train.instance_trainer import TrainM2FInstance
+    from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
+
+    bf16 = full if bf16 is None else bf16
+
+    def rows(arrays, n):
+        return [torch.from_numpy(np.ascontiguousarray(a[local_batch_slice(n)])).cuda()
+                for a in arrays]
+
+    if name == "deeplab":
+        pairs, crop = (DL_TRAIN_PAIRS, DL_CROP) if full else (2, (200, 200))
+        tr = TrainDeepLabOOD(deeplab_config(pairs, crop, bf16=bf16),
+                             model=seeded_deeplab(torch, SEED + 111), device="cuda")
+        data = rows(synthetic_batch(pairs, crop, CLASSES, SEED + 112), pairs)
+        stage, step = 1, lambda: tr.step(*data)
+    elif name == "m2f":
+        pairs, crop = (TRAIN_PAIRS, CROP) if full else (2, (256, 256))
+        tr = TrainM2FOOD(train_config(pairs, crop, bf16=bf16),
+                         model=seeded_model(torch, SEED + 113).train(), device="cuda")
+        data = rows(synthetic_batch(pairs, crop, CLASSES, SEED + 114), pairs)
+        stage, step = 1, lambda: tr.stage2_step(*data)[:2]
+    else:
+        b, crop = (INST_BATCH, CROP) if full else (2, (200, 200))
+        cfg = instance_config("instance", b, crop, bf16=bf16)
+        torch.manual_seed(SEED + 115)  # the modules' own init, then the noise
+        tr = TrainM2FInstance(cfg, model=seeded(torch, maskformer_from_config(cfg.model.m2f),
+                                                SEED + 115).train(),
+                              dataset_name="unused", device="cuda")
+        data = rows(instance_batch(b, crop, INST_SLOTS, SEED + 116), b)
+        stage, step = 0, lambda: tr.step(*data)[:2]
+    if dtype is not None:
+        tr.model.to(dtype)  # in place, before the stage's optimizer and DDP wrap
+    tr.set_stage(stage)
+    return tr, step
+
+
+def dp_record(tr, out, grads=True):
+    """(loss, components) of a step and, with ``grads``, its gradients (CPU)."""
+    loss, parts = out
+    rec = {"loss": float(loss), "parts": {k: float(v) for k, v in parts.items()}}
+    if grads:
+        rec["grads"] = {n: p.grad.detach().cpu() for n, p in tr.model.named_parameters()
+                        if p.grad is not None}
+    return rec
+
+
+def dp_compare(single, dp, loss_rtol, grad_rtol):
+    """The data-parallel step against the single-process one: the loss and
+    components within ``loss_rtol``, and all gradients together within
+    ``grad_rtol`` in L2 (a tensor whose entries cancel, as a BatchNorm bias's
+    sum, or one below a ReLU input within rounding of 0, moves alone by more;
+    the worst tensor, against its own scale, is reported)."""
+    worst = max((abs(dp["parts"][k] - v) / max(abs(v), 1e-12)
+                 for k, v in single["parts"].items()), default=0.0)
+    loss_err = abs(dp["loss"] - single["loss"]) / max(abs(single["loss"]), 1e-12)
+    same_set = set(dp["grads"]) == set(single["grads"])
+    num = den = tensor_err = 0.0
+    worst_name = None
+    for n, g in single["grads"].items():
+        d = (dp["grads"][n].double() - g.double()) if n in dp["grads"] else g.double()
+        num += float(d.pow(2).sum())
+        den += float(g.double().pow(2).sum())
+        e = float(d.abs().max()) / max(float(g.abs().max()), 1e-30)
+        if e > tensor_err:
+            tensor_err, worst_name = e, n
+    grad_l2 = (num / max(den, 1e-300)) ** 0.5
+    return {"loss_rel_err": loss_err, "parts_rel_err": worst, "grad_rel_l2": grad_l2,
+            "worst_tensor_rel_err": tensor_err, "worst_tensor": worst_name,
+            "same_trainable_set": same_set,
+            "ok": bool(same_set and loss_err <= loss_rtol and worst <= loss_rtol
+                       and grad_l2 <= grad_rtol)}
+
+
+def dp_step_times(torch, step, warmup=1, timed=3):
+    for _ in range(warmup):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def dp_bottom_k_inputs(torch, n, seed):
+    """The global bottom-k's global inputs, made alike on every rank: CE-like
+    values, a fifth invalid (+inf keys), and select_num 0.8 of the valid."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    vals = -torch.rand(n, generator=gen, device="cuda").log() * 2
+    valid = torch.rand(n, generator=gen, device="cuda") > 0.2
+    keyed = torch.where(valid, vals, torch.full_like(vals, float("inf")))
+    return vals, keyed, (0.8 * valid.sum()).to(torch.int32)
+
+
+def dp_bottom_k_check(torch, seed=SEED + 117):
+    """The global bottom-k's kernels against its plain version on this rank's
+    share of the global inputs (main-path size, then ties and select_num 0 at
+    5003 elements): the sum within f32 rounding, the threshold the k-th
+    smallest key of all ranks', the gradient weights exactly."""
+    from multishiftseg_torch.core.mesh import local_batch_slice
+    from multishiftseg_torch.losses import rcl
+
+    out = {}
+    cases = [("main_shapes", *dp_bottom_k_inputs(torch, DP_BOTTOM_K_N, seed))]
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    q = torch.floor(torch.rand(5004, generator=gen, device="cuda") * 40) / 16
+    ok_ = torch.rand(5004, generator=gen, device="cuda") > 0.25
+    kq = torch.where(ok_, q, torch.full_like(q, float("inf")))
+    cases += [("ties", q, kq, (0.8 * ok_.sum()).to(torch.int32)),
+              ("select_num_0", q, kq, torch.zeros((), dtype=torch.int32, device="cuda"))]
+    for case, vals, keyed, sn in cases:
+        part = local_batch_slice(vals.numel())
+        res = []
+        for fn in (rcl.bottom_k_sum_global, rcl.bottom_k_sum_global_plain):
+            v = vals[part].clone().requires_grad_()
+            s = (rcl._GlobalBottomKSum.apply if fn is rcl.bottom_k_sum_global else fn)(
+                v, keyed[part].contiguous(), sn)
+            s.backward()
+            res.append((float(s), v.grad))
+        _, threshold, _ = rcl.bottom_k_sum_global_cuda(vals[part], keyed[part].contiguous(), sn)
+        bits = keyed.view(torch.int32).long() & 0xFFFFFFFF
+        kth = int(torch.sort(bits).values[int(sn) - 1]) if int(sn) > 0 else 0
+        err = abs(res[0][0] - res[1][0])
+        out[case] = {"sum": res[0][0], "plain_sum": res[1][0], "max_abs_err": err,
+                     "threshold_equal_kth_key": (int(threshold) & 0xFFFFFFFF) == kth,
+                     "grad_equal": bool(torch.equal(res[0][1], res[1][1])),
+                     "ok": bool(err <= 1e-6 * max(abs(res[1][0]), 1.0)
+                                and torch.equal(res[0][1], res[1][1])
+                                and (int(threshold) & 0xFFFFFFFF) == kth)}
+    return out
+
+
+def dp_rank_param_diff(torch, model):
+    """The largest difference between this rank's parameters and rank 0's."""
+    import torch.distributed as dist
+
+    diff = 0.0
+    for p in model.parameters():
+        t = p.detach().clone()
+        dist.broadcast(t, 0)
+        diff = max(diff, float((t - p.detach()).abs().max()))
+    return diff
+
+
+def dp_rank(rank, root, port, out_dir):
+    """One of dp_train's two gloo ranks on the one card (``cuda:0``): the global
+    bottom-k check, then each recipe's f32 step on its rows of the global
+    batch with its launches (the counts set to 0 just before); rank 0 keeps
+    the gradients."""
+    sys.path.insert(0, root)
+    import torch
+
+    from multishiftseg_torch.core.mesh import initialize_distributed, shutdown_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_distributed(backend="gloo", init_method=f"tcp://localhost:{port}",
+                           world_size=2, rank=rank, local_rank=0)
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    try:
+        out = {"bottom_k": dp_bottom_k_check(torch), "recipes": {}}
+        for name in DP_RECIPES:
+            tr, step = dp_setup(torch, name, False)
+            reset_launch_counts()
+            rec = dp_record(tr, step(), grads=rank == 0)
+            rec["launches"] = launch_counts()
+            rec["rank_param_diff"] = dp_rank_param_diff(torch, tr.model)
+            out["recipes"][name] = rec
+            del tr, step
+            torch.cuda.empty_cache()
+        torch.save(out, str(Path(out_dir) / f"rank{rank}.pt"))
+    finally:
+        shutdown_distributed()
+
+
+def dp_kernel_row(torch):
+    """The global bottom-k's row of the kernels line, inside the world-1 NCCL
+    group: its kernels against its plain version at the main-path size (every
+    all-reduce a single rank's), timed as the single-process row. Its
+    launches are those of the two-rank DeepLab steps (a world of 1 takes the
+    single-process route)."""
+    from multishiftseg_torch.losses import rcl
+
+    vals, keyed, sn = dp_bottom_k_inputs(torch, DP_BOTTOM_K_N, SEED + 118)
+    run = lambda: rcl.bottom_k_sum_global(vals, keyed, sn)
+    plain = lambda: rcl.bottom_k_sum_global_plain(vals, keyed, sn)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs())
+    b_ms, b_by = bound(nbytes(vals, keyed, sn, got), 2 * DP_BOTTOM_K_N)
+    k_host = int(sn)
+    row = {"name": "bottom_k_sum_global", "route": "cuda",
+           "source": "multishiftseg_torch/csrc/bottom_k.cu",
+           "replaces": "multishiftseg_tpu/losses/rcl.py:65",
+           "counter": "bottom_k_sum_global", "paths": ("dp_train_two_ranks",),
+           "max_abs_err": err, "ms": median_ms(torch, run, 20),
+           "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
+           # as the single-process row's: torch.topk of the k smallest, summed
+           "library_ms": median_ms(
+               torch, lambda: torch.topk(keyed, k_host, largest=False).values.sum(), 20)}
+    time_redesigned(torch, row, run)
+    with torch.no_grad():
+        row["device_kernels"] = device_kernels(torch, run)
+    return row, err <= 1e-6 * max(float(want.abs()), 1.0)
+
+
+def dp_batch_norm_routes(torch, step):
+    """The world-1 DP DeepLab step on its BatchNorms' two routes: the
+    single-process one (``F.batch_norm``), which a world of 1 takes, and the
+    global one of a larger world
+    (``models.layers._GlobalBatchNorm``: the fused statistics, one all-gather
+    and one all-reduce a BatchNorm, here a single rank's), forced by patching
+    ``models.layers.spans_ranks``. Each: 3 timed steps and one profiled step
+    (device busy ms, the device ms of the kernels named ``batch_norm``
+    (torch's native ones, which both routes run on channels-last bf16), ``bn_``
+    (cuDNN's) and ``nccl``)."""
+    from multishiftseg_torch.models import layers
+
+    real = getattr(layers, "spans_ranks", None)
+    out = {}
+    for label, forced in (("single", False), ("global", True)):
+        if forced:
+            layers.spans_ranks = lambda: True
+        try:
+            times = dp_step_times(torch, step)
+            prof = profile_request(torch, lambda _: step(), None,
+                                   focus=("batch_norm", "bn_", "nccl"))
+        finally:
+            if real is None:
+                layers.__dict__.pop("spans_ranks", None)
+            else:
+                layers.spans_ranks = real
+        out[label] = {"step_ms": times, **{k: prof[k] for k in (
+            "wall_ms", "device_busy_ms", "device_busy_share", "device_events", "launch_calls",
+            "batch_norm_ms", "bn__ms", "nccl_ms", "top_kernels")}}
+    out["global_over_single"] = (statistics.median(out["global"]["step_ms"])
+                                 / statistics.median(out["single"]["step_ms"]))
+    return out
+
+
+def phase_dp_train(torch):
+    """The data-parallel path. (a) A world of 1 over NCCL (``core.mesh``): at
+    full widths and the recipes' batches in bf16, DeepLab's stage-2 step, the
+    M2F R-50 stage-2 step and the instance step through DDP (a world of 1
+    takes the single-process reductions: ``F.batch_norm``, the one-launch
+    bottom-k, which must run), each held to the single-process step from the
+    same weights, batch and draws: in f32 with TF32 off (loss and components
+    within 1e-4, all gradients within 1e-2 in L2, as in (b)), and in bf16 as
+    the recipes train (loss and components within 2e-3), with both bf16
+    steps' times; DeepLab's DP step with its BatchNorms on that route and
+    forced onto the global one (:func:`dp_batch_norm_routes`); and the global
+    bottom-k's kernel row. (b) Two ranks on the one card over gloo (NCCL
+    refuses two ranks on one device): each recipe's f32 step (TF32 off) of
+    its parity batch split in two against the single-process step of the
+    same global batch: loss and components within 1e-4, all gradients within
+    1e-2 in L2 (f32 rounding takes other ReLU branches at a few units, which
+    moves single tensors: DeepLab's ASPP by 1.5e-2 of scale, 1.4e-3 in L2;
+    the worst tensor is reported), both ranks ending with the
+    same parameters, rank 0's DeepLab step launching the global bottom-k
+    (path ``dp_train_two_ranks``); and in each rank the global bottom-k's
+    kernels against their plain version. The kernels take f32 and bf16 only,
+    so there is no
+    float64 step on the card; the CPU tests hold the two-rank float64 steps
+    to the single-process ones."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from multishiftseg_torch.core.mesh import initialize_distributed, shutdown_distributed
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"phase": "dp_train", "world_1": {}, "two_ranks": {}}
+    counts_by_path = {}
+    def f32_step(name):  # the recipe's step in f32, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        tr, step = dp_setup(torch, name, True, bf16=False)
+        rec = dp_record(tr, step())
+        torch.backends.cudnn.allow_tf32 = True
+        return rec
+
+    single, single_f32 = {}, {}
+    for name in DP_RECIPES:
+        tr, step = dp_setup(torch, name, True)
+        single[name] = dp_record(tr, step(), grads=False)
+        single[name]["step_ms"] = dp_step_times(torch, step)
+        del tr, step
+        single_f32[name] = f32_step(name)
+        torch.cuda.empty_cache()
+    initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{free_port()}",
+                           world_size=1, rank=0)
+    try:
+        for name in DP_RECIPES:
+            cmp = dp_compare(single_f32[name], f32_step(name), 1e-4, 1e-2)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr, step = dp_setup(torch, name, True)
+            dp = dp_record(tr, step(), grads=False)
+            bf16 = dp_compare({**single[name], "grads": {}}, {**dp, "grads": {}}, 2e-3, 0.0)
+            step()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            dp["step_ms"] = dp_step_times(torch, step, warmup=0)
+            counts_by_path[f"dp_train_{name}"] = launch_counts()
+            res["world_1"][name] = {
+                "f32": cmp, "bf16_loss_rel_err": bf16["loss_rel_err"],
+                "bf16_parts_rel_err": bf16["parts_rel_err"], "ok": cmp["ok"] and bf16["ok"],
+                "single_step_ms": single[name]["step_ms"], "dp_step_ms": dp["step_ms"],
+                "dp_over_single": statistics.median(dp["step_ms"])
+                / statistics.median(single[name]["step_ms"]),
+                "dp_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "wrapped_in_ddp": type(tr.train_model).__name__ == "DistributedDataParallel",
+                "launches": {k: v for k, v in counts_by_path[f"dp_train_{name}"].items() if v}}
+            if name == "deeplab":
+                res["world_1"]["deeplab_batch_norm_routes"] = dp_batch_norm_routes(torch, step)
+            del tr, step
+            torch.cuda.empty_cache()
+        row, row_ok = dp_kernel_row(torch)
+    finally:
+        shutdown_distributed()
+    res["kernel_row"] = row
+    # a world of 1 takes the single-process bottom-k, one a step
+    res["world_1"]["single_route_bottom_k"] = counts_by_path["dp_train_deeplab"].get(
+        "bottom_k_sum", 0) == 3 and counts_by_path["dp_train_deeplab"].get(
+        "bottom_k_sum_global", 0) == 0
+
+    # (b) the single-process steps of the parity batches, then two ranks
+    torch.backends.cudnn.allow_tf32 = False
+    ranks = []
+    try:
+        ref = {}
+        for name in DP_RECIPES:
+            tr, step = dp_setup(torch, name, False)
+            ref[name] = dp_record(tr, step())
+            del tr, step
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.spawn(dp_rank, args=(str(Path(sys.path[0]).resolve()), free_port(), tmp),
+                     nprocs=2, join=True)
+            ranks = [torch.load(str(Path(tmp) / f"rank{r}.pt"), weights_only=False)
+                     for r in range(2)]
+        res["two_ranks"]["seconds"] = time.perf_counter() - t0
+        for name, want in ref.items():
+            got = ranks[0]["recipes"][name]
+            cmp = dp_compare(want, got, 1e-4, 1e-2)
+            cmp["rank_param_diff"] = max(r["recipes"][name]["rank_param_diff"] for r in ranks)
+            cmp["ok"] = bool(cmp["ok"] and cmp["rank_param_diff"] == 0.0)
+            res["two_ranks"][name] = cmp
+        res["two_ranks"]["bottom_k"] = {f"rank{i}": r["bottom_k"] for i, r in enumerate(ranks)}
+        # rank 0's steps, each with the counts set to 0 just before it
+        two = {}
+        for name in DP_RECIPES:
+            for k, v in ranks[0]["recipes"][name]["launches"].items():
+                two[k] = two.get(k, 0) + v
+        counts_by_path["dp_train_two_ranks"] = two
+        res["two_ranks"]["launches"] = {k: v for k, v in two.items() if v}
+        deeplab = ranks[0]["recipes"]["deeplab"]["launches"]
+        res["two_ranks"]["global_bottom_k_launched"] = (
+            deeplab.get("bottom_k_sum_global", 0) == 1 and deeplab.get("bottom_k_sum", 0) == 0)
+    except Exception as e:  # (a) stands reported; the phase fails
+        res["two_ranks"]["error"] = f"{type(e).__name__}: {e}"[-2000:]
+    res["checks"] = {
+        "world_1_steps_match": all(res["world_1"][n]["ok"] for n in DP_RECIPES),
+        "world_1_ddp": all(res["world_1"][n]["wrapped_in_ddp"] for n in DP_RECIPES),
+        "world_1_single_route_bottom_k": res["world_1"]["single_route_bottom_k"],
+        "two_rank_global_bottom_k_launched": bool(ranks) and res["two_ranks"][
+            "global_bottom_k_launched"],
+        "kernel_row_matches_plain": row_ok,
+        "two_rank_steps_match": bool(ranks) and all(res["two_ranks"][n]["ok"]
+                                                    for n in DP_RECIPES),
+        "two_rank_bottom_k_matches_plain": bool(ranks) and all(
+            c["ok"] for r in ranks for c in r["bottom_k"].values())}
+    res["ok"] = bool(all(res["checks"].values()))
+    return res, counts_by_path
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 PHASES = ("kernels", "slice_parity", "serve", "train_parity", "train", "deeplab_parity",
           "deeplab_serve", "deeplab_train_parity", "deeplab_train", "stage1_parity",
           "stage1_train", "validate", "evaluate", "train_loop", "instance_parity",
-          "instance_train", "alt_parity", "alt_serve", "alt_train")
+          "instance_train", "alt_parity", "alt_serve", "alt_train", "dp_train")
 
 
 def parse_args(argv):
@@ -3850,6 +4335,10 @@ def main(argv=None):
     inst_launches = run("instance_train", phase_instance_train)
     run("alt_parity", phase_alt_parity)
     alt_launches = {**run("alt_serve", phase_alt_serve), **run("alt_train", phase_alt_train)}
+    dp_launches = run("dp_train", phase_dp_train)
+    dp_row = next((p.pop("kernel_row") for p in phases if p["phase"] == "dp_train"), None)
+    if rows and dp_row is not None:
+        rows["bottom_k_sum_global"] = dp_row
 
     # each main path was run with the counts set to 0 just before it; a row
     # counts its counter over its paths (default: every path)
@@ -3859,7 +4348,9 @@ def main(argv=None):
              "train_loop": loop_launches, "instance_eval": inst_launches.get("instance_eval", {}),
              **{p: inst_launches.get(p, {}) for p in (f"instance_train_{r}"
                                                       for r in INSTANCE_RECIPES)},
-             **{p: alt_launches.get(p, {}) for p in ALT_PATHS}}
+             **{p: alt_launches.get(p, {}) for p in ALT_PATHS},
+             **{f"dp_train_{r}": dp_launches.get(f"dp_train_{r}", {}) for r in DP_RECIPES},
+             "dp_train_two_ranks": dp_launches.get("dp_train_two_ranks", {})}
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))

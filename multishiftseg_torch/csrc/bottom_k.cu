@@ -89,8 +89,9 @@ __device__ __forceinline__ void bin_key(unsigned* hist, uint32_t key, bool ok, u
 }
 
 // The smallest digit at which the global histogram's running count reaches
-// k (1 <= k <= the histogram's total): every block computes the same. Returns
-// (digit, count below it) through shared memory.
+// k: every block computes the same. Returns (digit, count below it) through
+// shared memory; k <= 0 gives digit 0, k above the total the last digit (the
+// global route's rounds meet both; the single launch never calls it so).
 __device__ void find_digit(const unsigned* __restrict__ ghist, int bins, long long k,
                            unsigned long long* wsum, unsigned* misc) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
@@ -121,6 +122,12 @@ __device__ void find_digit(const unsigned* __restrict__ ghist, int bins, long lo
     const bool first = k <= excl + (long long)h0;
     misc[0] = first ? 2 * t : 2 * t + 1;
     misc[1] = (unsigned)(first ? excl : excl + h0);
+  } else if (k <= 0 && t == 0) {  // none needed: digit 0 (the global route's rounds)
+    misc[0] = 0u;
+    misc[1] = 0u;
+  } else if (k > 0 && t == THREADS - 1 && k > excl + (long long)s) {  // the keys fall short
+    misc[0] = (unsigned)(bins - 1);
+    misc[1] = (unsigned)(excl + (long long)s - __ldcg(ghist + bins - 1));
   }
   __syncthreads();
 }
@@ -366,6 +373,146 @@ __global__ void __launch_bounds__(256) bk_backward(const uint32_t* __restrict__ 
   }
 }
 
+// ---------------------------------------------------------------------------
+// The global route: the selection over the keys of every rank of a process
+// group (losses/rcl.py::bottom_k_sum_global). Between the launches the caller
+// all-reduces what they wrote:
+//   bottom_k_global_hist, rounds 0, 1, 2: every block finds the prefix of the
+//     rounds before from their all-reduced histograms (find_digit, the same in
+//     every block), then bins this rank's keys under it by the round's digit
+//     (a shared histogram, then its nonzero bins added to the round's global
+//     one, zeroed first) -> all-reduce of the round's 2048 counts;
+//   bottom_k_global_sums: the threshold from the three histograms, this rank's
+//     sums below and at it in f64 and their counts, a block in a fixed order,
+//     then one block adds the block partials in a fixed order -> all-reduce of
+//     the four f64 sums;
+//   bottom_k_global_result: need = max(k - n_less, 0), the tie weight and the
+//     sum as the single launch writes them, so bk_backward serves both routes.
+// Scratch (int32 words): the single launch's header and histograms, then from
+// G_PART the four f64 sums, from G_BLOCKS the block partials (2 f64 and 2 u64
+// a block); bottom_k_global_scratch_words(blocks) in all.
+
+constexpr int G_PART = S_HIST + PASSES * BINS;  // 8-byte aligned
+constexpr int G_BLOCKS = G_PART + 8;
+
+// the threshold's prefix after rounds 0..p-1 and the count still needed
+__device__ void global_prefix(const unsigned* __restrict__ scratch, long long k, int p,
+                              unsigned long long* wsum, unsigned* misc, unsigned* prefix,
+                              long long* left) {
+  unsigned pre = 0u;
+  long long l = k;
+  for (int q = 0; q < p; ++q) {
+    find_digit(scratch + S_HIST + q * BINS, q == PASSES - 1 ? 1024 : BINS, l, wsum, misc);
+    pre |= misc[0] << digit_shift(q);
+    l -= misc[1];
+  }
+  *prefix = pre;
+  *left = l;
+}
+
+__global__ void __launch_bounds__(THREADS) bk_global_hist(const uint32_t* __restrict__ keys,
+                                                          int64_t n,
+                                                          const int* __restrict__ select_num,
+                                                          unsigned* __restrict__ scratch, int p) {
+  __shared__ unsigned hist[BINS];
+  __shared__ unsigned long long wsum[WARPS];
+  __shared__ unsigned misc[4];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < BINS; i += THREADS) hist[i] = 0u;
+  unsigned prefix;
+  long long left;
+  global_prefix(scratch, *select_num, p, wsum, misc, &prefix, &left);
+  __syncthreads();  // the zeroed histogram (round 0 finds no digit before)
+  const int shift = digit_shift(p);
+  const int bins = p == PASSES - 1 ? 1024 : BINS;
+  const unsigned hi = p == 0 ? 0u : ~0u << digit_shift(p - 1);
+  const unsigned dmask = (unsigned)bins - 1u;
+  for (int64_t i = (int64_t)blockIdx.x * THREADS + tid; i < n; i += (int64_t)gridDim.x * THREADS)
+    bin_key(hist, __ldg(keys + i), true, hi, prefix, shift, dmask);
+  __syncthreads();
+  unsigned* gh = scratch + S_HIST + p * BINS;
+  for (int i = tid; i < bins; i += THREADS) {
+    const unsigned h = hist[i];
+    if (h) atomicAdd(gh + i, h);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) bk_global_sums(const uint32_t* __restrict__ keys,
+                                                          const float* __restrict__ values,
+                                                          int64_t n,
+                                                          const int* __restrict__ select_num,
+                                                          unsigned* __restrict__ scratch) {
+  __shared__ double red_d[2 * WARPS];
+  __shared__ unsigned long long red_c[2 * WARPS];
+  __shared__ unsigned misc[4];
+  const int tid = threadIdx.x;
+  unsigned t;
+  long long left;
+  global_prefix(scratch, *select_num, PASSES, red_c, misc, &t, &left);
+  double sl = 0.0, se = 0.0;
+  unsigned long long cl = 0, ce = 0;
+  for (int64_t i = (int64_t)blockIdx.x * THREADS + tid; i < n; i += (int64_t)gridDim.x * THREADS) {
+    const uint32_t key = __ldg(keys + i);
+    if (key < t) {
+      sl += (double)__ldg(values + i);
+      ++cl;
+    } else if (key == t) {
+      se += (double)__ldg(values + i);
+      ++ce;
+    }
+  }
+  block_sums(sl, se, cl, ce, red_d, red_c);
+  double* psum = reinterpret_cast<double*>(scratch + G_BLOCKS);
+  unsigned long long* pcnt = reinterpret_cast<unsigned long long*>(psum + 2 * gridDim.x);
+  if (tid == 0) {
+    psum[2 * blockIdx.x] = sl;
+    psum[2 * blockIdx.x + 1] = se;
+    pcnt[2 * blockIdx.x] = cl;
+    pcnt[2 * blockIdx.x + 1] = ce;
+    if (blockIdx.x == 0) scratch[S_THRESHOLD] = t;
+  }
+}
+
+// one block: the block partials in a fixed order -> the four f64 sums
+__global__ void __launch_bounds__(THREADS) bk_global_partials(unsigned* __restrict__ scratch,
+                                                              int blocks) {
+  __shared__ double red_d[2 * WARPS];
+  __shared__ unsigned long long red_c[2 * WARPS];
+  const int tid = threadIdx.x;
+  const double* psum = reinterpret_cast<const double*>(scratch + G_BLOCKS);
+  const unsigned long long* pcnt = reinterpret_cast<const unsigned long long*>(psum + 2 * blocks);
+  const bool mine = tid < blocks;
+  double sl = mine ? psum[2 * tid] : 0.0, se = mine ? psum[2 * tid + 1] : 0.0;
+  unsigned long long cl = mine ? pcnt[2 * tid] : 0ull, ce = mine ? pcnt[2 * tid + 1] : 0ull;
+  block_sums(sl, se, cl, ce, red_d, red_c);
+  if (tid == 0) {
+    double* part = reinterpret_cast<double*>(scratch + G_PART);
+    part[0] = sl;
+    part[1] = se;
+    part[2] = (double)cl;
+    part[3] = (double)ce;
+  }
+}
+
+__global__ void bk_global_result(const int* __restrict__ select_num,
+                                 unsigned* __restrict__ scratch) {
+  if (threadIdx.x != 0) return;
+  const double* part = reinterpret_cast<const double*>(scratch + G_PART);
+  const long long cl = (long long)part[2], ce = (long long)part[3];
+  const long long need = max((long long)*select_num - cl, 0LL);
+  const float w_eq = (float)need / (float)(ce > 0 ? ce : 1ll);
+  float* result = reinterpret_cast<float*>(scratch + S_RESULT);
+  result[0] = __fadd_rn((float)part[0], __fmul_rn((float)part[1], w_eq));
+  result[1] = w_eq;
+  result[2] = (float)cl;
+  result[3] = (float)ce;
+}
+
+int global_blocks(int64_t n, int max_blocks) {
+  int64_t b = (n + 8 * THREADS - 1) / (8 * THREADS);
+  return (int)(b < 1 ? 1 : (b > max_blocks ? max_blocks : b));
+}
+
 // the forward's grid and slices for n keys: blocks, keys a block (a multiple of 4)
 void slices(int64_t n, int max_blocks, int* blocks, int64_t* per) {
   int64_t b = (n + 8 * THREADS - 1) / (8 * THREADS);
@@ -455,5 +602,49 @@ extern "C" int bottom_k_backward(const void* keys, long long n, const void* scra
   bk_backward<<<(int)blocks, 256, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)keys, n, (const unsigned*)scratch, (const float*)grad,
       (float*)dvalues);
+  return (int)cudaGetLastError();
+}
+
+// The global route's scratch words with at most max_blocks blocks.
+extern "C" long long bottom_k_global_scratch_words(int max_blocks) {
+  return G_BLOCKS + 8ll * max_blocks;
+}
+
+// Round `pass` (0, 1, 2) of the global route: zeroes the round's histogram and
+// adds this rank's counts under the prefix of the all-reduced rounds before.
+extern "C" int bottom_k_global_hist(const void* keys, long long n, const void* select_num,
+                                    void* scratch, int pass, int max_blocks, void* stream) {
+  if (n < 0 || n >= (1ll << 32) || pass < 0 || pass >= PASSES || max_blocks < 1)
+    return (int)cudaErrorInvalidValue;
+  unsigned* words = (unsigned*)scratch;
+  int rc = (int)cudaMemsetAsync(words + S_HIST + pass * BINS, 0, BINS * sizeof(unsigned),
+                                (cudaStream_t)stream);
+  if (rc != 0) return rc;
+  bk_global_hist<<<global_blocks(n, max_blocks), THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)keys, n, (const int*)select_num, words, pass);
+  return (int)cudaGetLastError();
+}
+
+// This rank's sums below and at the global threshold (all three rounds
+// all-reduced), as four f64 at G_PART; two launches.
+extern "C" int bottom_k_global_sums(const void* keys, const void* values, long long n,
+                                    const void* select_num, void* scratch, int max_blocks,
+                                    void* stream) {
+  if (n < 0 || n >= (1ll << 32) || max_blocks < 1 || max_blocks > THREADS)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = global_blocks(n, max_blocks);
+  bk_global_sums<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)keys, (const float*)values, n, (const int*)select_num,
+      (unsigned*)scratch);
+  int rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  bk_global_partials<<<1, THREADS, 0, (cudaStream_t)stream>>>((unsigned*)scratch, blocks);
+  return (int)cudaGetLastError();
+}
+
+// The result from the all-reduced sums: the single launch's layout.
+extern "C" int bottom_k_global_result(const void* select_num, void* scratch, void* stream) {
+  bk_global_result<<<1, 32, 0, (cudaStream_t)stream>>>((const int*)select_num,
+                                                       (unsigned*)scratch);
   return (int)cudaGetLastError();
 }

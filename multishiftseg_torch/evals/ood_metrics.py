@@ -1,19 +1,29 @@
 """Pixel-level OOD detection metrics: AUROC, AUPRC (average precision), FPR@95TPR.
 
-Exact numpy implementations, a copy of ``multishiftseg_tpu/evals/ood_metrics.py:26-151``
-(sklearn semantics of the reference's ``lib/utils/metric.py:69-181``) without the
-native C++ route; and the binned metrics of ``:159-316`` (``BinnedOODMeter``,
-``binned_ood_metrics``), whose per-map reductions, the masked score range and the
-label-split histogram, run as one CUDA kernel for CUDA tensors
-(``csrc/ood_hist.cu``: the range, the histogram over a given range, or both in
-one launch) and as their plain versions for CPU tensors. Label 1 =
+Exact implementations, a copy of ``multishiftseg_tpu/evals/ood_metrics.py:26-151``
+(sklearn semantics of the reference's ``lib/utils/metric.py:69-181``): numpy, and
+for inputs of 2,000,000 labelled pixels or more the native route, the
+repository's threaded C++ sort and sweep (``native/metrics.cc``,
+``mss_ood_metrics``), built with ``g++`` into ``multishiftseg_torch/build/`` at
+first use and bound with ctypes (``use_native`` as in JAX; a library that
+cannot be built raises, nothing falls back quietly); and the binned metrics of
+``:159-316`` (``BinnedOODMeter``, ``binned_ood_metrics``), whose per-map
+reductions, the masked score range and the label-split histogram, run as one
+CUDA kernel for CUDA tensors (``csrc/ood_hist.cu``: the range, the histogram
+over a given range, or both in one launch) and as their plain versions for
+CPU tensors. Label 1 =
 OOD (positive), label 0 = in-distribution; higher score = more anomalous.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import os
+import subprocess
+import threading
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -80,11 +90,70 @@ def fpr_at_recall(y_true: np.ndarray, y_score: np.ndarray,
     return float(fps_r[cutoff] / n_neg)
 
 
+NATIVE_MIN_PIXELS = 2_000_000  # below this, numpy's sort wins on dispatch overhead
+NATIVE_SOURCE = Path(__file__).resolve().parents[2] / "native" / "metrics.cc"
+NATIVE_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
+_native_lock = threading.Lock()
+_native: Dict[str, ctypes.CDLL] = {}
+
+
+def native_library() -> ctypes.CDLL:
+    """``native/metrics.cc`` built with ``g++`` into ``build/`` (named by a hash
+    of the source and flags, so an edited source is rebuilt) and loaded.
+    Raises where it cannot be built."""
+    with _native_lock:
+        lib = _native.get("metrics")
+        if lib is None:
+            digest = hashlib.sha256(NATIVE_SOURCE.read_bytes() + " ".join(NATIVE_FLAGS).encode())
+            path = _build.BUILD_DIR / f"libmssmetrics-{digest.hexdigest()[:12]}.so"
+            if not path.exists():
+                _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = path.with_suffix(f".{os.getpid()}.tmp")
+                out = subprocess.run(["g++", *NATIVE_FLAGS, "-o", str(tmp), str(NATIVE_SOURCE),
+                                      "-lpthread"], capture_output=True, text=True)
+                if out.returncode != 0:
+                    raise RuntimeError(f"g++ failed on {NATIVE_SOURCE}:\n{out.stdout}{out.stderr}")
+                os.replace(tmp, path)
+            lib = ctypes.CDLL(str(path))
+            lib.mss_ood_metrics.restype = ctypes.c_int
+            lib.mss_ood_metrics.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                                            ctypes.c_double, ctypes.c_int, ctypes.c_void_p]
+            _native["metrics"] = lib
+        return lib
+
+
+def native_ood_metrics(scores: np.ndarray, labels: np.ndarray,
+                       recall_level: float = 0.95) -> Tuple[float, float, float]:
+    """(AUROC, AUPRC, FPR@recall) by the native route: scores taken as f32,
+    labels 1 OOD / 0 in-distribution, one thread a core."""
+    s = np.ascontiguousarray(scores, np.float32)
+    lab = np.ascontiguousarray(labels, np.uint8)
+    out = np.zeros(3, np.float64)
+    rc = native_library().mss_ood_metrics(s.ctypes.data, lab.ctypes.data, s.size,
+                                          recall_level, os.cpu_count() or 1, out.ctypes.data)
+    if rc != 0:
+        raise ValueError("mss_ood_metrics: a class is empty")
+    return float(out[0]), float(out[1]), float(out[2])
+
+
+def metrics_route(n_pixels: int, use_native: Optional[bool] = None) -> str:
+    """``"native"`` or ``"numpy"``: the route ``eval_ood_measure`` takes for
+    ``n_pixels`` labelled pixels (``use_native`` None: native from
+    ``NATIVE_MIN_PIXELS`` on)."""
+    if use_native or (use_native is None and n_pixels >= NATIVE_MIN_PIXELS):
+        return "native"
+    return "numpy"
+
+
 def eval_ood_measure(conf: np.ndarray, seg_label: np.ndarray, train_id_in: int = 0,
-                     train_id_out: int = 1, recall_level: float = 0.95
+                     train_id_out: int = 1, recall_level: float = 0.95,
+                     use_native: Optional[bool] = None
                      ) -> Optional[Tuple[float, float, float]]:
     """(AUROC, AUPRC, FPR@95) over pixels labelled in/out; None if either set is
-    empty. Pixels with other labels (e.g. 255 void) are excluded."""
+    empty. Pixels with other labels (e.g. 255 void) are excluded. The route is
+    :func:`metrics_route`'s: from ``NATIVE_MIN_PIXELS`` labelled pixels on (or
+    with ``use_native=True``) the native one (same tie semantics, f32 score
+    precision); ``use_native=False`` keeps numpy."""
     conf = np.asarray(conf).reshape(-1)
     seg_label = np.asarray(seg_label).reshape(-1)
     mask = (seg_label == train_id_in) | (seg_label == train_id_out)
@@ -93,12 +162,11 @@ def eval_ood_measure(conf: np.ndarray, seg_label: np.ndarray, train_id_in: int =
     labels = (seg_label[mask] == train_id_out).astype(np.int64)
     if labels.sum() == 0 or labels.sum() == labels.size:
         return None
+    if metrics_route(labels.size, use_native) == "native":
+        return native_ood_metrics(conf[mask], labels, recall_level)
     scores = conf[mask].astype(np.float64)
-    return (
-        auroc(labels, scores),
-        average_precision(labels, scores),
-        fpr_at_recall(labels, scores, recall_level),
-    )
+    return (auroc(labels, scores), average_precision(labels, scores),
+            fpr_at_recall(labels, scores, recall_level))
 
 
 # ---------------------------------------------------------------------------

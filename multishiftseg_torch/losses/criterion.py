@@ -21,6 +21,12 @@ version draws them from ``jax.random`` keys at ``criterion.py:360-361, 405,
 417, 156-166, 306-307`` and ``rcl.py:171-174``).
 
 All losses run in f32, outside any autocast region.
+
+Inside a process group (``core.mesh``) the outputs and labels are this rank's
+rows and every normaliser spans the global batch, as in JAX's step over global
+arrays: ``num_masks``, the class loss's weighted mean and the mask losses' sums
+are all-reduced, and RCL reduces globally itself. The match and the point
+sampling are per mask, so they run on the rank's rows.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..core.mesh import all_sum, global_sum
 from ..ops.resize import resize_bilinear
 from ..ops.sampling import point_sample_nchw
 from ..ops.scores import mask2former_semantic_logits
@@ -309,8 +316,8 @@ def _plain_mask_losses(draws, matched_masks, sem_seg, w_valid, num_masks, cfg):
     logits = point_sample_nchw(mm[:, None], coords)[:, 0]
     tgts = sample_class_points(sem_seg, coords, class_ids, rows_per_map=t)
     w = w_valid.reshape(-1)
-    return {"loss_mask": _sigmoid_ce(logits, tgts, w) / num_masks * cfg.mask_weight,
-            "loss_dice": _dice(logits, tgts, w) / num_masks * cfg.dice_weight}
+    return {"loss_mask": all_sum(_sigmoid_ce(logits, tgts, w)) / num_masks * cfg.mask_weight,
+            "loss_dice": all_sum(_dice(logits, tgts, w)) / num_masks * cfg.dice_weight}
 
 
 def set_criterion(outputs: Dict[str, object], sem_seg: torch.Tensor, draws: Dict[str, object],
@@ -384,7 +391,7 @@ def _instance_output_losses(outputs, id_map, tgt_classes, draws, cfg):
     q = pred_logits.shape[1]
     tgt_classes = tgt_classes.long()
     valid = tgt_classes >= 0
-    num_masks = valid.sum().clamp_min(1).float()
+    num_masks = global_sum(valid).clamp_min(1).float()
 
     # slot t's mask is (id_map == t): the semantic path's sampling with the
     # slot indices for classes
@@ -403,7 +410,7 @@ def _instance_output_losses(outputs, id_map, tgt_classes, draws, cfg):
     logp = F.log_softmax(pred_logits, dim=-1)
     nll = -logp.gather(-1, target_classes[..., None])[..., 0]
     class_w = torch.where(target_classes == K, cfg.eos_coef, 1.0)
-    loss_ce = (nll * class_w).sum() / class_w.sum()
+    loss_ce = global_sum(nll * class_w) / global_sum(class_w)
 
     matched_masks = pred_masks[torch.arange(b, device=dev)[:, None], assignment]  # [B, T, ...]
     losses = {"loss_ce": loss_ce * cfg.class_weight,
@@ -425,7 +432,7 @@ def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw
     bins = torch.where(lm < K, lm, torch.full_like(lm, K)) + (K + 1) * torch.arange(
         b, device=dev)[:, None]
     valid = torch.bincount(bins.reshape(-1), minlength=b * (K + 1)).view(b, K + 1)[:, :K] > 0
-    num_masks = valid.sum().clamp_min(1).float()
+    num_masks = global_sum(valid).clamp_min(1).float()
 
     # matching on shared random points per image
     match_coords = draws["match_coords"]
@@ -443,7 +450,7 @@ def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw
     logp = F.log_softmax(pred_logits, dim=-1)
     nll = -logp.gather(-1, target_classes[..., None])[..., 0]
     class_w = torch.where(target_classes == K, cfg.eos_coef, 1.0)
-    loss_ce = (nll * class_w).sum() / class_w.sum()
+    loss_ce = global_sum(nll * class_w) / global_sum(class_w)
 
     matched_masks = pred_masks[torch.arange(b, device=dev)[:, None], assignment]  # [B, K, Hs, Ws]
     w_valid = valid.float()
@@ -462,8 +469,8 @@ def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw
     orig_logits = point_sample_nchw(om[:, None], oc)[:, 0]
     orig_tgts = sample_class_points(sem_seg, oc, class_ids, rows_per_map=K)
     w_orig = w_valid[:half].reshape(-1)
-    loss_orig_mask = 2.0 * _sigmoid_ce(orig_logits, orig_tgts, w_orig) / num_masks
-    loss_orig_dice = 2.0 * _dice(orig_logits, orig_tgts, w_orig) / num_masks
+    loss_orig_mask = 2.0 * all_sum(_sigmoid_ce(orig_logits, orig_tgts, w_orig)) / num_masks
+    loss_orig_dice = 2.0 * all_sum(_dice(orig_logits, orig_tgts, w_orig)) / num_masks
 
     # augmented half: the lowest-BCE "clean" points of each mask
     am = matched_masks[half:].reshape(half * K, hs, ws)
@@ -473,8 +480,8 @@ def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw
     aug_tgts = sample_class_points(sem_seg, coords, class_ids, rows_per_map=K,
                                    map_offset=half)
     w_aug = w_valid[half:].reshape(-1)
-    loss_aug_mask = _sigmoid_ce(aug_logits, aug_tgts, w_aug) / num_masks
-    loss_aug_dice = _dice(aug_logits, aug_tgts, w_aug) / num_masks
+    loss_aug_mask = all_sum(_sigmoid_ce(aug_logits, aug_tgts, w_aug)) / num_masks
+    loss_aug_dice = all_sum(_dice(aug_logits, aug_tgts, w_aug)) / num_masks
 
     losses = {
         "loss_ce": loss_ce * cfg.class_weight,
@@ -510,14 +517,16 @@ def _finish_ood_loss(outputs, sem_seg, draws, cfg, rcl_params, crop_hw, pred_log
         score = -logits_px.max(dim=-1).values
         ood_f = ((sem_seg > 100) & (sem_seg != 255)).float()
         id_f = (sem_seg < 100).float()
-        n_ood = ood_f.sum()
+        n_ood = global_sum(ood_f)
+        n_id = global_sum(id_f).clamp_min(1)
         if cfg.ood_loss == "margin":
-            id_term = (score ** 2 * id_f).sum() / id_f.sum().clamp_min(1)
-            ood_term = ((cfg.margin - score).clamp_min(0) ** 2 * ood_f).sum() / n_ood.clamp_min(1)
+            id_term = global_sum(score ** 2 * id_f) / n_id
+            ood_term = (global_sum((cfg.margin - score).clamp_min(0) ** 2 * ood_f)
+                        / n_ood.clamp_min(1))
             loss_ood = 0.5 * (id_term + torch.where(n_ood > 0, ood_term, ood_term.new_zeros(())))
         else:
-            bce_id = (F.softplus(score) * id_f).sum() / id_f.sum().clamp_min(1)
-            bce_ood = (F.softplus(-score) * ood_f).sum() / n_ood.clamp_min(1)
+            bce_id = global_sum(F.softplus(score) * id_f) / n_id
+            bce_ood = global_sum(F.softplus(-score) * ood_f) / n_ood.clamp_min(1)
             loss_ood = 0.5 * (bce_id + torch.where(n_ood > 0, bce_ood, bce_ood.new_zeros(())))
     else:
         raise ValueError(f"unknown ood_loss {cfg.ood_loss}")

@@ -14,6 +14,10 @@ the lower index as ``jax.lax.top_k`` does, by a stable descending sort.
 
 The pixel selection of the augmented half's CE (``_bottom_k_sum``) runs as a CUDA
 kernel for CUDA tensors (``csrc/bottom_k.cu``), as its plain version on the CPU.
+Inside a process group it selects over the global batch's pixels
+(:func:`bottom_k_sum_global`): radix rounds whose digit histograms are
+all-reduced between rounds, then local sums at the global threshold,
+all-reduced.
 """
 
 from __future__ import annotations
@@ -23,14 +27,18 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from .. import _build
+from ..core.mesh import (all_sum, gather_rows, global_mean, global_sum, process_count,
+                         spans_ranks)
 from .matcher import launch_device
 
-# Kernel launches (see ``ops.launch_counts``).
-LAUNCHES = {"bottom_k_sum": 0}
+# Kernel launches (see ``ops.launch_counts``): the single-process selection and
+# the global one of a process group (a call of its route counts once).
+LAUNCHES = {"bottom_k_sum": 0, "bottom_k_sum_global": 0}
 
 
 @dataclass(frozen=True)
@@ -79,10 +87,64 @@ def _bottom_k_sum(values: torch.Tensor, keyed: torch.Tensor,
     ties sharing the remaining weight (``rcl.py:65-97``): the CUDA kernel
     (``csrc/bottom_k.cu``) for CUDA tensors, the plain version for CPU tensors.
     ``keyed`` is a detached copy of ``values`` (>= 0, +inf where invalid);
-    ``select_num`` an int32 scalar tensor, which stays on the device."""
+    ``select_num`` an int32 scalar tensor, which stays on the device. In a
+    process group of more than one rank the selection spans every rank's
+    elements (:func:`bottom_k_sum_global`, ``select_num`` the global count)."""
+    if spans_ranks():
+        return bottom_k_sum_global(values, keyed, select_num)
     if values.device.type == "cpu":
         return bottom_k_sum_plain(values, keyed, select_num)
     return _BottomKSum.apply(values, keyed, select_num)
+
+
+def bottom_k_sum_global(values: torch.Tensor, keyed: torch.Tensor,
+                        select_num: torch.Tensor) -> torch.Tensor:
+    """:func:`_bottom_k_sum` over the elements of every rank of the process
+    group: ``select_num`` of the global set, the same sum on every rank, whose
+    backward sums the incoming gradient over the ranks (``core.mesh``). The
+    CUDA kernels' route (``csrc/bottom_k.cu``, ``bottom_k_global_*``) for CUDA
+    tensors, the plain version for CPU tensors. No sort and no host sync."""
+    if values.device.type == "cpu":
+        return bottom_k_sum_global_plain(values, keyed, select_num)
+    return _GlobalBottomKSum.apply(values, keyed, select_num)
+
+
+# the radix digits, most significant first: (shift, bits)
+RADIX_DIGITS = ((21, 11), (10, 11), (0, 10))
+
+
+def bottom_k_sum_global_plain(values: torch.Tensor, keyed: torch.Tensor,
+                              select_num: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`bottom_k_sum_global`: the threshold digit by
+    digit (11, 11, 10 bits), each round a histogram of the keys under the
+    prefix so far, all-reduced, and the smallest digit whose running count
+    reaches the count still needed (digit 0 when none is needed, the last
+    digit when the keys fall short, as the single-process search ends); then
+    the sums below and at the threshold and their counts, all-reduced, with
+    ties sharing ``need / n_eq``."""
+    dev = values.device
+    bits = keyed.contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    prefix = torch.zeros((), dtype=torch.int64, device=dev)
+    left = select_num.long().reshape(())
+    for shift, width in RADIX_DIGITS:
+        bins = 1 << width
+        above = (0xFFFFFFFF << (shift + width)) & 0xFFFFFFFF
+        under = (bits & above) == prefix
+        digit = (bits >> shift) & (bins - 1)
+        hist = torch.zeros(bins, dtype=torch.int64, device=dev).index_add_(
+            0, digit.reshape(-1), under.reshape(-1).long())
+        hist = all_sum(hist)
+        cum = hist.cumsum(0)
+        d = (cum < left).sum().clamp_max(bins - 1)
+        prefix = prefix | (d << shift)
+        left = left - (cum - hist)[d]
+    less, eq = bits < prefix, bits == prefix
+    zero = values.new_zeros(())
+    sums = all_sum(torch.stack([torch.where(less, values, zero).sum(),
+                                torch.where(eq, values, zero).sum()]))
+    counts = all_sum(torch.stack([less.sum(), eq.sum()]))
+    need = (select_num.long().reshape(()) - counts[0]).clamp_min(0).float()
+    return sums[0] + sums[1] * (need / counts[1].clamp_min(1).float())
 
 
 def bottom_k_sum_plain(values: torch.Tensor, keyed: torch.Tensor,
@@ -142,13 +204,18 @@ SCRATCH_THRESHOLD, SCRATCH_RESULT = 0, 1
 @dataclass(frozen=True)
 class _Kernel:
     """A device's entries of ``csrc/bottom_k.cu`` and its launch shape: the most
-    blocks (all resident) and the 4-byte words a block stages (keys, then values)."""
+    blocks (all resident), the 4-byte words a block stages (keys, then values)
+    and the scratch words of the single-process and the global routes."""
 
     forward: object
     backward: object
+    global_hist: object
+    global_sums: object
+    global_result: object
     max_blocks: int
     stage_words: int
     scratch_words: int
+    global_scratch_words: int
 
 
 _KERNELS: Dict[Optional[int], _Kernel] = {}
@@ -167,6 +234,10 @@ def _kernel(dev: torch.device) -> _Kernel:
             raise RuntimeError(f"bottom_k_config failed: cudaError {rc}")
         words = _build.function("bottom_k", "bottom_k_scratch_words", [ctypes.c_int])
         words.restype = ctypes.c_longlong
+        global_words = _build.function("bottom_k", "bottom_k_global_scratch_words",
+                                       [ctypes.c_int])
+        global_words.restype = ctypes.c_longlong
+        f = _build.function
         kern = _KERNELS[dev.index] = _Kernel(
             forward=_build.function("bottom_k", "bottom_k_forward",
                                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
@@ -175,8 +246,15 @@ def _kernel(dev: torch.device) -> _Kernel:
             backward=_build.function("bottom_k", "bottom_k_backward",
                                      [ctypes.c_void_p, ctypes.c_longlong]
                                      + [ctypes.c_void_p] * 4),
+            global_hist=f("bottom_k", "bottom_k_global_hist",
+                          [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                          + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+            global_sums=f("bottom_k", "bottom_k_global_sums",
+                          [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                          + [ctypes.c_int, ctypes.c_void_p]),
+            global_result=f("bottom_k", "bottom_k_global_result", [ctypes.c_void_p] * 3),
             max_blocks=blocks.value, stage_words=stage.value,
-            scratch_words=words(blocks.value))
+            scratch_words=words(blocks.value), global_scratch_words=global_words(blocks.value))
     return kern
 
 
@@ -217,6 +295,92 @@ def _bottom_k_forward(values: torch.Tensor, keyed: torch.Tensor, select_num: tor
     return scratch[SCRATCH_RESULT], keys, scratch
 
 
+class _GlobalBottomKSum(torch.autograd.Function):
+    """The global selection on the card: three histogram kernels, each
+    all-reduced, the sums kernel and its block reduction, their sums
+    all-reduced, then the result kernel; backward, the incoming gradient
+    all-reduced, then the single-process route's elementwise weights."""
+
+    @staticmethod
+    def forward(ctx, values, keyed, select_num):
+        out, keys, scratch = _bottom_k_global_forward(values, keyed, select_num)
+        ctx.shape = values.shape
+        ctx.save_for_backward(keys, scratch)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        keys, scratch = ctx.saved_tensors
+        g = all_sum(grad.float().contiguous())
+        dvalues = torch.empty(keys.shape, dtype=torch.float32, device=keys.device)
+        dev = keys.device
+        with launch_device(dev):
+            rc = _kernel(dev).backward(keys.data_ptr(), keys.numel(), scratch.data_ptr(),
+                                       g.data_ptr(), dvalues.data_ptr(),
+                                       torch._C._cuda_getCurrentRawStream(dev.index))
+        if rc != 0:
+            raise RuntimeError(f"bottom_k_backward failed: cudaError {rc}")
+        return dvalues.view(ctx.shape), None, None
+
+
+# the global route's scratch (csrc/bottom_k.cu): the rounds' histograms
+# (int32 words from HIST_WORD, 2048 a round), then the four partial sums (f64
+# from PART_WORD: sum below, sum at, count below, count at)
+HIST_WORD, HIST_BINS, PART_WORD = 8, 2048, 8 + 3 * 2048
+
+
+def _bottom_k_global_forward(values: torch.Tensor, keyed: torch.Tensor,
+                             select_num: torch.Tensor):
+    """The global route's kernels and collectives: (sum [] f32, the keys, the
+    scratch that holds the threshold, the result and the tie weight)."""
+    if values.dtype != torch.float32 or keyed.dtype != torch.float32:
+        raise TypeError(f"values and keys must be float32, got {values.dtype}, {keyed.dtype}")
+    if values.shape != keyed.shape:
+        raise ValueError(f"values {tuple(values.shape)} and keys {tuple(keyed.shape)} differ")
+    if select_num.numel() != 1 or select_num.dtype != torch.int32:
+        raise TypeError("select_num must be one int32")
+    dev = values.device
+    if keyed.device != dev or select_num.device != dev:
+        raise ValueError("values, keys and select_num must be on one device")
+    keys, vals = keyed.contiguous(), values.contiguous()
+    kern = _kernel(dev)
+    # one a call, as the single-process route's: the backward reads the
+    # threshold and the tie weight from it
+    scratch = torch.empty(kern.global_scratch_words, dtype=torch.int32, device=dev)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    for p in range(len(RADIX_DIGITS)):
+        with launch_device(dev):
+            rc = kern.global_hist(keys.data_ptr(), keys.numel(), select_num.data_ptr(),
+                         scratch.data_ptr(), p, kern.max_blocks, stream)
+        if rc != 0:
+            raise RuntimeError(f"bottom_k_global_hist failed: cudaError {rc}")
+        dist.all_reduce(scratch[HIST_WORD + p * HIST_BINS:HIST_WORD + (p + 1) * HIST_BINS])
+    with launch_device(dev):
+        rc = kern.global_sums(keys.data_ptr(), vals.data_ptr(), keys.numel(), select_num.data_ptr(),
+                     scratch.data_ptr(), kern.max_blocks, stream)
+    if rc != 0:
+        raise RuntimeError(f"bottom_k_global_sums failed: cudaError {rc}")
+    dist.all_reduce(scratch[PART_WORD:PART_WORD + 8].view(torch.float64))
+    with launch_device(dev):
+        rc = kern.global_result(select_num.data_ptr(), scratch.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"bottom_k_global_result failed: cudaError {rc}")
+    LAUNCHES["bottom_k_sum_global"] += 1
+    result = scratch[SCRATCH_RESULT:SCRATCH_RESULT + 4].view(torch.float32)
+    return result[0], keys, scratch
+
+
+def bottom_k_sum_global_cuda(values: torch.Tensor, keyed: torch.Tensor,
+                             select_num: torch.Tensor):
+    """The global route outside autograd: (sum [] f32, threshold [] int32,
+    result [4] f32: sum, tie weight, n_less, n_eq), views of one scratch."""
+    out, _, scratch = _bottom_k_global_forward(values.detach(), keyed.detach(),
+                                               select_num.detach())
+    return (out, scratch[SCRATCH_THRESHOLD],
+            scratch[SCRATCH_RESULT:SCRATCH_RESULT + 4].view(torch.float32))
+
+
 def bottom_k_sum_cuda(values: torch.Tensor, keyed: torch.Tensor, select_num: torch.Tensor):
     """The kernel outside autograd: (sum [] f32, threshold [] int32, result [4]
     f32: sum, tie weight, n_less, n_eq), views of one scratch buffer."""
@@ -243,6 +407,13 @@ def rel_contrastive_loss(logits: torch.Tensor, anomaly_score: torch.Tensor,
     logits [B, H, W, C]; anomaly_score [B, H, W]; targets [B, H, W] int (< 99
     in-distribution train ids, > 99 and != 255 OOD, 255 void); noise [3, B*H*W]
     uniform draws in [0, 1).
+
+    Inside a process group (``core.mesh``) the arguments are this rank's rows,
+    [its clean ‖ its augmented], and ``noise`` covers the global batch: every
+    reduction spans the global batch as JAX's step over global arrays does. The
+    CE means and counts are all-reduced, the pixel selection is the global
+    bottom-k, and the contrastive pairs are drawn from the gathered scores in
+    JAX's global order [all clean ‖ all augmented].
     """
     p = params
     b = logits.shape[0]
@@ -254,23 +425,29 @@ def rel_contrastive_loss(logits: torch.Tensor, anomaly_score: torch.Tensor,
     # (a) CE on the clean half; NLLLoss(reduction='none').mean() divides by all pixels
     ce_map = _pixel_ce(logits, torch.where(in_mask, targets, torch.full_like(targets, p.void_id)),
                        in_mask)
-    ce_original = ce_map[:half].mean()
+    ce_original = global_mean(ce_map[:half])
 
     # (b) CE on the augmented half, optionally over the easiest pixels only
     aug_ce = ce_map[half:].reshape(-1)
     aug_in = in_mask[half:].reshape(-1)
+    n_aug_in = global_sum(aug_in)
     if p.conduct_pixel_selection and 0.0 < p.selection_ratio < 1.0:
         keyed = torch.where(aug_in, aug_ce.detach(), torch.full_like(aug_ce, float("inf")))
-        select_num = (p.selection_ratio * aug_in.sum()).to(torch.int32)
+        select_num = (p.selection_ratio * n_aug_in).to(torch.int32)
         ssum = _bottom_k_sum(aug_ce, keyed, select_num)
         ce_aug = torch.where(select_num > 0, ssum / select_num.clamp_min(1), ssum.new_zeros(()))
     else:
-        ce_aug = torch.where(aug_in.sum() > 0, aug_ce.sum() / aug_ce.numel(),
+        ce_aug = torch.where(n_aug_in > 0,
+                             global_sum(aug_ce) / (aug_ce.numel() * process_count()),
                              aug_ce.new_zeros(()))
     ce_loss = p.ce_weights[0] * ce_original + p.ce_weights[1] * ce_aug
 
-    # (c) contrastive terms over pixel pairs
-    score = anomaly_score.float()
+    # (c) contrastive terms over pixel pairs of the global batch
+    score = gather_rows(anomaly_score.float(), paired=True)
+    targets = gather_rows(targets.int(), paired=True).long()
+    ood_mask = (targets > p.in_id) & (targets != p.void_id)
+    in_mask = targets < p.in_id
+    half = targets.shape[0] // 2
     in_orig = in_mask.clone()
     in_orig[half:] = False
     in_aug = in_mask.clone()

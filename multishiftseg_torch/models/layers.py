@@ -13,9 +13,11 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core.mesh import process_count, spans_ranks
 from ..ops.dilated_conv import dilated_conv3x3
 
 
@@ -101,6 +103,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if spans_ranks():
+            return self._global_batch_norm(x)
         # batch_norm updates copies (autograd may save them), then the buffers
         # take them; torch added momentum * unbiased var, and the biased var is
         # unbiased * (n - 1) / n
@@ -112,9 +116,96 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.copy_(var - (var - (1 - self.momentum) * self.running_var) / n)
         return y
 
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Training over the global batch of a process group
+        (:class:`_GlobalBatchNorm`), the running statistics updated with the
+        global mean and flax's biased variance. Not ``nn.SyncBatchNorm``,
+        whose running variance is the unbiased one."""
+        y, mean, invstd = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps)
+        with torch.no_grad():
+            var = (invstd.double().pow(-2) - self.eps).clamp_min(0)
+            self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+            self.running_var.mul_(1 - self.momentum).add_(self.momentum * var)
+        return y
+
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
         # skip _NormBase's, which adds a num_batches_tracked entry to old state dicts
         nn.Module._load_from_state_dict(self, state_dict, prefix, *args, **kwargs)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over the global batch, as ``nn.SyncBatchNorm``
+    computes it: each rank's mean and inverse standard deviation
+    (``torch.batch_norm_stats``), gathered with the counts and combined
+    (``batch_norm_gather_stats_with_counts``: the biased variance), then the
+    normalisation (``batch_norm_elemt``); backward, the local sums of dy and
+    dy (x - mean) (``batch_norm_backward_reduce``), one all-reduce of both,
+    then ``batch_norm_backward_elemt``. These are CUDA-only; CPU tensors take
+    their plain versions. Returns (y, mean, invstd), the last two f32 (x's
+    type on the CPU) and not differentiable. The incoming gradient is
+    summed over the ranks by the all-reduce; the scale's and bias's stay
+    local, for DDP to average."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        # channels-last stays so (DeepLab on the card), as SyncBatchNorm keeps it
+        ctx.fmt = (torch.channels_last if x.is_contiguous(memory_format=torch.channels_last)
+                   else torch.contiguous_format)
+        x = x.contiguous(memory_format=ctx.fmt)
+        c = x.shape[1]
+        if x.is_cuda:
+            mean, invstd = torch.batch_norm_stats(x, eps)
+        else:
+            var, mean = torch.var_mean(x, (0, 2, 3), correction=0)
+            invstd = torch.rsqrt(var + eps)
+        local = torch.cat([mean, invstd, mean.new_full((1,), x.numel() // c)])
+        parts = [torch.empty_like(local) for _ in range(process_count())]
+        dist.all_gather(parts, local)
+        gathered = torch.stack(parts)
+        means, invstds, counts = gathered[:, :c], gathered[:, c:2 * c], gathered[:, 2 * c]
+        if x.is_cuda:
+            # throwaway running statistics: without them the kernel reads the
+            # counts in x's type, which in bf16 cannot hold them
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                x, means, invstds, torch.zeros_like(mean), torch.ones_like(mean), 0.0, eps,
+                counts)
+            w, b = (weight.float(), bias.float()) if x.dtype != mean.dtype else (weight, bias)
+            y = torch.batch_norm_elemt(x, w, b, mean, invstd, eps)
+        else:
+            n = counts.sum()
+            mean = (means * counts[:, None]).sum(0) / n
+            var = ((invstds.pow(-2) - eps + (means - mean).pow(2)) * counts[:, None]).sum(0) / n
+            invstd = torch.rsqrt(var + eps)
+            y = (x - mean[:, None, None]) * (invstd * weight)[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(x, weight, mean, invstd, counts)
+        ctx.mark_non_differentiable(mean, invstd)
+        return y, mean, invstd
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dinvstd):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        dy = dy.contiguous(memory_format=ctx.fmt)
+        c = x.shape[1]
+        if x.is_cuda:
+            w = weight.float() if x.dtype != mean.dtype else weight
+            sum_dy, sum_dy_xmu, dw, db = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, w, True, True, True)
+        else:
+            xmu = x - mean[:, None, None]
+            sum_dy, sum_dy_xmu = dy.sum((0, 2, 3)), (dy * xmu).sum((0, 2, 3))
+            dw, db = sum_dy_xmu * invstd, sum_dy
+        both = torch.cat([sum_dy, sum_dy_xmu])
+        dist.all_reduce(both)
+        sum_dy, sum_dy_xmu = both[:c], both[c:]
+        if x.is_cuda:
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, w, sum_dy, sum_dy_xmu,
+                                                 counts.int())
+        else:
+            n = counts.sum()
+            dx = ((dy - (sum_dy / n)[:, None, None]
+                   - xmu * (invstd.pow(2) * sum_dy_xmu / n)[:, None, None])
+                  * (invstd * weight)[:, None, None])
+        return dx, dw.to(weight.dtype), db.to(weight.dtype), None
 
 
 def bn_relu(channels: int) -> nn.Sequential:

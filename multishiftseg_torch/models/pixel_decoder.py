@@ -1,8 +1,9 @@
 """MSDeformAttn pixel decoder: deformable-DETR encoder over res3-5 + FPN to stride 4.
 
 Counterpart of ``multishiftseg_tpu/models/pixel_decoder.py:41-184`` (the
-sequential encoder; the GPipe path is not ported). Module names follow the
-reference ``MSDeformAttnPixelDecoder``: ``input_proj.{i}.{0,1}``,
+sequential encoder with its training remat; the GPipe path is not ported).
+Module names follow the reference ``MSDeformAttnPixelDecoder``:
+``input_proj.{i}.{0,1}``,
 ``transformer.level_embed``, ``transformer.encoder.layers.{i}``,
 ``adapter_1``, ``layer_1``, ``mask_features``. Feature maps are channels-first.
 """
@@ -15,8 +16,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
-from ..ops.ms_deform_attn import MSDeformAttn
+from ..ops import ms_deform_attn as msda
 from ..ops.resize import resize_bilinear_nchw
 from .layers import Conv2d, he_normal_
 from .position_encoding import position_embedding_sine
@@ -39,17 +41,41 @@ class DeformableEncoderLayer(nn.Module):
     def __init__(self, d_model: int = 256, d_ffn: int = 1024, n_levels: int = 3,
                  n_heads: int = 8, n_points: int = 4):
         super().__init__()
-        self.self_attn = MSDeformAttn(d_model, n_levels, n_heads, n_points)
+        self.self_attn = msda.MSDeformAttn(d_model, n_levels, n_heads, n_points)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.linear1 = nn.Linear(d_model, d_ffn)
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
+        # the checkpoints' context_fn (torch.utils.checkpoint): a tool that
+        # follows the running module sets it to see the backward's recompute
+        self.checkpoint_context = noop_context_fn
 
     def forward(self, src, pos, reference_points, spatial_shapes, sample_mode="bilinear",
                 quantize_table=False):
-        attn_out = self.self_attn(src + pos, reference_points, src, spatial_shapes,
-                                  sample_mode, quantize_table)
-        src = self.norm1(src + attn_out)
+        """In training (grad enabled) the layer rematerialises as JAX's
+        ``nn.remat`` with ``save_only_these_names("deform_core")``
+        (``pixel_decoder.py:127-159``): the segments before and after the
+        deformable core are checkpointed and recomputed in the backward, while
+        the core runs once and keeps what its backward needs (its inputs; its
+        output is the second segment's saved input)."""
+        remat = self.training and torch.is_grad_enabled()
+        value, loc, attn = self._segment(remat, self._sampling, src, pos, reference_points,
+                                         spatial_shapes)
+        core = msda.ms_deform_attn_core(value, spatial_shapes, loc, attn, sample_mode,
+                                        quantize_table)
+        return self._segment(remat, self._finish, src, core)
+
+    def _segment(self, remat: bool, fn, *args):
+        """``fn(*args)``, checkpointed when ``remat``."""
+        if not remat:
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=self.checkpoint_context)
+
+    def _sampling(self, src, pos, reference_points, spatial_shapes):
+        return self.self_attn.sampling(src + pos, reference_points, src, spatial_shapes)
+
+    def _finish(self, src, core):
+        src = self.norm1(src + self.self_attn.output_proj(core))
         ffn = self.linear2(F.relu(self.linear1(src)))
         return self.norm2(src + ffn)
 

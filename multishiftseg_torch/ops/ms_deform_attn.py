@@ -707,11 +707,12 @@ class MSDeformAttn(nn.Module):
             nn.init.xavier_uniform_(lin.weight)
             nn.init.zeros_(lin.bias)
 
-    def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
-                input_flatten: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
-                sample_mode: str = "bilinear", quantize_table: bool = False) -> torch.Tensor:
-        """query [N, Lq, C], reference_points [N, Lq, L, 2] in [0, 1],
-        input_flatten [N, S, C] -> [N, Lq, C]."""
+    def sampling(self, query: torch.Tensor, reference_points: torch.Tensor,
+                 input_flatten: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]]
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The core's inputs: (value [N, S, M, D], sampling locations
+        [N, Lq, M, L, P, 2] f32, attention weights [N, Lq, M, L, P] in value's
+        type)."""
         n, lq, _ = query.shape
         m, L, P = self.n_heads, self.n_levels, self.n_points
         value = self.value_proj(input_flatten).view(n, -1, m, self.d_model // m)
@@ -722,6 +723,13 @@ class MSDeformAttn(nn.Module):
                                   dtype=torch.float32, device=query.device)
         loc = (reference_points[:, :, None, :, None, :].float()
                + offsets.float() / normalizer[None, None, None, :, None, :])
-        out = ms_deform_attn_core(value, spatial_shapes, loc, attn.to(value.dtype),
-                                  sample_mode, quantize_table)
+        return value, loc, attn.to(value.dtype)
+
+    def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
+                input_flatten: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
+                sample_mode: str = "bilinear", quantize_table: bool = False) -> torch.Tensor:
+        """query [N, Lq, C], reference_points [N, Lq, L, 2] in [0, 1],
+        input_flatten [N, S, C] -> [N, Lq, C]."""
+        value, loc, attn = self.sampling(query, reference_points, input_flatten, spatial_shapes)
+        out = ms_deform_attn_core(value, spatial_shapes, loc, attn, sample_mode, quantize_table)
         return self.output_proj(out)

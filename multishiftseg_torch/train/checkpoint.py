@@ -8,7 +8,8 @@ trainer's generator state and step count, and whatever the caller adds
 (``epoch``, ``best_auprc``), so a restored trainer continues with the same
 parameters, moments and random draws. :class:`CheckpointManager` keeps named
 checkpoints (``last``, ``AUPRC_best``) under a directory and implements the
-epoch loop's resume.
+epoch loop's resume. In a process group only rank 0 writes, behind a barrier,
+and every rank reads.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import os
 from typing import Optional, Tuple
 
 import torch
+
+from ..core.mesh import barrier, process_index
 
 log = logging.getLogger(__name__)
 
@@ -70,7 +73,11 @@ class CheckpointManager:
         return os.path.isfile(self.path(name))
 
     def save(self, name: str, trainer, generator: bool = True, **extra) -> str:
-        return save_checkpoint(self.path(name), trainer, generator=generator, **extra)
+        """Rank 0 writes; every rank returns after the file is complete."""
+        if process_index() == 0:
+            save_checkpoint(self.path(name), trainer, generator=generator, **extra)
+        barrier()
+        return self.path(name)
 
     def restore(self, name: str, device="cpu") -> dict:
         return load_checkpoint(self.path(name), device)

@@ -1,9 +1,17 @@
 """Training command line: the port's counterpart of
 ``multishiftseg_tpu/train/cli.py`` (the reference's ``train_deeplab.py`` /
-``train_m2f.py``), single-process.
+``train_m2f.py``).
 
     python -m multishiftseg_torch.train.cli --model m2f --cfg exps/m2f.yaml \\
         --id exp0 [--weight_path pretrained.pth] [--resume last] [--device cuda]
+
+Data-parallel over N cards of a host (one process a card, each taking
+``train_batch / N`` of the global batch; ``core.mesh``):
+
+    torchrun --nproc_per_node N -m multishiftseg_torch.train.cli --model m2f ...
+
+It joins the launch first (``initialize_distributed``, as JAX's CLI does;
+NCCL, or gloo with ``--device cpu``); only rank 0 logs and writes.
 
 The log goes to ``cfg.log_dir/log.txt`` (``outputs/<id>/`` by default) and to
 stderr; checkpoints and ``scalars.csv`` to ``cfg.model_dir`` (``ckpts/<id>/``).
@@ -53,14 +61,22 @@ def main(argv: Optional[Sequence[str]] = None):
     args = parser.parse_args(argv)
 
     from ..core.config import load_config
+    from ..core.mesh import initialize_distributed, process_index
 
+    if initialize_distributed(backend="gloo" if args.device == "cpu" else None) and (
+            args.device == "cuda"):
+        import torch
+
+        args.device = f"cuda:{torch.cuda.current_device()}"
     cfg = load_config(args.cfg, args.id)
     cfg.train.seed = args.seed
     os.makedirs(cfg.log_dir, exist_ok=True)
     root = logging.getLogger()
-    handlers = [logging.FileHandler(os.path.join(cfg.log_dir, "log.txt"))]
-    if not root.handlers:
-        handlers.append(logging.StreamHandler())
+    handlers = []
+    if process_index() == 0:
+        handlers.append(logging.FileHandler(os.path.join(cfg.log_dir, "log.txt")))
+        if not root.handlers:
+            handlers.append(logging.StreamHandler())
     for h in handlers:
         h.setFormatter(logging.Formatter("[%(asctime)s] %(message)s"))
         root.addHandler(h)

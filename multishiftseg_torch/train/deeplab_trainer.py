@@ -13,6 +13,11 @@ gradient), ``build_datasets`` (:146-166: the crop-first Compose), ``train``
 ``valid`` (:324-333: the energy score in eval mode through
 ``batched_valid``).
 
+Inside a process group (``core.mesh``; ``torchrun``) each rank takes its
+``train_batch / world`` pairs under DDP (wrapped again at each stage), draws
+the global batch's dropout masks and RCL noise from the same generator and
+takes its rows, and every BatchNorm and RCL reduction spans the global batch.
+
 Every BatchNorm, the frozen trunk's included, normalises with batch statistics
 and updates its running statistics with the biased variance, as flax does
 (``models.layers.BatchNorm2d``). The model keeps f32 master weights and Adam
@@ -33,6 +38,8 @@ import torch
 from ..convert.from_jax import deeplab_from_jax
 from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
+from ..core.mesh import (check_parallelism, check_train_batch, data_parallel, process_count,
+                         rank_draws)
 from ..data.anomaly import RoadAnomaly21
 from ..data.cityscapes import DiverseCityscapes
 from ..data.transforms import Compose, Normalize, RandCrop, ToTensor
@@ -58,6 +65,8 @@ class TrainDeepLabOOD:
                  model: Optional[DeepWV3Plus] = None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        check_parallelism(cfg.train)
+        self.local_batch = check_train_batch(cfg.train.train_batch)
         if model is None:
             torch.manual_seed(cfg.train.seed)
             model = DeepWV3Plus(num_classes=cfg.data.class_num)
@@ -83,6 +92,7 @@ class TrainDeepLabOOD:
         lr = t.lr if stage == 0 else (t.lr_update or t.lr)
         self.optimizer = build_stage_optimizer(self.model, lr, t.weight_decay, names)
         self.stage = stage
+        self.train_model = data_parallel(self.model, getattr(self, "train_model", None))
 
     def build_datasets(self):
         """(DiverseCityscapes train set, RoadAnomaly21 validation set). The
@@ -132,17 +142,20 @@ class TrainDeepLabOOD:
         img_*: normalised f32 [B, H, W, 3]; tgt_*: int [B, H, W] label maps (train
         ids, OOD > 100, void 255), concatenated as [clean ‖ augmented]. ``draws``
         (from :meth:`draws`, or made elsewhere for a replay) default to fresh
-        ones. Returns (loss, RCL components), detached.
+        ones; in a process group they cover the global batch. Returns (loss,
+        RCL components), detached.
         """
         img = torch.cat([torch.as_tensor(img_c), torch.as_tensor(img_g)]).to(
             self.device, torch.float32)
         tgt = torch.cat([torch.as_tensor(tgt_c), torch.as_tensor(tgt_g)]).to(
             self.device, torch.int32)
         if draws is None:
-            draws = self.draws(img.shape[0], tuple(img.shape[1:3]))
+            draws = self.draws(img.shape[0] * process_count(), tuple(img.shape[1:3]))
+        local = rank_draws(draws, paired=True)
         self.model.train()
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
-            score, logit = self.model(img.permute(0, 3, 1, 2), dropout_masks=draws["dropout"])
+            score, logit = self.train_model(img.permute(0, 3, 1, 2),
+                                            dropout_masks=local["dropout"])
         loss, aux = rel_contrastive_loss(logit.permute(0, 2, 3, 1), score, tgt,
                                          draws["rcl_noise"], self.rcl_params)
         self.optimizer.zero_grad(set_to_none=True)

@@ -1,8 +1,11 @@
 """The epoch loop both trainers share.
 
-Counterpart of the single-process branch of ``train`` in
-``multishiftseg_tpu/train/m2f_trainer.py`` (:347-493) and
-``multishiftseg_tpu/train/deeplab_trainer.py`` (:184-318): the datasets and a
+Counterpart of ``train`` in ``multishiftseg_tpu/train/m2f_trainer.py``
+(:347-493) and ``multishiftseg_tpu/train/deeplab_trainer.py`` (:184-318), its
+multi-process branch included (each rank loads its shard of the global batch,
+only rank 0 writes the scalar curves and the checkpoints, every rank
+validates, rank 0's metrics deciding the best checkpoint for all, and
+every rank reads the checkpoints on resume): the datasets and a
 shuffling :class:`Loader` onto the trainer's device, the resume from a named
 checkpoint, the switch to stage 1 at ``warmup_epoch``, one validation a epoch,
 the scalar curves, ``AUPRC_best`` on improvement and ``last`` every epoch.
@@ -19,6 +22,7 @@ import time
 from typing import Callable, Dict, Optional
 
 from ..core.logging import ScalarWriter, StreamStepTimer
+from ..core.mesh import from_rank0, process_count, process_index
 from ..data.loader import Loader
 from .checkpoint import CheckpointManager
 
@@ -61,11 +65,12 @@ def train_epochs(trainer, start_epoch: int, resume: Optional[str],
     trainer's own scalars to ``train/loss``. Returns ``trainer.best``.
     """
     cfg = trainer.cfg
-    writer = ScalarWriter(cfg.model_dir) if cfg.model_dir else None
+    writer = ScalarWriter(cfg.model_dir) if cfg.model_dir and process_index() == 0 else None
     ckpt = CheckpointManager(cfg.model_dir)
     train_ds, val_ds = trainer.build_datasets()
-    loader = Loader(train_ds, batch_size=cfg.train.train_batch, shuffle=True, drop_last=True,
-                    num_workers=cfg.data.num_workers, seed=cfg.train.seed, device=trainer.device)
+    loader = Loader(train_ds, batch_size=trainer.local_batch, shuffle=True, drop_last=True,
+                    num_workers=cfg.data.num_workers, seed=cfg.train.seed, device=trainer.device,
+                    shard_index=process_index(), shard_count=process_count())
     warmup = cfg.train.warmup_epoch
     start_epoch, stage = ckpt.resume(trainer, resume, start_epoch, warmup)
     trainer.history = []
@@ -80,7 +85,9 @@ def train_epochs(trainer, start_epoch: int, resume: Optional[str],
         loss, img_per_s = rec["loss"], rec["img_per_s"]
         log.warning("epoch %d stage %d loss %.4f (%.1f img/s)", epoch, stage, loss, img_per_s)
         t1 = time.perf_counter()
-        metrics = trainer.valid(val_ds)
+        # every rank validates; rank 0's metrics decide, so that all ranks
+        # take the same branch to the checkpoint's barrier
+        metrics = from_rank0(trainer.valid(val_ds))
         valid_seconds = time.perf_counter() - t1
         log.warning("epoch %d %s", epoch, metrics)
         if writer is not None:

@@ -1,10 +1,13 @@
 """Vanilla Mask2Former semantic / instance / panoptic training and evaluation.
 
 Counterpart of ``multishiftseg_tpu/train/instance_trainer.py`` (:54-496),
-single-process: ``clip_targets``, ``drop_empty_segments``, ``InstanceDataset``
-and ``TrainM2FInstance`` (construction, ``_register_default``,
-``build_dataset``, the step, ``train``, ``evaluate`` and
-``_evaluate_semantic``). The ``exps/m2f_{instance,panoptic,semantic}*.yaml``
+its multi-process branches (:166-181, :321-322, :350-363) through
+``core.mesh``: each rank of a process group takes ``train_batch / world``
+images under DDP, draws the global batch's draws and takes its rows, and the
+criterion normalises over the global batch. ``clip_targets``,
+``drop_empty_segments``, ``InstanceDataset`` and ``TrainM2FInstance``
+(construction, ``_register_default``, ``build_dataset``, the step, ``train``,
+``evaluate`` and ``_evaluate_semantic``). The ``exps/m2f_{instance,panoptic,semantic}*.yaml``
 recipes select it (``train.cli``): registry records -> mappers -> per-segment
 targets padded to ``T = cfg.model.m2f.max_instances`` slots (duplicate classes
 allowed) -> the vanilla decoder on the unpadded crop ->
@@ -33,6 +36,8 @@ from PIL import Image
 from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
 from ..core.logging import ScalarWriter
+from ..core.mesh import (check_parallelism, check_train_batch, data_parallel, process_count,
+                         process_index, rank_draws)
 from ..data.cityscapes import LABELS
 from ..data.loader import Loader, pad_to_multiple
 from ..data.mappers import (SegmentTargets, instance_to_targets, panoptic_to_targets,
@@ -165,6 +170,8 @@ class TrainM2FInstance:
                  device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        check_parallelism(cfg.train)
+        self.local_batch = check_train_batch(cfg.train.train_batch)
         m = cfg.model.m2f
         self.task = ("panoptic" if m.panoptic_on
                      else "instance" if m.instance_on else "semantic")
@@ -198,6 +205,7 @@ class TrainM2FInstance:
             self.model, base_lr=m.m2f.base_lr, weight_decay=m.m2f.weight_decay,
             trainable_names=m.trainable_params_name or (".",))
         self.stage = 0
+        self.train_model = data_parallel(self.model, getattr(self, "train_model", None))
 
     def _register_default(self, split: str = "train") -> str:
         """Register the Cityscapes layout of the task under
@@ -258,18 +266,20 @@ class TrainM2FInstance:
         """One training step on a batch: img normalised f32 [B, H, W, 3] (the
         crop, unpadded), id_map int [B, H, W] (segment slot, -1 ignore),
         classes int [B, T] (-1 padding). ``draws`` (from :meth:`draws`, or
-        made elsewhere for a replay) default to fresh ones. Returns (loss,
+        made elsewhere for a replay) default to fresh ones; in a process
+        group they cover the global batch. Returns (loss,
         components, global gradient norm before clipping, assignments),
         detached."""
         img = torch.as_tensor(img).to(self.device, torch.float32)
         id_map = torch.as_tensor(id_map).to(self.device, torch.int32)
         classes = torch.as_tensor(classes).to(self.device, torch.int64)
         if draws is None:
-            draws = self.draws(img.shape[0], classes.shape[1])
+            draws = self.draws(img.shape[0] * process_count(), classes.shape[1])
+        local = rank_draws(draws, paired=False)
         self.model.train()
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
-            outputs = self.model(img, drop_path_masks=draws.get("drop_path"))
-        total, losses, assignments = set_criterion_instance(outputs, id_map, classes, draws,
+            outputs = self.train_model(img, drop_path_masks=local.get("drop_path"))
+        total, losses, assignments = set_criterion_instance(outputs, id_map, classes, local,
                                                             self.crit_cfg)
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -290,15 +300,17 @@ class TrainM2FInstance:
         ``{"loss": the last epoch's}``."""
         cfg = self.cfg
         ds = self.build_dataset()
-        loader = Loader(ds, batch_size=cfg.train.train_batch, shuffle=True, drop_last=True,
+        loader = Loader(ds, batch_size=self.local_batch, shuffle=True, drop_last=True,
                         num_workers=cfg.data.num_workers, seed=cfg.train.seed,
-                        device=self.device)
+                        device=self.device, shard_index=process_index(),
+                        shard_count=process_count())
         ckpt = CheckpointManager(cfg.model_dir)
         if resume and ckpt.exists(resume):
             # the optimizer's moments too: a fresh one would change the dynamics
             start_epoch = int(restore_checkpoint(ckpt.path(resume), self)["epoch"]) + 1
             log.warning("resumed %s at epoch %d", resume, start_epoch)
-        writer = ScalarWriter(cfg.model_dir) if cfg.model_dir else None
+        writer = (ScalarWriter(cfg.model_dir)
+                  if cfg.model_dir and process_index() == 0 else None)
         self.history = []
         last_loss = float("nan")
         for epoch in range(start_epoch, cfg.train.n_epochs):

@@ -13,6 +13,13 @@ clipping), ``build_datasets`` (:208-230: the 12-stage probabilistic Compose),
 with ``stage1_step`` before ``warmup_epoch`` and ``stage2_step`` from it on),
 ``make_eval_step`` (:326-343) and ``valid`` (:494-506).
 
+Inside a process group (``core.mesh``; ``torchrun``) each rank takes its
+``train_batch / world`` pairs, the model trains under DDP (wrapped again at
+each stage, so frozen parameters stay out of the all-reduce), every rank draws
+the global batch's draws from the same generator and takes its rows, and the
+losses reduce over the global batch, so two ranks take the step one process
+takes on the same global batch.
+
 The model keeps f32 master weights and optimizer state; with ``cfg.train.bf16``
 the forward runs under ``torch.autocast`` in bf16 (the JAX model's
 ``dtype=bfloat16``), with the mask products, attention softmax, score tails
@@ -30,6 +37,8 @@ import torch
 from ..convert.from_jax import maskformer_from_jax
 from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
+from ..core.mesh import (check_parallelism, check_train_batch, data_parallel, process_count,
+                         rank_draws)
 from ..data.anomaly import RoadAnomaly21
 from ..data.cityscapes import DiverseCityscapes
 from ..data.transforms import (AutoContrast, ColorJitter, Compose, Equalize, GaussianBlur,
@@ -81,6 +90,8 @@ class TrainM2FOOD:
                  model: Optional[MaskFormer] = None, device="cuda"):
         self.cfg = cfg
         self.device = resolve_device(device)
+        check_parallelism(cfg.train)
+        self.local_batch = check_train_batch(cfg.train.train_batch)
         m = cfg.model.m2f
         # loss.params.mask2anomaly_loss_weight overrides the model's loss weights
         lw = (cfg.loss.params or {}).get("mask2anomaly_loss_weight") or {}
@@ -138,6 +149,7 @@ class TrainM2FOOD:
         else:
             raise ValueError(f"stage {stage}: the recipe has stages 0 and 1")
         self.stage = stage
+        self.train_model = data_parallel(self.model, getattr(self, "train_model", None))
 
     def build_datasets(self):
         """(DiverseCityscapes train set with the 12-stage probabilistic
@@ -224,15 +236,17 @@ class TrainM2FOOD:
         training mode; ``inference`` scores at the padded size, and RCL takes
         the semantic logits (NHWC) and the anomaly score cropped to
         ``crop_size``. ``draws`` (from :meth:`draws`, or made elsewhere for a
-        replay) default to fresh ones. Returns (loss, RCL components), detached.
+        replay) default to fresh ones; in a process group they cover the
+        global batch. Returns (loss, RCL components), detached.
         """
         self._need_stage(0, "stage1_step")
         img, tgt = self._pair(img_c, img_g, tgt_c, tgt_g)
         if draws is None:
-            draws = self.draws(img.shape[0], tuple(tgt.shape[1:]))
+            draws = self.draws(img.shape[0] * process_count(), tuple(tgt.shape[1:]))
+        local = rank_draws(draws, paired=True)
         self.model.train()
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
-            outputs = self.model(img, drop_path_masks=draws.get("drop_path"))
+            outputs = self.train_model(img, drop_path_masks=local.get("drop_path"))
         sem, anomaly = inference(outputs, tuple(img.shape[1:3]),
                                  num_classes=self.model.num_classes, _classes_only=True)
         ch, cw = self.crop_hw
@@ -254,18 +268,20 @@ class TrainM2FOOD:
         img_*: normalised f32 [B, H, W, 3]; tgt_*: int [B, H, W] label maps (train
         ids, OOD > 100, void 255). Both halves are padded to /32 and concatenated
         as [clean ‖ augmented]. ``draws`` (from :meth:`draws`, or made elsewhere
-        for a replay) default to fresh ones. Returns (total loss, components,
-        global gradient norm before clipping, the criterion's assignments),
+        for a replay) default to fresh ones; in a process group they cover the
+        global batch. Returns (total loss, components, global gradient norm
+        before clipping, the criterion's assignments of this rank's images),
         detached.
         """
         self._need_stage(1, "stage2_step")
         img, tgt = self._pair(img_c, img_g, tgt_c, tgt_g)
         if draws is None:
-            draws = self.draws(img.shape[0], tuple(tgt.shape[1:]))
+            draws = self.draws(img.shape[0] * process_count(), tuple(tgt.shape[1:]))
+        local = rank_draws(draws, paired=True)
         self.model.train()
         with torch.autocast(self.device.type, dtype=torch.bfloat16, enabled=self.bf16):
-            outputs = self.model(img, drop_path_masks=draws.get("drop_path"))
-        total, losses, assignments = set_criterion(outputs, tgt, draws, self.crit_cfg,
+            outputs = self.train_model(img, drop_path_masks=local.get("drop_path"))
+        total, losses, assignments = set_criterion(outputs, tgt, local, self.crit_cfg,
                                                    self.rcl_params, crop_hw=self.crop_hw)
         self.optimizer.zero_grad(set_to_none=True)
         total.backward()

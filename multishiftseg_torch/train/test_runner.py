@@ -41,7 +41,7 @@ import torch
 from ..core.config import Config, load_config
 from ..data.anomaly import EVAL_DATASETS
 from ..data.transforms import Compose, Normalize, ToTensor
-from ..evals.ood_metrics import eval_ood_measure
+from ..evals.ood_metrics import eval_ood_measure, metrics_route
 from ..evals.seg_metrics import compute_metric, hist_info
 from ..models.deeplab import DeepWV3Plus
 from ..models.maskformer import MaskFormer, preprocess
@@ -89,8 +89,11 @@ class OODEvaluator:
         artifacts under ``<save_dir>/<dataset>/``, named by the image's path
         (separators as ``_``): ``<stem>_anomaly.npy`` (the f32 score map) and
         ``<stem>_pred_color.png`` (the train-id argmax in the Cityscapes
-        palette)."""
+        palette). ``metric_routes`` records the route of each benchmark's
+        exact metrics (``evals.ood_metrics.metrics_route``: native from
+        2,000,000 labelled pixels on)."""
         self.cfg = cfg
+        self.metric_routes: Dict[str, Optional[str]] = {}
         self.forward_fn = tta_wrap(forward_fn) if tta else forward_fn
         self.roots = dataset_roots
         self.save_dir = save_dir
@@ -155,7 +158,10 @@ class OODEvaluator:
                         pred = torch.argmax(sem[j, :19, :h, :w], dim=0).cpu().numpy()
                         hists.append(dict(zip(("hist", "labeled", "correct"),
                                               hist_info(19, pred, np.asarray(eval_gt)))))
-        res = eval_ood_measure(np.concatenate(scores), np.concatenate(gts))
+        scores, gts = np.concatenate(scores), np.concatenate(gts)
+        res = eval_ood_measure(scores, gts)
+        self.metric_routes[name] = None if res is None else metrics_route(
+            int(np.count_nonzero((gts == 0) | (gts == 1))))
         out = {} if res is None else {"AUROC": res[0], "AUPRC": res[1], "FPR_TPR95": res[2]}
         if hists:
             miou, pacc = compute_metric(hists)

@@ -4,6 +4,7 @@ colouring of predictions."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -73,20 +74,33 @@ def relu_sign_hooks(model: torch.nn.Module, signs: dict, replay: dict = None,
     rounding of 0 would otherwise move a whole gradient path. ``flips`` then
     receives, per call whose own signs differ, the units that differ and the
     largest |input| among them over the largest |input| of the call, which
-    says whether each replayed branch lies within rounding of 0. Returns the
-    handles; remove them after the step (that also restores the function).
+    says whether each replayed branch lies within rounding of 0. A ReLU that a
+    checkpointed segment recomputes in the backward keeps its forward call's
+    branch: a module with a ``checkpoint_context`` (its checkpoints'
+    ``context_fn``, as ``models.pixel_decoder``'s encoder layers hold) gets one
+    that runs the recompute under the module's name. Returns the handles;
+    remove them after the step (that also restores the function and the
+    contexts).
     """
     functional = torch.nn.functional
     orig = functional.relu
-    stack, seen = [], {}
+    stack, seen, seen_again, recomputing = [], {}, {}, []
 
     def relu(x, inplace=False):
         if not stack:  # outside the model (a loss): untouched
             return orig(x, inplace=inplace)
         name = stack[-1]
-        n = seen.get(name, 0)
-        seen[name] = n + 1
+        # a checkpointed segment's recompute takes its forward call's key and branch
+        recompute = bool(recomputing)
+        counts = seen_again if recompute else seen
+        n = counts.get(name, 0)
+        counts[name] = n + 1
         key = name if n == 0 else f"{name}#{n}"
+        if recompute:
+            if replay is None:
+                return orig(x, inplace=inplace)
+            keep = replay[key].to(x.device, x.dtype)
+            return x.mul_(keep) if inplace else x * keep
         own = x > 0
         signs[key] = own.cpu()
         if replay is None:
@@ -101,16 +115,33 @@ def relu_sign_hooks(model: torch.nn.Module, signs: dict, replay: dict = None,
         keep = theirs.to(x.dtype)
         return x.mul_(keep) if inplace else x * keep
 
+    @contextlib.contextmanager
+    def recompute_in(name):
+        stack.append(name)
+        recomputing.append(name)
+        try:
+            yield
+        finally:
+            recomputing.pop()
+            stack.pop()
+
     held = [(m, k) for m in model.modules() for k, v in vars(m).items() if v is orig]
+    contexts = [(name, m, m.checkpoint_context) for name, m in model.named_modules()
+                if "checkpoint_context" in vars(m)]
     functional.relu = relu
     for m, k in held:
         setattr(m, k, relu)
+    for name, m, _ in contexts:
+        m.checkpoint_context = functools.partial(
+            lambda name: (contextlib.nullcontext(), recompute_in(name)), name)
 
     class _Restore:
         def remove(self):
             functional.relu = orig
             for m, k in held:
                 setattr(m, k, orig)
+            for _, m, ctx in contexts:
+                m.checkpoint_context = ctx
 
     def enter(module, args, name):
         stack.append(name)

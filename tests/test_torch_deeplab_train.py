@@ -139,7 +139,26 @@ def steps():
                                     for n, b in tr.model.named_buffers()}))
         ports[dtype] = dict(runs=runs, initial=initial, model=tr.model)
     return dict(ref=ref, f32=ports[torch.float32], f64=ports[torch.float64],
-                variables=variables)
+                variables=variables, draws=draws)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(steps, tmp_path_factory):
+    """The same two steps on two gloo ranks of one pair each
+    (``torch_dp_worker``), in f32 and in float64, from the same weights, global
+    batch and global draws: rank 0's runs, after checking that both ranks end
+    each step with the same parameters."""
+    from torch_dp_worker import run_ranks, same_params
+
+    job = dict(kind="deeplab", cfg=deeplab_cfg(), model=TINY,
+               state=deeplab_from_jax(steps["variables"]),
+               batch=synthetic_batch(PAIRS, CROP, 19, seed=4), draws=steps["draws"],
+               dtypes=[torch.float32, torch.float64])
+    ranks = run_ranks(job, tmp_path_factory.mktemp("two_ranks"))
+    for dtype in ranks[0]:
+        for stage in (0, 1):
+            assert same_params([r[dtype][stage] for r in ranks]), (dtype, stage)
+    return {dtype: runs for dtype, runs in ranks[0].items()}
 
 
 @pytest.mark.parametrize("stage", [0, 1])
@@ -315,3 +334,42 @@ def test_draws_come_from_the_trainer_generator():
         "mod6.block1": (4, 16, 1, 1), "mod7.block1": (4, 32, 1, 1)}
     assert torch.equal(a["rcl_noise"], b["rcl_noise"])
     assert all(torch.equal(a["dropout"][k], b["dropout"][k]) for k in a["dropout"])
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+def test_two_rank_step_matches_jax(steps, two_ranks, stage):
+    """The step of the global batch split over two ranks (train-mode
+    BatchNorm over the global batch, RCL's global bottom-k and pairs, DDP's
+    average of the summed all-reduce backward) against JAX's single-process
+    step, at this file's tolerances: losses and components within 1e-5,
+    running statistics within 1e-5 of scale, the updates as
+    ``test_step_updates_match_jax``. Gradients: the two-rank float64 step is
+    the single-process float64 step (every gradient within 1e-9 of scale),
+    which ``test_step_gradients_match_jax`` holds to JAX; and the two-rank f32
+    gradient sits from the float64 one at most 4x as far as this step's other
+    f32 runs do (JAX's or the single-process port's, whichever is farther:
+    f32 rounding at ReLU kinks moves each run's gradients by up to 1.5e-2 of
+    scale, at units of its own), plus 1e-3 of scale."""
+    ref, f64, f32 = steps["ref"][stage], steps["f64"]["runs"][stage], steps["f32"]["runs"][stage]
+    got, got64 = two_ranks["torch.float32"][stage], two_ranks["torch.float64"][stage]
+    assert set(got["parts"]) == set(ref["aux"])
+    for k, v in ref["aux"].items():
+        assert abs(got["parts"][k] - v) <= 1e-5 * max(abs(v), 1e-6), (k, got["parts"][k], v)
+    assert abs(got["loss"] - ref["loss"]) <= 1e-5 * abs(ref["loss"])
+    for name, want in ref["stats"].items():
+        assert np.abs(got["stats"][name] - want).max() <= 1e-5 * np.abs(want).max(), name
+    assert set(got["grads"]) == set(got64["grads"]) == set(f64["grads"])
+    for name, exact in f64["grads"].items():
+        scale = np.abs(exact).max()
+        err_dp = np.abs(got["grads"][name] - exact).max() / scale
+        err_f32 = max(np.abs(ref["grads"][name] - exact).max(),
+                      np.abs(f32["grads"][name] - exact).max()) / scale
+        assert err_dp <= 4 * err_f32 + 1e-3, (name, err_dp, err_f32)
+        assert np.abs(got64["grads"][name] - exact).max() <= 1e-9 * scale, name
+    lr = (deeplab_cfg().train.lr, deeplab_cfg().train.lr_update)[stage]
+    for name, want in ref["params"].items():
+        g = ref["grads"][name]
+        sel = (np.abs(g) > 1e-6) & (np.abs(g) > 1e-2 * np.abs(g).max())
+        atol = 1e-2 * lr + 2.0 ** -21 * np.abs(want).max()
+        np.testing.assert_allclose(got["params"][name][sel], want[sel], rtol=0, atol=atol,
+                                   err_msg=name)

@@ -260,6 +260,24 @@ def test_ood_evaluator_matches_jax(tree, tmp_path, name):
         assert Image.open(tmp_path / "out" / name / f"{stem}_pred_color.png").size == (w, h)
 
 
+def test_ood_evaluator_reports_the_metrics_route(tree, monkeypatch):
+    """``metric_routes`` names the exact metrics' route of each benchmark: the
+    numpy one for this small folder, the native one once the folder's
+    labelled pixels reach ``NATIVE_MIN_PIXELS`` (lowered here), with the same
+    metrics."""
+    from multishiftseg_torch.evals import ood_metrics
+
+    cfg = load_config(None)
+    default = test_runner.OODEvaluator(cfg, _score_fn("torch"), tree)
+    a = default.test("RoadAnomaly21")
+    monkeypatch.setattr(ood_metrics, "NATIVE_MIN_PIXELS", 1)
+    native = test_runner.OODEvaluator(cfg, _score_fn("torch"), tree)
+    b = native.test("RoadAnomaly21")
+    assert default.metric_routes == {"RoadAnomaly21": "numpy"}
+    assert native.metric_routes == {"RoadAnomaly21": "native"}
+    assert a.keys() == b.keys() and all(abs(a[k] - b[k]) <= 1e-9 for k in a)
+
+
 def test_tta_averages_the_mirrored_forward():
     imgs = torch.from_numpy(np.random.RandomState(4).randn(2, 8, 12, 3).astype(np.float32))
     a, s = test_runner.tta_wrap(_score_fn("torch"))(imgs)

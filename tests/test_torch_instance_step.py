@@ -88,7 +88,64 @@ def step_run(jax_model):
     return dict(loss=loss, losses=losses, grads=maskformer_from_jax({"params": grads}),
                 new_params=maskformer_from_jax({"params": new_params}), t_loss=t_loss,
                 t_losses=t_losses, loss64=loss64, trainer=t64, t_assign=t_assign,
-                scale=min(1.0, 0.01 / float(grad_norm)))
+                scale=min(1.0, 0.01 / float(grad_norm)), variables=variables,
+                batch=(img, id_map, classes), draws=draws)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(step_run, tmp_path_factory):
+    """The same instance step on two gloo ranks of one image each
+    (``torch_dp_worker``), in f32 and in float64, from the same weights, global
+    batch and global draws: rank 0's runs by dtype, after checking that both
+    ranks end the step with the same parameters."""
+    from torch_dp_worker import run_ranks, same_params
+
+    job = dict(kind="instance", cfg=_tiny_cfg(), model=CFG,
+               state=maskformer_from_jax(step_run["variables"]), batch=step_run["batch"],
+               draws=step_run["draws"], dtypes=[torch.float32, torch.float64])
+    ranks = run_ranks(job, tmp_path_factory.mktemp("two_ranks"))
+    for dtype in ranks[0]:
+        assert same_params([r[dtype] for r in ranks]), dtype
+    return ranks[0]
+
+
+def test_two_rank_instance_step_matches_jax(step_run, two_ranks):
+    """The instance step of the global batch split over two ranks (the
+    criterion's ``num_masks`` and normalisers over the global batch, the clip
+    on the all-reduced gradient) against JAX's single-process step, at this
+    file's tolerances: losses within 1e-4 in f32 and float64, every gradient of
+    the float64 run within 1e-3 of scale (the input projections' conv biases,
+    0 in exact arithmetic, within 1e-8 of the largest gradient), the AdamW
+    update as above; and the two-rank float64 step is the single-process
+    float64 step, gradients within 1e-6 of scale (the f32 draws and
+    point coordinates round differently at another batch split)."""
+    r = step_run
+    got, got64 = two_ranks["torch.float32"], two_ranks["torch.float64"]
+    assert set(got["parts"]) == set(r["losses"])
+    for k, v in r["losses"].items():
+        assert rel_err(got["parts"][k], float(v)) < 1e-4, k
+        assert rel_err(got64["parts"][k], float(v)) < 1e-4, k
+    assert rel_err(got["loss"], float(r["loss"])) < 1e-4
+    scale = min(1.0, 0.01 / got64["grad_norm"])
+    single = dict(r["trainer"].model.named_parameters())
+    top = max(float(np.abs(g.numpy()).max()) for g in r["grads"].values())
+    bad = []
+    for name, ref in r["grads"].items():
+        ref = ref.numpy()
+        grad = got64["grads"][name]
+        exact = single[name].grad.numpy()
+        if "input_proj" in name and name.endswith(".0.bias"):
+            assert max(np.abs(grad / scale).max(), np.abs(ref).max()) < 1e-8 * top, name
+            continue
+        if np.abs(grad / scale - ref).max() > 1e-3 * max(np.abs(ref).max(), 1e-9):
+            bad.append(name)
+        assert np.abs(grad - exact).max() <= 1e-6 * max(np.abs(exact).max(), 1e-30), name
+    assert not bad, bad[:5]
+    for name, g in r["grads"].items():
+        g = g.numpy()
+        sel = (np.abs(g * r["scale"]) > 1e-6) & (np.abs(g) > 1e-2 * np.abs(g).max())
+        np.testing.assert_allclose(got["params"][name][sel], r["new_params"][name].numpy()[sel],
+                                   rtol=0, atol=1e-3 * BASE_LR, err_msg=name)
 
 
 def test_instance_step_losses_match_jax(step_run):

@@ -339,7 +339,25 @@ def step_run():
     return dict(loss=loss, losses=losses, grads=maskformer_from_jax({"params": grads}),
                 new_params=maskformer_from_jax({"params": new_params}), t_loss=t_loss,
                 t_losses=t_losses, loss64=loss64, scale=scale, trainer=t64,
-                variables=variables)
+                variables=variables, draws=draws)
+
+
+@pytest.fixture(scope="module")
+def two_ranks(step_run, tmp_path_factory):
+    """The same stage-2 step on two gloo ranks of one pair each
+    (``torch_dp_worker``), in f32 and in float64, from the same weights, global
+    batch and global draws: rank 0's runs by dtype, after checking that both
+    ranks end the step with the same parameters."""
+    from torch_dp_worker import run_ranks, same_params
+
+    job = dict(kind="m2f_stage2", cfg=_tiny_cfg(), model=MODEL,
+               state=maskformer_from_jax(step_run["variables"]),
+               batch=synthetic_batch(PAIRS, CROP, K, seed=0), draws=step_run["draws"],
+               dtypes=[torch.float32, torch.float64])
+    ranks = run_ranks(job, tmp_path_factory.mktemp("two_ranks"))
+    for dtype in ranks[0]:
+        assert same_params([r[dtype] for r in ranks]), dtype
+    return ranks[0]
 
 
 def test_stage2_step_losses_match_jax(step_run):
@@ -425,6 +443,45 @@ def test_checkpoint_round_trip(tmp_path):
     assert float(loss_a) == float(loss_b)
     for (n, pa), (_, pb) in zip(a.model.named_parameters(), b.model.named_parameters()):
         assert torch.equal(pa, pb), n
+
+
+def test_two_rank_stage2_step_matches_jax(step_run, two_ranks):
+    """The stage-2 step of the global batch split over two ranks (the
+    criterion's ``num_masks``, class and mask normalisers and RCL over the
+    global batch, the clip on the all-reduced gradient) against JAX's
+    single-process step, at this file's tolerances: losses within 1e-4 in f32
+    and float64, every gradient of the float64 run within 1e-3 of scale, the
+    AdamW update as above. And the two-rank float64 step is the
+    single-process float64 step: gradients within 1e-6 of scale (the f32
+    draws and point coordinates round differently at another batch split),
+    the same clip."""
+    r = step_run
+    got, got64 = two_ranks["torch.float32"], two_ranks["torch.float64"]
+    assert set(got["parts"]) == set(r["losses"])
+    for k, v in r["losses"].items():
+        assert rel_err(got["parts"][k], float(v)) < 1e-4, k
+        assert rel_err(got64["parts"][k], float(v)) < 1e-4, k
+    assert rel_err(got["loss"], float(r["loss"])) < 1e-4
+    single = dict(r["trainer"].model.named_parameters())
+    scale = min(1.0, 0.01 / got64["grad_norm"])
+    assert abs(scale - r["scale"]) <= 1e-6 * r["scale"]
+    bad = []
+    for name, ref in r["grads"].items():
+        ref = ref.numpy()
+        grad = got64["grads"][name]
+        if np.abs(grad / scale - ref).max() > 1e-3 * max(np.abs(ref).max(), 1e-9):
+            bad.append(name)
+        exact = single[name].grad.numpy()
+        assert np.abs(grad - exact).max() <= 1e-6 * max(np.abs(exact).max(), 1e-30), name
+    assert not bad, bad[:5]
+    checked = 0
+    for name, g in r["grads"].items():
+        g = g.numpy()
+        sel = (np.abs(g * r["scale"]) > 1e-6) & (np.abs(g) > 1e-2 * np.abs(g).max())
+        np.testing.assert_allclose(got["params"][name][sel], r["new_params"][name].numpy()[sel],
+                                   rtol=0, atol=1e-3 * BASE_LR, err_msg=name)
+        checked += int(sel.sum())
+    assert checked > 10000
 
 
 def test_pad_batch_matches_the_jax_trainer():
