@@ -157,6 +157,30 @@ exits non-zero and prints no result. Phases, one JSON line each:
    global bottom-k's row counts them); and in each rank the global
    bottom-k's kernels against their plain version, at the main-path size,
    with ties and with select_num 0.
+22. ``deploy``: the serving artifact (``multishiftseg_torch/deploy.py``) of M2F
+   R-50 (Mask2Anomaly heads, exps/m2f.yaml) and DeepLab v3+ WRN-38
+   (exps/deeplab.yaml) at 1024x2048, batch 1, random weights from the
+   recipes' seeds, exported through the CLI (``python -m
+   multishiftseg_torch.deploy``'s ``main``) for the card: the export's seconds,
+   the ``.pt2`` (no weight in it) and ``.npz`` sizes, the ``mss::`` ops the
+   program calls; each artifact served from a fresh process that imports the
+   serving module and neither ``models/`` nor ``train/`` (3 requests after 2
+   warm-ups, their launches: 6 bilinear deformable forwards, one anomaly and
+   one semantic tail a M2F request, 3 dilated convs a DeepLab one; the
+   program alone on a batch on the card), the last request's outputs against
+   the eager forward (``build_*_forward``) on the artifact's weights within
+   1e-2 of each output's scale (worst differences printed); then in one
+   process the loaded program and the eager forward in turns, each profiled.
+   The served requests' launches are the paths ``deploy_m2f`` and
+   ``deploy_deeplab``.
+23. ``pipeline``: the R-50 stage-2 step with ``pipeline_parallel = 2`` (GPipe
+   over the deformable encoder, ``core/pipeline.py``; the stages on the first
+   two cards, or both on the one) against the sequential step from the same
+   weights, batch and draws: in f32 (TF32 off) at 2 pairs of 256x256, and in
+   bf16 at exps/m2f.yaml's 8 pairs of 704x704, timed (3 steps after 2
+   warm-ups each, peak memory), the pipelined steps' launches the path
+   ``pipeline``; losses, gradients and the updates held with the tolerances
+   printed.
 
 ``slice_parity``, ``train_parity`` and ``instance_parity`` run the CPU's
 decoder on the card's attention masks, and hold every bit that differs to a
@@ -195,10 +219,10 @@ forward, ``nearest_top6``, ``nearest_top6c`` and ``shared`` (the centroid modes
 held off their rounding boundaries, flips counted), with f32 edge cases
 (degenerate levels with 30 channels and points outside the map, all-equal
 weights, T = J against ``nearest``). A kernel's ``launches``
-are those of the main paths: ``serve``, ``deeplab_serve``, ``validate`` and
-``evaluate`` for the eval kernels, the timed steps of ``train``,
-``deeplab_train`` and ``stage1_train`` and the epochs of ``train_loop`` for
-the training kernels, and ``instance_train``'s ``train()`` and ``evaluate()``
+are those of the main paths: ``serve``, ``deeplab_serve``, ``validate``,
+``evaluate`` and ``deploy``'s served requests for the eval kernels, the timed
+steps of ``train``, ``deeplab_train``, ``stage1_train`` and ``pipeline`` and
+the epochs of ``train_loop`` for the training kernels, and ``instance_train``'s ``train()`` and ``evaluate()``
 calls for the vanilla recipes', counted per recipe (the dilated conv's, the
 bilinear deformable forward's and backward's, the anomaly tail's, the
 classes-only tail's, the label points' and the assignment's rows split them:
@@ -240,6 +264,7 @@ kernels,serve`` for A, B, B, A in one call.
 import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -262,7 +287,9 @@ WARP_WIDTHS = {12: ([(6, 4), (3, 2), (2, 5)], 4), 32: ([(6, 4), (3, 2), (2, 5), 
 TRAIN_POINTS = 12544
 SEED = 0
 # train_parity's weight and batch seeds: the gradient limit rests on several
-TRAIN_PARITY_SEEDS = tuple(SEED + 10 * k for k in range(1, 7))
+# (six until the deploy and pipeline phases joined the run: three keep it
+# inside the time limit)
+TRAIN_PARITY_SEEDS = tuple(SEED + 10 * k for k in range(1, 4))
 # A mask logit sums mask_dim (256) f32 products of inputs that carry every
 # card-vs-CPU difference upstream; the logits agree "within rounding" where
 # their difference is at most LOGIT_RTOL of the absolute scale
@@ -281,7 +308,8 @@ DL_TRAIN_PAIRS, DL_CROP = 8, (700, 700)
 # DeepV3Plus (SEResNeXt / ResNet trunks): the same ASPP over 2048 channels
 DV3_CIN = 2048
 # deeplab_train_parity's seeds: each costs seven full-width steps on the CPU
-DL_TRAIN_PARITY_SEEDS = (SEED + 27, SEED + 37)
+# (a second seed, SEED + 37, ran until the deploy and pipeline phases joined)
+DL_TRAIN_PARITY_SEEDS = (SEED + 27,)
 # M2F stage 1 (exps/m2f.yaml): the anomaly tail's backward at the stage-1 shapes,
 # stride-4 masks of the 704x704 padded crops
 S1_MASK_HW = (TRAIN_HW[0] // 4, TRAIN_HW[1] // 4)
@@ -559,7 +587,7 @@ def phase_kernels(torch):
             # the eval paths; the training steps' launches are the
             # training-shape row's
             "paths": ("serve", "validate", "evaluate", "instance_eval", "alt_serve_swin_large",
-                      "alt_serve_resnet101"), "max_abs_err": err,
+                      "alt_serve_resnet101", "deploy_m2f"), "max_abs_err": err,
             "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
         row = rows[f"ms_deform_attn_{mode}"]
@@ -627,7 +655,8 @@ def phase_kernels(torch):
         time_redesigned(torch, rows[f"mask_scores_{head}"], run)
         if head == "anomaly":  # the eval paths; stage 1's launches are its own row's
             rows["mask_scores_anomaly"]["paths"] = ("serve", "validate", "evaluate",
-                                                    "alt_serve_swin_large", "alt_serve_resnet101")
+                                                    "alt_serve_swin_large", "alt_serve_resnet101",
+                                                    "deploy_m2f")
         del out
     approx_kernel_rows(torch, dev, rows, check, checks)
     train_kernel_rows(torch, dev, rows, check, checks)
@@ -875,21 +904,30 @@ def msda_train_rows(torch, dev, rows, check, levels, b, seed, shapes, paths):
     del value, loc, attn, g, out
 
 
-# the paths that run the stage-2 shapes (16 images of 704x704)
+# the paths that run the stage-2 shapes (16 images of 704x704); the pipelined
+# step ("pipeline") runs the deformable kernels on its microbatches (rows
+# ``*_pipeline_shapes``) and the other kernels on the full batch
 TRAIN_PATHS = ("train", "stage1_train", "train_loop", "dp_train_m2f",
                "alt_train_m2f_swin_large_stage2")
+PIPELINE_PATHS = ("pipeline",)
+# the served programs' requests (the deploy phase)
+DEPLOY_PATHS = ("deploy_m2f", "deploy_deeplab")
 
 
 def train_kernel_rows(torch, dev, rows, check, checks):
     """The training slice's kernels at the stage-2 shapes (8 pairs of 700x700
-    crops padded to 704x704): the deformable forward and backward, the
-    assignment and the label points, counting the launches of
-    ``TRAIN_PATHS``."""
+    crops padded to 704x704): the deformable forward and backward over the
+    16 images (``TRAIN_PATHS``) and over one GPipe microbatch of them
+    (``PIPELINE_PATHS``, ``pipeline_parallel = 2``), the assignment and the
+    label points over the 16 (both)."""
+    from multishiftseg_torch.core.pipeline import auto_microbatches
     from multishiftseg_torch.losses import criterion, matcher
 
-    pairs, paths = TRAIN_PAIRS, TRAIN_PATHS
+    pairs, paths = TRAIN_PAIRS, TRAIN_PATHS + PIPELINE_PATHS
     b = 2 * pairs
-    msda_train_rows(torch, dev, rows, check, TRAIN_LEVELS, b, SEED + 7, "", paths)
+    msda_train_rows(torch, dev, rows, check, TRAIN_LEVELS, b, SEED + 7, "", TRAIN_PATHS)
+    msda_train_rows(torch, dev, rows, check, TRAIN_LEVELS, b // auto_microbatches(b, 2),
+                    SEED + 7, "pipeline", PIPELINE_PATHS)
 
     # batched assignment: 16 problems of 19 targets x 100 queries, about half
     # the rows at BIG (classes absent from the image); exact equality
@@ -1042,7 +1080,7 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
         "name": "dilated_conv3x3", "route": "cuda",
         "source": "multishiftseg_torch/csrc/dilated_conv.cu",
         "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
-        "paths": ("deeplab_serve", "validate", "evaluate"),
+        "paths": ("deeplab_serve", "validate", "evaluate", "deploy_deeplab"),
         "max_abs_err": err, "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
         "bound_by": b_by,
         # cuDNN's dilated conv2d, bf16, the faster layout: the same function
@@ -4242,6 +4280,342 @@ def phase_dp_train(torch):
     return res, counts_by_path
 
 
+# ---------------------------------------------------------------------------
+# the serving artifact and GPipe
+
+DEPLOY_REQUESTS = 3
+# a fresh process that imports the serving module and nothing else of the
+# port: serves the artifact's requests, then reports and saves what it got
+SERVE_SCRIPT = r"""
+import json, sys, time
+import numpy as np
+import torch
+root, prefix, seed, requests, warmup = sys.argv[1:6]
+sys.path.insert(0, root)
+from multishiftseg_torch.deploy import ServingModel
+t0 = time.perf_counter()
+model = ServingModel(prefix)
+load_s = time.perf_counter() - t0
+n, h, w, _ = model.input_shape
+images = np.random.RandomState(int(seed)).rand(int(warmup) + int(requests), 1, h, w, 3)
+images = images.astype(np.float32)
+for im in images[:int(warmup)]:
+    model(im)
+torch.cuda.synchronize()
+from multishiftseg_torch.ops import reset_launch_counts, launch_counts
+reset_launch_counts()
+lat = []
+for im in images[int(warmup):]:
+    t0 = time.perf_counter()
+    out = model(im)  # returns numpy: the copy back synchronises
+    lat.append((time.perf_counter() - t0) * 1e3)
+counts = launch_counts()
+# the program alone on a device-resident batch (no host copies), synchronised
+buf = torch.from_numpy(images[-1]).to(model.device)
+prog = []
+with torch.inference_mode():
+    for _ in range(int(requests)):
+        t0 = time.perf_counter()
+        model._module(model.weights, buf)
+        torch.cuda.synchronize()
+        prog.append((time.perf_counter() - t0) * 1e3)
+np.savez(prefix + "_served.npz", first=out[0], second=out[1])
+banned = sorted(m for m in sys.modules if m.startswith(("multishiftseg_torch.models",
+                "multishiftseg_torch.train", "multishiftseg_torch.core.config", "jax",
+                "multishiftseg_tpu")))
+print(json.dumps({"load_s": load_s, "latency_ms": lat, "program_ms": prog,
+                  "launches": counts,
+                  "banned_modules": banned, "device": str(model.device),
+                  "input_shape": list(model.input_shape)}))
+"""
+
+
+def deploy_family(torch, family, tmp, cfg_path, expected):
+    """Export one family with the CLI (``python -m multishiftseg_torch.deploy``'s
+    ``main``, random weights from the recipe's seed, 1024x2048, batch 1, for
+    the card); serve it from a fresh process (:data:`SERVE_SCRIPT`); serve
+    the same images through the eager forward (``build_*_forward``) on the
+    artifact's own weights, and compare the last request's outputs. Returns
+    (result, the served requests' launch counts)."""
+    import subprocess
+
+    from multishiftseg_torch import deploy
+    from multishiftseg_torch.core.config import load_config
+    from multishiftseg_torch.train.test_runner import build_deeplab_forward, build_m2f_forward
+
+    prefix = str(tmp / family)
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the config loader writes ckpts/ and outputs/ under the working directory
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        deploy.main(["--model", family, "--cfg", cfg_path, "--height", str(H), "--width",
+                     str(W), "--batch", "1", "--device", "cuda", "--out", prefix])
+        export_s = time.perf_counter() - t0
+        cfg = load_config(cfg_path, "deploy_eager")
+    finally:
+        os.chdir(cwd)
+    ep = deploy.load_exported(prefix + ".pt2")
+    program_weights = len(ep.state_dict)
+    nodes = [n for gm in ep.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
+             for n in gm.graph.nodes if n.op == "call_function"]
+    calls = sorted({str(n.target) for n in nodes if str(n.target).startswith("mss.")})
+    # the forward's bf16 autocast region, kept in the program as a
+    # wrap_with_autocast call (device, dtype, enabled, ...)
+    autocast = [list(map(str, n.args[:3])) for n in nodes
+                if str(n.target) == "wrap_with_autocast"]
+    del ep, nodes
+    seed = SEED + (61 if family == "m2f" else 62)
+    root = str(Path(multishiftseg_root()).resolve())
+    proc = subprocess.run([sys.executable, "-c", SERVE_SCRIPT, root, prefix, str(seed),
+                           str(DEPLOY_REQUESTS), str(SERVE_WARMUP)],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        return {"family": family, "ok": False, "error": proc.stderr[-3000:]}, {}
+    served = json.loads(proc.stdout.strip().splitlines()[-1])
+
+    # the eager forward on the artifact's weights and the same images
+    weights = deploy.load_pytree_npz(prefix + ".npz")
+    mean = torch.tensor(cfg.data.mean, dtype=torch.float32, device="cuda")
+    std = torch.tensor(cfg.data.std, dtype=torch.float32, device="cuda")
+    if family == "m2f":
+        from multishiftseg_torch.models.maskformer import maskformer_from_config
+
+        model = maskformer_from_config(cfg.model.m2f)
+        model.load_state_dict(weights)
+        fwd = build_m2f_forward(cfg, model=model, device="cuda")
+    else:
+        from multishiftseg_torch.models.deeplab import DeepWV3Plus
+
+        model = DeepWV3Plus(num_classes=cfg.data.class_num)
+        model.load_state_dict(weights)
+        fwd = build_deeplab_forward(cfg, model=model, device="cuda")
+    images = np.random.RandomState(seed).rand(SERVE_WARMUP + DEPLOY_REQUESTS, 1, H, W, 3)
+    images = images.astype(np.float32)
+    eager = lambda x: fwd((x - mean) / std)  # x: [0, 1] images on the card
+    for im in images[:SERVE_WARMUP]:
+        eager(torch.from_numpy(im).cuda())
+    torch.cuda.synchronize()
+    lat = []
+    for im in images[SERVE_WARMUP:]:
+        x = torch.from_numpy(im).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eager(x)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    # M2F: (anomaly, sem); DeepLab: (score, logit NCHW), as the artifact's outputs
+    want = [o.float().cpu().numpy() for o in out]
+    ab = program_against_eager(torch, deploy.ServingModel(prefix), eager,
+                               torch.from_numpy(images[-1]).cuda())
+    with np.load(prefix + "_served.npz") as z:
+        got = [z["first"], z["second"]]
+    errs = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+    scales = [float(np.abs(w).max()) for w in want]
+    # the same kernels on the same weights and inputs. M2F: bit for bit (1e-6
+    # of each output's scale). DeepLab: cuDNN picks other algorithms for the
+    # bf16 convolutions on the eager model's channels-last weights than on the
+    # program's contiguous ones: 4.0e-3 of scale measured (H100, 700 W), 5e-3
+    tol = {"m2f": 1e-6, "deeplab": 5e-3}[family]
+    counts = served["launches"]
+    want_counts = {k: v * DEPLOY_REQUESTS for k, v in expected.items()}
+    counts_ok = all(counts.get(k, 0) == v for k, v in want_counts.items()) and all(
+        v == 0 for k, v in counts.items() if k not in want_counts)
+    checks = {"program_holds_no_weights": program_weights == 0,
+              "program_autocasts_bf16": ["cuda", "torch.bfloat16", "True"] in autocast,
+              "serving_process_imports_no_models_or_train": not served["banned_modules"],
+              "launches_ok": counts_ok,
+              "matches_eager": all(e <= tol * max(sc, 1.0) for e, sc in zip(errs, scales)),
+              "finite": bool(all(np.isfinite(g).all() for g in got))}
+    res = {"family": family, "config": cfg_path.split("/")[-1], "image_hw": [H, W],
+           "batch": 1, "export_s": export_s, "pt2_bytes": os.path.getsize(prefix + ".pt2"),
+           "npz_bytes": os.path.getsize(prefix + ".npz"), "ops_in_program": calls,
+           "autocast_regions": autocast,
+           # a served request: numpy in, the padded copy to the card, the
+           # program, both outputs back to numpy; the program alone on a
+           # batch already on the card; the eager forward on a batch on the
+           # card, outputs left there
+           "served_latency_ms": served["latency_ms"], "program_ms": served["program_ms"],
+           "eager_latency_ms": lat, "in_process_ab": ab,
+           "served_load_s": served["load_s"], "served_launches": counts,
+           "max_abs_err": errs, "output_scale": scales, "tolerance_of_scale": tol,
+           "checks": checks, "ok": bool(all(checks.values()))}
+    return res, counts
+
+
+def program_against_eager(torch, served, eager, image, rounds=3):
+    """The loaded program (on a batch already on the card) and the eager
+    forward in one process, in turns (program, eager, eager, program) for
+    ``rounds`` rounds, each call synchronised, and one profile of each."""
+    prog = lambda im: served._module(served.weights, im)
+    times = {"program_ms": [], "eager_ms": []}
+    with torch.inference_mode():
+        for f in (prog, eager):
+            f(image)
+        for _ in range(rounds):
+            for name, f in (("program_ms", prog), ("eager_ms", eager), ("eager_ms", eager),
+                            ("program_ms", prog)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f(image)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        for name, f in (("program", prog), ("eager", eager)):
+            times[f"{name}_profile"] = profile_request(torch, f, image, focus=FWD_FOCUS)
+    return times
+
+
+def multishiftseg_root():
+    import multishiftseg_torch
+
+    return Path(multishiftseg_torch.__file__).resolve().parent.parent
+
+
+def phase_deploy(torch):
+    """``deploy``: the serving artifact of M2F R-50 (Mask2Anomaly heads,
+    exps/m2f.yaml) and DeepLab v3+ WRN-38 (exps/deeplab.yaml) at 1024x2048."""
+    import tempfile
+
+    root = Path(__file__).resolve().parent / "exps"
+    res = {"phase": "deploy", "families": {}}
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for family, expected in (
+                ("m2f", {"ms_deform_attn_bilinear": 6, "mask_scores_anomaly": 1,
+                         "mask_scores_semantic": 1}),
+                ("deeplab", {"dilated_conv3x3": 3})):
+            r, c = deploy_family(torch, family, Path(tmp), str(root / f"{family}.yaml"),
+                                 expected)
+            res["families"][family] = r
+            counts[f"deploy_{family}"] = c
+            torch.cuda.empty_cache()
+    res["ok"] = all(r["ok"] for r in res["families"].values())
+    return res, counts
+
+
+def pipeline_steps(torch, pairs, crop, bf16, seed, timed=0, warmup=0):
+    """The stage-2 step of the same model, batch and draws, sequential and with
+    ``pipeline_parallel = 2`` (the stages on the first two cards, or twice
+    on the one): each run's loss, components, gradient norm, gradients and
+    updated parameters (f32, CPU); with ``timed``, step times (after
+    ``warmup``), peak memory and the pipelined steps' launch counts."""
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
+
+    devices = ([torch.device("cuda", i) for i in range(2)] if torch.cuda.device_count() > 1
+               else [torch.device("cuda", 0)] * 2)
+    batch = [torch.from_numpy(x).cuda() for x in synthetic_batch(pairs, crop, CLASSES, seed)]
+    runs, draws = {}, None
+    for pipe in (1, 2):
+        cfg = train_config(pairs, crop, bf16)
+        cfg.train.pipeline_parallel = pipe
+        tr = TrainM2FOOD(cfg, model=seeded_model(torch, seed).train(), device="cuda",
+                         pipeline_devices=devices if pipe > 1 else None)
+        tr.set_stage(1)
+        if draws is None:
+            draws = tr.draws(2 * pairs, tuple(TRAIN_HW if crop == CROP else crop))
+        state = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        opt = {k: v for k, v in tr.optimizer.state_dict().items()}
+        r = {}
+        if timed:
+            for _ in range(warmup):
+                tr.stage2_step(*batch, draws=draws)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            times = []
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                tr.stage2_step(*batch, draws=draws)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            r.update(step_ms=times, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     launches=launch_counts())
+            with torch.no_grad():  # back to the start for the compared step
+                tr.model.load_state_dict(state)
+            tr.optimizer.load_state_dict(opt)
+        loss, losses, gnorm, _ = tr.stage2_step(*batch, draws=draws)
+        torch.cuda.synchronize()
+        r.update(loss=float(loss), losses={k: float(v) for k, v in losses.items()},
+                 gnorm=float(gnorm),
+                 grads={n: p.grad.detach().float().cpu() for n, p in tr.model.named_parameters()
+                        if p.grad is not None},
+                 params={n: p.detach().float().cpu() for n, p in tr.model.named_parameters()},
+                 n_micro=tr.model.sem_seg_head.pixel_decoder.pipeline[1] if pipe > 1 else 1)
+        runs[pipe] = r
+        del tr, state, opt
+        torch.cuda.empty_cache()
+    return runs, devices
+
+
+def compare_pipelined(runs, lr, loss_rtol, grad_tol, param_tol):
+    """Pipelined (2) against sequential (1): the losses' relative error, the
+    largest gradient error over the largest gradient, the largest update error
+    on the entries whose gradient exceeds 1e-2 of its tensor's largest (there
+    AdamW's first step does not divide a rounding difference by a tiny
+    gradient), in units of the learning rate."""
+    a, b = runs[1], runs[2]
+    rel = lambda x, y: abs(x - y) / max(abs(x), 1e-12)
+    loss_err = max([rel(a["loss"], b["loss"])]
+                   + [rel(a["losses"][k], b["losses"][k]) for k in a["losses"]])
+    scale = max(float(g.abs().max()) for g in a["grads"].values())
+    grad_err = max(float((a["grads"][n] - b["grads"][n]).abs().max())
+                   for n in a["grads"]) / scale
+    param_err = 0.0
+    for n, g in a["grads"].items():
+        sel = g.abs() > 1e-2 * g.abs().max()
+        if sel.any():
+            param_err = max(param_err, float((a["params"][n] - b["params"][n])[sel].abs().max()))
+    out = {"loss_rel_err": loss_err, "grad_err_of_scale": grad_err,
+           "update_err_in_lr": param_err / lr, "loss": [a["loss"], b["loss"]],
+           "grad_norm": [a["gnorm"], b["gnorm"]], "n_micro": b["n_micro"],
+           "tolerance": {"loss_rel": loss_rtol, "grad_of_scale": grad_tol,
+                         "update_in_lr": param_tol}}
+    out["ok"] = bool(loss_err <= loss_rtol and grad_err <= grad_tol
+                     and param_err / lr <= param_tol and set(a["grads"]) == set(b["grads"]))
+    return out
+
+
+def phase_pipeline(torch):
+    """``pipeline``: the M2F R-50 stage-2 step with ``pipeline_parallel = 2``
+    (GPipe over the deformable encoder, ``core/pipeline.py``) against the
+    sequential step: (a) f32 with TF32 off, 2 pairs of 256x256, the check of
+    the schedule; (b) exps/m2f.yaml's 8 pairs of 704x704 in bf16, timed, the
+    pipelined steps' launches the path ``pipeline``."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"phase": "pipeline", "model": "MaskFormer R-50 MSDeformAttn+GMA, full widths",
+           "config": "exps/m2f.yaml", "pipeline_parallel": 2}
+    lr = train_config(1, CROP, False).model.m2f.base_lr
+    runs, devices = pipeline_steps(torch, 2, (256, 256), False, SEED + 71)
+    # f32: the microbatches change the grouping of the encoder's sums, and the
+    # deformable backward sums d value by atomics: 1e-4 relative on the
+    # losses and of the largest gradient, 1e-2 of the learning rate on the
+    # updates of entries with a gradient above 1e-2 of their tensor's largest
+    res["f32_2x256"] = compare_pipelined(runs, lr, 1e-4, 1e-4, 1e-2)
+    torch.backends.cudnn.allow_tf32 = True
+    runs, devices = pipeline_steps(torch, TRAIN_PAIRS, CROP, True, SEED + 72, timed=3,
+                                   warmup=2)
+    # bf16: the encoder's products at other batch sizes round otherwise in
+    # bf16; a sanity bound (2e-2 on the losses, 5e-2 of the largest gradient,
+    # 0.5 learning rate on the selected updates)
+    cmp = compare_pipelined(runs, lr, 2e-2, 5e-2, 0.5)
+    counts = runs[2]["launches"]
+    n_micro = runs[2]["n_micro"]
+    launches_ok = (counts["ms_deform_attn_bilinear"] == 6 * n_micro * 3
+                   and counts["ms_deform_attn_bilinear_backward"] == 6 * n_micro * 3
+                   and counts["linear_sum_assignment"] >= 3 and counts["label_points"] >= 12)
+    cmp.update(sequential_step_ms=runs[1]["step_ms"], pipelined_step_ms=runs[2]["step_ms"],
+               sequential_peak_mem_gib=runs[1]["peak_mem_gib"],
+               pipelined_peak_mem_gib=runs[2]["peak_mem_gib"],
+               pipelined_launches={k: v for k, v in counts.items() if v},
+               launches_ok=launches_ok)
+    res["bf16_8x704"] = cmp
+    res.update(devices=[str(d) for d in devices], device_count=len(set(devices)))
+    res["ok"] = bool(res["f32_2x256"]["ok"] and cmp["ok"] and launches_ok)
+    return res, {"pipeline": counts}
+
+
 def free_port():
     import socket
 
@@ -4253,7 +4627,8 @@ def free_port():
 PHASES = ("kernels", "slice_parity", "serve", "train_parity", "train", "deeplab_parity",
           "deeplab_serve", "deeplab_train_parity", "deeplab_train", "stage1_parity",
           "stage1_train", "validate", "evaluate", "train_loop", "instance_parity",
-          "instance_train", "alt_parity", "alt_serve", "alt_train", "dp_train")
+          "instance_train", "alt_parity", "alt_serve", "alt_train", "dp_train", "deploy",
+          "pipeline")
 
 
 def parse_args(argv):
@@ -4336,6 +4711,8 @@ def main(argv=None):
     run("alt_parity", phase_alt_parity)
     alt_launches = {**run("alt_serve", phase_alt_serve), **run("alt_train", phase_alt_train)}
     dp_launches = run("dp_train", phase_dp_train)
+    deploy_launches = run("deploy", phase_deploy)
+    pipe_launches = run("pipeline", phase_pipeline)
     dp_row = next((p.pop("kernel_row") for p in phases if p["phase"] == "dp_train"), None)
     if rows and dp_row is not None:
         rows["bottom_k_sum_global"] = dp_row
@@ -4350,7 +4727,9 @@ def main(argv=None):
                                                       for r in INSTANCE_RECIPES)},
              **{p: alt_launches.get(p, {}) for p in ALT_PATHS},
              **{f"dp_train_{r}": dp_launches.get(f"dp_train_{r}", {}) for r in DP_RECIPES},
-             "dp_train_two_ranks": dp_launches.get("dp_train_two_ranks", {})}
+             "dp_train_two_ranks": dp_launches.get("dp_train_two_ranks", {}),
+             **{p: deploy_launches.get(p, {}) for p in DEPLOY_PATHS},
+             "pipeline": pipe_launches.get("pipeline", {})}
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))

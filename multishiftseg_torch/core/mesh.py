@@ -32,9 +32,12 @@ The JAX module's functions and their counterparts:
   ``replicated``, ``place_train_state`` -> the ``Loader``'s
   ``shard_index`` / ``shard_count`` and :func:`data_parallel` (DDP broadcasts
   rank 0's state when it wraps the model);
-- ``spatial_sharding`` -> the evaluator's ``--spatial``, a later slice;
-- ``tensor_parallel_shardings``, ``shard_params`` -> a later slice; until then
+- ``spatial_sharding`` -> the evaluator's ``--spatial``, the next slice;
+- ``tensor_parallel_shardings``, ``shard_params`` -> the next slice; until then
   ``model_parallel > 1`` raises (:func:`check_parallelism`);
+- the mesh's ``pipe`` axis -> ``core/pipeline.py``: GPipe in one process over
+  ``pipeline_parallel`` local devices, refused in a world above 1 as JAX
+  refuses it across processes (``make_train_mesh``, :199-207);
 - ``host_cpu_mesh`` -> none: the port's tests run gloo ranks on the CPU.
 """
 
@@ -46,8 +49,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-# the ROADMAP item that ports tensor and pipeline parallelism
-_LATER = "ROADMAP.md Queue 1 item 4 (parallelism and serving)"
+# the ROADMAP item that ports tensor parallelism and the evaluator's --spatial
+NEXT_SLICE = "ROADMAP.md Queue 1 item 4.3 (tensor parallelism and --spatial, the next slice)"
 
 
 def is_distributed() -> bool:
@@ -104,23 +107,32 @@ def shutdown_distributed() -> None:
         dist.destroy_process_group()
 
 
-def check_parallelism(train_cfg) -> None:
-    """Refuse what the port cannot do yet, as ``make_mesh`` refuses a mesh it
-    cannot build: tensor parallelism (``model_parallel``), the GPipe schedule
-    (``pipeline_parallel``, ``pipeline_microbatches``), and a device count
-    other than the launch's (one card a process)."""
-    for name in ("model_parallel", "pipeline_parallel"):
-        if getattr(train_cfg, name) > 1:
-            raise NotImplementedError(f"train.{name} = {getattr(train_cfg, name)}: the port "
-                                      f"trains data-parallel only; see {_LATER}")
-    if train_cfg.pipeline_microbatches:
-        raise NotImplementedError(f"train.pipeline_microbatches = "
-                                  f"{train_cfg.pipeline_microbatches}: the GPipe schedule is "
-                                  f"not ported; see {_LATER}")
-    if train_cfg.num_devices and train_cfg.num_devices != process_count():
+def check_parallelism(train_cfg, pipelined: bool = False) -> None:
+    """Refuse what the port cannot do, as ``make_mesh`` refuses a mesh it
+    cannot build: tensor parallelism (``model_parallel``, the next slice); the
+    GPipe schedule (``pipeline_parallel``, ``pipeline_microbatches``) in a
+    world above 1, as JAX's ``make_train_mesh`` refuses it across processes,
+    or in a trainer that has no deformable encoder to pipeline (``pipelined``
+    False); and a device count other than the launch's: one card a process,
+    times ``pipeline_parallel`` stages."""
+    if train_cfg.model_parallel > 1:
+        raise NotImplementedError(f"train.model_parallel = {train_cfg.model_parallel}: the "
+                                  f"port trains data- and pipeline-parallel only; see "
+                                  f"{NEXT_SLICE}")
+    pipe = train_cfg.pipeline_parallel
+    if (pipe > 1 or train_cfg.pipeline_microbatches) and process_count() > 1:
+        raise ValueError(f"train.pipeline_parallel = {pipe}, pipeline_microbatches = "
+                         f"{train_cfg.pipeline_microbatches}: GPipe runs in one process "
+                         f"over its local devices; this launch has {process_count()}")
+    if pipe > 1 and not pipelined:
+        raise ValueError(f"train.pipeline_parallel = {pipe}: this trainer has no deformable "
+                         "encoder to pipeline (the Mask2Anomaly trainer's msdeformattn "
+                         "pixel decoder has)")
+    devices = process_count() * max(pipe, 1)
+    if train_cfg.num_devices and train_cfg.num_devices != devices:
         raise ValueError(f"train.num_devices = {train_cfg.num_devices}, but this launch has "
-                         f"{process_count()} processes of one card each (torchrun "
-                         f"--nproc_per_node sets the count)")
+                         f"{process_count()} processes of one card each x {max(pipe, 1)} "
+                         f"pipeline stages (torchrun --nproc_per_node sets the count)")
 
 
 def check_train_batch(rows: int) -> int:

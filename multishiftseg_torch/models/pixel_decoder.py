@@ -1,7 +1,10 @@
 """MSDeformAttn pixel decoder: deformable-DETR encoder over res3-5 + FPN to stride 4.
 
-Counterpart of ``multishiftseg_tpu/models/pixel_decoder.py:41-184`` (the
-sequential encoder with its training remat; the GPipe path is not ported).
+Counterpart of ``multishiftseg_tpu/models/pixel_decoder.py:41-224``: the
+sequential encoder with its training remat, and the GPipe path
+(``_pipelined_encoder``, :186-224; ``core/pipeline.py``), which a trainer turns
+on with :meth:`MSDeformAttnPixelDecoder.set_pipeline` and which runs in
+training mode only: evaluation stays sequential, as JAX's eval model.
 Module names follow the reference ``MSDeformAttnPixelDecoder``:
 ``input_proj.{i}.{0,1}``,
 ``transformer.level_embed``, ``transformer.encoder.layers.{i}``,
@@ -18,8 +21,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from ..core.pipeline import check_geometry, gpipe_encoder_apply
 from ..ops import ms_deform_attn as msda
 from ..ops.resize import resize_bilinear_nchw
+from ..utils import cached
 from .layers import Conv2d, he_normal_
 from .position_encoding import position_embedding_sine
 from .resnet import RESNET_FEATURE_CHANNELS
@@ -132,16 +137,30 @@ class MSDeformAttnPixelDecoder(nn.Module):
         self.mask_features = he_normal_(Conv2d(conv_dim, mask_dim, 1))
         # per-instance device copies of the host-built constants, by shape
         self._constants: Dict[tuple, tuple] = {}
+        # (stage devices, microbatches) of the GPipe path, when set
+        self.pipeline: Optional[Tuple[List[torch.device], int]] = None
+
+    def set_pipeline(self, devices: Sequence[torch.device], n_micro: int) -> None:
+        """GPipe the encoder in training over ``devices`` (``core.pipeline.
+        stage_devices``) in ``n_micro`` microbatches: stage ``p``'s contiguous
+        slice of ``transformer.encoder.layers`` moves to ``devices[p]``, and its
+        parameters and their optimizer state live there from then on. The
+        layers keep their names, so checkpoints do not change."""
+        layers = self.transformer.encoder.layers
+        check_geometry(len(layers), len(devices), n_micro=n_micro)
+        per = len(layers) // len(devices)
+        for i, layer in enumerate(layers):
+            layer.to(devices[i // per])
+        self.pipeline = (list(devices), n_micro)
 
     def _pos_and_ref(self, shapes, device):
         """Per-level [HW, C] position embeddings and the [S, 2] reference points."""
-        key = (tuple(shapes), str(device))
-        if key not in self._constants:
+        def make():
             pos = [position_embedding_sine(h, w, self.conv_dim, device=device)
                    .reshape(h * w, -1) for h, w in shapes]
-            ref = torch.from_numpy(_reference_points(shapes)).to(device)
-            self._constants[key] = (pos, ref)
-        return self._constants[key]
+            return pos, torch.from_numpy(_reference_points(shapes)).to(device)
+
+        return cached(self._constants, (tuple(shapes), str(device)), make)
 
     def forward(self, features: Dict[str, torch.Tensor],
                 sample_mode: Union[str, Sequence[str]] = "bilinear",
@@ -167,10 +186,17 @@ class MSDeformAttnPixelDecoder(nn.Module):
         pos_levels, ref = self._pos_and_ref(shapes, src.device)
         level_embed = self.transformer.level_embed.to(src.dtype)
         pos = torch.cat([p.to(src.dtype) + level_embed[i] for i, p in enumerate(pos_levels)])
-        pos = pos[None].expand(n, -1, -1)
-        ref = ref[None, :, None, :].expand(n, -1, len(shapes), -1)
-        for layer, mode in zip(layers, modes):
-            src = layer(src, pos, ref, shapes, mode, quantize_table)
+        ref = ref[None, :, None, :].expand(1, -1, len(shapes), -1)
+        if self.pipeline is not None and self.training:
+            if len(set(modes)) != 1:
+                raise ValueError(f"the pipelined encoder takes one sample mode, got {modes}")
+            devices, n_micro = self.pipeline
+            src = gpipe_encoder_apply(layers, src, pos[None], ref, shapes, devices=devices,
+                                      n_micro=n_micro, sample_mode=modes[0],
+                                      quantize_table=quantize_table)
+        else:
+            src = self._sequential_encoder(layers, modes, src, pos[None].expand(n, -1, -1),
+                                           ref.expand(n, -1, -1, -1), shapes, quantize_table)
 
         # split back to 2-D maps, low -> high resolution
         outs: List[torch.Tensor] = []
@@ -184,3 +210,14 @@ class MSDeformAttnPixelDecoder(nn.Module):
         up = resize_bilinear_nchw(outs[-1], x.shape[-2:], align_corners=False)
         y = self.layer_1(self.adapter_1(x) + up)
         return self.mask_features(y), outs[0], outs
+
+    def _sequential_encoder(self, layers, modes, src, pos, ref, shapes, quantize_table):
+        """The layers in order; a pipelined model's layers sit on their stages'
+        devices, and the activations follow them there and back."""
+        device = src.device
+        for layer, mode in zip(layers, modes):
+            if self.pipeline is not None:
+                dev = layer.norm1.weight.device
+                src, pos, ref = src.to(dev), pos.to(dev), ref.to(dev)
+            src = layer(src, pos, ref, shapes, mode, quantize_table)
+        return src.to(device)

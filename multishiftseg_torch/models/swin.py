@@ -32,6 +32,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..utils import cached
+
 SWIN_CONFIGS = {
     "tiny": dict(embed_dim=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24), window_size=7),
     "small": dict(embed_dim=96, depths=(2, 2, 18, 2), num_heads=(3, 6, 12, 24), window_size=7),
@@ -243,11 +245,11 @@ class SwinTransformer(nn.Module):
         return u < (1.0 - rates)[:, None]
 
     def _mask(self, hp: int, wp: int, shift: int, device) -> Optional[torch.Tensor]:
-        key = (hp, wp, shift, str(device))
-        if key not in self._masks:
+        def make():
             m = _shift_attn_mask(hp, wp, self.window_size, shift)
-            self._masks[key] = None if m is None else torch.from_numpy(m).to(device)
-        return self._masks[key]
+            return None if m is None else torch.from_numpy(m).to(device)
+
+        return cached(self._masks, (hp, wp, shift, str(device)), make)
 
     def forward(self, x: torch.Tensor, drop_path_masks: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:

@@ -17,6 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.resize import resize_bilinear_nchw
+from ..utils import cached
 from .attention import MultiheadAttention
 from .layers import MLP
 from .position_encoding import position_embedding_sine
@@ -89,10 +90,8 @@ class _LevelInputs:
     and the learned queries broadcast over the batch."""
 
     def _position_embedding(self, h, w, device):
-        key = (h, w, str(device))
-        if key not in self._pos:
-            self._pos[key] = position_embedding_sine(h, w, self.hidden_dim, device=device)
-        return self._pos[key]
+        return cached(self._pos, (h, w, str(device)),
+                      lambda: position_embedding_sine(h, w, self.hidden_dim, device=device))
 
     def _inputs(self, x: Sequence[torch.Tensor]):
         """x: channels-first maps, low -> high resolution -> (sources [N, HW, C],

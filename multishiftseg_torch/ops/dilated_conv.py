@@ -2,10 +2,12 @@
 
 Counterpart of ``multishiftseg_tpu/ops/dilated_conv.py:19-52`` (``dilated_conv3x3``),
 the ASPP's rate-12/24/36 convolutions. The kernels are in ``csrc/dilated_conv.cu``:
-an implicit-GEMM forward and the weight gradient, joined by a
-``torch.autograd.Function``. Its backward computes the weight gradient with the
-second kernel and, only when autograd asks for it, the input gradient with the
-forward kernel on the flipped, transposed weight at the same rate. The plain
+an implicit-GEMM forward and the weight gradient, as the custom ops
+``mss::dilated_conv3x3`` and ``mss::dilated_conv3x3_backward`` (``ops.custom_op``;
+the plain version is their CPU implementation), joined by ``register_autograd``.
+The backward op computes the weight gradient with the second kernel and, only
+when autograd asks for it, the input gradient with the forward kernel on the
+flipped, transposed weight at the same rate. The plain
 version is the JAX package's formula: nine zero-padded shifted products summed
 in f32, the weight cast to the input's type first, one rounding at the end.
 
@@ -22,9 +24,9 @@ from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
 
 from .. import _build
+from . import autograd_enabled, custom_op
 
 # Kernel launches per entry point (see ``ops.launch_counts``).
 LAUNCHES = {"dilated_conv3x3": 0, "dilated_conv3x3_wgrad": 0}
@@ -50,11 +52,10 @@ def tap_windows(h: int, w: int, rate: int) -> List[Tuple[int, int, slice, slice,
 
 def dilated_conv3x3(x: torch.Tensor, kernel: torch.Tensor, rate: int) -> torch.Tensor:
     """3x3 convolution at dilation ``rate``, stride 1, zero padding ``rate``, no
-    bias: the CUDA kernels for CUDA tensors, the plain version for CPU tensors.
-    The kernel is cast to ``x``'s type; the gradient reaches it in its own type."""
-    if x.device.type == "cpu":
-        return dilated_conv3x3_plain(x, kernel, rate)
-    return _DilatedConv3x3.apply(x, kernel, int(rate))
+    bias: the CUDA kernels for CUDA tensors, the plain version for CPU tensors
+    (the ``mss::dilated_conv3x3`` op). The kernel is cast to ``x``'s type; the
+    gradient reaches it in its own type."""
+    return torch.ops.mss.dilated_conv3x3(x, kernel, int(rate))
 
 
 def dilated_conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, rate: int) -> torch.Tensor:
@@ -74,34 +75,6 @@ def _tap_major(kernel: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """[3, 3, Cin, Cout] -> the kernels' [9, Cout, Cin], contiguous, in ``dtype``."""
     cin, cout = kernel.shape[2:]
     return kernel.to(dtype).permute(0, 1, 3, 2).reshape(9, cout, cin).contiguous()
-
-
-class _DilatedConv3x3(torch.autograd.Function):
-    """The conv on the card. Saves x and the tap-major weight in x's type."""
-
-    @staticmethod
-    def forward(ctx, x, kernel, rate):
-        wk = _tap_major(kernel, x.dtype)
-        ctx.rate = rate
-        ctx.kernel_dtype = kernel.dtype
-        ctx.save_for_backward(x, wk)
-        return dilated_conv3x3_forward(x, wk, rate)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        x, wk = ctx.saved_tensors
-        g = grad_out.to(x.dtype).contiguous()
-        dx = dk = None
-        if ctx.needs_input_grad[0]:
-            # d x = the conv of g with the flipped taps (shift -> -shift) and
-            # the in / out channels swapped, at the same rate
-            dx = dilated_conv3x3_forward(g, wk.flip(0).transpose(1, 2).contiguous(), ctx.rate)
-        if ctx.needs_input_grad[1]:
-            cout, cin = wk.shape[1:]
-            dw = dilated_conv3x3_wgrad(x, g, ctx.rate)  # [9, Cout, Cin] f32
-            dk = dw.reshape(3, 3, cout, cin).permute(0, 1, 3, 2).to(ctx.kernel_dtype)
-        return dx, dk, None
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -189,3 +162,79 @@ def dilated_conv3x3_wgrad_plain(x: torch.Tensor, grad_out: torch.Tensor,
     for ky, kx, sy, sx, dy, dx in tap_windows(h, w, rate):
         dw[ky, kx] = torch.einsum("nhwd,nhwc->dc", ga[:, dy, dx], xa[:, sy, sx])
     return dw.reshape(9, cout, cin)
+
+
+def dilated_conv3x3_backward_plain(x: torch.Tensor, kernel: torch.Tensor, grad_out: torch.Tensor,
+                                   rate: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d x, d kernel) of :func:`dilated_conv3x3_plain` for ``grad_out``: its
+    autograd."""
+    with autograd_enabled():
+        xg = x.detach().requires_grad_()
+        kg = kernel.detach().requires_grad_()
+        dx, dk = torch.autograd.grad(dilated_conv3x3_plain(xg, kg, rate), (xg, kg),
+                                     grad_out.to(x.dtype))
+    return dx.contiguous(), dk.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the custom ops: plain versions on the CPU, the kernels on the card
+
+
+def _forward_cuda(x, kernel, rate):
+    return dilated_conv3x3_forward(x, _tap_major(kernel, x.dtype), rate)
+
+
+def _backward_cuda(x, kernel, grad_out, rate, want_dx, want_dk):
+    """d x = the forward kernel on the flipped taps (shift -> -shift) with the
+    in / out channels swapped, at the same rate; d kernel = the weight-gradient
+    kernel's f32 sums, cast once to the kernel's type."""
+    g = grad_out.to(x.dtype).contiguous()
+    wk = _tap_major(kernel, x.dtype)
+    dx = dk = None
+    if want_dx:
+        dx = dilated_conv3x3_forward(g, wk.flip(0).transpose(1, 2).contiguous(), rate)
+    if want_dk:
+        cout, cin = wk.shape[1:]
+        dw = dilated_conv3x3_wgrad(x, g, rate)  # [9, Cout, Cin] f32
+        dk = dw.reshape(3, 3, cout, cin).permute(0, 1, 3, 2).to(kernel.dtype).contiguous()
+    return _or_empty(dx, x), _or_empty(dk, kernel)
+
+
+def _backward_plain(x, kernel, grad_out, rate, want_dx, want_dk):
+    dx, dk = dilated_conv3x3_backward_plain(x, kernel, grad_out, rate)
+    return _or_empty(dx if want_dx else None, x), _or_empty(dk if want_dk else None, kernel)
+
+
+def _or_empty(grad, like):
+    return like.new_empty(0) if grad is None else grad
+
+
+def _setup(ctx, inputs, output):
+    x, kernel, rate = inputs
+    ctx.rate = rate
+    ctx.save_for_backward(x, kernel)
+
+
+def _backward(ctx, grad_out):
+    x, kernel = ctx.saved_tensors
+    want_dx, want_dk = ctx.needs_input_grad[:2]
+    dx, dk = torch.ops.mss.dilated_conv3x3_backward(x, kernel, grad_out, ctx.rate,
+                                                    want_dx, want_dk)
+    return (dx if want_dx else None), (dk if want_dk else None), None
+
+
+custom_op("dilated_conv3x3", "(Tensor x, Tensor kernel, int rate) -> Tensor",
+          lambda x, kernel, rate: dilated_conv3x3_plain(x, kernel, rate),
+          lambda x, kernel, rate: _forward_cuda(x, kernel, rate),
+          lambda x, kernel, rate: x.new_empty((*x.shape[:3], kernel.shape[-1])),
+          _backward, _setup)
+
+custom_op("dilated_conv3x3_backward",
+          "(Tensor x, Tensor kernel, Tensor grad_out, int rate, bool dx, bool dk) "
+          "-> (Tensor, Tensor)",
+          _backward_plain,
+          lambda x, kernel, grad_out, rate, want_dx, want_dk: _backward_cuda(
+              x, kernel, grad_out, rate, want_dx, want_dk),
+          lambda x, kernel, grad_out, rate, want_dx, want_dk: (
+              torch.empty_like(x) if want_dx else x.new_empty(0),
+              torch.empty_like(kernel) if want_dk else kernel.new_empty(0)))

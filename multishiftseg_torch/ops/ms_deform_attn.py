@@ -26,12 +26,18 @@ Sample modes (:func:`parse_sample_mode`):
 * ``shared``: per (query, level, point) one location for all heads, the heads'
   attention-weighted centroid; each head keeps its own weights.
 
-``bilinear`` has a backward kernel, joined to the forward by a
-``torch.autograd.Function`` that saves (value, loc, attn) as the JAX VJP does.
-With the int8 table too: JAX's custom VJP saves the exact value whatever
-``quantize_table`` is (``_core_vjp_fwd``, :565-569), so the table's gradients
-are the exact bilinear ones, on the card and on the CPU. The other modes are
-eval-only, as in JAX: on the card they raise when an input requires grad.
+Each kernel entry is a ``torch.library`` custom op (``ops.custom_op``):
+``mss::ms_deform_attn`` (``bilinear``, ``nearest``), ``mss::ms_deform_attn_quantize``,
+``mss::ms_deform_attn_int8_table`` (the quantize and int8 kernels),
+``mss::ms_deform_attn_approx`` and ``mss::ms_deform_attn_backward``, each with
+its plain version as the CPU implementation. ``bilinear`` has a backward
+kernel, joined to the forward op by ``register_autograd``, which saves
+(value, loc, attn) as the JAX VJP does. With the int8 table too: JAX's custom
+VJP saves the exact value whatever ``quantize_table`` is (``_core_vjp_fwd``,
+:565-569), so the table's op saves the exact value and its gradients are the
+exact bilinear ones, on the card and on the CPU. The other
+modes are eval-only, as in JAX: on the card they raise when an input requires
+grad; on the CPU autograd runs through their plain versions.
 
 The plain versions run on the CPU and hold the kernels on the card:
 ``bilinear`` is the reference's per-level ``grid_sample`` formula
@@ -58,7 +64,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-from torch.autograd.function import once_differentiable
+
+from . import autograd_enabled, custom_op
 
 SAMPLE_MODES = ("bilinear", "nearest", "nearest_top{T}", "nearest_top{T}c", "shared")
 MAX_POINTS = 32  # J = L * P a head: one warp's lanes in the top-T kernel's selection
@@ -120,68 +127,37 @@ def ms_deform_attn_core(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int,
                         attention_weights: torch.Tensor,
                         sample_mode: str = "bilinear",
                         quantize_table: bool = False) -> torch.Tensor:
-    """Deformable attention core: the CUDA kernels for CUDA tensors, the plain
-    versions for CPU tensors. ``quantize_table`` (``bilinear`` only; JAX
-    ignores it in the other modes, the port refuses it there) takes one int8
-    scale per channel over the whole batch, as JAX's op does."""
+    """Deformable attention core: the custom ops, whose CUDA implementations
+    launch the kernels and whose CPU implementations are the plain versions.
+    ``quantize_table`` (``bilinear`` only; JAX ignores it in the other modes,
+    the port refuses it there) takes one int8 scale per channel over the whole
+    batch, as JAX's op does."""
     spatial_shapes = _shapes(spatial_shapes)
     L, P = sampling_locations.shape[3:5]
     kind, top = parse_sample_mode(sample_mode, L * P)
+    levels = _level_list(spatial_shapes)
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (value, sampling_locations, attention_weights))
     if quantize_table:
         if kind != "bilinear":
             raise ValueError(f"quantize_table applies to the bilinear mode, not {sample_mode!r}")
-        return _MSDeformAttnInt8.apply(value, sampling_locations, attention_weights,
-                                       spatial_shapes)
-    if value.device.type == "cpu":
-        return ms_deform_attn_core_plain(value, spatial_shapes, sampling_locations,
-                                         attention_weights, sample_mode)
-    if kind == "bilinear":
-        return _MSDeformAttnCore.apply(value, sampling_locations, attention_weights,
-                                       spatial_shapes)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (value, sampling_locations, attention_weights)):
-        raise RuntimeError(f"ms_deform_attn_core: {sample_mode!r} has no backward kernel; "
-                           "train with 'bilinear' or run under torch.no_grad()")
-    if kind == "nearest":
-        return _ms_deform_attn_cuda(value, spatial_shapes, sampling_locations,
-                                    attention_weights, sample_mode)
-    return _ms_deform_attn_approx_cuda(value, spatial_shapes, sampling_locations,
-                                       attention_weights, kind, top)
-
-
-class _MSDeformAttnCore(torch.autograd.Function):
-    """The bilinear core on the card: forward and backward kernels. Saves the
-    residuals of the JAX VJP (value, loc, attn) and nothing else."""
-
-    @staticmethod
-    def forward(ctx, value, loc, attn, spatial_shapes):
-        ctx.spatial_shapes = spatial_shapes
-        ctx.save_for_backward(value, loc, attn)
-        return _ms_deform_attn_cuda(value, spatial_shapes, loc, attn, "bilinear")
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad_out):
-        value, loc, attn = ctx.saved_tensors
-        dvalue, dloc, dattn = ms_deform_attn_backward(value, ctx.spatial_shapes, loc,
-                                                      attn, grad_out)
-        return dvalue, dloc, dattn, None
-
-
-class _MSDeformAttnInt8(_MSDeformAttnCore):
-    """``bilinear`` over the int8 table, on the card (the quantize and int8
-    kernels) and on the CPU (their plain versions). The backward is the exact
-    bilinear one on the saved exact value, as JAX's custom VJP takes it."""
-
-    @staticmethod
-    def forward(ctx, value, loc, attn, spatial_shapes):
-        ctx.spatial_shapes = spatial_shapes
-        ctx.save_for_backward(value, loc, attn)
+        return torch.ops.mss.ms_deform_attn_int8_table(value, sampling_locations,
+                                                       attention_weights, levels)
+    if kind != "bilinear" and grad:
         if value.device.type == "cpu":
-            return ms_deform_attn_core_plain(value, spatial_shapes, loc, attn, "bilinear",
-                                             quantize_table=True)
-        qvalue, scale = quantize_value_table(value)
-        return _ms_deform_attn_int8_cuda(qvalue, scale, spatial_shapes, loc, attn)
+            return ms_deform_attn_core_plain(value, spatial_shapes, sampling_locations,
+                                             attention_weights, sample_mode)
+        _refuse_grad(sample_mode)
+    if kind in ("bilinear", "nearest"):
+        return torch.ops.mss.ms_deform_attn(value, sampling_locations, attention_weights,
+                                            levels, kind == "nearest")
+    return torch.ops.mss.ms_deform_attn_approx(value, sampling_locations, attention_weights,
+                                               levels, kind, top)
+
+
+def _refuse_grad(sample_mode):
+    raise RuntimeError(f"ms_deform_attn_core: {sample_mode!r} has no backward kernel; "
+                       "train with 'bilinear' or run under torch.no_grad()")
 
 
 def ms_deform_attn_backward(value: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],
@@ -190,27 +166,25 @@ def ms_deform_attn_backward(value: torch.Tensor, spatial_shapes: Sequence[Tuple[
                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients of the bilinear core for ``grad_out`` [N, Lq, M * D] ->
     (d value [N, S, M, D] in value's type, d loc f32, d attn in attn's type):
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
-    spatial_shapes = _shapes(spatial_shapes)
-    if value.device.type == "cpu":
-        return ms_deform_attn_backward_plain(value, spatial_shapes, sampling_locations,
-                                             attention_weights, grad_out)
-    return _ms_deform_attn_backward_cuda(value, spatial_shapes, sampling_locations,
-                                         attention_weights, grad_out)
+    the ``mss::ms_deform_attn_backward`` op, the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors."""
+    return torch.ops.mss.ms_deform_attn_backward(
+        value, sampling_locations, attention_weights, grad_out,
+        _level_list(_shapes(spatial_shapes)))
 
 
 def ms_deform_attn_backward_plain(value, spatial_shapes, sampling_locations,
                                   attention_weights, grad_out):
     """Plain version of :func:`ms_deform_attn_backward`: autograd of the f32
     ``grid_sample`` formula."""
-    with torch.enable_grad():
+    with autograd_enabled():
         v = value.detach().float().requires_grad_()
         loc = sampling_locations.detach().float().requires_grad_()
         a = attention_weights.detach().float().requires_grad_()
-        out = ms_deform_attn_core_plain(v, spatial_shapes, loc, a, "bilinear")
+        out = _bilinear_plain(v, _shapes(spatial_shapes), loc, a)
         dv, dl, da = torch.autograd.grad(out, (v, loc, a), grad_out.float())
-    return (dv.to(value.dtype), dl.to(sampling_locations.dtype),
-            da.to(attention_weights.dtype))
+    return (dv.to(value.dtype).contiguous(), dl.to(sampling_locations.dtype).contiguous(),
+            da.to(attention_weights.dtype).contiguous())
 
 
 def ms_deform_attn_core_plain(value: torch.Tensor,
@@ -404,10 +378,9 @@ def quantize_value_table(value: torch.Tensor) -> Tuple[torch.Tensor, torch.Tenso
     the scale ``max(|v|) / 127`` over (N, S, M), floored at 1e-12, and
     ``clip(round(v / scale), -127, 127)`` as int8 (round half to even, IEEE
     division) -> (int8 [N, S, M, D], f32 scale [D]). The CUDA kernel for CUDA
-    tensors, bit for bit the plain version; the plain version for CPU tensors."""
-    if value.device.type == "cpu":
-        return quantize_value_table_plain(value)
-    return _quantize_cuda(value)
+    tensors, bit for bit the plain version; the plain version for CPU tensors
+    (the ``mss::ms_deform_attn_quantize`` op)."""
+    return torch.ops.mss.ms_deform_attn_quantize(value)
 
 
 def quantize_value_table_plain(value):
@@ -458,6 +431,15 @@ def _bilinear_int8_plain(qvalue, scale, spatial_shapes, loc, attn):
 
 def _shapes(spatial_shapes):
     return tuple(tuple(int(v) for v in hw) for hw in spatial_shapes)
+
+
+def _level_list(spatial_shapes):
+    """((h, w), ...) -> [h0, w0, h1, w1, ...], the ops' ``int[] levels``."""
+    return [v for hw in spatial_shapes for v in hw]
+
+
+def _level_pairs(levels):
+    return tuple(zip(levels[0::2], levels[1::2]))
 
 
 def _check_core_args(value, spatial_shapes, loc, attn, value_dtypes=tuple(_DTYPE_CODE)):
@@ -665,6 +647,106 @@ def _ms_deform_attn_backward_cuda(value, spatial_shapes, loc, attn, grad_out):
         raise RuntimeError(f"msda_backward failed: cudaError {rc}")
     LAUNCHES["ms_deform_attn_bilinear_backward"] += 1
     return dvalue.to(value.dtype), dloc, dattn
+
+
+# ---------------------------------------------------------------------------
+# the custom ops: plain versions on the CPU, the kernels on the card
+
+
+def _core_plain(value, loc, attn, levels, nearest):
+    return ms_deform_attn_core_plain(value, _level_pairs(levels), loc, attn,
+                                     "nearest" if nearest else "bilinear")
+
+
+def _core_cuda(value, loc, attn, levels, nearest):
+    return _ms_deform_attn_cuda(value, _level_pairs(levels), loc, attn,
+                                "nearest" if nearest else "bilinear")
+
+
+def _core_fake(value, loc, attn, levels, nearest):
+    n, _, m, d = value.shape
+    return value.new_empty((n, loc.shape[1], m * d))
+
+
+def _core_setup(ctx, inputs, output):
+    value, loc, attn, levels, nearest = inputs
+    ctx.levels, ctx.nearest = levels, nearest
+    ctx.save_for_backward(value, loc, attn)
+
+
+def _core_backward(ctx, grad_out):
+    if ctx.nearest:
+        _refuse_grad("nearest")
+    value, loc, attn = ctx.saved_tensors
+    dvalue, dloc, dattn = torch.ops.mss.ms_deform_attn_backward(value, loc, attn, grad_out,
+                                                                ctx.levels)
+    return dvalue, dloc, dattn, None, None
+
+
+_CORE_ARGS = "Tensor value, Tensor sampling_locations, Tensor attention_weights, int[] levels"
+
+custom_op("ms_deform_attn", f"({_CORE_ARGS}, bool nearest) -> Tensor",
+          _core_plain, _core_cuda, _core_fake, _core_backward, _core_setup)
+
+
+def _backward_fake(value, loc, attn, grad_out, levels):
+    return (torch.empty_like(value), torch.empty_like(loc, dtype=torch.float32),
+            torch.empty_like(attn))
+
+
+custom_op("ms_deform_attn_backward",
+          "(Tensor value, Tensor sampling_locations, Tensor attention_weights, "
+          "Tensor grad_out, int[] levels) -> (Tensor, Tensor, Tensor)",
+          lambda value, loc, attn, grad_out, levels: ms_deform_attn_backward_plain(
+              value, _level_pairs(levels), loc, attn, grad_out),
+          lambda value, loc, attn, grad_out, levels: _ms_deform_attn_backward_cuda(
+              value, _level_pairs(levels), loc, attn, grad_out),
+          _backward_fake)
+
+custom_op("ms_deform_attn_quantize", "(Tensor value) -> (Tensor, Tensor)",
+          lambda value: quantize_value_table_plain(value), lambda value: _quantize_cuda(value),
+          lambda value: (torch.empty_like(value, dtype=torch.int8),
+                         value.new_empty(value.shape[-1:], dtype=torch.float32)))
+
+
+def _int8_table_cuda(value, loc, attn, levels):
+    qvalue, scale = _quantize_cuda(value)
+    return _ms_deform_attn_int8_cuda(qvalue, scale, _level_pairs(levels), loc,
+                                     attn).to(value.dtype)
+
+
+def _int8_table_setup(ctx, inputs, output):
+    _core_setup(ctx, (*inputs, False), output)
+
+
+def _int8_table_backward(ctx, grad_out):
+    return _core_backward(ctx, grad_out)[:4]
+
+
+# ``bilinear`` over the int8 table: the quantize and int8 kernels forward; the
+# exact bilinear backward on the saved exact value, as JAX's custom VJP takes it
+custom_op("ms_deform_attn_int8_table", f"({_CORE_ARGS}) -> Tensor",
+          lambda value, loc, attn, levels: ms_deform_attn_core_plain(
+              value, _level_pairs(levels), loc, attn, "bilinear", quantize_table=True),
+          _int8_table_cuda,
+          lambda value, loc, attn, levels: _core_fake(value, loc, attn, levels, False),
+          _int8_table_backward, _int8_table_setup)
+
+
+def _approx_mode(kind, top):
+    """(kind, T) -> the sample mode string of the plain versions."""
+    if kind == "shared":
+        return kind
+    return f"nearest_top{top}" + ("c" if kind == "nearest_topc" else "")
+
+
+custom_op("ms_deform_attn_approx", f"({_CORE_ARGS}, str kind, int top) -> Tensor",
+          lambda value, loc, attn, levels, kind, top: ms_deform_attn_core_plain(
+              value, _level_pairs(levels), loc, attn, _approx_mode(kind, top)),
+          lambda value, loc, attn, levels, kind, top: _ms_deform_attn_approx_cuda(
+              value, _level_pairs(levels), loc, attn, kind, top),
+          lambda value, loc, attn, levels, kind, top: _core_fake(value, loc, attn, levels,
+                                                                 False))
 
 
 def _sampling_offsets_bias_init(n_heads: int, n_levels: int, n_points: int) -> np.ndarray:

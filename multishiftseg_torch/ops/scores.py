@@ -6,12 +6,15 @@ Counterpart of ``multishiftseg_tpu/ops/scores.py:25-51`` and
 upsamples the ``[N, Q, h, w]`` mask logits to image size and then contracts them;
 :func:`anomaly_score_upsampled` and :func:`semantic_inference_upsampled` compute
 the same per output pixel in one kernel (``csrc/mask_scores.cu``) for CUDA
-tensors, and through the plain path for CPU tensors. On the card the anomaly
-entry is a ``torch.autograd.Function`` whose backward is a kernel too
-(:func:`mask_scores_backward`); the semantic entry has no backward kernel and
-raises when an input requires grad, rather than return a result cut off from
-the graph. The approximate anomaly tails of JAX ``inference``
-(``maskformer.py:214-234``) reuse the anomaly kernel:
+tensors, and through the plain path for CPU tensors: the ``mss::mask_scores``
+custom op (``ops.custom_op``) in three modes (anomaly, semantic, semantic
+classes). The anomaly mode's autograd (``register_autograd``) is the
+``mss::mask_scores_backward`` op, a kernel on the card
+(:func:`mask_scores_backward`); the semantic modes have no backward kernel and
+raise on the card when an input requires grad, rather than return a result
+cut off from the graph (on the CPU autograd runs through the plain versions).
+The approximate anomaly tails of JAX ``inference`` (``maskformer.py:214-234``)
+reuse the anomaly kernel:
 :func:`anomaly_score_lowres` at the identity resize, then one resize of the
 score plane; :func:`anomaly_score_topq` on the gathered rows of the kept
 queries.
@@ -23,9 +26,9 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from .. import _build
+from . import autograd_enabled, custom_op
 from .resize import resize_bilinear_nchw
 
 # Kernel launches per entry point (see ``ops.launch_counts``).
@@ -89,13 +92,11 @@ def anomaly_score_upsampled(class_logits_ood: torch.Tensor,
                             out_hw: Tuple[int, int]) -> torch.Tensor:
     """Anomaly score at ``out_hw`` from low-resolution mask logits -> [N, H, W].
 
-    Differentiable on both devices: on the card the softmax (and the dropped
-    void column) stays in torch autograd, and the fused tail's backward is the
-    :func:`mask_scores_backward` kernel."""
-    if mask_logits_ood.device.type == "cpu":
-        return anomaly_score_upsampled_plain(class_logits_ood, mask_logits_ood, out_hw)
+    Differentiable on both devices: the softmax (and the dropped void column)
+    stays in torch autograd, and the fused tail's backward is the
+    :func:`mask_scores_backward` op."""
     probs = torch.softmax(class_logits_ood.float(), dim=-1)[..., :-1].contiguous()
-    return _AnomalyTail.apply(mask_logits_ood, probs, tuple(int(v) for v in out_hw))
+    return torch.ops.mss.mask_scores(mask_logits_ood, probs, None, _hw(out_hw), _ANOMALY)
 
 
 def anomaly_score_upsampled_plain(class_logits_ood, mask_logits_ood, out_hw):
@@ -146,9 +147,7 @@ def anomaly_score_topq(class_logits_ood: torch.Tensor, mask_logits_ood: torch.Te
     renormalisation. The fused tail (a CUDA kernel on the card, its launch on
     q queries) over the gathered probability rows and mask planes."""
     probs_sel, masks_sel = _top_query_inputs(class_logits_ood, mask_logits_ood, q)
-    if masks_sel.device.type == "cpu":
-        return _anomaly_from_probs_plain(probs_sel, masks_sel, out_hw)
-    return _AnomalyTail.apply(masks_sel, probs_sel, tuple(int(v) for v in out_hw))
+    return torch.ops.mss.mask_scores(masks_sel, probs_sel, None, _hw(out_hw), _ANOMALY)
 
 
 def anomaly_score_topq_plain(class_logits_ood, mask_logits_ood, out_hw, q):
@@ -163,25 +162,6 @@ def _anomaly_from_probs_plain(probs, masks, out_hw):
     return 1.0 - sem.amax(dim=-1)
 
 
-class _AnomalyTail(torch.autograd.Function):
-    """The anomaly tail on the card from class probabilities [N, Q, K]; saves
-    its inputs and nothing else."""
-
-    @staticmethod
-    def forward(ctx, masks, probs, out_hw):
-        ctx.out_hw = out_hw
-        ctx.save_for_backward(masks, probs)
-        return _mask_scores_cuda(masks, probs, None, out_hw, _ANOMALY)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad):
-        masks, probs = ctx.saved_tensors
-        dprobs, dmask = mask_scores_backward(masks, probs, grad, ctx.out_hw,
-                                             dmask=ctx.needs_input_grad[0])
-        return dmask, dprobs, None
-
-
 def mask_scores_backward(masks: torch.Tensor, probs: torch.Tensor, grad: torch.Tensor,
                          out_hw: Tuple[int, int], dmask: bool = False
                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -189,23 +169,20 @@ def mask_scores_backward(masks: torch.Tensor, probs: torch.Tensor, grad: torch.T
     for ``grad`` [N, H, W] -> (d probs [N, Q, K], d masks [N, Q, h, w] when
     ``dmask``, else None), f32. A tie's gradient is split evenly among the
     classes that reach the max. The CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if masks.device.type == "cpu":
-        return mask_scores_backward_plain(masks, probs, grad, out_hw, dmask)
-    return _mask_scores_backward_cuda(masks, probs, grad, out_hw, dmask)
+    version for CPU tensors (the ``mss::mask_scores_backward`` op)."""
+    dprobs, dm = torch.ops.mss.mask_scores_backward(masks, probs, grad, _hw(out_hw), dmask)
+    return dprobs, (dm if dmask else None)
 
 
 def mask_scores_backward_plain(masks, probs, grad, out_hw, dmask=False):
     """Plain version of :func:`mask_scores_backward`: autograd of resize,
     sigmoid, the contraction and ``amax``."""
-    with torch.enable_grad():
+    with autograd_enabled():
         m = masks.detach().float().requires_grad_(dmask)
         p = probs.detach().float().requires_grad_()
-        up = resize_bilinear_nchw(m, out_hw, align_corners=False)
-        acc = torch.einsum("bqk,bqhw->bhwk", p, torch.sigmoid(up))
-        out = 1.0 - acc.amax(dim=-1)
+        out = _anomaly_from_probs_plain(p, m, _hw(out_hw))
         grads = torch.autograd.grad(out, (p, m) if dmask else (p,), grad.float())
-    return grads[0], (grads[1] if dmask else None)
+    return grads[0].contiguous(), (grads[1].contiguous() if dmask else None)
 
 
 def semantic_inference_upsampled(class_logits: torch.Tensor, mask_logits: torch.Tensor,
@@ -218,15 +195,17 @@ def semantic_inference_upsampled(class_logits: torch.Tensor, mask_logits: torch.
     if class_logits.shape[-1] != num_classes + 1:
         raise ValueError(f"class logits have {class_logits.shape[-1]} entries, "
                          f"expected num_classes + 1 = {num_classes + 1}")
-    if mask_logits.device.type == "cpu":
-        return semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
-                                                  num_classes, _classes_only)
-    _refuse_grad("semantic_inference_upsampled", class_logits, mask_logits)
+    if torch.is_grad_enabled() and (class_logits.requires_grad or mask_logits.requires_grad):
+        if mask_logits.device.type == "cpu":
+            return semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
+                                                      num_classes, _classes_only)
+        _refuse_grad("semantic_inference_upsampled")
     probs = torch.softmax(class_logits.float(), dim=-1)[..., :-1].contiguous()
     if _classes_only:
-        return _mask_scores_cuda(mask_logits, probs, None, out_hw, _SEMANTIC_CLASSES)
+        return torch.ops.mss.mask_scores(mask_logits, probs, None, _hw(out_hw),
+                                         _SEMANTIC_CLASSES)
     keep = keep_weights(class_logits, num_classes).contiguous()
-    return _mask_scores_cuda(mask_logits, probs, keep, out_hw, _SEMANTIC)
+    return torch.ops.mss.mask_scores(mask_logits, probs, keep, _hw(out_hw), _SEMANTIC)
 
 
 def semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
@@ -238,10 +217,13 @@ def semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
     return semantic_inference(class_logits, up, num_classes)
 
 
-def _refuse_grad(name, *tensors):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the score-tail kernel has no backward yet; "
-                           "run it under torch.no_grad()")
+def _refuse_grad(name):
+    raise RuntimeError(f"{name}: the score-tail kernel has no backward yet; "
+                       "run it under torch.no_grad()")
+
+
+def _hw(out_hw):
+    return [int(v) for v in out_hw]
 
 
 def _check_tail_args(masks, probs):
@@ -325,3 +307,74 @@ def _mask_scores_backward_cuda(masks, probs, grad, out_hw, want_dmask):
         raise RuntimeError(f"mask_scores_backward failed: cudaError {rc}")
     LAUNCHES["mask_scores_backward"] += 1
     return dprobs, dmask
+
+
+# ---------------------------------------------------------------------------
+# the custom ops: plain versions on the CPU, the kernels on the card
+
+
+def _tail_plain(masks, probs, keep, out_hw, mode):
+    """The plain version of every mode of ``mss::mask_scores``: resize, then score."""
+    sig = torch.sigmoid(resize_bilinear_nchw(masks.float(), tuple(out_hw),
+                                             align_corners=False))
+    sem = torch.einsum("bqk,bqhw->bhwk", probs, sig)
+    if mode == _ANOMALY:
+        return 1.0 - sem.amax(dim=-1)
+    sem = sem.permute(0, 3, 1, 2)
+    if mode == _SEMANTIC_CLASSES:
+        return sem.contiguous()
+    return torch.cat([sem, sig * keep[:, :, None, None]], dim=1)
+
+
+def _tail_fake(masks, probs, keep, out_hw, mode):
+    n, q = masks.shape[:2]
+    k = probs.shape[-1]
+    lead = {_ANOMALY: (n,), _SEMANTIC: (n, k + q), _SEMANTIC_CLASSES: (n, k)}[mode]
+    return masks.new_empty((*lead, *out_hw), dtype=torch.float32)
+
+
+def _tail_setup(ctx, inputs, output):
+    masks, probs, _, out_hw, mode = inputs
+    ctx.out_hw, ctx.mode = out_hw, mode
+    ctx.save_for_backward(masks, probs)
+
+
+def _tail_backward(ctx, grad):
+    if ctx.mode != _ANOMALY:
+        _refuse_grad("semantic_inference_upsampled")
+    masks, probs = ctx.saved_tensors
+    want_dmask = ctx.needs_input_grad[0]
+    dprobs, dmask = torch.ops.mss.mask_scores_backward(masks, probs, grad, ctx.out_hw,
+                                                       want_dmask)
+    return (dmask.to(masks.dtype) if want_dmask else None), dprobs, None, None, None
+
+
+custom_op("mask_scores",
+          "(Tensor masks, Tensor probs, Tensor? keep, int[] out_hw, int mode) -> Tensor",
+          _tail_plain,
+          lambda masks, probs, keep, out_hw, mode: _mask_scores_cuda(masks, probs, keep,
+                                                                     out_hw, mode),
+          _tail_fake, _tail_backward, _tail_setup)
+
+
+def _no_dmask(masks):
+    return masks.new_empty(0, dtype=torch.float32)
+
+
+def _tail_backward_plain(masks, probs, grad, out_hw, dmask):
+    dprobs, dm = mask_scores_backward_plain(masks, probs, grad, out_hw, dmask)
+    return dprobs, (dm if dmask else _no_dmask(masks))
+
+
+def _tail_backward_cuda(masks, probs, grad, out_hw, dmask):
+    dprobs, dm = _mask_scores_backward_cuda(masks, probs, grad, out_hw, dmask)
+    return dprobs, (dm if dmask else _no_dmask(masks))
+
+
+custom_op("mask_scores_backward",
+          "(Tensor masks, Tensor probs, Tensor grad, int[] out_hw, bool dmask) "
+          "-> (Tensor, Tensor)",
+          _tail_backward_plain, _tail_backward_cuda,
+          lambda masks, probs, grad, out_hw, dmask: (
+              torch.empty_like(probs, dtype=torch.float32),
+              torch.empty_like(masks, dtype=torch.float32) if dmask else _no_dmask(masks)))

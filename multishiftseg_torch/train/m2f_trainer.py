@@ -20,6 +20,13 @@ the global batch's draws from the same generator and takes its rows, and the
 losses reduce over the global batch, so two ranks take the step one process
 takes on the same global batch.
 
+With ``train.pipeline_parallel = P > 1`` (one process, as JAX's
+``:125-147``) both stage steps run the deformable encoder GPipe-staged over P
+devices (``core/pipeline.py``; ``MSDeformAttnPixelDecoder.set_pipeline``) in
+``train.pipeline_microbatches`` microbatches of the paired batch (by default
+``auto_microbatches``); evaluation, ``valid`` and every checkpoint stay
+sequential and keep the layers' names.
+
 The model keeps f32 master weights and optimizer state; with ``cfg.train.bf16``
 the forward runs under ``torch.autocast`` in bf16 (the JAX model's
 ``dtype=bfloat16``), with the mask products, attention softmax, score tails
@@ -39,6 +46,7 @@ from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
 from ..core.mesh import (check_parallelism, check_train_batch, data_parallel, process_count,
                          rank_draws)
+from ..core.pipeline import auto_microbatches, stage_devices
 from ..data.anomaly import RoadAnomaly21
 from ..data.cityscapes import DiverseCityscapes
 from ..data.transforms import (AutoContrast, ColorJitter, Compose, Equalize, GaussianBlur,
@@ -84,13 +92,17 @@ class TrainM2FOOD:
     ``weight_path`` a reference checkpoint (loaded strictly, then
     ``class_embed2`` <- ``class_embed``); ``model`` defaults to the configured
     MaskFormer at random init from ``cfg.train.seed``. Runs on CUDA unless the
-    caller asks for the CPU. Starts in stage 0 (:meth:`set_stage`)."""
+    caller asks for the CPU. Starts in stage 0 (:meth:`set_stage`).
+    ``pipeline_devices``: the GPipe stages' devices when
+    ``train.pipeline_parallel > 1`` (``core.pipeline.stage_devices``; by
+    default the first cards, or the CPU for every stage of a CPU trainer)."""
 
     def __init__(self, cfg: Config, weight_path: Optional[str] = None,
-                 model: Optional[MaskFormer] = None, device="cuda"):
+                 model: Optional[MaskFormer] = None, device="cuda",
+                 pipeline_devices=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        check_parallelism(cfg.train)
+        check_parallelism(cfg.train, pipelined=True)
         self.local_batch = check_train_batch(cfg.train.train_batch)
         m = cfg.model.m2f
         # loss.params.mask2anomaly_loss_weight overrides the model's loss weights
@@ -104,6 +116,8 @@ class TrainM2FOOD:
             load_reference_weights(model, weight_path, fill=_ood_head_from_class_head)
             copy_class_embed_to_ood(model)
         self.model = model.to(self.device).float()
+        if cfg.train.pipeline_parallel > 1:
+            self._set_pipeline(cfg.train, pipeline_devices)
         self.rcl_params = make_rcl_params(cfg.loss.params)
         self.crit_cfg = CriterionConfig(
             num_classes=m.num_classes, eos_coef=m.no_object_weight,
@@ -122,6 +136,24 @@ class TrainM2FOOD:
         self.step = 0
         self.best: Dict[str, float] = {"AUPRC": -1.0}
         self.set_stage(0)
+
+    def _set_pipeline(self, t, devices) -> None:
+        """GPipe the encoder of both steps over ``t.pipeline_parallel`` stages
+        (JAX ``m2f_trainer.py:125-147``): the paired batch of ``2 *
+        train_batch`` rows in ``t.pipeline_microbatches`` microbatches, or
+        ``auto_microbatches``."""
+        if self.model.pixel_decoder_name != "msdeformattn":
+            raise ValueError("pipeline_parallel requires the msdeformattn pixel decoder "
+                             f"(got {self.model.pixel_decoder_name!r})")
+        rows = 2 * self.local_batch
+        n_micro = t.pipeline_microbatches or auto_microbatches(rows, t.pipeline_parallel)
+        if rows % n_micro:
+            raise ValueError(f"paired batch {rows} not divisible by "
+                             f"pipeline_microbatches={n_micro}")
+        if devices is None and self.device.type != "cuda":
+            devices = [self.device] * t.pipeline_parallel
+        self.model.sem_seg_head.pixel_decoder.set_pipeline(
+            stage_devices(t.pipeline_parallel, devices), n_micro)
 
     @property
     def n_steps(self) -> int:

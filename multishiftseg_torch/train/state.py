@@ -91,7 +91,14 @@ def clip_grad_norm(params: Iterable[torch.Tensor], max_norm: float) -> torch.Ten
     gradient by ``max_norm / norm`` when the global norm exceeds ``max_norm``.
     Returns the norm before clipping."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    # a pipelined model's gradients sit on its stages' devices
+    device = grads[0].device
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g).to(device)
+                                                 for g in grads]))
     scale = torch.where(norm > max_norm, max_norm / norm, torch.ones_like(norm))
-    torch._foreach_mul_(grads, scale)
+    by_device = {}
+    for g in grads:
+        by_device.setdefault(g.device, []).append(g)
+    for dev, group in by_device.items():
+        torch._foreach_mul_(group, scale.to(dev))
     return norm

@@ -16,8 +16,8 @@ comma-separated per-encoder-layer hybrid) and either approximate anomaly tail
 (``score_lowres``, ``score_topq``; not both). Every mode but ``bilinear`` is
 gated per checkpoint by the qualification artifact that
 ``multishiftseg_torch.tools.validate_release`` writes, under the key
-``sample_mode[+lowres|+topq{Q}]``. Spatial sharding is not ported (ROADMAP
-Queue 1, parallelism).
+``sample_mode[+lowres|+topq{Q}]``. Spatial sharding (``--spatial``) is not
+ported: it is the next slice (``core.mesh.NEXT_SLICE``).
 
 CLI::
 
@@ -342,7 +342,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
                              "comma-separated list gives a per-encoder-layer hybrid")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--spatial", type=int, default=0, metavar="N",
-                        help="not ported (ROADMAP Queue 1, parallelism)")
+                        help="not ported: the next slice (ROADMAP.md Queue 1 item 4.3)")
     parser.add_argument("--score_lowres", action="store_true",
                         help="m2f: score the anomaly branch at mask resolution and "
                              "resize the score map (approximate; qualified under the "
@@ -354,7 +354,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
                              "--score_lowres")
     args = parser.parse_args(argv)
     if args.spatial:
-        raise NotImplementedError("--spatial is not ported (ROADMAP Queue 1, parallelism)")
+        from ..core.mesh import NEXT_SLICE
+
+        raise NotImplementedError(f"--spatial is not ported; see {NEXT_SLICE}")
 
     logging.basicConfig(level=logging.INFO)
     cfg = load_config(args.cfg, args.id)

@@ -163,3 +163,17 @@ def map2citycolor(pred: np.ndarray) -> np.ndarray:
     for tid, color in TRAIN_ID_COLORS.items():
         out[pred == tid] = color
     return out
+
+
+def cached(cache: dict, key, make):
+    """``cache[key]``, made by ``make()`` at its first use, outside inference
+    mode: an inference tensor kept from an evaluation could not be saved for a
+    later training step's backward. While ``torch.export`` or ``torch.compile``
+    traces, a kept tensor is a constant of the trace, and one made there is a
+    stand-in of the trace, so it is never kept."""
+    if torch.compiler.is_compiling():
+        return cache[key] if key in cache else make()
+    if key not in cache:
+        with torch.inference_mode(False):
+            cache[key] = make()
+    return cache[key]

@@ -8,8 +8,8 @@ CPU: two gloo ranks (``torch_dp_worker``, spawned; they import no JAX).
   writes ``last`` and ``AUPRC_best`` behind a barrier, both ranks resume from
   them, and every epoch's loss and metrics equal those of the same run in one
   process, as ``tests/test_multihost.py`` asserts for JAX.
-- The refusals: an indivisible per-half batch, and tensor or pipeline
-  parallelism (no longer read and ignored).
+- The refusals: an indivisible per-half batch, tensor parallelism, and
+  pipeline parallelism across ranks or without a deformable encoder.
 - A group of one rank keeps the single-process routes.
 
 The trainers' steps of a global batch split over two ranks are held to JAX's
@@ -190,17 +190,39 @@ def test_two_rank_train_writes_once_and_resumes_on_both_ranks(loop_cfg, tmp_path
     assert ranks[0]["best1"]["AUPRC"] == pytest.approx(tr.best["AUPRC"], rel=2e-4)
 
 
-@pytest.mark.parametrize("field,value", [("model_parallel", 2), ("pipeline_parallel", 2),
-                                         ("pipeline_microbatches", 4)])
-def test_unported_parallelism_raises(field, value):
-    """Each trainer refuses tensor and pipeline parallelism at construction,
-    naming the ROADMAP item, where the fields were read by nothing before."""
+@pytest.mark.parametrize("case", ["model_parallel", "pipeline_world", "pipeline_decoder"])
+def test_unported_parallelism_raises(case, monkeypatch):
+    """The refusals at construction: tensor parallelism (the next slice,
+    named by its ROADMAP item); GPipe in a world above 1, as JAX refuses it
+    across processes; GPipe of a model whose pixel decoder is not the
+    deformable one."""
     cfg = load_config("exps/deeplab.yaml")
-    setattr(cfg.train, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
-        TrainDeepLabOOD(cfg, model=DeepWV3Plus(**DL_TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match=field):
-        mesh.check_parallelism(cfg.train)
+    if case == "model_parallel":
+        cfg.train.model_parallel = 2
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
+            TrainDeepLabOOD(cfg, model=DeepWV3Plus(**DL_TINY), device="cpu")
+        with pytest.raises(NotImplementedError, match="model_parallel"):
+            mesh.check_parallelism(cfg.train)
+    elif case == "pipeline_world":
+        cfg.train.pipeline_parallel = 2
+        mesh.check_parallelism(cfg.train, pipelined=True)
+        monkeypatch.setattr(mesh, "process_count", lambda: 2)
+        for pipe, micro in ((2, 0), (1, 4)):
+            cfg.train.pipeline_parallel, cfg.train.pipeline_microbatches = pipe, micro
+            with pytest.raises(ValueError, match="one process"):
+                mesh.check_parallelism(cfg.train, pipelined=True)
+    else:
+        from multishiftseg_torch.models.maskformer import MaskFormer
+        from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD
+
+        cfg = load_config("exps/m2f.yaml")
+        cfg.train.pipeline_parallel = 2
+        with pytest.raises(ValueError, match="msdeformattn"):
+            TrainM2FOOD(cfg, model=MaskFormer(hidden_dim=32, num_queries=4, nheads=4,
+                                               dim_feedforward=32, dec_layers=3, mask_dim=32,
+                                               pixel_decoder="fpn"), device="cpu")
+        with pytest.raises(ValueError, match="no deformable encoder"):
+            TrainDeepLabOOD(cfg, model=DeepWV3Plus(**DL_TINY), device="cpu")
 
 
 def test_single_process_is_the_identity(monkeypatch):

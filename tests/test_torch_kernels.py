@@ -15,6 +15,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import chip_smoke
 from multishiftseg_torch import _build
@@ -1448,6 +1449,19 @@ def _meta_requiring_grad(*shapes, dtype=torch.float32):
     return [torch.zeros(s, device="meta", dtype=dtype).requires_grad_() for s in shapes]
 
 
+class _CardRoute(TorchDispatchMode):
+    """Sends each ``mss::`` op to the CUDA implementation the dispatcher holds
+    for it, whatever its tensors' device: meta tensors then stand in for a
+    card's (outside this mode a meta tensor takes the op's fake, which only
+    states the outputs)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "mss":
+            return func.redispatch(torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA),
+                                   *args, **(kwargs or {}))
+        return func(*args, **(kwargs or {}))
+
+
 def test_score_tail_refuses_grad_off_the_cpu(monkeypatch):
     """The semantic tail has no backward kernel: off the CPU it raises under
     grad. The anomaly tail has one: it goes to its kernel (here: the library
@@ -1460,7 +1474,7 @@ def test_score_tail_refuses_grad_off_the_cpu(monkeypatch):
         raise _Sentinel(name)
 
     monkeypatch.setattr(_build, "load", refuse)
-    with pytest.raises(_Sentinel, match="mask_scores"):
+    with _CardRoute(), pytest.raises(_Sentinel, match="mask_scores"):
         scores.anomaly_score_upsampled(cls, masks, (6, 10))
 
 
@@ -1477,20 +1491,20 @@ def test_approximate_modes_refuse_grad_off_the_cpu(mode):
     value, loc, attn = _meta_requiring_grad((1, 8, 2, 4), (1, 3, 2, 1, 2, 2), (1, 3, 2, 1, 2))
     with pytest.raises(RuntimeError, match="no backward"):
         msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, sample_mode=mode)
-    with torch.no_grad(), pytest.raises(RuntimeError):  # to the card route, which fails on meta
+    with _CardRoute(), torch.no_grad(), pytest.raises(RuntimeError):  # the card route
         msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, sample_mode=mode)
 
 
 def test_int8_under_grad_reaches_its_function_off_the_cpu(monkeypatch):
     """The int8 table trains as JAX's does (the exact bilinear backward on the
     saved value): under grad off the CPU it is not refused but goes through its
-    autograd Function to the quantize kernel (the library loader, stubbed)."""
+    op's autograd to the quantize kernel (the library loader, stubbed)."""
     def refuse(name):
         raise _Sentinel(name)
 
     monkeypatch.setattr(_build, "load", refuse)
     value, loc, attn = _meta_requiring_grad((1, 8, 2, 4), (1, 3, 2, 1, 2, 2), (1, 3, 2, 1, 2))
-    with pytest.raises(_Sentinel, match="ms_deform_attn"):
+    with _CardRoute(), pytest.raises(_Sentinel, match="ms_deform_attn"):
         msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, quantize_table=True)
 
 
@@ -1507,7 +1521,7 @@ def test_approximate_modes_take_the_card_route_off_the_cpu(monkeypatch, mode):
                                                                           device="meta")
     kw = dict(sample_mode="bilinear", quantize_table=True) if mode == "int8" else dict(
         sample_mode=mode)
-    with pytest.raises(_Sentinel, match="ms_deform_attn"):
+    with _CardRoute(), pytest.raises(_Sentinel, match="ms_deform_attn"):
         msda.ms_deform_attn_core(value, [(2, 4)], loc, attn, **kw)
 
 
@@ -1546,14 +1560,14 @@ def test_new_kernels_take_the_card_route_off_the_cpu(monkeypatch):
     monkeypatch.setattr(_build, "load", refuse)
     x = torch.zeros(1, 4, 5, 8, device="meta")
     k = torch.zeros(3, 3, 8, 8, device="meta", requires_grad=True)
-    with pytest.raises(_Sentinel, match="dilated_conv"):
+    with _CardRoute(), pytest.raises(_Sentinel, match="dilated_conv"):
         dconv.dilated_conv3x3(x, k, 12)
     v = torch.zeros(16, device="meta", requires_grad=True)
     with pytest.raises(_Sentinel, match="bottom_k"):
         rcl._bottom_k_sum(v, torch.zeros(16, device="meta"),
                           torch.zeros((), dtype=torch.int32, device="meta"))
     masks, probs = torch.zeros(1, 4, 3, 5, device="meta"), torch.zeros(1, 4, 6, device="meta")
-    with pytest.raises(_Sentinel, match="mask_scores"):
+    with _CardRoute(), pytest.raises(_Sentinel, match="mask_scores"):
         scores.mask_scores_backward(masks, probs, torch.zeros(1, 6, 10, device="meta"),
                                     (6, 10), dmask=True)
     s_, l_ = torch.zeros(16, device="meta"), torch.zeros(16, dtype=torch.int32, device="meta")
@@ -1710,3 +1724,76 @@ def test_port_and_chip_smoke_import_no_jax():
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "flax", "optax", "multishiftseg_tpu",
                                 "tools"), (f, name)
+
+
+# ---------------------------------------------------------------------------
+# the custom ops (``ops/library.py``) on the card
+
+
+def _op_case(name, dev):
+    """(op, args on ``dev``, the same args on the CPU, the launch counters the
+    op's CUDA implementation adds to, tolerance of scale) for ``name``."""
+    g = np.random.RandomState(41)
+    t = lambda *s: torch.from_numpy(g.rand(*s).astype(np.float32))
+    levels = [6, 8, 3, 4]  # S = 60
+    value, loc, attn = t(2, 60, 2, 32), t(2, 9, 2, 2, 4, 2), t(2, 9, 2, 2, 4)
+    masks, probs = 4 * t(2, 5, 8, 10) - 2, t(2, 5, 6)
+    x, kernel = t(1, 20, 24, 16), t(3, 3, 16, 8) - 0.5
+    ops = torch.ops.mss
+    cases = {
+        "ms_deform_attn": (ops.ms_deform_attn, (value, loc, attn, levels, False),
+                           {"ms_deform_attn_bilinear": 1}, 1e-5),
+        "ms_deform_attn_backward": (ops.ms_deform_attn_backward,
+                                    (value, loc, attn, t(2, 9, 64), levels),
+                                    {"ms_deform_attn_bilinear_backward": 1}, 1e-4),
+        "ms_deform_attn_quantize": (ops.ms_deform_attn_quantize, (value,),
+                                    {"ms_deform_attn_quantize": 1}, 0.0),
+        "ms_deform_attn_int8_table": (ops.ms_deform_attn_int8_table,
+                                      (value, loc, attn, levels),
+                                      {"ms_deform_attn_quantize": 1, "ms_deform_attn_int8": 1},
+                                      1e-5),
+        "ms_deform_attn_approx": (ops.ms_deform_attn_approx,
+                                  (value, loc, attn, levels, "shared", 0),
+                                  {"ms_deform_attn_shared": 1}, 1e-5),
+        "mask_scores": (ops.mask_scores, (masks, probs, t(2, 5), [17, 23], scores._SEMANTIC),
+                        {"mask_scores_semantic": 1}, 1e-5),
+        "mask_scores_backward": (ops.mask_scores_backward,
+                                 (masks, probs, t(2, 17, 23), [17, 23], True),
+                                 {"mask_scores_backward": 1}, 1e-4),
+        "dilated_conv3x3": (ops.dilated_conv3x3, (x, kernel, 6), {"dilated_conv3x3": 1}, 1e-5),
+        "dilated_conv3x3_backward": (ops.dilated_conv3x3_backward,
+                                     (x, kernel, t(1, 20, 24, 8), 6, True, True),
+                                     {"dilated_conv3x3": 1, "dilated_conv3x3_wgrad": 1}, 1e-5),
+    }
+    op, args, counters, tol = cases[name]
+    on = lambda a: a.to(dev) if isinstance(a, torch.Tensor) else a
+    return op, tuple(on(a) for a in args), args, counters, tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ms_deform_attn", "ms_deform_attn_backward",
+                                  "ms_deform_attn_quantize", "ms_deform_attn_int8_table",
+                                  "ms_deform_attn_approx", "mask_scores",
+                                  "mask_scores_backward", "dilated_conv3x3",
+                                  "dilated_conv3x3_backward"])
+def test_custom_op_on_the_card_matches_its_plain_version(cuda, name):
+    """Each ``mss::`` op on CUDA tensors launches its kernel (its counters
+    move) and equals the same op on the CPU (the plain version), f32: within
+    1e-5 of scale (sums in another order; 1e-4 for the backwards, whose atomics
+    and per-block partials sum in a run-dependent order), the quantize bit for
+    bit."""
+    from multishiftseg_torch.ops import launch_counts, library
+
+    assert name in library.OPS
+    op, args, cpu_args, counters, tol = _op_case(name, cuda)
+    before = launch_counts()
+    got = op(*args)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in counters} == counters
+    want = op(*cpu_args)
+    got, want = (got, want) if isinstance(got, (tuple, list)) else ((got,), (want,))
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and a.shape == b.shape
+        a, b = a.cpu().float(), b.float()
+        assert (a - b).abs().max() <= tol * max(float(b.abs().max()), 1e-6)
