@@ -181,6 +181,23 @@ exits non-zero and prints no result. Phases, one JSON line each:
    warm-ups each, peak memory), the pipelined steps' launches the path
    ``pipeline``; losses, gradients and the updates held with the tolerances
    printed.
+24. ``tensor_parallel``: DeepLab WRN-38's stage-2 step (exps/deeplab.yaml, 8
+   pairs of 700²) and M2F R-50's (exps/m2f.yaml, 8 pairs of 704²) with
+   ``model_parallel = 2`` (``core/tensor_parallel.py``; both shards on the
+   one card, ``min_size`` 1024) against the unsharded step from the same
+   weights, batch and draws in f32 with TF32 off (loss and components within
+   1e-4, gradients within 1e-2 in L2, the worst tensor reported), both bf16
+   steps timed (3 after a warm-up, peak memory), the bytes of parameters and
+   optimizer state a shard against the unsharded run's; the sharded steps'
+   launches the paths ``tp_train_deeplab`` and ``tp_train_m2f``.
+25. ``spatial``: both eval forwards (``build_*_forward`` with
+   ``spatial_devices``; ``core/spatial.py``) at 1024x2048, batch 1, in 2 and
+   4 row slabs, every slab on the one card, against the unsplit forward in
+   f32 with TF32 off (DeepLab's score and logits; M2F's anomaly and ``sem``
+   with the unsplit forward's decoder masks replayed; each within
+   ``SPATIAL_RTOL`` of its scale), bf16 requests timed in turns with the
+   unsplit one, one N = 2 request's launches the paths ``spatial_deeplab``
+   and ``spatial_m2f``, and the halo rows the dilated conv throws away.
 
 ``slice_parity``, ``train_parity`` and ``instance_parity`` run the CPU's
 decoder on the card's attention masks, and hold every bit that differs to a
@@ -227,7 +244,12 @@ calls for the vanilla recipes', counted per recipe (the dilated conv's, the
 bilinear deformable forward's and backward's, the anomaly tail's, the
 classes-only tail's, the label points' and the assignment's rows split them:
 eval paths, training steps, each row of the vanilla recipes the recipes at
-its shapes), each path run
+its shapes; ``tensor_parallel``'s sharded steps count as training paths,
+``spatial``'s N = 2 requests count in the rows at a slab's shapes:
+``mask_scores_anomaly_slab``, the tail's row window over rows 512-1024,
+``ms_deform_attn_bilinear_slab``, a slab's 21504 queries over the whole
+table, and ``dilated_conv3x3_slab``, the ASPP on a slab of the stride-8
+map with its halo rows, beside cuDNN's), each path run
 with the counts set to 0 just before it and read just after.
 
 Every row's ``ms`` times single synchronised calls (the wrapper's host time
@@ -664,8 +686,111 @@ def phase_kernels(torch):
     stage1_kernel_rows(torch, dev, rows, check, checks)
     instance_kernel_rows(torch, dev, rows, check, checks)
     ood_hist_rows(torch, dev, rows, checks)
+    spatial_kernel_rows(torch, dev, rows, check, checks)
     ok = all(c["ok"] for c in checks)
     return rows, {"phase": "kernels", "ok": ok, "checks": checks}
+
+
+def spatial_kernel_rows(torch, dev, rows, check, checks):
+    """The kernels of the row-partitioned eval (``spatial``) at a slab's shapes,
+    2 slabs of a 1024x2048 image: the anomaly tail's row window (rows 512 to
+    1024, the lower slab), the bilinear deformable forward on a slab's queries
+    (half the pyramid's tokens) against the whole gathered table, and the
+    ASPP's dilated conv on a slab of the stride-8 map with its halo rows (64 +
+    2 rate rows, whose outer 2 rate rows are thrown away). Each counts only
+    the spatial paths' launches."""
+    import torch.nn.functional as F
+
+    from multishiftseg_torch.ops import dilated_conv as dconv
+    from multishiftseg_torch.ops import ms_deform_attn as msda
+    from multishiftseg_torch.ops import scores
+    from multishiftseg_torch.ops.resize import source_rows
+
+    window = (H // 2, H // 2)
+    g = np.random.RandomState(SEED + 141)
+    masks = torch.from_numpy(3 * g.randn(1, QUERIES, H // 4, W // 4).astype(np.float32)).to(dev)
+    cls = torch.from_numpy(g.randn(1, QUERIES, CLASSES + 1).astype(np.float32)).to(dev)
+    probs = torch.softmax(cls, -1)[..., :-1].contiguous()
+    run = lambda: scores.anomaly_score_upsampled(cls, masks, (H, W), rows=window)
+    plain = lambda: scores._tail_plain(masks, probs, None, [H, W], 0, *window)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = check("mask_scores_anomaly_slab_rows", out, ref, 1e-5, 1e-5)
+    i0, i1, _ = source_rows(H // 4, H, window)
+    src_rows = int(i1.max()) - int(i0.min()) + 1
+    ops = window[1] * W * (QUERIES * (11 + 2 * CLASSES) + CLASSES + 1)
+    b_ms, b_by = bound(QUERIES * src_rows * (W // 4) * 4 + nbytes(probs, out), ops)
+    row = rows["mask_scores_anomaly_slab"] = {
+        "name": "mask_scores_anomaly_slab", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/mask_scores.cu",
+        "replaces": "multishiftseg_tpu/ops/scores.py:39",
+        "counter": "mask_scores_anomaly", "paths": ("spatial_m2f",), "max_abs_err": err,
+        "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}
+    time_redesigned(torch, row, run)
+    del masks, out, ref
+
+    lq = sum(h * w for h, w in LEVELS) // 2
+    value, loc, attn = msda_inputs(torch, LEVELS, lq, torch.bfloat16, dev, SEED + 142)
+    run = lambda: msda.ms_deform_attn_core(value, LEVELS, loc, attn, "bilinear")
+    plain = lambda: msda.ms_deform_attn_core_plain(value, LEVELS, loc, attn, "bilinear")
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = check("ms_deform_attn_bilinear_slab_queries", out, ref, 1e-3, 1e-2)
+    b_ms, b_by = bound(nbytes(value, loc, attn, out), msda_ops(torch, loc, LEVELS, "bilinear"))
+    row = rows["ms_deform_attn_bilinear_slab"] = {
+        "name": "ms_deform_attn_bilinear_slab", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
+        "replaces": "multishiftseg_tpu/ops/ms_deform_attn.py:93",
+        "counter": "ms_deform_attn_bilinear", "paths": ("spatial_m2f",), "max_abs_err": err,
+        "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}
+    time_redesigned(torch, row, run)
+    del value, loc, attn, out, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions sum in f32
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(SEED + 143)
+    slab, wmap = DL_EVAL_MAP[0] // 2, DL_EVAL_MAP[1]
+    xs = [torch.randn((1, slab + 2 * r, wmap, DL_CIN), generator=gen, device=dev)
+          .to(torch.bfloat16) for r in DL_RATES]
+    ks = [torch.randn((3, 3, DL_CIN, DL_COUT), generator=gen, device=dev) / 96 for _ in DL_RATES]
+    with torch.no_grad():
+        run = lambda: [dconv.dilated_conv3x3(x, k, r) for x, k, r in zip(xs, ks, DL_RATES)]
+        plain = lambda: [dconv.dilated_conv3x3_plain(x, k, r) for x, k, r in zip(xs, ks, DL_RATES)]
+        outs, refs = run(), plain()
+        torch.cuda.synchronize()
+        err = max(check(f"dilated_conv3x3_rate{r}_slab", o, ref,
+                        1e-3 * float(ref.float().abs().max()), 2 ** -7)
+                  for r, o, ref in zip(DL_RATES, outs, refs))
+        del refs
+        times = (median_ms(torch, run, 10), median_ms(torch, plain, 2))
+        xc = [x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last) for x in xs]
+        wc = [k.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last) for k in ks]
+        torch.backends.cudnn.benchmark = True
+        lib = lambda: [F.conv2d(x, w, padding=r, dilation=r) for x, w, r in zip(xc, wc, DL_RATES)]
+        lib()
+        lib_ms = median_ms(torch, lib, 2)
+        torch.backends.cudnn.benchmark = False
+    taps = sum(in_map_taps(1, (slab + 2 * r, wmap), r) for r in DL_RATES)
+    flop = 2 * taps * DL_CIN * DL_COUT
+    b_ms, b_by = bound(nbytes(*xs, *outs) + sum(k.numel() * 2 for k in ks), flop,
+                       BF16_TC_OPS_PER_S)
+    rows["dilated_conv3x3_slab"] = {
+        "name": "dilated_conv3x3_slab", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/dilated_conv.cu",
+        "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
+        "counter": "dilated_conv3x3", "paths": ("spatial_deeplab",), "max_abs_err": err,
+        "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms, "bound_by": b_by,
+        # cuDNN's dilated conv2d on the same haloed slabs, bf16 channels-last
+        "library_ms": lib_ms}
+    kept = sum(slab * wmap for _ in DL_RATES)
+    checks.append({"check": "dilated_conv3x3_slab_work", "rows_computed":
+                   [slab + 2 * r for r in DL_RATES], "rows_kept": slab,
+                   "discarded_share": 1 - kept / sum((slab + 2 * r) * wmap for r in DL_RATES),
+                   "tflop": flop / 1e12, "ok": True})
+    del xs, xc, wc, outs
 
 
 def near_rounding_boundary(torch, loc, attn, levels, mode, margin=1e-4):
@@ -908,7 +1033,7 @@ def msda_train_rows(torch, dev, rows, check, levels, b, seed, shapes, paths):
 # step ("pipeline") runs the deformable kernels on its microbatches (rows
 # ``*_pipeline_shapes``) and the other kernels on the full batch
 TRAIN_PATHS = ("train", "stage1_train", "train_loop", "dp_train_m2f",
-               "alt_train_m2f_swin_large_stage2")
+               "alt_train_m2f_swin_large_stage2", "tp_train_m2f")
 PIPELINE_PATHS = ("pipeline",)
 # the served programs' requests (the deploy phase)
 DEPLOY_PATHS = ("deploy_m2f", "deploy_deeplab")
@@ -1200,7 +1325,7 @@ def deeplab_kernel_rows(torch, dev, rows, check, checks):
         "source": "multishiftseg_torch/csrc/dilated_conv.cu",
         "replaces": "multishiftseg_tpu/ops/dilated_conv.py:19",
         "counter": "dilated_conv3x3", "paths": ("deeplab_train", "train_loop",
-                                                "dp_train_deeplab"),
+                                                "dp_train_deeplab", "tp_train_deeplab"),
         "max_abs_err": max(errs), "ms": times[0], "plain_ms": times[1], "bound_ms": b_ms,
         "bound_by": b_by,
         # cuDNN's dilated conv2d, bf16 channels-last: the same function
@@ -2002,10 +2127,10 @@ def tail_launch_shapes(scores):
     """Record (Q, h, w, H, W) of every anomaly-tail launch of ``scores``."""
     seen, orig = [], scores._mask_scores_cuda
 
-    def recording(masks, probs, keep, out_hw, mode):
+    def recording(masks, probs, keep, out_hw, mode, *window):
         if mode == scores._ANOMALY:
             seen.append((*masks.shape[1:], *out_hw))
-        return orig(masks, probs, keep, out_hw, mode)
+        return orig(masks, probs, keep, out_hw, mode, *window)
 
     scores._mask_scores_cuda = recording
     try:
@@ -3887,7 +4012,7 @@ DP_RECIPES = ("deeplab", "m2f", "instance")
 DP_BOTTOM_K_N = DL_TRAIN_PAIRS * DL_CROP[0] * DL_CROP[1]
 
 
-def dp_setup(torch, name, full, dtype=None, bf16=None):
+def dp_setup(torch, name, full, dtype=None, bf16=None, tp=1):
     """One of dp_train's recipes at full widths on the card from seeded weights:
     (trainer, ``step()`` -> (loss, components)), the step on this process's
     rows of the recipe's global batch (its Loader shard) with the global
@@ -3895,7 +4020,8 @@ def dp_setup(torch, name, full, dtype=None, bf16=None):
     bf16 autocast (DeepLab's stage 2, M2F R-50's stage 2, the instance step;
     ``bf16=False`` in f32); else the parity batch (2 pairs, 2 images) and
     crops in ``dtype``. Inside a process group the trainer wraps the model in
-    DDP."""
+    DDP. ``tp > 1``: ``train.model_parallel = tp`` with every shard on
+    ``cuda:0`` (the ``tensor_parallel`` phase)."""
     from multishiftseg_torch.core.mesh import local_batch_slice
     from multishiftseg_torch.models.maskformer import maskformer_from_config
     from multishiftseg_torch.train.deeplab_trainer import TrainDeepLabOOD
@@ -3903,6 +4029,7 @@ def dp_setup(torch, name, full, dtype=None, bf16=None):
     from multishiftseg_torch.train.m2f_trainer import TrainM2FOOD, synthetic_batch
 
     bf16 = full if bf16 is None else bf16
+    shards = [torch.device("cuda", 0)] * tp if tp > 1 else None
 
     def rows(arrays, n):
         return [torch.from_numpy(np.ascontiguousarray(a[local_batch_slice(n)])).cuda()
@@ -3910,14 +4037,18 @@ def dp_setup(torch, name, full, dtype=None, bf16=None):
 
     if name == "deeplab":
         pairs, crop = (DL_TRAIN_PAIRS, DL_CROP) if full else (2, (200, 200))
-        tr = TrainDeepLabOOD(deeplab_config(pairs, crop, bf16=bf16),
-                             model=seeded_deeplab(torch, SEED + 111), device="cuda")
+        cfg = deeplab_config(pairs, crop, bf16=bf16)
+        cfg.train.model_parallel = tp
+        tr = TrainDeepLabOOD(cfg, model=seeded_deeplab(torch, SEED + 111), device="cuda",
+                             tp_devices=shards)
         data = rows(synthetic_batch(pairs, crop, CLASSES, SEED + 112), pairs)
         stage, step = 1, lambda: tr.step(*data)
     elif name == "m2f":
         pairs, crop = (TRAIN_PAIRS, CROP) if full else (2, (256, 256))
-        tr = TrainM2FOOD(train_config(pairs, crop, bf16=bf16),
-                         model=seeded_model(torch, SEED + 113).train(), device="cuda")
+        cfg = train_config(pairs, crop, bf16=bf16)
+        cfg.train.model_parallel = tp
+        tr = TrainM2FOOD(cfg, model=seeded_model(torch, SEED + 113).train(), device="cuda",
+                         tp_devices=shards)
         data = rows(synthetic_batch(pairs, crop, CLASSES, SEED + 114), pairs)
         stage, step = 1, lambda: tr.stage2_step(*data)[:2]
     else:
@@ -4616,6 +4747,182 @@ def phase_pipeline(torch):
     return res, {"pipeline": counts}
 
 
+# tensor_parallel: the trainers' model_parallel (core/tensor_parallel.py)
+TP_DEGREE = 2
+TP_RECIPES = ("deeplab", "m2f")
+
+
+def phase_tensor_parallel(torch):
+    """``tensor_parallel``: DeepLab WRN-38's stage-2 step (exps/deeplab.yaml, 8
+    pairs of 700x700) and M2F R-50's (exps/m2f.yaml, 8 pairs of 704x704) with
+    ``model_parallel = 2``, both shards on ``cuda:0``, ``min_size`` 1024,
+    against the unsharded step from the same weights, batch and draws: in f32
+    with TF32 off (loss and components within 1e-4, all gradients within 1e-2
+    in L2, the worst tensor reported, as ``dp_train``), then both bf16 steps
+    timed (3 after a warm-up), the sharded steps' launches the paths
+    ``tp_train_<recipe>``; the bytes of parameters and optimizer state by
+    shard against the unsharded run's. With both shards on one card nothing
+    overlaps: the sharded step's time is the column-parallel layout's cost."""
+    from multishiftseg_torch.core import tensor_parallel as tp
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    res = {"phase": "tensor_parallel", "model_parallel": TP_DEGREE,
+           "devices": ["cuda:0"] * TP_DEGREE, "min_size": 1024}
+    counts_by_path, ok = {}, True
+    for name in TP_RECIPES:
+        out = {"config": f"exps/{'deeplab' if name == 'deeplab' else 'm2f'}.yaml"}
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        recs = {}
+        for mp in (1, TP_DEGREE):
+            tr, step = dp_setup(torch, name, full=True, bf16=False, tp=mp)
+            loss, parts = step()
+            recs[mp] = {"loss": float(loss), "parts": {k: float(v) for k, v in parts.items()},
+                        "grads": tp.unsharded_grads(tr.model)}
+            out[f"state_bytes_by_shard_mp{mp}"] = tp.state_bytes(tr.model, tr.optimizer)
+            if mp > 1:
+                out["sharded_modules"] = sum(isinstance(m, tp.ChannelShards)
+                                             for m in tr.model.modules())
+            del tr, step, loss, parts
+            torch.cuda.empty_cache()
+        out["f32"] = dp_compare(recs[1], recs[TP_DEGREE], 1e-4, 1e-2)
+        del recs
+        torch.backends.cudnn.allow_tf32 = True
+        for mp in (1, TP_DEGREE):
+            tr, step = dp_setup(torch, name, full=True, tp=mp)
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            times = dp_step_times(torch, step, warmup=0, timed=3)
+            counts = launch_counts()
+            out[f"bf16_step_ms_mp{mp}"] = times
+            out[f"bf16_peak_mem_gib_mp{mp}"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            if mp > 1:
+                counts_by_path[f"tp_train_{name}"] = counts
+                out["launches"] = {k: v for k, v in counts.items() if v}
+            del tr, step
+            torch.cuda.empty_cache()
+        c = counts_by_path[f"tp_train_{name}"]
+        out["launches_ok"] = (
+            c["dilated_conv3x3"] == 9 and c["dilated_conv3x3_wgrad"] == 9
+            and c["bottom_k_sum"] == 3 if name == "deeplab" else
+            c["ms_deform_attn_bilinear"] == 18 and c["ms_deform_attn_bilinear_backward"] == 18
+            and c["linear_sum_assignment"] >= 3 and c["label_points"] >= 12)
+        ok = ok and out["f32"]["ok"] and out["launches_ok"]
+        res[name] = out
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res["ok"] = bool(ok)
+    return res, counts_by_path
+
+
+# spatial: the evaluator's --spatial N, every slab on cuda:0 (core/spatial.py)
+SPATIAL_SLABS = (2, 4)
+SPATIAL_ROUNDS = 3
+SPATIAL_RTOL = 1e-3  # of each output's scale, f32 with TF32 off
+
+
+def phase_spatial(torch):
+    """``spatial``: both eval forwards (``build_deeplab_forward`` and
+    ``build_m2f_forward`` with ``spatial_devices = N``) at 1024x2048, batch 1,
+    N = 2 and 4 with every slab on ``cuda:0``, against the unsplit forward on
+    the same image: in f32 with TF32 off, DeepLab's score and logits, and
+    M2F's anomaly score and ``sem`` with the unsplit forward's attention masks
+    replayed (``attention_mask_hooks``; the decoder's masks are hard
+    thresholds), each within ``SPATIAL_RTOL`` of the output's scale; then bf16
+    requests timed in turns with the unsplit forward (``SPATIAL_ROUNDS``
+    rounds after a warm-up), one more N = 2 request's launches the path
+    ``spatial_<family>``, and DeepLab's halo rows that the dilated conv
+    computes and throws away."""
+    from multishiftseg_torch.core import spatial
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+    from multishiftseg_torch.train.test_runner import build_deeplab_forward, build_m2f_forward
+
+    dev = torch.device("cuda", 0)
+    image = torch.from_numpy(np.random.RandomState(SEED + 131).randn(1, H, W, 3)
+                             .astype(np.float32))
+    res = {"phase": "spatial", "hw": [H, W], "batch": 1, "slab_devices": str(dev),
+           "slabs": list(SPATIAL_SLABS), "rtol": SPATIAL_RTOL}
+    counts_by_path, ok = {}, True
+    for family in ("deeplab", "m2f"):
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        if family == "deeplab":
+            model = seeded_deeplab(torch, SEED + 132)
+
+            def make(n, bf16):
+                return build_deeplab_forward(
+                    deeplab_config(1, DL_CROP, bf16), model=model, device="cuda",
+                    spatial_devices=n, slab_devices=[dev] * n if n else None)
+        else:
+            model = seeded_model(torch, SEED + 133)
+
+            def make(n, bf16):
+                return build_m2f_forward(
+                    train_config(1, CROP, bf16), model=model, device="cuda",
+                    spatial_devices=n, slab_devices=[dev] * n if n else None,
+                    enforce_qualification=False)
+        out = {}
+        masks = []
+        hooks = (attention_mask_hooks(model.sem_seg_head.predictor, masks)
+                 if family == "m2f" else [])
+        want = make(0, False)(image)
+        for h in hooks:
+            h.remove()
+        names = ("score", "logit") if family == "deeplab" else ("anomaly", "sem")
+        for n in SPATIAL_SLABS:
+            hooks = (attention_mask_hooks(model.sem_seg_head.predictor, [], replay=masks)
+                     if family == "m2f" else [])
+            got = make(n, False)(image)
+            for h in hooks:
+                h.remove()
+            errs = {}
+            for key, g_, w_ in zip(names, got, want):
+                scale = float(w_.abs().max())
+                errs[key] = float((g_ - w_).abs().max()) / max(scale, 1e-30)
+            out[f"f32_rel_err_n{n}"] = errs
+            ok = ok and all(e <= SPATIAL_RTOL and np.isfinite(e) for e in errs.values()) \
+                and all(g_.shape == w_.shape for g_, w_ in zip(got, want))
+            del got
+        del want
+        torch.backends.cudnn.allow_tf32 = True
+        fwds = {n: make(n, True) for n in (0,) + SPATIAL_SLABS}
+        times = {n: [] for n in fwds}
+        for fwd in fwds.values():
+            fwd(image)
+        torch.cuda.synchronize()
+        for _ in range(SPATIAL_ROUNDS):
+            for n, fwd in fwds.items():
+                t0 = time.perf_counter()
+                fwd(image)
+                torch.cuda.synchronize()
+                times[n].append((time.perf_counter() - t0) * 1e3)
+        out["bf16_request_ms"] = {("unsplit" if n == 0 else f"n{n}"): t
+                                  for n, t in times.items()}
+        reset_launch_counts()
+        fwds[SPATIAL_SLABS[0]](image)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        counts_by_path[f"spatial_{family}"] = counts
+        out["launches_n2"] = {k: v for k, v in counts.items() if v}
+        if family == "deeplab":
+            out["launches_ok"] = counts["dilated_conv3x3"] == 3 * SPATIAL_SLABS[0]
+            out["dilated_conv_rows"] = {
+                f"n{n}": dict(zip(("discarded", "kept"), spatial.discarded_rows(model, H, n)))
+                for n in SPATIAL_SLABS}
+        else:
+            out["launches_ok"] = (counts["ms_deform_attn_bilinear"] == 6 * SPATIAL_SLABS[0]
+                                  and counts["mask_scores_anomaly"] == SPATIAL_SLABS[0]
+                                  and counts["mask_scores_semantic"] == SPATIAL_SLABS[0])
+        ok = ok and out["launches_ok"]
+        res[family] = out
+        del fwds, model
+        torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res["ok"] = bool(ok)
+    return res, counts_by_path
+
+
 def free_port():
     import socket
 
@@ -4628,7 +4935,7 @@ PHASES = ("kernels", "slice_parity", "serve", "train_parity", "train", "deeplab_
           "deeplab_serve", "deeplab_train_parity", "deeplab_train", "stage1_parity",
           "stage1_train", "validate", "evaluate", "train_loop", "instance_parity",
           "instance_train", "alt_parity", "alt_serve", "alt_train", "dp_train", "deploy",
-          "pipeline")
+          "pipeline", "tensor_parallel", "spatial")
 
 
 def parse_args(argv):
@@ -4713,6 +5020,8 @@ def main(argv=None):
     dp_launches = run("dp_train", phase_dp_train)
     deploy_launches = run("deploy", phase_deploy)
     pipe_launches = run("pipeline", phase_pipeline)
+    tp_launches = run("tensor_parallel", phase_tensor_parallel)
+    spatial_launches = run("spatial", phase_spatial)
     dp_row = next((p.pop("kernel_row") for p in phases if p["phase"] == "dp_train"), None)
     if rows and dp_row is not None:
         rows["bottom_k_sum_global"] = dp_row
@@ -4729,7 +5038,10 @@ def main(argv=None):
              **{f"dp_train_{r}": dp_launches.get(f"dp_train_{r}", {}) for r in DP_RECIPES},
              "dp_train_two_ranks": dp_launches.get("dp_train_two_ranks", {}),
              **{p: deploy_launches.get(p, {}) for p in DEPLOY_PATHS},
-             "pipeline": pipe_launches.get("pipeline", {})}
+             "pipeline": pipe_launches.get("pipeline", {}),
+             **{f"tp_train_{r}": tp_launches.get(f"tp_train_{r}", {}) for r in TP_RECIPES},
+             **{f"spatial_{f}": spatial_launches.get(f"spatial_{f}", {})
+                for f in ("deeplab", "m2f")}}
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))

@@ -32,9 +32,11 @@ The JAX module's functions and their counterparts:
   ``replicated``, ``place_train_state`` -> the ``Loader``'s
   ``shard_index`` / ``shard_count`` and :func:`data_parallel` (DDP broadcasts
   rank 0's state when it wraps the model);
-- ``spatial_sharding`` -> the evaluator's ``--spatial``, the next slice;
-- ``tensor_parallel_shardings``, ``shard_params`` -> the next slice; until then
-  ``model_parallel > 1`` raises (:func:`check_parallelism`);
+- ``spatial_sharding`` -> the evaluator's ``--spatial``: ``core/spatial.py``,
+  one process over a list of devices, each image's rows in slabs;
+- ``tensor_parallel_shardings``, ``shard_params``, ``place_train_state`` ->
+  ``core/tensor_parallel.py``: one process drives its ``model_parallel``
+  devices, so a launch has processes x ``model_parallel`` devices;
 - the mesh's ``pipe`` axis -> ``core/pipeline.py``: GPipe in one process over
   ``pipeline_parallel`` local devices, refused in a world above 1 as JAX
   refuses it across processes (``make_train_mesh``, :199-207);
@@ -49,8 +51,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-# the ROADMAP item that ports tensor parallelism and the evaluator's --spatial
-NEXT_SLICE = "ROADMAP.md Queue 1 item 4.3 (tensor parallelism and --spatial, the next slice)"
+# the ROADMAP item that composes tensor with pipeline parallelism
+TP_PIPE_ITEM = "ROADMAP.md Queue 1 item 4.5 (tensor x pipeline parallelism)"
 
 
 def is_distributed() -> bool:
@@ -75,15 +77,18 @@ def process_count() -> int:
 
 def initialize_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,
                            world_size: Optional[int] = None, rank: Optional[int] = None,
-                           local_rank: Optional[int] = None) -> bool:
+                           local_rank: Optional[int] = None,
+                           devices_per_process: int = 1) -> bool:
     """Join a multi-process launch; returns whether a process group is up.
 
     The arguments, or a ``torchrun`` environment (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``MASTER_ADDR`` / ``MASTER_PORT``), say the launch; with
     neither this is a single process and nothing happens, as in JAX. The
     backend defaults to NCCL where CUDA is available and gloo elsewhere; with
-    CUDA the rank binds to ``cuda:{local_rank}`` (``LOCAL_RANK``, else the
-    rank). A failed initialisation raises: nothing carries on single-process."""
+    CUDA the rank binds to ``cuda:{local_rank * devices_per_process}``
+    (``LOCAL_RANK``, else the rank; a process drives ``devices_per_process``
+    cards from there under tensor or pipeline parallelism). A failed
+    initialisation raises: nothing carries on single-process."""
     if is_distributed():
         return True
     env = "RANK" in os.environ and "WORLD_SIZE" in os.environ
@@ -96,7 +101,7 @@ def initialize_distributed(backend: Optional[str] = None, init_method: Optional[
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
     if torch.cuda.is_available():
-        torch.cuda.set_device(local_rank)
+        torch.cuda.set_device(local_rank * devices_per_process)
     dist.init_process_group(backend, init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
     return True
@@ -109,17 +114,19 @@ def shutdown_distributed() -> None:
 
 def check_parallelism(train_cfg, pipelined: bool = False) -> None:
     """Refuse what the port cannot do, as ``make_mesh`` refuses a mesh it
-    cannot build: tensor parallelism (``model_parallel``, the next slice); the
-    GPipe schedule (``pipeline_parallel``, ``pipeline_microbatches``) in a
-    world above 1, as JAX's ``make_train_mesh`` refuses it across processes,
-    or in a trainer that has no deformable encoder to pipeline (``pipelined``
-    False); and a device count other than the launch's: one card a process,
-    times ``pipeline_parallel`` stages."""
-    if train_cfg.model_parallel > 1:
-        raise NotImplementedError(f"train.model_parallel = {train_cfg.model_parallel}: the "
-                                  f"port trains data- and pipeline-parallel only; see "
-                                  f"{NEXT_SLICE}")
-    pipe = train_cfg.pipeline_parallel
+    cannot build: tensor parallelism (``model_parallel``) together with GPipe
+    (``pipeline_parallel``), which JAX composes and the port does not yet
+    (``TP_PIPE_ITEM``); the GPipe schedule (``pipeline_parallel``,
+    ``pipeline_microbatches``) in a world above 1, as JAX's
+    ``make_train_mesh`` refuses it across processes, or in a trainer that has
+    no deformable encoder to pipeline (``pipelined`` False); and a device
+    count other than the launch's: processes x ``model_parallel`` x
+    ``pipeline_parallel``."""
+    mp, pipe = max(train_cfg.model_parallel, 1), train_cfg.pipeline_parallel
+    if mp > 1 and pipe > 1:
+        raise NotImplementedError(f"train.model_parallel = {mp} with pipeline_parallel = "
+                                  f"{pipe}: the port runs one of the two at a time; see "
+                                  f"{TP_PIPE_ITEM}")
     if (pipe > 1 or train_cfg.pipeline_microbatches) and process_count() > 1:
         raise ValueError(f"train.pipeline_parallel = {pipe}, pipeline_microbatches = "
                          f"{train_cfg.pipeline_microbatches}: GPipe runs in one process "
@@ -128,11 +135,12 @@ def check_parallelism(train_cfg, pipelined: bool = False) -> None:
         raise ValueError(f"train.pipeline_parallel = {pipe}: this trainer has no deformable "
                          "encoder to pipeline (the Mask2Anomaly trainer's msdeformattn "
                          "pixel decoder has)")
-    devices = process_count() * max(pipe, 1)
+    devices = process_count() * mp * max(pipe, 1)
     if train_cfg.num_devices and train_cfg.num_devices != devices:
         raise ValueError(f"train.num_devices = {train_cfg.num_devices}, but this launch has "
-                         f"{process_count()} processes of one card each x {max(pipe, 1)} "
-                         f"pipeline stages (torchrun --nproc_per_node sets the count)")
+                         f"{process_count()} processes x model_parallel {mp} x "
+                         f"pipeline_parallel {max(pipe, 1)} devices (torchrun "
+                         f"--nproc_per_node sets the processes)")
 
 
 def check_train_batch(rows: int) -> int:
@@ -177,7 +185,9 @@ def data_parallel(model: torch.nn.Module,
     the ``previous`` wrapper, whose gradient hooks are removed: DDP reduces the
     parameters that require gradients when it is built, so frozen ones stay
     out of the all-reduce (no ``find_unused_parameters``). Buffers are not
-    broadcast: the global BatchNorm keeps them equal on every rank."""
+    broadcast: the global BatchNorm keeps them equal on every rank. A model
+    whose parameters span devices (tensor parallelism) passes no
+    ``device_ids``, as DDP requires of a multi-device module."""
     if not is_distributed():
         return model
     from torch.nn.parallel import DistributedDataParallel
@@ -185,8 +195,9 @@ def data_parallel(model: torch.nn.Module,
     if isinstance(previous, DistributedDataParallel):
         previous._remove_autograd_hooks()
 
-    device = next(model.parameters()).device
-    ids = [device.index] if device.type == "cuda" else None
+    devices = {p.device for p in model.parameters()}
+    device = next(iter(devices))
+    ids = [device.index] if device.type == "cuda" and len(devices) == 1 else None
     return DistributedDataParallel(model, device_ids=ids, broadcast_buffers=False)
 
 

@@ -24,7 +24,9 @@
 //
 // Layouts (contiguous, f32): masks [N, Q, h, w]; probs [N, Q, K] (softmax over
 // K + 1 classes, the void class dropped); keep_w [N, Q]; out [N, H, W]
-// (anomaly), [N, K + Q, H, W] (semantic) or [N, K, H, W] (classes only).
+// (anomaly), [N, K + Q, H, W] (semantic) or [N, K, H, W] (classes only); the
+// forward may write output rows [row0, row0 + rows) alone, with the whole
+// map's coordinates (a slab of the row-partitioned eval, ops/scores.py).
 //
 // Forward (mask_scores_fwd_kernel, modes 0-2). Bound at Q = 100, K = 19: per
 // output pixel and query the bilinear taps take 7 f32 operations, the sigmoid
@@ -341,14 +343,18 @@ __device__ __forceinline__ float class_max(const float (&acc)[KMAX], int K) {
 // mode: 0 anomaly, 1 semantic (K + Q channels), 2 semantic classes (K
 // channels). gridDim = (chunks, N); each block walks the tiles chunk, chunk +
 // chunks, ... of image n (FWD_ROWS * TILE_Y x TILE_X pixels). STAGED: taps
-// from the staged window (see Staging); else from global memory.
+// from the staged window (see Staging); else from global memory. The output
+// holds rows [Y0, Y0 + HO) of the H x W map (a row-partitioned eval's slab):
+// tiles start at row Y0, coordinates are the whole map's, and output row y
+// lands at y - Y0.
 template <int MODE, int KMAX, bool STAGED>
 __global__ void __launch_bounds__(TILE_THREADS, 2)
 mask_scores_fwd_kernel(const float* __restrict__ masks, const float* __restrict__ probs,
                        const float* __restrict__ keep_w, float* __restrict__ out, int Q,
-                       int K, int h, int w, int H, int W, float sy, float sx, int wh,
-                       int ww, int rs, int qs) {
+                       int K, int h, int w, int H, int W, int Y0, int HO, float sy,
+                       float sx, int wh, int ww, int rs, int qs) {
   constexpr int R = FWD_ROWS, TY = FWD_ROWS * TILE_Y;
+  const int Y1 = Y0 + HO;  // the rows written end here
   extern __shared__ float4 smem4[];
   float* sprobs = reinterpret_cast<float*>(smem4);  // [Q][KMAX]
   Staging st;
@@ -363,21 +369,21 @@ mask_scores_fwd_kernel(const float* __restrict__ masks, const float* __restrict_
     for (int i = tid; i < Q; i += TILE_THREADS) skeep[i] = keep_w[(int64_t)n * Q + i];
   }
   __syncthreads();
-  const int64_t HW = (int64_t)H * W;
+  const int64_t HW = (int64_t)HO * W;  // an output plane
   const int64_t plane = (int64_t)h * w;
   const float* mn = masks + (int64_t)n * Q * plane;
   const int channels = MODE == 1 ? K + Q : K;
   float* on = out + (int64_t)n * (MODE == 0 ? 1 : channels) * HW;
   const int tiles_x = (W + TILE_X - 1) / TILE_X;
-  const int tiles = ((H + TY - 1) / TY) * tiles_x;
+  const int tiles = ((HO + TY - 1) / TY) * tiles_x;
   if (STAGED && chunk < tiles) {
-    const int y0t = (chunk / tiles_x) * TY, x0t = (chunk % tiles_x) * TILE_X;
-    stage_window(mn, plane, w, Q, tile_window(y0t, x0t, TY, h, w, H, W, sy, sx), st, tid,
+    const int y0t = Y0 + (chunk / tiles_x) * TY, x0t = (chunk % tiles_x) * TILE_X;
+    stage_window(mn, plane, w, Q, tile_window(y0t, x0t, TY, h, w, Y1, W, sy, sx), st, tid,
                  TILE_THREADS);
   }
 
   for (int tile = chunk; tile < tiles; tile += chunks) {
-    const int y0t = (tile / tiles_x) * TY, x0t = (tile % tiles_x) * TILE_X;
+    const int y0t = Y0 + (tile / tiles_x) * TY, x0t = (tile % tiles_x) * TILE_X;
     // a pixel beyond the map's edge computes its edge neighbour and writes nothing
     const int x = min(x0t + tx, W - 1);
     bool inside[R];
@@ -385,9 +391,9 @@ mask_scores_fwd_kernel(const float* __restrict__ masks, const float* __restrict_
     int64_t at[R];
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      inside[r] = y0t + ty + r * TILE_Y < H && x0t + tx < W;
-      y[r] = min(y0t + ty + r * TILE_Y, H - 1);
-      at[r] = (int64_t)y[r] * W + x;
+      inside[r] = y0t + ty + r * TILE_Y < Y1 && x0t + tx < W;
+      y[r] = min(y0t + ty + r * TILE_Y, Y1 - 1);
+      at[r] = (int64_t)(y[r] - Y0) * W + x;
     }
     // mode 1: each query's extra channel, keep_w[q] * s, as it is computed
     auto extra = [&](int q, int r, float s) {
@@ -400,15 +406,15 @@ mask_scores_fwd_kernel(const float* __restrict__ masks, const float* __restrict_
       for (int k = 0; k < KMAX; ++k) acc[r][k] = 0.f;
     }
     if (STAGED) {
-      const Window win = tile_window(y0t, x0t, TY, h, w, H, W, sy, sx);
+      const Window win = tile_window(y0t, x0t, TY, h, w, Y1, W, sy, sx);
       cp_async_wait_all();
       __syncthreads();  // the window is in; every thread is done with the last rows
-      interpolate_rows(Q, win, y0t, H, h, sy, st, tid, TILE_THREADS);
+      interpolate_rows(Q, win, y0t, Y1, h, sy, st, tid, TILE_THREADS);
       __syncthreads();  // the rows are in; the window's buffer is free
       const int next = tile + chunks;
       if (next < tiles) {  // the next tile's window, copied behind this tile's sums
-        const int y0n = (next / tiles_x) * TY, x0n = (next % tiles_x) * TILE_X;
-        stage_window(mn, plane, w, Q, tile_window(y0n, x0n, TY, h, w, H, W, sy, sx), st,
+        const int y0n = Y0 + (next / tiles_x) * TY, x0n = (next % tiles_x) * TILE_X;
+        stage_window(mn, plane, w, Q, tile_window(y0n, x0n, TY, h, w, Y1, W, sy, sx), st,
                      tid, TILE_THREADS);
       }
       int c0, c1;
@@ -453,15 +459,17 @@ mask_scores_fwd_kernel(const float* __restrict__ masks, const float* __restrict_
 }
 
 // The most rows (columns) of n_in that one tile of `tile` outputs reaches,
-// with the device's arithmetic (source_index): the window's exact size.
-static int window_extent(int n_out, int n_in, int tile) {
+// with the device's arithmetic (source_index): the window's exact size. The
+// tiles cover outputs [first, end) of n_out (end 0: all of them).
+static int window_extent(int n_out, int n_in, int tile, int first = 0, int end = 0) {
   const float scale = (float)n_in / (float)n_out;
   auto source = [&](int i) {
     return fminf(fmaxf(fmaf((float)i + 0.5f, scale, -0.5f), 0.f), (float)(n_in - 1));
   };
   int most = 0;
-  for (int t0 = 0; t0 < n_out; t0 += tile) {
-    const int t1 = (t0 + tile < n_out ? t0 + tile : n_out) - 1;
+  if (end <= 0) end = n_out;
+  for (int t0 = first; t0 < end; t0 += tile) {
+    const int t1 = (t0 + tile < end ? t0 + tile : end) - 1;
     const int i0 = (int)floorf(source(t0));
     const int i1 = (int)floorf(source(t1)) + 1 < n_in ? (int)floorf(source(t1)) + 1 : n_in - 1;
     if (i1 - i0 + 1 > most) most = i1 - i0 + 1;
@@ -478,12 +486,13 @@ struct TilePlan {
 };
 
 // tile_y: the tiles' rows; extra: the kernel's shared bytes besides the
-// probabilities and the window
+// probabilities and the window; the tiles cover output rows [y0, y1) (y1 0:
+// all H)
 static int tile_plan(int q, int k, int h, int w, int H, int W, int tile_y, size_t extra,
-                     TilePlan* p) {
+                     TilePlan* p, int y0 = 0, int y1 = 0) {
   p->kmax = k <= 20 ? 20 : 32;
   const size_t fixed = (size_t)q * p->kmax * 4 + extra;
-  p->wh = window_extent(H, h, tile_y);
+  p->wh = window_extent(H, h, tile_y, y0, y1);
   p->ww = window_extent(W, w, TILE_X);
   p->rs = (p->wh * p->ww) | 1;
   p->qs = ((q + 3) & ~3) | 4;
@@ -496,7 +505,7 @@ static int tile_plan(int q, int k, int h, int w, int H, int W, int tile_y, size_
 }
 
 typedef void (*FwdKernel)(const float*, const float*, const float*, float*, int, int, int,
-                          int, int, int, float, float, int, int, int, int);
+                          int, int, int, int, int, float, float, int, int, int, int);
 
 template <int MODE>
 static FwdKernel fwd_kernel_of(const TilePlan& p) {
@@ -508,22 +517,24 @@ static FwdKernel fwd_kernel_of(const TilePlan& p) {
                       : mask_scores_fwd_kernel<MODE, 32, false>;
 }
 
-// mode: 0 = anomaly ([N, H, W] output, keep_w unused), 1 = semantic
-// ([N, K + Q, H, W]), 2 = semantic classes only ([N, K, H, W], keep_w unused).
-// Returns the first failed CUDA call's error, else cudaGetLastError() after
-// the launch.
+// mode: 0 = anomaly ([N, rows, W] output, keep_w unused), 1 = semantic
+// ([N, K + Q, rows, W]), 2 = semantic classes only ([N, K, rows, W], keep_w
+// unused): output rows [row0, row0 + rows) of the H x W map (row0 0 and rows
+// H: all of it). Returns the first failed CUDA call's error, else
+// cudaGetLastError() after the launch.
 extern "C" int mask_scores_forward(const void* masks, const void* probs,
                                    const void* keep_w, void* out, int n, int q,
-                                   int k, int h, int w, int H, int W, int mode,
-                                   void* stream) {
+                                   int k, int h, int w, int H, int W, int row0, int rows,
+                                   int mode, void* stream) {
   if (k < 1 || k > MASK_SCORES_MAX_K || q < 1 || h < 1 || w < 1 || H < 0 || W < 0 ||
-      mode < 0 || mode > 2) {
+      mode < 0 || mode > 2 || row0 < 0 || rows < 0 || row0 + rows > H) {
     return (int)cudaErrorInvalidValue;
   }
-  if (n == 0 || H == 0 || W == 0) return (int)cudaSuccess;
+  if (n == 0 || rows == 0 || W == 0) return (int)cudaSuccess;
   if (n > 65535) return (int)cudaErrorInvalidValue;
   TilePlan p;
-  int rc = tile_plan(q, k, h, w, H, W, FWD_ROWS * TILE_Y, mode == 1 ? (size_t)q * 4 : 0, &p);
+  int rc = tile_plan(q, k, h, w, H, W, FWD_ROWS * TILE_Y, mode == 1 ? (size_t)q * 4 : 0, &p,
+                     row0, row0 + rows);
   if (rc != 0) return rc;
   const FwdKernel kern = mode == 0 ? fwd_kernel_of<0>(p)
                          : mode == 1 ? fwd_kernel_of<1>(p) : fwd_kernel_of<2>(p);
@@ -537,15 +548,15 @@ extern "C" int mask_scores_forward(const void* masks, const void* probs,
   if (rc != 0) return rc;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   // one wave of blocks shared by the images, each image's tiles split in chunks
-  const int64_t tiles =
-      (int64_t)((H + FWD_ROWS * TILE_Y - 1) / (FWD_ROWS * TILE_Y)) * ((W + TILE_X - 1) / TILE_X);
+  const int64_t tiles = (int64_t)((rows + FWD_ROWS * TILE_Y - 1) / (FWD_ROWS * TILE_Y)) *
+                        ((W + TILE_X - 1) / TILE_X);
   int64_t chunks = (int64_t)per_sm * sms / n;
   chunks = chunks < 1 ? 1 : (chunks > tiles ? tiles : chunks);
   kern<<<dim3((unsigned int)chunks, (unsigned int)n), TILE_THREADS, p.smem,
          (cudaStream_t)stream>>>((const float*)masks, (const float*)probs,
-                                 (const float*)keep_w, (float*)out, q, k, h, w, H, W,
-                                 (float)h / (float)H, (float)w / (float)W, p.wh, p.ww, p.rs,
-                                 p.qs);
+                                 (const float*)keep_w, (float*)out, q, k, h, w, H, W, row0,
+                                 rows, (float)h / (float)H, (float)w / (float)W, p.wh, p.ww,
+                                 p.rs, p.qs);
   return (int)cudaGetLastError();
 }
 

@@ -84,7 +84,7 @@ class DeepWV3Plus(nn.Module):
                 dropout_masks: Optional[Mapping[str, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         in_size = x.shape[2:]
-        x = x.to(self.mod1.conv1.weight.dtype)
+        x = x.to(next(self.parameters()).dtype)
         m2, trunk_out = trunk_forward(self, self.num_mods, x, dropout_masks)
         dec0_up = self.bot_aspp(self.aspp(trunk_out))
         dec0_fine = self.bot_fine(m2)

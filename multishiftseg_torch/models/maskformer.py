@@ -160,7 +160,8 @@ def preprocess(images_uint8: torch.Tensor, pixel_mean: Tuple[float, ...] = PIXEL
 
 def inference(outputs: Dict[str, torch.Tensor], image_hw: Tuple[int, int],
               num_classes: int = 19, score_lowres: bool = False,
-              score_topq: int = 0, _classes_only: bool = False
+              score_topq: int = 0, _classes_only: bool = False,
+              rows: Optional[Tuple[int, int]] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eval tail at the padded image size: (sem [N, K + Q, H, W], anomaly [N, H, W]).
 
@@ -177,7 +178,9 @@ def inference(outputs: Dict[str, torch.Tensor], image_hw: Tuple[int, int],
     ``score_topq = Q`` scores the Q OOD queries with the largest non-void peak
     probability alone (:func:`ops.scores.anomaly_score_topq`). JAX lets
     ``score_topq`` win silently when both are set (:214); here setting both
-    raises ``ValueError``.
+    raises ``ValueError``. ``rows = (row0, count)``: those rows of both
+    outputs alone, with the whole image's coordinates (a slab of the
+    row-partitioned eval, ``core/spatial.py``).
     """
     if score_lowres and score_topq:
         raise ValueError("score_lowres and score_topq are exclusive; set one")
@@ -185,12 +188,13 @@ def inference(outputs: Dict[str, torch.Tensor], image_hw: Tuple[int, int],
         raise ValueError("inference scores anomalies with the GMA decoder's OOD head; "
                          "the vanilla decoder has none")
     sem = semantic_inference_upsampled(outputs["pred_logits"], outputs["pred_masks"],
-                                       image_hw, num_classes, _classes_only=_classes_only)
+                                       image_hw, num_classes, _classes_only=_classes_only,
+                                       rows=rows)
     cls, masks = outputs["pred_logits_ood"], outputs["pred_masks_ood"]
     if score_topq:
-        anomaly = anomaly_score_topq(cls, masks, image_hw, score_topq)
+        anomaly = anomaly_score_topq(cls, masks, image_hw, score_topq, rows=rows)
     elif score_lowres:
-        anomaly = anomaly_score_lowres(cls, masks, image_hw)
+        anomaly = anomaly_score_lowres(cls, masks, image_hw, rows=rows)
     else:
-        anomaly = anomaly_score_upsampled(cls, masks, image_hw)
+        anomaly = anomaly_score_upsampled(cls, masks, image_hw, rows=rows)
     return sem, anomaly

@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
+from ..core import tensor_parallel as tp
 from ..core.pipeline import check_geometry, gpipe_encoder_apply
 from ..ops import ms_deform_attn as msda
 from ..ops.resize import resize_bilinear_nchw
@@ -81,7 +82,8 @@ class DeformableEncoderLayer(nn.Module):
 
     def _finish(self, src, core):
         src = self.norm1(src + self.self_attn.output_proj(core))
-        ffn = self.linear2(F.relu(self.linear1(src)))
+        # linear1's slices under tensor parallelism (core.tensor_parallel)
+        ffn = self.linear2(tp.full(tp.relu(tp.apply(self.linear1, src))))
         return self.norm2(src + ffn)
 
 

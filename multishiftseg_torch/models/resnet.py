@@ -20,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core import tensor_parallel as tp
 from .layers import BatchNorm2d, Conv2d, he_normal_
 
 
@@ -76,11 +77,13 @@ class BottleneckBlock(nn.Module):
         self.conv2 = _conv(bottleneck_channels, bottleneck_channels, 3, stride, dilation, **bn)
         self.conv3 = _conv(bottleneck_channels, out_channels, 1, **bn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = x if self.shortcut is None else self.shortcut(x)
-        out = F.relu(self.conv1(x))
-        out = F.relu(self.conv2(out))
-        return F.relu(self.conv3(out) + shortcut)
+    def forward(self, x):
+        """``x`` whole, or its channel slices under tensor parallelism
+        (``core.tensor_parallel``); the output likewise."""
+        shortcut = tp.apply(self.shortcut, x)
+        out = tp.relu(tp.apply(self.conv1, x))
+        out = tp.relu(tp.apply(self.conv2, out))
+        return tp.relu(tp.add(tp.apply(self.conv3, out), shortcut))
 
 
 class BasicBlock(nn.Module):
@@ -95,10 +98,10 @@ class BasicBlock(nn.Module):
         self.conv1 = _conv(in_channels, out_channels, 3, stride, dilation, **bn)
         self.conv2 = _conv(out_channels, out_channels, 3, 1, dilation, **bn)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shortcut = x if self.shortcut is None else self.shortcut(x)
-        out = F.relu(self.conv1(x))
-        return F.relu(self.conv2(out) + shortcut)
+    def forward(self, x):
+        shortcut = tp.apply(self.shortcut, x)
+        out = tp.relu(tp.apply(self.conv1, x))
+        return tp.relu(tp.add(tp.apply(self.conv2, out), shortcut))
 
 
 RESNET_STAGES = {
@@ -151,6 +154,8 @@ class ResNet(nn.Module):
         x = self.stem(x)
         feats = {}
         for name in ("res2", "res3", "res4", "res5"):
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                x = block(x)
+            x = tp.full(x)  # a sharded stage's output, whole
             feats[name] = x
         return feats

@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..core import tensor_parallel as tp
 from ..utils import cached
 
 SWIN_CONFIGS = {
@@ -116,7 +117,8 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))  # exact (erf) GELU, as JAX's
+        # exact (erf) GELU, as JAX's; on fc1's slices under tensor parallelism
+        return self.fc2(tp.full(tp.elementwise(F.gelu, tp.apply(self.fc1, x))))
 
 
 class SwinBlock(nn.Module):

@@ -14,8 +14,8 @@ from typing import Dict, List, Sequence
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from ..core import tensor_parallel as tp
 from ..ops.resize import resize_bilinear_nchw
 from ..utils import cached
 from .attention import MultiheadAttention
@@ -72,7 +72,8 @@ class FFNLayer(nn.Module):
         self.norm = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, tgt):
-        return self.norm(tgt + self.linear2(F.relu(self.linear1(tgt))))
+        # linear1's slices under tensor parallelism (core.tensor_parallel)
+        return self.norm(tgt + self.linear2(tp.full(tp.relu(tp.apply(self.linear1, tgt)))))
 
 
 def attn_masks_from_logits(outputs_mask: torch.Tensor, target_hw):

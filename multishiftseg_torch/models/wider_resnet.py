@@ -20,6 +20,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 import torch.nn as nn
 
+from ..core import tensor_parallel as tp
 from .layers import Dropout2d, bn_relu, conv, max_pool_3x3_s2
 
 # (structure, per-module channels) of WRN-38-A2 (reference wider_resnet.py:316-317, 384)
@@ -63,14 +64,20 @@ class IdentityResidualBlock(nn.Module):
         need_proj = stride != 1 or in_channels != c[-1]
         self.proj_conv = conv(in_channels, c[-1], 1, stride) if need_proj else None
 
-    def forward(self, x: torch.Tensor, dropout_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-        bn1 = self.bn1(x)
-        shortcut = self.proj_conv(bn1) if self.proj_conv is not None else x
+    def forward(self, x, dropout_mask: Optional[torch.Tensor] = None):
+        """``x`` whole, or its channel slices under tensor parallelism
+        (``core.tensor_parallel``); the output likewise."""
+        bn1 = tp.apply(self.bn1, x)
+        if self.proj_conv is not None:
+            bn1 = tp.full(bn1)  # both convs read every channel: one gather
+        shortcut = tp.apply(self.proj_conv, bn1) if self.proj_conv is not None else x
         out = bn1
         for layer in self.convs:
-            out = layer(out, dropout_mask) if isinstance(layer, Dropout2d) else layer(out)
-        return out + shortcut
+            if isinstance(layer, Dropout2d):
+                out = tp.per_channel(layer, out, dropout_mask)
+            else:
+                out = tp.apply(layer, out)
+        return tp.add(out, shortcut)
 
 
 def build_trunk(structure: Sequence[int] = WRN38_STRUCTURE,
@@ -106,6 +113,8 @@ def trunk_forward(owner: nn.Module, num_mods: int, x: torch.Tensor,
         name = f"mod{mod_id + 2}"
         for block_name, block in getattr(owner, name).named_children():
             x = block(x, masks.get(f"{name}.{block_name}"))
+        # a sharded residual stream stays in slices within a module
+        x = tp.full(x)
         if mod_id == 0:
             m2 = x
     return m2, x

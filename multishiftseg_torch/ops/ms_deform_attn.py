@@ -795,9 +795,23 @@ class MSDeformAttn(nn.Module):
         """The core's inputs: (value [N, S, M, D], sampling locations
         [N, Lq, M, L, P, 2] f32, attention weights [N, Lq, M, L, P] in value's
         type)."""
+        value = self.value(input_flatten)
+        loc, attn = self.locations(query, reference_points, spatial_shapes)
+        return value, loc, attn.to(value.dtype)
+
+    def value(self, input_flatten: torch.Tensor) -> torch.Tensor:
+        """The value table [N, S, M, D] of tokens [N, S, C]."""
+        n = input_flatten.shape[0]
+        m = self.n_heads
+        return self.value_proj(input_flatten).view(n, -1, m, self.d_model // m)
+
+    def locations(self, query: torch.Tensor, reference_points: torch.Tensor,
+                  spatial_shapes: Sequence[Tuple[int, int]]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(sampling locations [N, Lq, M, L, P, 2] f32, attention weights
+        [N, Lq, M, L, P] f32) of queries [N, Lq, C]."""
         n, lq, _ = query.shape
         m, L, P = self.n_heads, self.n_levels, self.n_points
-        value = self.value_proj(input_flatten).view(n, -1, m, self.d_model // m)
         offsets = self.sampling_offsets(query).view(n, lq, m, L, P, 2)
         attn = self.attention_weights(query).view(n, lq, m, L * P)
         attn = F.softmax(attn.float(), dim=-1).view(n, lq, m, L, P)
@@ -805,7 +819,7 @@ class MSDeformAttn(nn.Module):
                                   dtype=torch.float32, device=query.device)
         loc = (reference_points[:, :, None, :, None, :].float()
                + offsets.float() / normalizer[None, None, None, :, None, :])
-        return value, loc, attn.to(value.dtype)
+        return loc, attn
 
     def forward(self, query: torch.Tensor, reference_points: torch.Tensor,
                 input_flatten: torch.Tensor, spatial_shapes: Sequence[Tuple[int, int]],

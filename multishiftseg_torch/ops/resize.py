@@ -45,6 +45,47 @@ def resize_bilinear_nchw(x: torch.Tensor, size: Tuple[int, int],
     return y.reshape(*lead, *size)
 
 
+def source_rows(in_h: int, out_h: int, rows: Tuple[int, int],
+                align_corners: bool = False) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """For output rows ``rows = (row0, count)`` of a bilinear resize from
+    ``in_h`` rows to ``out_h``: each row's two source rows and the weight of
+    the second (``F.interpolate``'s rule, in float64), as numpy arrays."""
+    r = np.arange(rows[0], rows[0] + rows[1], dtype=np.float64)
+    if align_corners:
+        src = r * ((in_h - 1) / (out_h - 1)) if out_h > 1 else np.zeros_like(r)
+    else:
+        src = np.maximum((r + 0.5) * (in_h / out_h) - 0.5, 0.0)
+    i0 = np.minimum(np.floor(src).astype(np.int64), in_h - 1)
+    return i0, np.minimum(i0 + 1, in_h - 1), src - i0
+
+
+def resize_bilinear_rows(x: torch.Tensor, size: Tuple[int, int], rows: Tuple[int, int],
+                         align_corners: bool = False, in_h: int = 0,
+                         in_row0: int = 0) -> torch.Tensor:
+    """Rows ``rows = (row0, count)`` of the bilinear resize of a channels-first
+    ``[..., h, w]`` map to ``size``, with the whole map's coordinates: the
+    windowed resize of a row-partitioned eval. ``x`` may hold only source
+    rows ``[in_row0, in_row0 + h)`` of a map ``in_h`` rows tall (default: all
+    of it), as long as they cover what the rows read (:func:`source_rows`).
+    The vertical taps are interpolated first, then the columns."""
+    h, w = x.shape[-2:]
+    in_h = in_h or h
+    i0, i1, ly = source_rows(in_h, size[0], rows, align_corners)
+    if rows[1] and (i0.min() < in_row0 or i1.max() >= in_row0 + h):
+        raise ValueError(f"output rows {rows} read source rows [{i0.min()}, {i1.max()}], "
+                         f"outside the window [{in_row0}, {in_row0 + h})")
+    a = x.index_select(-2, torch.from_numpy(i0 - in_row0).to(x.device))
+    b = x.index_select(-2, torch.from_numpy(i1 - in_row0).to(x.device))
+    lam = torch.from_numpy(ly).to(x.device, x.dtype)[:, None]
+    v = a + (b - a) * lam
+    if w == size[1]:
+        return v
+    lead = v.shape[:-2]
+    y = F.interpolate(v.reshape(1, -1, rows[1], w), size=(rows[1], size[1]),
+                      mode="bilinear", align_corners=align_corners)
+    return y.reshape(*lead, rows[1], size[1])
+
+
 @functools.lru_cache(maxsize=256)
 def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
     """Source index per output pixel: ``floor(i * in / out)`` in float64,

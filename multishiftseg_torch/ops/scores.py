@@ -13,8 +13,11 @@ classes). The anomaly mode's autograd (``register_autograd``) is the
 (:func:`mask_scores_backward`); the semantic modes have no backward kernel and
 raise on the card when an input requires grad, rather than return a result
 cut off from the graph (on the CPU autograd runs through the plain versions).
-The approximate anomaly tails of JAX ``inference`` (``maskformer.py:214-234``)
-reuse the anomaly kernel:
+Every forward mode can write a window of output rows (``rows = (row0,
+count)``: a slab of the row-partitioned eval, ``core/spatial.py``) with the
+whole image's coordinates; the windowed plain version resizes through
+``ops.resize.resize_bilinear_rows``. The approximate anomaly tails of JAX
+``inference`` (``maskformer.py:214-234``) reuse the anomaly kernel:
 :func:`anomaly_score_lowres` at the identity resize, then one resize of the
 score plane; :func:`anomaly_score_topq` on the gathered rows of the kept
 queries.
@@ -29,7 +32,7 @@ import torch
 
 from .. import _build
 from . import autograd_enabled, custom_op
-from .resize import resize_bilinear_nchw
+from .resize import resize_bilinear_nchw, resize_bilinear_rows
 
 # Kernel launches per entry point (see ``ops.launch_counts``).
 LAUNCHES = {"mask_scores_anomaly": 0, "mask_scores_semantic": 0,
@@ -89,14 +92,17 @@ def semantic_inference(class_logits: torch.Tensor, mask_logits_up: torch.Tensor,
 
 def anomaly_score_upsampled(class_logits_ood: torch.Tensor,
                             mask_logits_ood: torch.Tensor,
-                            out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Anomaly score at ``out_hw`` from low-resolution mask logits -> [N, H, W].
+                            out_hw: Tuple[int, int],
+                            rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Anomaly score at ``out_hw`` from low-resolution mask logits -> [N, H, W],
+    or its rows ``rows = (row0, count)`` alone, [N, count, W].
 
-    Differentiable on both devices: the softmax (and the dropped void column)
-    stays in torch autograd, and the fused tail's backward is the
-    :func:`mask_scores_backward` op."""
+    Differentiable on both devices over the whole map: the softmax (and the
+    dropped void column) stays in torch autograd, and the fused tail's
+    backward is the :func:`mask_scores_backward` op."""
     probs = torch.softmax(class_logits_ood.float(), dim=-1)[..., :-1].contiguous()
-    return torch.ops.mss.mask_scores(mask_logits_ood, probs, None, _hw(out_hw), _ANOMALY)
+    return torch.ops.mss.mask_scores(mask_logits_ood, probs, None, _hw(out_hw), _ANOMALY,
+                                     *_window(rows))
 
 
 def anomaly_score_upsampled_plain(class_logits_ood, mask_logits_ood, out_hw):
@@ -106,14 +112,17 @@ def anomaly_score_upsampled_plain(class_logits_ood, mask_logits_ood, out_hw):
 
 
 def anomaly_score_lowres(class_logits_ood: torch.Tensor, mask_logits_ood: torch.Tensor,
-                         out_hw: Tuple[int, int]) -> torch.Tensor:
+                         out_hw: Tuple[int, int],
+                         rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The ``score_lowres`` tail (JAX ``inference``, ``maskformer.py:229-234``):
     the anomaly score at the masks' own resolution, the fused tail at the
     identity resize (a CUDA kernel on the card), then one bilinear resize of
-    the [N, h, w] score plane to ``out_hw``."""
+    the [N, h, w] score plane to ``out_hw`` (its ``rows`` alone, when given)."""
     low = anomaly_score_upsampled(class_logits_ood, mask_logits_ood,
                                   tuple(mask_logits_ood.shape[-2:]))
-    return resize_bilinear_nchw(low, out_hw, align_corners=False)
+    if rows is None:
+        return resize_bilinear_nchw(low, out_hw, align_corners=False)
+    return resize_bilinear_rows(low, out_hw, rows, align_corners=False)
 
 
 def top_queries(class_logits_ood: torch.Tensor, q: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -140,14 +149,17 @@ def _top_query_inputs(class_logits_ood, mask_logits_ood, q):
 
 
 def anomaly_score_topq(class_logits_ood: torch.Tensor, mask_logits_ood: torch.Tensor,
-                       out_hw: Tuple[int, int], q: int) -> torch.Tensor:
+                       out_hw: Tuple[int, int], q: int,
+                       rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """The ``score_topq = q`` tail (JAX ``inference``, ``maskformer.py:214-228``):
     the anomaly score at ``out_hw`` from the q OOD queries with the largest
     non-void peak probability (:func:`top_queries`) and nothing else, with no
     renormalisation. The fused tail (a CUDA kernel on the card, its launch on
-    q queries) over the gathered probability rows and mask planes."""
+    q queries) over the gathered probability rows and mask planes; ``rows``
+    as :func:`anomaly_score_upsampled`."""
     probs_sel, masks_sel = _top_query_inputs(class_logits_ood, mask_logits_ood, q)
-    return torch.ops.mss.mask_scores(masks_sel, probs_sel, None, _hw(out_hw), _ANOMALY)
+    return torch.ops.mss.mask_scores(masks_sel, probs_sel, None, _hw(out_hw), _ANOMALY,
+                                     *_window(rows))
 
 
 def anomaly_score_topq_plain(class_logits_ood, mask_logits_ood, out_hw, q):
@@ -187,25 +199,28 @@ def mask_scores_backward_plain(masks, probs, grad, out_hw, dmask=False):
 
 def semantic_inference_upsampled(class_logits: torch.Tensor, mask_logits: torch.Tensor,
                                  out_hw: Tuple[int, int], num_classes: int = 19,
-                                 _classes_only: bool = False) -> torch.Tensor:
+                                 _classes_only: bool = False,
+                                 rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Semantic inference at ``out_hw`` from low-resolution mask logits
     -> [N, K + Q, H, W]. ``_classes_only`` (for :func:`models.maskformer.inference`
     when its caller keeps only ``sem[:, :K]``) computes the K class channels
-    alone, [N, K, H, W]: the kept-query channels are never written."""
+    alone, [N, K, H, W]: the kept-query channels are never written. ``rows =
+    (row0, count)``: those output rows alone."""
     if class_logits.shape[-1] != num_classes + 1:
         raise ValueError(f"class logits have {class_logits.shape[-1]} entries, "
                          f"expected num_classes + 1 = {num_classes + 1}")
     if torch.is_grad_enabled() and (class_logits.requires_grad or mask_logits.requires_grad):
-        if mask_logits.device.type == "cpu":
+        if mask_logits.device.type == "cpu" and rows is None:
             return semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
                                                       num_classes, _classes_only)
         _refuse_grad("semantic_inference_upsampled")
     probs = torch.softmax(class_logits.float(), dim=-1)[..., :-1].contiguous()
     if _classes_only:
         return torch.ops.mss.mask_scores(mask_logits, probs, None, _hw(out_hw),
-                                         _SEMANTIC_CLASSES)
+                                         _SEMANTIC_CLASSES, *_window(rows))
     keep = keep_weights(class_logits, num_classes).contiguous()
-    return torch.ops.mss.mask_scores(mask_logits, probs, keep, _hw(out_hw), _SEMANTIC)
+    return torch.ops.mss.mask_scores(mask_logits, probs, keep, _hw(out_hw), _SEMANTIC,
+                                     *_window(rows))
 
 
 def semantic_inference_upsampled_plain(class_logits, mask_logits, out_hw,
@@ -226,6 +241,20 @@ def _hw(out_hw):
     return [int(v) for v in out_hw]
 
 
+def _window(rows):
+    """The op's (row0, rows) arguments: (0, -1) for the whole map."""
+    return (0, -1) if rows is None else (int(rows[0]), int(rows[1]))
+
+
+def _rows(out_hw, row0, rows):
+    """The output rows (row0, count) of a call, checked against the map."""
+    H = int(out_hw[0])
+    count = H - row0 if rows < 0 else rows
+    if row0 < 0 or count < 0 or row0 + count > H:
+        raise ValueError(f"rows [{row0}, {row0 + count}) outside a map of {H} rows")
+    return row0, count
+
+
 def _check_tail_args(masks, probs):
     if masks.dtype != torch.float32:
         raise TypeError(f"mask logits must be float32, got {masks.dtype}")
@@ -241,22 +270,23 @@ def _check_tail_args(masks, probs):
     return n, q, k, h, w
 
 
-def _mask_scores_cuda(masks, probs, keep, out_hw, mode):
+def _mask_scores_cuda(masks, probs, keep, out_hw, mode, row0=0, rows=-1):
     n, q, k, h, w = _check_tail_args(masks, probs)
     tensors = (masks, probs) + ((keep,) if mode == _SEMANTIC else ())
     if any(t.device != masks.device for t in tensors):
         raise ValueError("all inputs must be on one device")
     H, W = (int(v) for v in out_hw)
+    row0, rows = _rows(out_hw, row0, rows)
     fn = _build.function("mask_scores", "mask_scores_forward",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
-    shape = {_ANOMALY: (n, H, W), _SEMANTIC: (n, k + q, H, W),
-             _SEMANTIC_CLASSES: (n, k, H, W)}[mode]
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    shape = {_ANOMALY: (n, rows, W), _SEMANTIC: (n, k + q, rows, W),
+             _SEMANTIC_CLASSES: (n, k, rows, W)}[mode]
     out = torch.empty(shape, dtype=torch.float32, device=masks.device)
     with torch.cuda.device(masks.device):
         stream = torch.cuda.current_stream(masks.device).cuda_stream
         rc = fn(masks.data_ptr(), probs.data_ptr(),
                 keep.data_ptr() if mode == _SEMANTIC else None, out.data_ptr(),
-                n, q, k, h, w, H, W, mode, stream)
+                n, q, k, h, w, H, W, row0, rows, mode, stream)
     if rc != 0:
         raise RuntimeError(f"mask_scores_forward failed: cudaError {rc}")
     LAUNCHES[_COUNTER[mode]] += 1
@@ -313,10 +343,14 @@ def _mask_scores_backward_cuda(masks, probs, grad, out_hw, want_dmask):
 # the custom ops: plain versions on the CPU, the kernels on the card
 
 
-def _tail_plain(masks, probs, keep, out_hw, mode):
-    """The plain version of every mode of ``mss::mask_scores``: resize, then score."""
-    sig = torch.sigmoid(resize_bilinear_nchw(masks.float(), tuple(out_hw),
-                                             align_corners=False))
+def _tail_plain(masks, probs, keep, out_hw, mode, row0=0, rows=-1):
+    """The plain version of every mode of ``mss::mask_scores``: resize (the
+    window's rows alone), then score."""
+    window = _rows(out_hw, row0, rows)
+    up = (resize_bilinear_nchw(masks.float(), tuple(out_hw), align_corners=False)
+          if window == (0, int(out_hw[0]))
+          else resize_bilinear_rows(masks.float(), tuple(out_hw), window, align_corners=False))
+    sig = torch.sigmoid(up)
     sem = torch.einsum("bqk,bqhw->bhwk", probs, sig)
     if mode == _ANOMALY:
         return 1.0 - sem.amax(dim=-1)
@@ -326,34 +360,40 @@ def _tail_plain(masks, probs, keep, out_hw, mode):
     return torch.cat([sem, sig * keep[:, :, None, None]], dim=1)
 
 
-def _tail_fake(masks, probs, keep, out_hw, mode):
+def _tail_fake(masks, probs, keep, out_hw, mode, row0=0, rows=-1):
     n, q = masks.shape[:2]
     k = probs.shape[-1]
     lead = {_ANOMALY: (n,), _SEMANTIC: (n, k + q), _SEMANTIC_CLASSES: (n, k)}[mode]
-    return masks.new_empty((*lead, *out_hw), dtype=torch.float32)
+    return masks.new_empty((*lead, _rows(out_hw, row0, rows)[1], out_hw[1]),
+                           dtype=torch.float32)
 
 
 def _tail_setup(ctx, inputs, output):
-    masks, probs, _, out_hw, mode = inputs
-    ctx.out_hw, ctx.mode = out_hw, mode
+    masks, probs, _, out_hw, mode, row0, rows = inputs
+    ctx.out_hw, ctx.mode, ctx.window = out_hw, mode, (row0, rows)
     ctx.save_for_backward(masks, probs)
 
 
 def _tail_backward(ctx, grad):
     if ctx.mode != _ANOMALY:
         _refuse_grad("semantic_inference_upsampled")
+    if _rows(ctx.out_hw, *ctx.window) != (0, int(ctx.out_hw[0])):
+        raise RuntimeError("the score tail's backward takes the whole map, not a window "
+                           "of its rows")
     masks, probs = ctx.saved_tensors
     want_dmask = ctx.needs_input_grad[0]
     dprobs, dmask = torch.ops.mss.mask_scores_backward(masks, probs, grad, ctx.out_hw,
                                                        want_dmask)
-    return (dmask.to(masks.dtype) if want_dmask else None), dprobs, None, None, None
+    return (dmask.to(masks.dtype) if want_dmask else None), dprobs, None, None, None, None, None
 
 
 custom_op("mask_scores",
-          "(Tensor masks, Tensor probs, Tensor? keep, int[] out_hw, int mode) -> Tensor",
+          "(Tensor masks, Tensor probs, Tensor? keep, int[] out_hw, int mode, int row0=0, "
+          "int rows=-1) -> Tensor",
           _tail_plain,
-          lambda masks, probs, keep, out_hw, mode: _mask_scores_cuda(masks, probs, keep,
-                                                                     out_hw, mode),
+          # looked up at each call, so that a harness may wrap the launch
+          lambda masks, probs, keep, out_hw, mode, row0=0, rows=-1: _mask_scores_cuda(
+              masks, probs, keep, out_hw, mode, row0, rows),
           _tail_fake, _tail_backward, _tail_setup)
 
 

@@ -9,7 +9,9 @@ trainer's generator state and step count, and whatever the caller adds
 parameters, moments and random draws. :class:`CheckpointManager` keeps named
 checkpoints (``last``, ``AUPRC_best``) under a directory and implements the
 epoch loop's resume. In a process group only rank 0 writes, behind a barrier,
-and every rank reads.
+and every rank reads. A tensor-parallel trainer's model and optimizer state
+are written and read in the unsharded layout (``core.tensor_parallel``), so a
+checkpoint moves between any two ``model_parallel`` settings.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..core.mesh import barrier, process_index
+from ..core.tensor_parallel import load_optimizer_state_dict, optimizer_state_dict
 
 log = logging.getLogger(__name__)
 
@@ -30,7 +33,7 @@ def save_checkpoint(path: str, trainer, generator: bool = True, **extra) -> str:
     generator's unless ``generator`` is False, and ``extra`` entries."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     state = {"model": trainer.model.state_dict(), "stage": trainer.stage,
-             "optimizer": trainer.optimizer.state_dict(),
+             "optimizer": optimizer_state_dict(trainer.model, trainer.optimizer),
              "step": trainer.n_steps, **extra}
     if generator:
         state["generator"] = trainer.generator.get_state()
@@ -52,7 +55,7 @@ def restore_checkpoint(path: str, trainer) -> dict:
     state = load_checkpoint(path, trainer.device)
     trainer.model.load_state_dict(state["model"], strict=True)
     trainer.set_stage(int(state["stage"]))
-    trainer.optimizer.load_state_dict(state["optimizer"])
+    load_optimizer_state_dict(trainer.model, trainer.optimizer, state["optimizer"])
     if "generator" in state:
         trainer.generator.set_state(state["generator"].cpu())
     trainer.n_steps = int(state["step"])
@@ -109,7 +112,7 @@ class CheckpointManager:
         saved_stage = int(warmup_epoch >= 0 and raw is not None
                           and start_epoch - 1 >= warmup_epoch)
         if raw is not None and "generator" in raw and saved_stage == stage:
-            trainer.optimizer.load_state_dict(raw["optimizer"])
+            load_optimizer_state_dict(trainer.model, trainer.optimizer, raw["optimizer"])
             trainer.generator.set_state(raw["generator"].cpu())
             trainer.n_steps = int(raw["step"])
             log.warning("restored the optimizer and generator state (full resume)")

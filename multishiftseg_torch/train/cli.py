@@ -10,8 +10,13 @@ Data-parallel over N cards of a host (one process a card, each taking
 
     torchrun --nproc_per_node N -m multishiftseg_torch.train.cli --model m2f ...
 
-It joins the launch first (``initialize_distributed``, as JAX's CLI does;
-NCCL, or gloo with ``--device cpu``); only rank 0 logs and writes.
+With ``train.model_parallel: M`` (tensor parallelism,
+``core/tensor_parallel.py``) each process drives M cards, so N cards take
+``--nproc_per_node N/M``; process r binds to card ``r * M``.
+
+It reads the recipe, then joins the launch (``initialize_distributed``, as
+JAX's CLI does; NCCL, or gloo with ``--device cpu``); only rank 0 logs and
+writes.
 
 The log goes to ``cfg.log_dir/log.txt`` (``outputs/<id>/`` by default) and to
 stderr; checkpoints and ``scalars.csv`` to ``cfg.model_dir`` (``ckpts/<id>/``).
@@ -63,12 +68,14 @@ def main(argv: Optional[Sequence[str]] = None):
     from ..core.config import load_config
     from ..core.mesh import initialize_distributed, process_index
 
-    if initialize_distributed(backend="gloo" if args.device == "cpu" else None) and (
-            args.device == "cuda"):
+    cfg = load_config(args.cfg, args.id)
+    # a process drives model_parallel x pipeline_parallel cards from its first
+    per_process = max(cfg.train.model_parallel, 1) * max(cfg.train.pipeline_parallel, 1)
+    if initialize_distributed(backend="gloo" if args.device == "cpu" else None,
+                              devices_per_process=per_process) and args.device == "cuda":
         import torch
 
         args.device = f"cuda:{torch.cuda.current_device()}"
-    cfg = load_config(args.cfg, args.id)
     cfg.train.seed = args.seed
     os.makedirs(cfg.log_dir, exist_ok=True)
     root = logging.getLogger()

@@ -40,6 +40,7 @@ from ..convert.torch_checkpoint import load_reference_weights
 from ..core.config import Config
 from ..core.mesh import (check_parallelism, check_train_batch, data_parallel, process_count,
                          rank_draws)
+from ..core.tensor_parallel import place_tensor_parallel
 from ..data.anomaly import RoadAnomaly21
 from ..data.cityscapes import DiverseCityscapes
 from ..data.transforms import Compose, Normalize, RandCrop, ToTensor
@@ -59,10 +60,12 @@ class TrainDeepLabOOD:
     checkpoint (loaded strictly, then ``ood_head`` <- the classifier);
     ``model`` defaults to WRN-38 DeepLab at random init from
     ``cfg.train.seed``. Runs on CUDA unless the caller asks for the CPU. Starts
-    in stage 0."""
+    in stage 0. With ``train.model_parallel > 1`` the widest layers' channels
+    split over ``tp_devices`` (``core.tensor_parallel``; by default the cards
+    from this process's, or the CPU for every shard of a CPU trainer)."""
 
     def __init__(self, cfg: Config, weight_path: Optional[str] = None,
-                 model: Optional[DeepWV3Plus] = None, device="cuda"):
+                 model: Optional[DeepWV3Plus] = None, device="cuda", tp_devices=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         check_parallelism(cfg.train)
@@ -76,6 +79,8 @@ class TrainDeepLabOOD:
         self.model = model.to(self.device).float()
         if self.device.type == "cuda":
             self.model = self.model.to(memory_format=torch.channels_last)
+        # tensor parallelism: the widest layers' channels over tp_devices
+        self.tp_devices = place_tensor_parallel(self.model, cfg.train, self.device, tp_devices)
         self.rcl_params = make_rcl_params(cfg.loss.params)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.bf16 = cfg.train.bf16

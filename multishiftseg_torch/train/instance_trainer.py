@@ -38,6 +38,7 @@ from ..core.config import Config
 from ..core.logging import ScalarWriter
 from ..core.mesh import (check_parallelism, check_train_batch, data_parallel, process_count,
                          process_index, rank_draws)
+from ..core.tensor_parallel import place_tensor_parallel
 from ..data.cityscapes import LABELS
 from ..data.loader import Loader, pad_to_multiple
 from ..data.mappers import (SegmentTargets, instance_to_targets, panoptic_to_targets,
@@ -163,11 +164,13 @@ class TrainM2FInstance:
     from ``cfg.train.seed``; ``weight_path`` is a reference checkpoint, loaded
     strictly by the reference's names. Runs on CUDA unless the caller asks
     for the CPU. ``dataset_name`` defaults to the Cityscapes folder under
-    ``cfg.data.cityscapes_root``, registered in the task's layout."""
+    ``cfg.data.cityscapes_root``, registered in the task's layout.
+    ``tp_devices``: the shards' devices when ``train.model_parallel > 1``
+    (``core.tensor_parallel.tensor_parallel_devices``)."""
 
     def __init__(self, cfg: Config, weight_path: Optional[str] = None,
                  model: Optional[MaskFormer] = None, dataset_name: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", tp_devices=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         check_parallelism(cfg.train)
@@ -181,6 +184,8 @@ class TrainM2FInstance:
         if weight_path:
             load_reference_weights(model, weight_path)
         self.model = model.to(self.device).float()
+        # tensor parallelism: the widest layers' channels over tp_devices
+        self.tp_devices = place_tensor_parallel(self.model, cfg.train, self.device, tp_devices)
         self.crit_cfg = CriterionConfig(
             num_classes=m.num_classes, eos_coef=m.no_object_weight,
             num_points=m.train_num_points, oversample_ratio=m.oversample_ratio,

@@ -47,6 +47,7 @@ from ..core.config import Config
 from ..core.mesh import (check_parallelism, check_train_batch, data_parallel, process_count,
                          rank_draws)
 from ..core.pipeline import auto_microbatches, stage_devices
+from ..core.tensor_parallel import place_tensor_parallel
 from ..data.anomaly import RoadAnomaly21
 from ..data.cityscapes import DiverseCityscapes
 from ..data.transforms import (AutoContrast, ColorJitter, Compose, Equalize, GaussianBlur,
@@ -95,11 +96,13 @@ class TrainM2FOOD:
     caller asks for the CPU. Starts in stage 0 (:meth:`set_stage`).
     ``pipeline_devices``: the GPipe stages' devices when
     ``train.pipeline_parallel > 1`` (``core.pipeline.stage_devices``; by
-    default the first cards, or the CPU for every stage of a CPU trainer)."""
+    default the first cards, or the CPU for every stage of a CPU trainer).
+    ``tp_devices``: the shards' devices when ``train.model_parallel > 1``
+    (``core.tensor_parallel.tensor_parallel_devices``)."""
 
     def __init__(self, cfg: Config, weight_path: Optional[str] = None,
                  model: Optional[MaskFormer] = None, device="cuda",
-                 pipeline_devices=None):
+                 pipeline_devices=None, tp_devices=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         check_parallelism(cfg.train, pipelined=True)
@@ -116,6 +119,8 @@ class TrainM2FOOD:
             load_reference_weights(model, weight_path, fill=_ood_head_from_class_head)
             copy_class_embed_to_ood(model)
         self.model = model.to(self.device).float()
+        # tensor parallelism: the widest layers' channels over tp_devices
+        self.tp_devices = place_tensor_parallel(self.model, cfg.train, self.device, tp_devices)
         if cfg.train.pipeline_parallel > 1:
             self._set_pipeline(cfg.train, pipeline_devices)
         self.rcl_params = make_rcl_params(cfg.loss.params)

@@ -16,14 +16,17 @@ comma-separated per-encoder-layer hybrid) and either approximate anomaly tail
 (``score_lowres``, ``score_topq``; not both). Every mode but ``bilinear`` is
 gated per checkpoint by the qualification artifact that
 ``multishiftseg_torch.tools.validate_release`` writes, under the key
-``sample_mode[+lowres|+topq{Q}]``. Spatial sharding (``--spatial``) is not
-ported: it is the next slice (``core.mesh.NEXT_SLICE``).
+``sample_mode[+lowres|+topq{Q}]``. ``--spatial N`` (``spatial_jit``,
+:208-252) splits each image's rows over N cards in one process
+(``core/spatial.py``): the buckets are padded to
+:func:`~multishiftseg_torch.core.spatial.spatial_bucket_multiple` so that every
+feature level splits evenly, and the CLI refuses N above the cards present.
 
 CLI::
 
     python -m multishiftseg_torch.train.test_runner --model m2f \\
         --cfg exps/m2f.yaml --weight_path ckpt.pth [--test_dataset RoadAnomaly21] \\
-        [--sample_mode nearest_top6c] [--score_lowres | --score_topq 32]
+        [--sample_mode nearest_top6c] [--score_lowres | --score_topq 32] [--spatial 2]
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core import spatial
 from ..core.config import Config, load_config
 from ..data.anomaly import EVAL_DATASETS
 from ..data.transforms import Compose, Normalize, ToTensor
@@ -82,7 +86,8 @@ class OODEvaluator:
     """Whole-image eval loop over the anomaly benchmarks."""
 
     def __init__(self, cfg: Config, forward_fn: Forward, dataset_roots: Dict[str, str],
-                 tta: bool = False, save_dir: Optional[str] = None, batch_size: int = 4):
+                 tta: bool = False, save_dir: Optional[str] = None, batch_size: int = 4,
+                 bucket_multiple: int = 128):
         """``forward_fn(imgs [B, H, W, 3] f32) -> (anomaly [B, H, W], sem
         [B, C, H, W] or None)``, tensors on any device. ``batch_size`` images
         of one shape bucket go to one forward. ``save_dir``: per-image
@@ -91,8 +96,12 @@ class OODEvaluator:
         ``<stem>_pred_color.png`` (the train-id argmax in the Cityscapes
         palette). ``metric_routes`` records the route of each benchmark's
         exact metrics (``evals.ood_metrics.metrics_route``: native from
-        2,000,000 labelled pixels on)."""
+        2,000,000 labelled pixels on). ``bucket_multiple``: the padding
+        granularity (/128); the row-partitioned eval raises it
+        (``core.spatial.spatial_bucket_multiple``) so that every feature
+        level's height splits evenly over the slabs."""
         self.cfg = cfg
+        self.bucket_multiple = bucket_multiple
         self.metric_routes: Dict[str, Optional[str]] = {}
         self.forward_fn = tta_wrap(forward_fn) if tta else forward_fn
         self.roots = dataset_roots
@@ -133,7 +142,7 @@ class OODEvaluator:
         for i in range(len(ds)):
             with Image.open(ds.images[i]) as im:
                 w, h = im.size
-            buckets.setdefault(bucket_shape(h, w), []).append(i)
+            buckets.setdefault(bucket_shape(h, w, self.bucket_multiple), []).append(i)
 
         for (bh, bw), idxs in buckets.items():
             for s in range(0, len(idxs), self.batch_size):
@@ -238,7 +247,8 @@ def _check_eval_options(sample_mode: str, score_lowres: bool, score_topq: int) -
 def build_m2f_forward(cfg: Config, weight_path: Optional[str] = None, *,
                       model: Optional[MaskFormer] = None, device="cuda",
                       sample_mode: str = "bilinear", score_lowres: bool = False,
-                      score_topq: int = 0, enforce_qualification: bool = True) -> Forward:
+                      score_topq: int = 0, enforce_qualification: bool = True,
+                      spatial_devices: int = 0, slab_devices=None) -> Forward:
     """``fwd(imgs) -> (anomaly [B, H, W], sem [B, K + Q, H, W])`` for the
     evaluator's images, f32 on ``device`` (CUDA unless the caller asks for the
     CPU). The model is ``TrainM2FOOD``'s: from ``weight_path``, or ``model``,
@@ -247,7 +257,9 @@ def build_m2f_forward(cfg: Config, weight_path: Optional[str] = None, *,
     mode and tail given (module docstring). The setting is checked, then the
     qualification gate runs under :func:`qualification_key` unless
     ``enforce_qualification`` is False (the qualification run itself), then the
-    model is built."""
+    model is built. ``spatial_devices = N``: each image's rows in N slabs
+    (``core.spatial.m2f_eval``) over ``slab_devices``, by default the first N
+    cards (``core.spatial.slab_devices``)."""
     from .m2f_trainer import TrainM2FOOD
 
     _check_eval_options(sample_mode, score_lowres, score_topq)
@@ -255,6 +267,18 @@ def build_m2f_forward(cfg: Config, weight_path: Optional[str] = None, *,
         check_sampling_qualification(weight_path,
                                      qualification_key(sample_mode, score_lowres, score_topq))
     trainer = TrainM2FOOD(cfg, weight_path, model=model, device=device)
+    if spatial_devices:
+        devs = spatial.slab_devices(spatial_devices, slab_devices, trainer.device)
+        runner = spatial.SlabRunner(trainer.model.eval(), devs)
+
+        @torch.inference_mode()
+        def fwd_spatial(images):
+            sem, anomaly = spatial.m2f_eval(trainer.model, _eval_images(images), devs,
+                                            trainer.bf16, sample_mode, score_lowres,
+                                            score_topq, runner)
+            return anomaly, sem
+
+        return fwd_spatial
 
     def fwd(images):
         sem, anomaly = trainer.eval_step(images, sample_mode, score_lowres, score_topq)
@@ -301,23 +325,44 @@ def build_m2f_request_forward(model: MaskFormer, device="cuda", sample_mode: str
     return fwd
 
 
+def _eval_images(images) -> torch.Tensor:
+    x = torch.as_tensor(images)
+    if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] != 3:
+        raise ValueError(f"expected normalised float32 [N, H, W, 3] images, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    return x
+
+
 def build_deeplab_forward(cfg: Config, weight_path: Optional[str] = None, *,
-                          model: Optional[DeepWV3Plus] = None, device="cuda") -> Forward:
+                          model: Optional[DeepWV3Plus] = None, device="cuda",
+                          spatial_devices: int = 0, slab_devices=None) -> Forward:
     """``fwd(imgs [N, H, W, 3] normalised f32) -> (score [N, H, W], logit
     [N, C, H, W])``, both f32 on ``device`` (CUDA unless the caller asks for
     the CPU): ``TrainDeepLabOOD.eval_step`` of the model from ``weight_path``,
     or ``model``, or random init; bf16 autocast over f32 weights when
-    ``cfg.train.bf16``, the energy score and the logits' resize in f32."""
+    ``cfg.train.bf16``, the energy score and the logits' resize in f32.
+    ``spatial_devices = N``: each image's rows in N slabs
+    (``core.spatial.deeplab_forward``) over ``slab_devices``, by default the
+    first N cards."""
     from .deeplab_trainer import TrainDeepLabOOD
 
     trainer = TrainDeepLabOOD(cfg, weight_path, model=model, device=device)
+    if spatial_devices:
+        devs = spatial.slab_devices(spatial_devices, slab_devices, trainer.device)
+        runner = spatial.SlabRunner(trainer.model.eval(), devs)
+
+        @torch.inference_mode()
+        def fwd_spatial(images):
+            x = _eval_images(images).to(devs[0])
+            trainer.model.eval()
+            with torch.autocast(devs[0].type, dtype=torch.bfloat16, enabled=trainer.bf16):
+                return spatial.deeplab_forward(trainer.model, x.permute(0, 3, 1, 2), devs,
+                                               runner)
+
+        return fwd_spatial
 
     def fwd(images):
-        x = torch.as_tensor(images)
-        if x.dtype != torch.float32 or x.dim() != 4 or x.shape[-1] != 3:
-            raise ValueError(f"expected normalised float32 [N, H, W, 3] images, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-        return trainer.eval_step(x)
+        return trainer.eval_step(_eval_images(images))
 
     return fwd
 
@@ -342,7 +387,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
                              "comma-separated list gives a per-encoder-layer hybrid")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--spatial", type=int, default=0, metavar="N",
-                        help="not ported: the next slice (ROADMAP.md Queue 1 item 4.3)")
+                        help="split each image's rows over N cards (single-image "
+                             "latency; 0 = off); needs N cards")
     parser.add_argument("--score_lowres", action="store_true",
                         help="m2f: score the anomaly branch at mask resolution and "
                              "resize the score map (approximate; qualified under the "
@@ -354,23 +400,30 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, float]]:
                              "--score_lowres")
     args = parser.parse_args(argv)
     if args.spatial:
-        from ..core.mesh import NEXT_SLICE
-
-        raise NotImplementedError(f"--spatial is not ported; see {NEXT_SLICE}")
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if args.device != "cuda" or cards < args.spatial:
+            raise ValueError(f"--spatial {args.spatial} needs {args.spatial} cards; "
+                             f"{cards if args.device == 'cuda' else 0} are present "
+                             f"(--device {args.device})")
 
     logging.basicConfig(level=logging.INFO)
     cfg = load_config(args.cfg, args.id)
     if args.model == "deeplab":
-        fwd = build_deeplab_forward(cfg, args.weight_path, device=args.device)
+        fwd = build_deeplab_forward(cfg, args.weight_path, device=args.device,
+                                    spatial_devices=args.spatial)
     else:
         fwd = build_m2f_forward(cfg, args.weight_path, device=args.device,
                                 sample_mode=args.sample_mode,
-                                score_lowres=args.score_lowres, score_topq=args.score_topq)
+                                score_lowres=args.score_lowres, score_topq=args.score_topq,
+                                spatial_devices=args.spatial)
     d = cfg.data
     roots = {"CityscapesVal": d.cityscapes_root, "RoadAnomaly": d.road_anomaly_root,
              "RoadAnomaly21": d.anomaly_track_root, "RoadObstacle21": d.obstacle_track_root,
              "MUAD": d.muad_root, "ACDC_POC": d.acdc_root}
-    ev = OODEvaluator(cfg, fwd, roots, tta=args.tta, save_dir=args.save_outputs)
+    ev = OODEvaluator(cfg, fwd, roots, tta=args.tta, save_dir=args.save_outputs,
+                      bucket_multiple=spatial.spatial_bucket_multiple(
+                          args.spatial, spatial.M2F_STRIDE if args.model == "m2f"
+                          else spatial.DEEPLAB_STRIDE))
     names = ((args.test_dataset,) if args.test_dataset
              else DEFAULT_DATASETS if args.model == "deeplab" else DEFAULT_DATASETS_M2F)
     results = ev.test_all(names)

@@ -155,7 +155,7 @@ def test_two_rank_train_writes_once_and_resumes_on_both_ranks(loop_cfg, tmp_path
     epoch's loss and metrics and the best AUPRC equal those of the same run
     (one epoch, then a resume) in one process on the same global batches
     (rel 2e-4, ``test_multihost.py``'s bound). Both ranks refuse a per-half
-    batch of 3 and ``model_parallel: 2``."""
+    batch of 3 and ``model_parallel: 2`` with ``pipeline_parallel: 2``."""
     cfg = copy.deepcopy(loop_cfg)
     cfg.model_dir = str(tmp_path / "two")
     ranks = run_ranks(dict(kind="train_and_resume", cfg=cfg, model=DL_TINY, epochs=(1, 2)),
@@ -192,13 +192,13 @@ def test_two_rank_train_writes_once_and_resumes_on_both_ranks(loop_cfg, tmp_path
 
 @pytest.mark.parametrize("case", ["model_parallel", "pipeline_world", "pipeline_decoder"])
 def test_unported_parallelism_raises(case, monkeypatch):
-    """The refusals at construction: tensor parallelism (the next slice,
-    named by its ROADMAP item); GPipe in a world above 1, as JAX refuses it
-    across processes; GPipe of a model whose pixel decoder is not the
-    deformable one."""
+    """The refusals at construction: tensor parallelism together with GPipe
+    (the next slice's composition, named by its ROADMAP item); GPipe in a
+    world above 1, as JAX refuses it across processes; GPipe of a model whose
+    pixel decoder is not the deformable one."""
     cfg = load_config("exps/deeplab.yaml")
     if case == "model_parallel":
-        cfg.train.model_parallel = 2
+        cfg.train.model_parallel = cfg.train.pipeline_parallel = 2
         with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 4"):
             TrainDeepLabOOD(cfg, model=DeepWV3Plus(**DL_TINY), device="cpu")
         with pytest.raises(NotImplementedError, match="model_parallel"):

@@ -351,7 +351,7 @@ def test_main_runs_the_tiny_model_on_a_folder(tree, tmp_path, monkeypatch):
     for p in ds.images:
         w, h = Image.open(p).size
         assert np.load(out / "RoadAnomaly21" / f"{_artifact_stem(p)}_anomaly.npy").shape == (h, w)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 2 cards"):
         test_runner.main(argv + ["--spatial", "2"])
     with pytest.raises(ValueError, match="exclusive"):
         test_runner.main(argv + ["--score_lowres", "--score_topq", "4"])

@@ -108,6 +108,38 @@ TAIL_FORWARD_CASES = {
 }
 
 
+# (masks' h x w, output H x W, row windows): windows off the tiles' 16-row
+# grid, one row, the last rows; an upsample (staged) and a downsample (taps
+# from global memory)
+TAIL_WINDOW_CASES = {"upsample": ((20, 24), (80, 96), [(0, 80), (16, 32), (7, 1), (23, 41),
+                                                       (64, 16), (79, 1)]),
+                     "downsample": ((48, 40), (24, 20), [(0, 24), (5, 7), (23, 1)])}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(TAIL_WINDOW_CASES))
+def test_mask_scores_row_window_matches_plain(cuda, case):
+    """The forward's output-row window (the row-partitioned eval's slabs), in
+    each mode, against the windowed plain version and the whole call's rows
+    (1e-5, as the whole call)."""
+    hw, out_hw, windows = TAIL_WINDOW_CASES[case]
+    rng = np.random.RandomState(37)
+    masks = torch.from_numpy(rng.randn(2, 12, *hw).astype(np.float32) * 3).to(cuda)
+    probs = torch.softmax(torch.from_numpy(rng.randn(2, 12, 19).astype(np.float32)), -1)
+    probs, keep = probs.to(cuda), torch.from_numpy(rng.rand(2, 12).astype(np.float32)).to(cuda)
+    for mode in (0, 1, 2):
+        k = keep if mode == 1 else None
+        whole = torch.ops.mss.mask_scores(masks, probs, k, list(out_hw), mode)
+        for row0, rows in windows:
+            got = torch.ops.mss.mask_scores(masks, probs, k, list(out_hw), mode, row0, rows)
+            plain = scores._tail_plain(masks, probs, k, list(out_hw), mode, row0, rows)
+            torch.testing.assert_close(got, plain, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(got, whole[..., row0:row0 + rows, :], rtol=1e-5,
+                                       atol=1e-5)
+    with pytest.raises(ValueError, match="outside a map"):
+        torch.ops.mss.mask_scores(masks, probs, None, list(out_hw), 0, out_hw[0] - 1, 2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", sorted(TAIL_FORWARD_CASES))
 def test_mask_scores_forward_tiles_match_plain(cuda, case):

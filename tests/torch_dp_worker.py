@@ -60,12 +60,18 @@ def _rows(arrays):
 
 
 def _record(model, loss, parts) -> dict:
-    return {"loss": float(loss), "parts": {k: float(v) for k, v in parts.items()},
-            "grads": {n: p.grad.double().numpy().copy()
-                      for n, p in model.named_parameters() if p.grad is not None},
-            "params": {n: p.detach().double().numpy().copy()
-                       for n, p in model.named_parameters()},
-            "stats": {n: b.double().numpy().copy() for n, b in model.named_buffers()}}
+    from multishiftseg_torch.core.tensor_parallel import is_tensor_parallel, unsharded_grads
+
+    out = {"loss": float(loss), "parts": {k: float(v) for k, v in parts.items()},
+           "grads": {n: p.grad.double().numpy().copy()
+                     for n, p in model.named_parameters() if p.grad is not None},
+           "params": {n: p.detach().double().numpy().copy()
+                      for n, p in model.named_parameters()},
+           "stats": {n: b.double().numpy().copy() for n, b in model.named_buffers()}}
+    if is_tensor_parallel(model):  # the unsharded layout, to compare with one process
+        out["state"] = {k: v.double().numpy().copy() for k, v in model.state_dict().items()}
+        out["unsharded_grads"] = {k: g.double().numpy() for k, g in unsharded_grads(model).items()}
+    return out
 
 
 def _trainer(job, dtype):
@@ -144,7 +150,8 @@ def train_and_resume(job) -> dict:
     out["rank"] = process_index()
     refusals = {}
     for name, edit in (("odd_batch", lambda c: setattr(c.train, "train_batch", 3)),
-                       ("model_parallel", lambda c: setattr(c.train, "model_parallel", 2))):
+                       ("model_parallel", lambda c: (setattr(c.train, "model_parallel", 2),
+                                                     setattr(c.train, "pipeline_parallel", 2)))):
         cfg = copy.deepcopy(job["cfg"])
         edit(cfg)
         try:
