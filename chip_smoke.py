@@ -198,6 +198,26 @@ exits non-zero and prints no result. Phases, one JSON line each:
    ``SPATIAL_RTOL`` of its scale), bf16 requests timed in turns with the
    unsplit one, one N = 2 request's launches the paths ``spatial_deeplab``
    and ``spatial_m2f``, and the halo rows the dilated conv throws away.
+26. ``cgaug_parity``: CG-Aug's towers (``multishiftseg_torch/cgaug``) on the
+   card against the CPU from the same seeded weights, f32 with TF32 off,
+   each within its ``CGAUG_LIMITS`` of its scale (a control with TF32 on
+   reported beside them): CLIP-L's text tower on two
+   prompts, SD1.5's UNet with ControlNet-v15 at full widths for 2 guided
+   DDIM steps on a 128x256 hint and the VAE decode, SAM at ViT-H's widths
+   and depth on a 256 px input (embedding, mask logits, IoU, the masks where
+   clear of 0), and the detector's anomaly map at 256x512 with the card's
+   attention masks replayed.
+27. ``cgaug``: the reference generation path (``MultiShiftGenerator`` over
+   ``SDControlNetGenerator``, ``SAMSegmenter`` and ``make_m2f_detector``) at
+   full widths from seeded weights, a synthetic vocab and a seeded anomaly
+   source, on a seeded 512x1024 Cityscapes colour label, 50 guided DDIM
+   steps, the gates set so every attempt runs all three backends: 1 warm-up
+   and 2 timed calls in f32 (their launches the path ``cgaug``: 6 bilinear
+   deformable forwards, one anomaly and one semantic tail a call), and 1
+   timed call with the SD towers and SAM in bf16 (no warm-up: the time
+   limit): seconds an image, each stage's device time, the gate values, peak
+   memory, the stages' CUDA-event spans over the wall time (an upper bound
+   of the busy share).
 
 ``slice_parity``, ``train_parity`` and ``instance_parity`` run the CPU's
 decoder on the card's attention masks, and hold every bit that differs to a
@@ -245,8 +265,11 @@ bilinear deformable forward's and backward's, the anomaly tail's, the
 classes-only tail's, the label points' and the assignment's rows split them:
 eval paths, training steps, each row of the vanilla recipes the recipes at
 its shapes; ``tensor_parallel``'s sharded steps count as training paths,
+``cgaug``'s timed calls count in the rows at the detector's shapes
+(``*_cgaug_shapes``: one f32 512x1024 image),
 ``spatial``'s N = 2 requests count in the rows at a slab's shapes:
-``mask_scores_anomaly_slab``, the tail's row window over rows 512-1024,
+``mask_scores_anomaly_slab`` and ``mask_scores_semantic_slab``, the tails'
+row window over rows 512-1024,
 ``ms_deform_attn_bilinear_slab``, a slab's 21504 queries over the whole
 table, and ``dilated_conv3x3_slab``, the ASPP on a slab of the stride-8
 map with its halo rows, beside cuDNN's), each path run
@@ -675,10 +698,11 @@ def phase_kernels(torch):
             "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None}
         time_redesigned(torch, rows[f"mask_scores_{head}"], run)
-        if head == "anomaly":  # the eval paths; stage 1's launches are its own row's
-            rows["mask_scores_anomaly"]["paths"] = ("serve", "validate", "evaluate",
-                                                    "alt_serve_swin_large", "alt_serve_resnet101",
-                                                    "deploy_m2f")
+        # the eval paths at 1024x2048; stage 1's, a slab's and CG-Aug's
+        # launches are their own rows'
+        rows[f"mask_scores_{head}"]["paths"] = ("serve", "validate", "evaluate",
+                                                "alt_serve_swin_large", "alt_serve_resnet101",
+                                                "deploy_m2f")
         del out
     approx_kernel_rows(torch, dev, rows, check, checks)
     train_kernel_rows(torch, dev, rows, check, checks)
@@ -687,14 +711,76 @@ def phase_kernels(torch):
     instance_kernel_rows(torch, dev, rows, check, checks)
     ood_hist_rows(torch, dev, rows, checks)
     spatial_kernel_rows(torch, dev, rows, check, checks)
+    cgaug_kernel_rows(torch, dev, rows, check, checks)
     ok = all(c["ok"] for c in checks)
     return rows, {"phase": "kernels", "ok": ok, "checks": checks}
 
 
+def cgaug_kernel_rows(torch, dev, rows, check, checks):
+    """The kernels of CG-Aug's detector (``cgaug``) at its shapes: one f32
+    512x1024 image, so the deformable encoder's pyramid of 16x32, 32x64 and
+    64x128 (10752 queries) and 100 stride-4 masks of 128x256 scored at
+    512x1024, both tails. Each counts only the ``cgaug`` path's launches."""
+    from multishiftseg_torch.ops import ms_deform_attn as msda
+    from multishiftseg_torch.ops import scores
+
+    ch, cw = CGAUG_HW
+    levels = [(ch // 32, cw // 32), (ch // 16, cw // 16), (ch // 8, cw // 8)]
+    lq = sum(h * w for h, w in levels)
+    value, loc, attn = msda_inputs(torch, levels, lq, torch.float32, dev, SEED + 160)
+    run = lambda: msda.ms_deform_attn_core(value, levels, loc, attn, "bilinear")
+    plain = lambda: msda.ms_deform_attn_core_plain(value, levels, loc, attn, "bilinear")
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    # f32 on both sides: the sums differ only in order
+    err = check("ms_deform_attn_bilinear_cgaug_shapes", out, ref, 1e-5, 1e-5)
+    b_ms, b_by = bound(nbytes(value, loc, attn, out), msda_ops(torch, loc, levels, "bilinear"))
+    row = rows["ms_deform_attn_bilinear_cgaug_shapes"] = {
+        "name": "ms_deform_attn_bilinear_cgaug_shapes", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/ms_deform_attn.cu",
+        "replaces": "multishiftseg_tpu/ops/ms_deform_attn.py:93",
+        "counter": "ms_deform_attn_bilinear", "paths": ("cgaug",), "max_abs_err": err,
+        "plain_ms": median_ms(torch, plain, 10), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}
+    time_redesigned(torch, row, run)
+    del value, loc, attn, out, ref
+
+    g = np.random.RandomState(SEED + 161)
+    masks = torch.from_numpy(3 * g.randn(1, QUERIES, ch // 4, cw // 4).astype(np.float32)).to(dev)
+    cls = g.randn(1, QUERIES, CLASSES + 1).astype(np.float32)
+    cls[0, :5, 3] = 8.0
+    cls = torch.from_numpy(cls).to(dev)
+    for head, line in (("anomaly", "scores.py:39"), ("semantic", "scores.py:25")):
+        if head == "anomaly":
+            run = lambda: scores.anomaly_score_upsampled(cls, masks, CGAUG_HW)
+            plain = lambda: scores.anomaly_score_upsampled_plain(cls, masks, CGAUG_HW)
+        else:
+            run = lambda: scores.semantic_inference_upsampled(cls, masks, CGAUG_HW, CLASSES)
+            plain = lambda: scores.semantic_inference_upsampled_plain(cls, masks, CGAUG_HW,
+                                                                      CLASSES)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        err = check(f"mask_scores_{head}_cgaug_shapes", out, ref, 1e-5, 1e-5)
+        del ref
+        ops = ch * cw * (QUERIES * (11 + 2 * CLASSES)
+                         + (CLASSES + 1 if head == "anomaly" else QUERIES))
+        in_bytes = nbytes(masks) + QUERIES * CLASSES * 4 + (QUERIES * 4 if head == "semantic" else 0)
+        b_ms, b_by = bound(in_bytes + nbytes(out), ops)
+        row = rows[f"mask_scores_{head}_cgaug_shapes"] = {
+            "name": f"mask_scores_{head}_cgaug_shapes", "route": "cuda",
+            "source": "multishiftseg_torch/csrc/mask_scores.cu",
+            "replaces": f"multishiftseg_tpu/ops/{line}",
+            "counter": f"mask_scores_{head}", "paths": ("cgaug",), "max_abs_err": err,
+            "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+        time_redesigned(torch, row, run)
+        del out
+
+
 def spatial_kernel_rows(torch, dev, rows, check, checks):
     """The kernels of the row-partitioned eval (``spatial``) at a slab's shapes,
-    2 slabs of a 1024x2048 image: the anomaly tail's row window (rows 512 to
-    1024, the lower slab), the bilinear deformable forward on a slab's queries
+    2 slabs of a 1024x2048 image: the anomaly and semantic tails' row window
+    (rows 512 to 1024, the lower slab), the bilinear deformable forward on a slab's queries
     (half the pyramid's tokens) against the whole gathered table, and the
     ASPP's dilated conv on a slab of the stride-8 map with its halo rows (64 +
     2 rate rows, whose outer 2 rate rows are thrown away). Each counts only
@@ -725,6 +811,23 @@ def spatial_kernel_rows(torch, dev, rows, check, checks):
         "source": "multishiftseg_torch/csrc/mask_scores.cu",
         "replaces": "multishiftseg_tpu/ops/scores.py:39",
         "counter": "mask_scores_anomaly", "paths": ("spatial_m2f",), "max_abs_err": err,
+        "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}
+    time_redesigned(torch, row, run)
+    del out, ref
+    keep = scores.keep_weights(cls, CLASSES).contiguous()
+    run = lambda: scores.semantic_inference_upsampled(cls, masks, (H, W), CLASSES, rows=window)
+    plain = lambda: scores._tail_plain(masks, probs, keep, [H, W], scores._SEMANTIC, *window)
+    out, ref = run(), plain()
+    torch.cuda.synchronize()
+    err = check("mask_scores_semantic_slab_rows", out, ref, 1e-5, 1e-5)
+    ops = window[1] * W * QUERIES * (11 + 2 * CLASSES + 1)
+    b_ms, b_by = bound(QUERIES * src_rows * (W // 4) * 4 + nbytes(probs, keep, out), ops)
+    row = rows["mask_scores_semantic_slab"] = {
+        "name": "mask_scores_semantic_slab", "route": "cuda",
+        "source": "multishiftseg_torch/csrc/mask_scores.cu",
+        "replaces": "multishiftseg_tpu/ops/scores.py:25",
+        "counter": "mask_scores_semantic", "paths": ("spatial_m2f",), "max_abs_err": err,
         "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}
     time_redesigned(torch, row, run)
@@ -4486,7 +4589,10 @@ def deploy_family(torch, family, tmp, cfg_path, expected):
         cfg = load_config(cfg_path, "deploy_eager")
     finally:
         os.chdir(cwd)
-    ep = deploy.load_exported(prefix + ".pt2")
+    # the artifact loaded once in this process (a load takes 10-20 s): its
+    # program inspected here, then timed against the eager forward
+    loaded = deploy.ServingModel(prefix)
+    ep = loaded.exported
     program_weights = len(ep.state_dict)
     nodes = [n for gm in ep.graph_module.modules() if isinstance(gm, torch.fx.GraphModule)
              for n in gm.graph.nodes if n.op == "call_function"]
@@ -4537,8 +4643,7 @@ def deploy_family(torch, family, tmp, cfg_path, expected):
         lat.append((time.perf_counter() - t0) * 1e3)
     # M2F: (anomaly, sem); DeepLab: (score, logit NCHW), as the artifact's outputs
     want = [o.float().cpu().numpy() for o in out]
-    ab = program_against_eager(torch, deploy.ServingModel(prefix), eager,
-                               torch.from_numpy(images[-1]).cuda())
+    ab = program_against_eager(torch, loaded, eager, torch.from_numpy(images[-1]).cuda())
     with np.load(prefix + "_served.npz") as z:
         got = [z["first"], z["second"]]
     errs = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
@@ -4923,6 +5028,455 @@ def phase_spatial(torch):
     return res, counts_by_path
 
 
+# CG-Aug's reference generation path (multishiftseg_torch/cgaug): the timed
+# phase runs 512x1024 labels (64x128 latents, 8192 tokens at the UNet's first
+# level: f32 logits of 2 x 8 x 8192^2 x 4 B = 4.3 GB; a 1024x2048 label would
+# need 68.7 GB), with GenerationConfig's 200-500 px paste range scaled to it
+CGAUG_HW = (512, 1024)
+CGAUG_PASTE = (100, 250)
+CGAUG_STEPS = 50
+# the parity phase's cuts: a 128x256 hint (16x32 latents) for 2 guided steps,
+# SAM at ViT-H's widths and depth on a 256 px input, the detector at 256x512
+CGAUG_PARITY_HINT = (128, 256)
+CGAUG_PARITY_STEPS = 2
+CGAUG_PARITY_SAM = 256
+CGAUG_PARITY_HW = (256, 512)
+# each output's largest difference over its scale, card against CPU in f32
+# with TF32 off: readings of 6.4e-7 (CLIP) to 3.1e-6 (SAM, the decode, the
+# detector) and 1.5e-5 (the latents after 2 guided steps) on an H100; the
+# limits stand a few times above them and below what TF32 on the card gives
+# (the phase's control: 3.5e-4 for CLIP, 1.1e-3 to 6.2e-3 for the others)
+CGAUG_LIMITS = {"clip_text": 2e-5, "ddim_latents": 1e-4, "vae_decode": 2e-5,
+                "sam_embedding": 2e-5, "sam_mask_logits": 2e-5, "sam_iou": 2e-5,
+                "sam_low_res_logits": 2e-5, "detector_anomaly": 2e-5}
+CGAUG_PROMPTS = ("An image sampled from various stereo video sequences taken by dash cam.",
+                 "longbody, lowres, bad anatomy, worst quality, low quality")
+
+
+def write_synthetic_vocab(root):
+    """CLIP's byte-level vocabulary with a few merges (ids below 520): the
+    real vocab.json / merges.txt are not in the repository."""
+    from multishiftseg_torch.cgaug.clip_text import bytes_to_unicode
+
+    chars = sorted(bytes_to_unicode().values())
+    vocab = {c: i for i, c in enumerate(chars)}
+    vocab.update({c + "</w>": len(chars) + i for i, c in enumerate(chars)})
+    for tok in ("ll", "he", "llo</w>", "hello</w>", "<|startoftext|>", "<|endoftext|>"):
+        vocab[tok] = len(vocab)
+    Path(root, "vocab.json").write_text(json.dumps(vocab))
+    Path(root, "merges.txt").write_text("#version: 0.2\nl l\nh e\nll o</w>\nhe llo</w>\n")
+
+
+def city_colour_label(seed, hw):
+    """A seeded Cityscapes colour label: sky, buildings and vegetation over a
+    road with sidewalks, cars on it."""
+    g = np.random.RandomState(seed)
+    h, w = hw
+    lbl = np.empty((h, w, 3), np.uint8)
+    lbl[:] = (70, 130, 180)                                   # sky
+    lbl[h * 2 // 10:h // 2] = (70, 70, 70)                    # building
+    lbl[h * 3 // 10:h // 2, : w // 5] = (107, 142, 35)        # vegetation
+    lbl[h // 2:] = (128, 64, 128)                             # road
+    lbl[h // 2:, : w // 8] = lbl[h // 2:, -w // 8:] = (244, 35, 232)  # sidewalk
+    for _ in range(3):                                        # cars
+        y, x = g.randint(h // 2, h - h // 8), g.randint(w // 8, w - w // 4)
+        lbl[y:y + h // 16, x:x + w // 12] = (0, 0, 142)
+    return lbl
+
+
+class SeededAnomalySource:
+    """Seeded objects in place of the ADE20K index the repository does not
+    hold: an ellipse of 40-160 px with a notch, and an OOD class name."""
+
+    def sample(self, rng):
+        from multishiftseg_torch.cgaug.ade20k_source import DEFAULT_OOD_CLASSES
+
+        h, w = (int(v) for v in rng.integers(40, 160, 2))
+        yy, xx = np.mgrid[:h, :w]
+        mask = ((2 * yy / h - 1) ** 2 + (2 * xx / w - 1) ** 2 <= 1).astype(np.uint8)
+        mask[: h // 3, w // 3: 2 * w // 3] = 0
+        return mask, DEFAULT_OOD_CLASSES[int(rng.integers(len(DEFAULT_OOD_CLASSES)))]
+
+
+def seeded_on(torch, make, seed, device, scale=0.01):
+    """``make()`` built on ``device`` under ``torch.manual_seed(seed)`` (the
+    modules' own init), then ``scale`` normal noise on every state entry from a
+    generator on the device, so no table or zero-initialised layer is
+    constant; in eval mode."""
+    torch.manual_seed(seed)
+    with torch.device(device):
+        module = make()
+    g = torch.Generator(device).manual_seed(seed)
+    with torch.no_grad():
+        for t in module.state_dict().values():
+            t.add_(scale * torch.randn(t.shape, generator=g, device=t.device, dtype=t.dtype))
+    return module.eval()
+
+
+def cpu_twin(torch, make, module):
+    """``make()`` on the CPU holding ``module``'s state."""
+    with torch.device("meta"):
+        twin = make()
+    twin = twin.to_empty(device="cpu")
+    twin.load_state_dict(module.state_dict())
+    return twin.eval()
+
+
+def rel_to_scale(got, want):
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@contextlib.contextmanager
+def tf32_matmuls(torch, on):
+    """TF32 for cuBLAS's and cuDNN's f32 work ``on`` or off, restored after."""
+    before = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = before
+
+
+def phase_cgaug_parity(torch, card="cuda"):
+    """``cgaug_parity``: CG-Aug's towers on the card against the CPU from the
+    same seeded weights, in f32 with TF32 off, each output within its
+    ``CGAUG_LIMITS`` of its scale: CLIP-L's text tower on two prompts; SD1.5's
+    UNet with ControlNet-v15 at full widths for 2 guided DDIM steps from one
+    x_T on a 128x256 hint (the CPU's text contexts on both), then the VAE
+    decode of the CPU's latents; SAM at ViT-H's widths and depth on a 256 px
+    input (a 256x512 image, downsampled) with a box: the embedding, the
+    low-res and full-size mask logits and the IoU, the masks equal where the
+    CPU's logit is clear of 0; the detector (``make_m2f_detector`` over the
+    default M2F R-50 + GMA) at 256x512, the CPU attending with the card's
+    masks (``attention_mask_hooks``). A control reruns the card's side with
+    TF32 on (the detector attending with the f32 run's masks) and reports
+    its differences beside the limits, which it should exceed."""
+    from multishiftseg_torch.cgaug import clip_text, sd_pipeline
+    from multishiftseg_torch.cgaug.generate import make_m2f_detector
+    from multishiftseg_torch.cgaug.label_ops import cityscapes_to_ade20k
+    from multishiftseg_torch.cgaug.sam import SAM, SamPredictor, SAMConfig
+    from multishiftseg_torch.core.config import load_config
+    from multishiftseg_torch.models.maskformer import maskformer_from_config
+    import tempfile
+
+    res = {"phase": "cgaug_parity", "dtype": "float32", "tf32": False, "limits": CGAUG_LIMITS,
+           "hint_hw": list(CGAUG_PARITY_HINT), "ddim_steps": CGAUG_PARITY_STEPS,
+           "sam_img_size": CGAUG_PARITY_SAM, "detector_hw": list(CGAUG_PARITY_HW)}
+    errs, control, seconds = {}, {}, {}
+    t0 = time.perf_counter()
+    g = np.random.RandomState(SEED + 140)
+    ldm = seeded_on(torch, sd_pipeline.ControlLDM, SEED + 141, card)
+    cpu_ldm = cpu_twin(torch, sd_pipeline.ControlLDM, ldm)
+    sampler = sd_pipeline.SamplerConfig(steps=CGAUG_PARITY_STEPS)
+    pipe, cpu_pipe = (sd_pipeline.ControlNetPipeline(ldm, sampler),
+                      sd_pipeline.ControlNetPipeline(cpu_ldm, sampler))
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_vocab(tmp)
+        tokens = clip_text.load_tokenizer(tmp)(list(CGAUG_PROMPTS))
+    label, _ = cityscapes_to_ade20k(city_colour_label(SEED + 142, CGAUG_PARITY_HINT))
+    hint = torch.from_numpy(label).permute(2, 0, 1)[None].float() / 255.0
+    h8, w8 = CGAUG_PARITY_HINT[0] // 8, CGAUG_PARITY_HINT[1] // 8
+    x_T = torch.from_numpy(g.randn(1, 4, h8, w8).astype(np.float32))
+
+    def sd(p, ctx_cpu=None, lat_cpu=None):
+        """(text contexts, latents after the guided steps, decoded image) on
+        ``p``'s device; given the CPU's, the steps from its contexts and the
+        decode of its latents."""
+        dev = p.device
+        ctx = p.encode_text(tokens)
+        c = ctx if ctx_cpu is None else ctx_cpu.to(dev)
+        lat = p.sample(x_T.to(dev), hint.to(dev), c[:1], c[1:])
+        return ctx, lat, p.decode((lat if lat_cpu is None else lat_cpu).to(dev))
+
+    want = sd(cpu_pipe)
+    names = ("clip_text", "ddim_latents", "vae_decode")
+    finite = [bool(torch.isfinite(t).all()) for t in want]
+    for on, into in ((False, errs), (True, control)):
+        with tf32_matmuls(torch, on):
+            got = sd(pipe, want[0], want[1])
+        finite += [bool(torch.isfinite(t).all()) for t in got]
+        into.update({k: rel_to_scale(a, b) for k, a, b in zip(names, got, want)})
+    del pipe, cpu_pipe, ldm, cpu_ldm, got, want
+    torch.cuda.empty_cache()
+    seconds["sd"] = time.perf_counter() - t0
+
+    sam_cfg = SAMConfig(img_size=CGAUG_PARITY_SAM)
+    make_sam = lambda: SAM(sam_cfg)  # noqa: E731
+    sam_card = seeded_on(torch, make_sam, SEED + 143, card)
+    pred, cpu_pred = SamPredictor(sam_card), SamPredictor(cpu_twin(torch, make_sam, sam_card))
+    image = g.randint(0, 256, (CGAUG_PARITY_SAM, 2 * CGAUG_PARITY_SAM, 3)).astype(np.uint8)
+    box = np.array([100, 40, 380, 200])
+
+    def sam(p):
+        p.set_image(image)
+        return (p._embed, *p.mask_logits(box))
+
+    names = ("sam_embedding", "sam_mask_logits", "sam_iou", "sam_low_res_logits")
+    want = sam(cpu_pred)
+    for on, into in ((False, errs), (True, control)):
+        with tf32_matmuls(torch, on):
+            got = sam(pred)
+        into.update({k: rel_to_scale(a, b) for k, a, b in zip(names, got, want)})
+        if not on:
+            full_card, full_cpu = got[1].cpu(), want[1]
+    clear = full_cpu.abs() > CGAUG_LIMITS["sam_mask_logits"] * full_cpu.abs().max()
+    res["sam_mask_clear_share"] = float(clear.float().mean())
+    res["sam_masks_equal_where_clear"] = bool(
+        torch.equal((full_card > 0)[clear], (full_cpu > 0)[clear]))
+    del pred, cpu_pred, sam_card, got, want
+    torch.cuda.empty_cache()
+    seconds["sam"] = time.perf_counter() - t0 - seconds["sd"]
+
+    make_m2f = lambda: maskformer_from_config(load_config(None).model.m2f)  # noqa: E731
+    torch.manual_seed(SEED + 144)
+    m2f = seeded(torch, make_m2f(), SEED + 144)
+    cpu_m2f = copy.deepcopy(m2f)
+    photo = g.randint(0, 256, (*CGAUG_PARITY_HW, 3)).astype(np.uint8)
+
+    def anomaly(model, device, masks, replay=None):
+        hooks = attention_mask_hooks(model.sem_seg_head.predictor, masks, replay=replay)
+        try:
+            return torch.from_numpy(make_m2f_detector(model, device=device).anomaly_score(photo))
+        finally:
+            for h in hooks:
+                h.remove()
+
+    masks = []
+    with tf32_matmuls(torch, False):
+        got = anomaly(m2f, card, masks)
+    want = anomaly(cpu_m2f, "cpu", [], replay=masks)
+    errs["detector_anomaly"] = rel_to_scale(got, want)
+    with tf32_matmuls(torch, True):
+        control["detector_anomaly"] = rel_to_scale(anomaly(m2f, card, [], replay=masks), want)
+    res["detector_shape_ok"] = tuple(got.shape) == tuple(want.shape) == CGAUG_PARITY_HW
+    del m2f, cpu_m2f
+    torch.cuda.empty_cache()
+    seconds["detector"] = time.perf_counter() - t0 - seconds["sd"] - seconds["sam"]
+
+    res["finite"] = all(finite)
+    res["rel_err"], res["tf32_control_rel_err"], res["seconds"] = errs, control, seconds
+    res["tf32_control_above_limit"] = {k: control[k] > CGAUG_LIMITS[k] for k in control}
+    res["ok"] = bool(res["finite"] and res["sam_masks_equal_where_clear"]
+                     and res["detector_shape_ok"]
+                     and all(np.isfinite(e) and e <= CGAUG_LIMITS[k] for k, e in errs.items()))
+    return res
+
+
+class StageTimes:
+    """CUDA events around named methods of the backends (instance attributes
+    that wrap them): ``read()`` synchronises and returns each name's times."""
+
+    def __init__(self, torch):
+        self.torch, self.pending = torch, []
+
+    def wrap(self, obj, attr, name):
+        fn = getattr(obj, attr)
+        Event = self.torch.cuda.Event
+
+        def timed(*args, **kwargs):
+            start, end = Event(enable_timing=True), Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.pending.append((name, start, end))
+            return out
+
+        setattr(obj, attr, timed)
+
+    def read(self):
+        self.torch.cuda.synchronize()
+        out = {}
+        for name, start, end in self.pending:
+            out.setdefault(name, []).append(start.elapsed_time(end))
+        self.pending = []
+        return out
+
+
+def cgaug_generator(torch, ldm, sam_model, detector_model, tokenizer, seed, device="cuda",
+                    steps=CGAUG_STEPS):
+    """The reference path's ``MultiShiftGenerator`` over the given towers:
+    gates set so that every attempt runs all three backends once and is
+    accepted (IoU above -1, score at least -inf, one attempt). Returns it and
+    the recorded gate values (``iou``, ``mean_score`` per attempt)."""
+    from multishiftseg_torch.cgaug import generate, sd_pipeline
+    from multishiftseg_torch.cgaug.sam import SAMSegmenter
+
+    diffusion = sd_pipeline.SDControlNetGenerator(
+        ldm, tokenizer, seed=seed, device=device, sampler=sd_pipeline.SamplerConfig(steps=steps))
+    segmenter = SAMSegmenter(sam_model, device=device)
+    detector = generate.make_m2f_detector(detector_model, device=device)
+    cfg = generate.GenerationConfig(seed=seed, iou_threshold=-1.0, score_threshold=float("-inf"),
+                                    max_retries=1, paste_min_size=CGAUG_PASTE[0],
+                                    paste_max_size=CGAUG_PASTE[1])
+    gen = generate.MultiShiftGenerator(diffusion, SeededAnomalySource(), cfg,
+                                       segmenter=segmenter, detector=detector)
+    gates = {"iou": [], "mean_score": []}
+    seg_fn, det_fn, gen_fn = segmenter.segment_box, detector.anomaly_score, gen.generate
+    seen = {}
+
+    def segment_box(image, box):
+        seen["seg"] = seg_fn(image, box)
+        return seen["seg"]
+
+    def anomaly_score(image):
+        seen["score"] = det_fn(image)
+        return seen["score"]
+
+    def generate_one(label):
+        out = gen_fn(label)
+        mask = out[1]
+        gates["iou"].append(generate._iou(seen.pop("seg"), mask))
+        gates["mean_score"].append(float(seen.pop("score")[mask == 1].mean()))
+        return out
+
+    segmenter.segment_box, detector.anomaly_score, gen.generate = (segment_box, anomaly_score,
+                                                                   generate_one)
+    return gen, gates
+
+
+def phase_cgaug(torch, warmup=1, timed=2):
+    """``cgaug``: CG-Aug's reference generation path at full widths (SD1.5 UNet
+    + ControlNet-v15 + VAE + CLIP-L, SAM ViT-H, the default M2F R-50 + GMA
+    detector), seeded weights, a synthetic vocab and a seeded anomaly source,
+    on a seeded 512x1024 Cityscapes colour label: ``MultiShiftGenerator.generate``
+    (remap, paste, prompt, 50 guided DDIM steps, decode, SAM's box IoU, the
+    detector's mean score), ``warmup`` + ``timed`` calls in f32 (TF32 for
+    cuDNN's convs, not for matmuls: PyTorch's defaults), and, with the SD
+    towers and SAM in bf16, one timed call (the first in bf16: it carries that
+    dtype's first-use cost). Per call: seconds, the stages' device times (text
+    encode, UNet + ControlNet a DDIM step, sampling, VAE decode, SAM encode /
+    predict, detector), ``stage_span_share``, the stages' summed CUDA-event
+    spans over the call's wall time (a gap inside a span counts as busy, so
+    it bounds the device's busy share from above), the gate values; peak
+    memory; the timed f32 calls' launches
+    (path ``cgaug``: 6 bilinear deformable forwards, one anomaly and one
+    semantic tail a call, nothing else)."""
+    import dataclasses
+    import tempfile
+
+    from multishiftseg_torch.cgaug import clip_text, sd_pipeline
+    from multishiftseg_torch.cgaug.sam import SAM, sam_vit_h
+    from multishiftseg_torch.core.config import load_config
+    from multishiftseg_torch.models.maskformer import maskformer_from_config
+    from multishiftseg_torch.ops import launch_counts, reset_launch_counts
+
+    dev = "cuda"
+    t0 = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    label = city_colour_label(SEED + 150, CGAUG_HW)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_synthetic_vocab(tmp)
+        tokenizer = clip_text.load_tokenizer(tmp)
+    ldm = seeded_on(torch, sd_pipeline.ControlLDM, SEED + 151, dev)
+    sam_model = seeded_on(torch, lambda: SAM(sam_vit_h()), SEED + 152, dev)
+    torch.manual_seed(SEED + 153)
+    detector = seeded(torch, maskformer_from_config(load_config(None).model.m2f), SEED + 153)
+    res = {"phase": "cgaug", "label_hw": list(CGAUG_HW), "paste_px": list(CGAUG_PASTE),
+           "ddim_steps": CGAUG_STEPS, "guidance": 9.0, "batch": 1,
+           "towers": "SD1.5 UNet + ControlNet-v15 + VAE + CLIP-L/14 text, SAM ViT-H, "
+                     "M2F R-50 + GMA detector (f32)",
+           "params_m": {"unet": sum(p.numel() for p in ldm.unet.parameters()) / 1e6,
+                        "controlnet": sum(p.numel() for p in ldm.control_model.parameters()) / 1e6,
+                        "vae": sum(p.numel() for p in ldm.vae.parameters()) / 1e6,
+                        "clip_text": sum(p.numel() for p in ldm.clip.parameters()) / 1e6,
+                        "sam": sum(p.numel() for p in sam_model.parameters()) / 1e6,
+                        "detector": sum(p.numel() for p in detector.parameters()) / 1e6}}
+
+    def instrument(gen):
+        """Stage timers on ``gen``'s backends, wrapped once."""
+        times = StageTimes(torch)
+        pipe, pred = gen.diffusion.pipe, gen.segmenter.predictor
+        for obj, attr, name in ((pipe, "encode_text", "text_encode_ms"),
+                                (pipe, "eps", "unet_controlnet_step_ms"),
+                                (pipe, "sample", "sampling_ms"), (pipe, "decode", "vae_decode_ms"),
+                                (pred, "set_image", "sam_encode_ms"),
+                                (pred, "predict", "sam_predict_ms"),
+                                (gen.detector, "anomaly_score", "detector_ms")):
+            times.wrap(obj, attr, name)
+        return times
+
+    def run(gen, gates, times, calls):
+        out, images = [], []
+        for _ in range(calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            image, mask, name, domain = gen.generate(label)
+            seconds = time.perf_counter() - t0
+            stages = times.read()
+            steps = stages.pop("unet_controlnet_step_ms")
+            stage_ms = {k: sum(v) for k, v in stages.items()}
+            out.append({"seconds": seconds, **stage_ms,
+                        "stage_span_share": sum(stage_ms.values()) / (seconds * 1e3),
+                        "unet_controlnet_step_ms_median": statistics.median(steps),
+                        "ddim_steps": len(steps), "iou": gates["iou"][-1],
+                        "mean_score": gates["mean_score"][-1], "ood": name, "domain": domain,
+                        "pasted_px": int(mask.sum())})
+            images.append((image, mask))
+        return out, images
+
+    gen, gates = cgaug_generator(torch, ldm, sam_model, detector, tokenizer, SEED + 154)
+    times = instrument(gen)
+    seconds = {"build": time.perf_counter() - t0}
+    warm, first = run(gen, gates, times, warmup)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    calls, images = run(gen, gates, times, timed)
+    counts = launch_counts()
+    res["f32"] = {"warmup": warm, "timed": calls,
+                  "seconds_per_image": statistics.mean(c["seconds"] for c in calls),
+                  "ddim_step_ms": statistics.mean(c["sampling_ms"] / c["ddim_steps"]
+                                                  for c in calls),
+                  "stage_span_share": statistics.mean(c["stage_span_share"] for c in calls),
+                  "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    res["launches"] = {k: v for k, v in counts.items() if v}
+    want = {k: 0 for k in counts}
+    want.update(ms_deform_attn_bilinear=6 * timed, mask_scores_anomaly=timed,
+                mask_scores_semantic=timed)
+    res["launches_ok"] = counts == want
+    outputs_ok = all(im.dtype == np.uint8 and im.shape == (*CGAUG_HW, 3) and m.shape == CGAUG_HW
+                     and m.sum() > 0 for im, m in first + images)
+    gates_ok = all(np.isfinite(v) for v in gates["iou"] + gates["mean_score"])
+    seconds["f32"] = time.perf_counter() - t0 - seconds["build"]
+    f32_image = first[0][0]
+    del gen, gates
+    torch.cuda.empty_cache()
+
+    bf16 = torch.bfloat16
+    cfgs16 = dict(unet_cfg=dataclasses.replace(sd_pipeline.SDUNetConfig(), dtype=bf16),
+                  vae_cfg=dataclasses.replace(sd_pipeline.VAEConfig(), dtype=bf16),
+                  clip_cfg=dataclasses.replace(clip_text.CLIPTextConfig(), dtype=bf16))
+    with torch.device("meta"):
+        ldm16, sam16 = sd_pipeline.ControlLDM(**cfgs16), SAM(dataclasses.replace(sam_vit_h(),
+                                                                                  dtype=bf16))
+    ldm16, sam16 = ldm16.to_empty(device=dev), sam16.to_empty(device=dev)
+    ldm16.load_state_dict(ldm.state_dict())
+    sam16.load_state_dict(sam_model.state_dict())
+    del ldm, sam_model
+    torch.cuda.empty_cache()
+    gen, gates = cgaug_generator(torch, ldm16.eval(), sam16.eval(), detector, tokenizer, SEED + 154)
+    times = instrument(gen)
+    torch.cuda.reset_peak_memory_stats()
+    calls16, first16 = run(gen, gates, times, 1)
+    res["bf16"] = {"timed_first_call": calls16,
+                   "seconds_per_image": calls16[0]["seconds"],
+                   "ddim_step_ms": calls16[0]["sampling_ms"] / calls16[0]["ddim_steps"],
+                   "stage_span_share": calls16[0]["stage_span_share"],
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "mean_abs_uint8_vs_f32_same_draws": float(np.abs(
+                       first16[0][0].astype(np.int16) - f32_image).mean())}
+    outputs_ok = outputs_ok and all(im.shape == (*CGAUG_HW, 3) for im, _ in first16)
+    gates_ok = gates_ok and all(np.isfinite(v) for v in gates["iou"] + gates["mean_score"])
+    res["outputs_ok"], res["gates_finite"] = bool(outputs_ok), bool(gates_ok)
+    seconds["bf16"] = time.perf_counter() - t0 - seconds["build"] - seconds["f32"]
+    res["seconds"] = seconds
+    del gen, gates, ldm16, sam16, detector
+    torch.cuda.empty_cache()
+    res["ok"] = bool(res["launches_ok"] and outputs_ok and gates_ok)
+    return res, {"cgaug": counts}
+
+
 def free_port():
     import socket
 
@@ -4935,7 +5489,7 @@ PHASES = ("kernels", "slice_parity", "serve", "train_parity", "train", "deeplab_
           "deeplab_serve", "deeplab_train_parity", "deeplab_train", "stage1_parity",
           "stage1_train", "validate", "evaluate", "train_loop", "instance_parity",
           "instance_train", "alt_parity", "alt_serve", "alt_train", "dp_train", "deploy",
-          "pipeline", "tensor_parallel", "spatial")
+          "pipeline", "tensor_parallel", "spatial", "cgaug_parity", "cgaug")
 
 
 def parse_args(argv):
@@ -5022,6 +5576,8 @@ def main(argv=None):
     pipe_launches = run("pipeline", phase_pipeline)
     tp_launches = run("tensor_parallel", phase_tensor_parallel)
     spatial_launches = run("spatial", phase_spatial)
+    run("cgaug_parity", phase_cgaug_parity)
+    cgaug_launches = run("cgaug", phase_cgaug)
     dp_row = next((p.pop("kernel_row") for p in phases if p["phase"] == "dp_train"), None)
     if rows and dp_row is not None:
         rows["bottom_k_sum_global"] = dp_row
@@ -5041,7 +5597,8 @@ def main(argv=None):
              "pipeline": pipe_launches.get("pipeline", {}),
              **{f"tp_train_{r}": tp_launches.get(f"tp_train_{r}", {}) for r in TP_RECIPES},
              **{f"spatial_{f}": spatial_launches.get(f"spatial_{f}", {})
-                for f in ("deeplab", "m2f")}}
+                for f in ("deeplab", "m2f")},
+             "cgaug": cgaug_launches.get("cgaug", {})}
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))

@@ -1,0 +1,109 @@
+"""Public dataset palettes used by CG-Aug label-space editing.
+
+Cityscapes full 34-class palette (cityscapesScripts) and the ADE20K 150-class
+name/palette tables (standard mmseg/ADEChallengeData2016 values). The reference pulls
+these from its vendored ControlNet mmseg copy (``generation_utils.py:6``); here they
+are first-class data. A copy of ``multishiftseg_tpu/cgaug/palettes.py``: the port
+imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+# 34 entries, index = cityscapes label id (labels.py order)
+CITYSCAPES_ALL_CLASSES = (
+    "unlabeled", "ego vehicle", "rectification border", "out of roi", "static",
+    "dynamic", "ground", "road", "sidewalk", "parking", "rail track", "building",
+    "wall", "fence", "guard rail", "bridge", "tunnel", "pole", "polegroup",
+    "traffic light", "traffic sign", "vegetation", "terrain", "sky", "person",
+    "rider", "car", "truck", "bus", "caravan", "trailer", "train", "motorcycle",
+    "bicycle",
+)
+
+CITYSCAPES_ALL_PALETTE = (
+    (0, 0, 0), (0, 0, 0), (0, 0, 0), (0, 0, 0), (0, 0, 0), (111, 74, 0),
+    (81, 0, 81), (128, 64, 128), (244, 35, 232), (250, 170, 160), (230, 150, 140),
+    (70, 70, 70), (102, 102, 156), (190, 153, 153), (180, 165, 180),
+    (150, 100, 100), (150, 120, 90), (153, 153, 153), (153, 153, 153),
+    (250, 170, 30), (220, 220, 0), (107, 142, 35), (152, 251, 152), (70, 130, 180),
+    (220, 20, 60), (255, 0, 0), (0, 0, 142), (0, 0, 70), (0, 60, 100), (0, 0, 90),
+    (0, 0, 110), (0, 80, 100), (0, 0, 230), (119, 11, 32),
+)
+
+ADE20K_CLASSES = (
+    "wall", "building", "sky", "floor", "tree", "ceiling", "road", "bed ",
+    "windowpane", "grass", "cabinet", "sidewalk", "person", "earth", "door",
+    "table", "mountain", "plant", "curtain", "chair", "car", "water", "painting",
+    "sofa", "shelf", "house", "sea", "mirror", "rug", "field", "armchair", "seat",
+    "fence", "desk", "rock", "wardrobe", "lamp", "bathtub", "railing", "cushion",
+    "base", "box", "column", "signboard", "chest of drawers", "counter", "sand",
+    "sink", "skyscraper", "fireplace", "refrigerator", "grandstand", "path",
+    "stairs", "runway", "case", "pool table", "pillow", "screen door", "stairway",
+    "river", "bridge", "bookcase", "blind", "coffee table", "toilet", "flower",
+    "book", "hill", "bench", "countertop", "stove", "palm", "kitchen island",
+    "computer", "swivel chair", "boat", "bar", "arcade machine", "hovel", "bus",
+    "towel", "light", "truck", "tower", "chandelier", "awning", "streetlight",
+    "booth", "television receiver", "airplane", "dirt track", "apparel", "pole",
+    "land", "bannister", "escalator", "ottoman", "bottle", "buffet", "poster",
+    "stage", "van", "ship", "fountain", "conveyer belt", "canopy", "washer",
+    "plaything", "swimming pool", "stool", "barrel", "basket", "waterfall",
+    "tent", "bag", "minibike", "cradle", "oven", "ball", "food", "step", "tank",
+    "trade name", "microwave", "pot", "animal", "bicycle", "lake", "dishwasher",
+    "screen", "blanket", "sculpture", "hood", "sconce", "vase", "traffic light",
+    "tray", "ashcan", "fan", "pier", "crt screen", "plate", "monitor",
+    "bulletin board", "shower", "radiator", "glass", "clock", "flag",
+)
+
+ADE20K_PALETTE = (
+    (120, 120, 120), (180, 120, 120), (6, 230, 230), (80, 50, 50), (4, 200, 3),
+    (120, 120, 80), (140, 140, 140), (204, 5, 255), (230, 230, 230), (4, 250, 7),
+    (224, 5, 255), (235, 255, 7), (150, 5, 61), (120, 120, 70), (8, 255, 51),
+    (255, 6, 82), (143, 255, 140), (204, 255, 4), (255, 51, 7), (204, 70, 3),
+    (0, 102, 200), (61, 230, 250), (255, 6, 51), (11, 102, 255), (255, 7, 71),
+    (255, 9, 224), (9, 7, 230), (220, 220, 220), (255, 9, 92), (112, 9, 255),
+    (8, 255, 214), (7, 255, 224), (255, 184, 6), (10, 255, 71), (255, 41, 10),
+    (7, 255, 255), (224, 255, 8), (102, 8, 255), (255, 61, 6), (255, 194, 7),
+    (255, 122, 8), (0, 255, 20), (255, 8, 41), (255, 5, 153), (6, 51, 255),
+    (235, 12, 255), (160, 150, 20), (0, 163, 255), (140, 140, 140), (250, 10, 15),
+    (20, 255, 0), (31, 255, 0), (255, 31, 0), (255, 224, 0), (153, 255, 0),
+    (0, 0, 255), (255, 71, 0), (0, 235, 255), (0, 173, 255), (31, 0, 255),
+    (11, 200, 200), (255, 82, 0), (0, 255, 245), (0, 61, 255), (0, 255, 112),
+    (0, 255, 133), (255, 0, 0), (255, 163, 0), (255, 102, 0), (194, 255, 0),
+    (0, 143, 255), (51, 255, 0), (0, 82, 255), (0, 255, 41), (0, 255, 173),
+    (10, 0, 255), (173, 255, 0), (0, 255, 153), (255, 92, 0), (255, 0, 255),
+    (255, 0, 245), (255, 0, 102), (255, 173, 0), (255, 0, 20), (255, 184, 184),
+    (0, 31, 255), (0, 255, 61), (0, 71, 255), (255, 0, 204), (0, 255, 194),
+    (0, 255, 82), (0, 10, 255), (0, 112, 255), (51, 0, 255), (0, 194, 255),
+    (0, 122, 255), (0, 255, 163), (255, 153, 0), (0, 255, 10), (255, 112, 0),
+    (143, 255, 0), (82, 0, 255), (163, 255, 0), (255, 235, 0), (8, 184, 170),
+    (133, 0, 255), (0, 255, 92), (184, 0, 255), (255, 0, 31), (0, 184, 255),
+    (0, 214, 255), (255, 0, 112), (92, 255, 0), (0, 224, 255), (112, 224, 255),
+    (70, 184, 160), (163, 0, 255), (153, 0, 255), (71, 255, 0), (255, 0, 163),
+    (255, 204, 0), (255, 0, 143), (0, 255, 235), (133, 255, 0), (255, 0, 235),
+    (245, 0, 255), (255, 0, 122), (255, 245, 0), (10, 190, 212), (214, 255, 0),
+    (0, 204, 255), (20, 0, 255), (255, 255, 0), (0, 153, 255), (0, 41, 255),
+    (0, 255, 204), (41, 0, 255), (41, 255, 0), (173, 0, 255), (0, 245, 255),
+    (71, 0, 255), (122, 0, 255), (0, 255, 184), (0, 92, 255), (184, 255, 0),
+    (0, 133, 255), (255, 214, 0), (25, 194, 194), (102, 255, 0), (92, 0, 255),
+)
+
+# Cityscapes category -> ADE20K category for palette remapping (the common classes
+# table of the paper's label-space domain transfer).
+CITY2ADE_CATEGORY = {
+    "unlabeled": "", "ego vehicle": "road", "rectification border": "",
+    "out of roi": "", "static": "", "dynamic": "", "ground": "road", "road": "road",
+    "sidewalk": "sidewalk", "parking": "", "rail track": "railing",
+    "building": "building", "wall": "wall", "fence": "fence",
+    "guard rail": "fence", "bridge": "bridge", "tunnel": "", "pole": "pole",
+    "polegroup": "pole", "traffic light": "traffic light",
+    "traffic sign": "signboard", "vegetation": "tree", "terrain": "grass",
+    "sky": "sky", "person": "person", "rider": "person", "car": "car",
+    "truck": "truck", "bus": "bus", "caravan": "car", "trailer": "truck",
+    "train": "bus", "motorcycle": "bicycle", "bicycle": "bicycle",
+    "license plate": "",
+}
+
+
+def ade20k_color(class_name: str) -> np.ndarray:
+    return np.asarray(ADE20K_PALETTE[ADE20K_CLASSES.index(class_name)], np.uint8)

@@ -240,3 +240,186 @@ def deepv3_from_jax(variables: Mapping) -> "OrderedDict[str, torch.Tensor]":
         key = f"{_module('/'.join(mod), _DEEPV3_RULES)}.{_LEAF_NAMES[leaf]}"
         sd[key] = torch.from_numpy(np.array(arr, dtype=np.float32))
     return sd
+
+
+# ---------------------------------------------------------------------------
+# CG-Aug: the ControlNet-SD1.5 towers and SAM (inverses of the JAX package's
+# convert/sd_controlnet.py::convert_control_sd15 and convert/sam.py::convert_sam)
+# ---------------------------------------------------------------------------
+
+# (JAX module path prefix regex, port prefix or callable(match), sub-rules or None)
+_SD_RES = [(r"norm_in/gn", "in_layers.0", None), (r"conv_in", "in_layers.2", None),
+           (r"emb", "emb_layers.1", None), (r"norm_out/gn", "out_layers.0", None),
+           (r"conv_out", "out_layers.3", None), (r"skip", "skip_connection", None)]
+_SD_ST = [(r"norm/gn", "norm", None), (r"proj_(in|out)", r"proj_\1", None),
+          (r"block_(\d+)/(attn\d)/to_out", r"transformer_blocks.\1.\2.to_out.0", None),
+          (r"block_(\d+)/(attn\d)/(to_[qkv])", r"transformer_blocks.\1.\2.\3", None),
+          (r"block_(\d+)/(norm\d)", r"transformer_blocks.\1.\2", None),
+          (r"block_(\d+)/ff_proj", r"transformer_blocks.\1.ff.net.0.proj", None),
+          (r"block_(\d+)/ff_out", r"transformer_blocks.\1.ff.net.2", None)]
+_SD_ENCODER = [(r"time_embed_0", "time_embed.0", None), (r"time_embed_1", "time_embed.2", None),
+               (r"enc/in_(\d+)_conv", r"input_blocks.\1.0", None),
+               (r"enc/in_(\d+)_down", r"input_blocks.\1.0.op", None),
+               (r"enc/in_(\d+)_res", r"input_blocks.\1.0", _SD_RES),
+               (r"enc/in_(\d+)_st", r"input_blocks.\1.1", _SD_ST),
+               (r"enc/mid_res1", "middle_block.0", _SD_RES),
+               (r"enc/mid_st", "middle_block.1", _SD_ST),
+               (r"enc/mid_res2", "middle_block.2", _SD_RES)]
+_VAE_RES = [(r"norm(\d)", r"norm\1", None), (r"conv(\d)", r"conv\1", None),
+            (r"shortcut", "nin_shortcut", None)]
+_VAE_ATTN = [(r"(norm|q|k|v|proj_out)", r"\1", None)]
+_VAE = [(r"(encoder|decoder)/(conv_in|conv_out|norm_out)", r"\1.\2", None),
+        (r"(encoder|decoder)/mid_(block_\d)", r"\1.mid.\2", _VAE_RES),
+        (r"(encoder|decoder)/mid_(attn_\d)", r"\1.mid.\2", _VAE_ATTN),
+        (r"encoder/down_(\d+)_block_(\d+)", r"encoder.down.\1.block.\2", _VAE_RES),
+        (r"encoder/down_(\d+)_attn_(\d+)", r"encoder.down.\1.attn.\2", _VAE_ATTN),
+        (r"encoder/down_(\d+)_downsample", r"encoder.down.\1.downsample.conv", None),
+        (r"decoder/up_(\d+)_block_(\d+)", r"decoder.up.\1.block.\2", _VAE_RES),
+        (r"decoder/up_(\d+)_attn_(\d+)", r"decoder.up.\1.attn.\2", _VAE_ATTN),
+        (r"decoder/up_(\d+)_upsample", r"decoder.up.\1.upsample.conv", None),
+        (r"(quant_conv|post_quant_conv)", r"\1", None)]
+_CLIP = [(r"token_embedding", "embeddings.token_embedding", None),
+         (r"layer_(\d+)/(q|k|v)", r"encoder.layers.\1.self_attn.\2_proj", None),
+         (r"layer_(\d+)/proj", r"encoder.layers.\1.self_attn.out_proj", None),
+         (r"layer_(\d+)/ln(\d)", r"encoder.layers.\1.layer_norm\2", None),
+         (r"layer_(\d+)/(fc\d)", r"encoder.layers.\1.mlp.\2", None),
+         (r"final_ln", "final_layer_norm", None)]
+_SD_PREFIX = {"unet": "model.diffusion_model.", "control": "control_model.",
+              "vae": "first_stage_model.", "clip": "cond_stage_model.transformer.text_model."}
+_LEAF_NAMES_CG = {"kernel": "weight", "bias": "bias", "scale": "weight",
+                  "embedding": "weight", "weight": "weight"}
+
+
+def _nested_module(path: str, rules) -> str:
+    """The port module of a JAX module path under prefix rules, each with its
+    own sub-rules for what follows the prefix (None: nothing may follow)."""
+    for pattern, repl, sub in rules:
+        m = re.match(pattern + r"(?:/|$)", path)
+        if m is None:
+            continue
+        head = repl(m) if callable(repl) else m.expand(repl)
+        rest = path[m.end():]
+        if sub is None:
+            if rest:
+                continue
+            return head
+        return f"{head}.{_nested_module(rest, sub)}"
+    raise KeyError(f"no port module for JAX path {path!r}")
+
+
+def _reshaped(sd: Dict[str, np.ndarray], template) -> "OrderedDict[str, torch.Tensor]":
+    """``sd`` with each entry in the shape of the port's ``template`` (a
+    ``state_dict``: a dense kernel becomes a 1x1 conv's where the port has
+    one); a missing or unexpected key, or a size that differs, raises."""
+    if set(sd) != set(template):
+        raise KeyError(f"JAX tree vs the port's state_dict: missing "
+                       f"{sorted(set(template) - set(sd))[:5]}, unexpected "
+                       f"{sorted(set(sd) - set(template))[:5]}")
+    out = OrderedDict()
+    for k, t in template.items():
+        out[k] = torch.from_numpy(np.ascontiguousarray(sd[k], dtype=np.float32)).reshape(t.shape)
+    return out
+
+
+def control_sd15_from_jax(params: Mapping, unet_cfg=None, vae_cfg=None,
+                          clip_cfg=None) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``{'unet', 'control', 'vae', 'clip'}`` params (``convert_control_sd15``'s
+    output) -> the ``state_dict`` of the port's ``cgaug.sd_pipeline.ControlLDM``
+    with those configs (defaults: SD1.5's)."""
+    from ..cgaug.clip_text import CLIPTextConfig
+    from ..cgaug.sd_pipeline import ControlLDM
+    from ..cgaug.sd_unet import SDUNetConfig
+    from ..cgaug.sd_vae import VAEConfig
+
+    unet_cfg = unet_cfg or SDUNetConfig()
+    with torch.device("meta"):
+        template = ControlLDM(unet_cfg, vae_cfg or VAEConfig(),
+                              clip_cfg or CLIPTextConfig()).state_dict()
+    hint_out = f"input_hint_block.{2 * len(unet_cfg.hint_widths)}"
+    sd: Dict[str, np.ndarray] = {}
+    for tower, prefix in _SD_PREFIX.items():
+        flat = _flatten(params[tower])
+        top = {p[0] for p in flat}
+        rules = {"vae": _VAE, "clip": _CLIP}.get(tower, _SD_ENCODER + [
+            (r"out_(\d+)_res", r"output_blocks.\1.0", _SD_RES),
+            (r"out_(\d+)_st", r"output_blocks.\1.1", _SD_ST),
+            (r"out_(\d+)_up", lambda m: f"output_blocks.{m[1]}."
+             f"{2 if f'out_{m[1]}_st' in top else 1}.conv", None),
+            (r"out_norm/gn", "out.0", None), (r"out_conv", "out.2", None),
+            (r"hint_out", hint_out, None),
+            (r"hint_(\d+)", lambda m: f"input_hint_block.{2 * int(m[1])}", None),
+            (r"zero_mid", "middle_block_out.0", None),
+            (r"zero_(\d+)", r"zero_convs.\1.0", None)])
+        for path, arr in flat.items():
+            if path == ("position_embedding",):
+                sd[prefix + "embeddings.position_embedding.weight"] = arr
+                continue
+            *mod, leaf = path
+            key = f"{prefix}{_nested_module('/'.join(mod), rules)}.{_LEAF_NAMES_CG[leaf]}"
+            sd[key] = _layout(leaf, arr)
+    return _reshaped(sd, template)
+
+
+_SAM_ATTN = [(r"(q_proj|k_proj|v_proj|out_proj)", r"\1", None)]
+_SAM = [(r"image_encoder/patch_embed", "image_encoder.patch_embed.proj", None),
+        (r"image_encoder/block_(\d+)/(norm\d)", r"image_encoder.blocks.\1.\2", None),
+        (r"image_encoder/block_(\d+)/attn/(qkv|proj)", r"image_encoder.blocks.\1.attn.\2", None),
+        (r"image_encoder/block_(\d+)/(lin\d)", r"image_encoder.blocks.\1.mlp.\2", None),
+        (r"image_encoder/neck_conv1", "image_encoder.neck.0", None),
+        (r"image_encoder/neck_ln1", "image_encoder.neck.1", None),
+        (r"image_encoder/neck_conv2", "image_encoder.neck.2", None),
+        (r"image_encoder/neck_ln2", "image_encoder.neck.3", None),
+        (r"mask_decoder/final_attn", "mask_decoder.transformer.final_attn_token_to_image",
+         _SAM_ATTN),
+        (r"mask_decoder/norm_final", "mask_decoder.transformer.norm_final_attn", None),
+        (r"mask_decoder/upscale_conv1", "mask_decoder.output_upscaling.0", None),
+        (r"mask_decoder/upscale_ln", "mask_decoder.output_upscaling.1", None),
+        (r"mask_decoder/upscale_conv2", "mask_decoder.output_upscaling.3", None),
+        (r"mask_decoder/layer_(\d+)/(self_attn|cross_attn_token_to_image|"
+         r"cross_attn_image_to_token)", r"mask_decoder.transformer.layers.\1.\2", _SAM_ATTN),
+        (r"mask_decoder/layer_(\d+)/(norm\d)", r"mask_decoder.transformer.layers.\1.\2", None),
+        (r"mask_decoder/layer_(\d+)/mlp_(lin\d)", r"mask_decoder.transformer.layers.\1.mlp.\2",
+         None),
+        (r"mask_decoder/hyper_(\d+)/lin_(\d)",
+         r"mask_decoder.output_hypernetworks_mlps.\1.layers.\2", None),
+        (r"mask_decoder/iou_head/lin_(\d)", r"mask_decoder.iou_prediction_head.layers.\1", None)]
+_SAM_RAW = {"image_encoder/pos_embed": "image_encoder.pos_embed",
+            "prompt_encoder/pe_gaussian":
+                "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix",
+            "prompt_encoder/no_mask_embed": "prompt_encoder.no_mask_embed.weight",
+            "mask_decoder/iou_token": "mask_decoder.iou_token.weight",
+            "mask_decoder/mask_tokens": "mask_decoder.mask_tokens.weight"}
+
+
+def sam_from_jax(params: Mapping, cfg=None) -> "OrderedDict[str, torch.Tensor]":
+    """JAX ``SAM`` params (``convert_sam``'s first output) -> the ``state_dict``
+    of the port's ``cgaug.sam.SAM`` with ``cfg`` (default ViT-H), which holds
+    no key ``convert_sam`` skips."""
+    from ..cgaug.sam import SAM, SAMConfig
+
+    with torch.device("meta"):
+        template = SAM(cfg or SAMConfig()).state_dict()
+    sd: Dict[str, np.ndarray] = {}
+    for path, arr in _flatten(params).items():
+        joined = "/".join(path)
+        if joined in _SAM_RAW:
+            sd[_SAM_RAW[joined]] = arr
+        elif joined == "prompt_encoder/point_embeddings":
+            for i, row in enumerate(arr):
+                sd[f"prompt_encoder.point_embeddings.{i}.weight"] = row[None]
+        elif path[-1] in ("rel_pos_h", "rel_pos_w"):
+            sd[f"image_encoder.blocks.{path[1][len('block_'):]}.attn.{path[-1]}"] = arr
+        else:
+            *mod, leaf = path
+            key = f"{_nested_module('/'.join(mod), _SAM)}.{_LEAF_NAMES_CG[leaf]}"
+            if mod[-1] == "qkv" and leaf == "kernel":  # [C, 3, heads, d] -> [3C, C]
+                arr = arr.reshape(arr.shape[0], -1).T
+            elif mod[-1] == "qkv":
+                arr = arr.reshape(-1)
+            elif mod[-1].startswith("upscale_conv") and leaf == "kernel":
+                # flax [kh, kw, in, out] with flipped taps -> torch [in, out, kh, kw]
+                arr = np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+            else:
+                arr = _layout(leaf, arr)
+            sd[key] = arr
+    return _reshaped(sd, template)

@@ -11,7 +11,8 @@ it decides a rounding:
   resize, half-pixel source positions clamped at the edge, the fraction taken
   in float64 and rounded to float32, then one fused multiply-add lerp along x
   and one along y.
-- ``resize_nearest`` (``INTER_NEAREST``): source index ``floor(d * src / dst)``.
+- ``resize_nearest`` (``INTER_NEAREST``): source index ``floor(d * src / dst)``;
+  ``resize_nearest_scale``, the same call given ``fx`` / ``fy``: ``floor(d / fx)``.
 - ``rgb2gray``, ``rgb2hsv``, ``hsv2rgb`` (``cv2.cvtColor`` on uint8): the
   fixed-point gray weights, the table-driven HSV forward and the float HSV
   inverse with H in 0-179 (truncated in its 32-pixel vector body, rounded in
@@ -103,6 +104,20 @@ def resize_nearest(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
     dh, dw = size_hw
     xs = np.minimum(np.floor(np.arange(dw) * (1.0 / (dw / w))).astype(np.int64), w - 1)
     ys = np.minimum(np.floor(np.arange(dh) * (1.0 / (dh / h))).astype(np.int64), h - 1)
+    return img[ys][:, xs]
+
+
+def resize_nearest_scale(img: np.ndarray, fx: float, fy: float) -> np.ndarray:
+    """``cv2.resize(img, (0, 0), fx=fx, fy=fy, interpolation=INTER_NEAREST)``:
+    the size is ``w * fx`` and ``h * fy`` rounded half to even, and a
+    destination pixel maps through ``1 / fx`` (``floor(d / fx)``), not through
+    the ratio of the sizes as :func:`resize_nearest` does, so the two can pick
+    another source row or column."""
+    img = np.asarray(img)
+    h, w = img.shape[:2]
+    dw, dh = int(np.rint(w * fx)), int(np.rint(h * fy))
+    xs = np.minimum(np.floor(np.arange(dw) * (1.0 / fx)).astype(np.int64), w - 1)
+    ys = np.minimum(np.floor(np.arange(dh) * (1.0 / fy)).astype(np.int64), h - 1)
     return img[ys][:, xs]
 
 

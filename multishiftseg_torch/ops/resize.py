@@ -5,7 +5,9 @@ interpolation matrices (``_interp_matrix``) so the TPU runs resizes as matmuls;
 both follow torch's source-coordinate rule (``align_corners=False``: src =
 (i + 0.5) * in / out - 0.5, edge-clamped; ``True``: src = i * (in - 1) /
 (out - 1)), which ``F.interpolate`` implements directly. No antialiasing, so a
-downsample is the same 2-tap rule. The nearest resize takes its source
+downsample is the same 2-tap rule. :func:`resize_bilinear_antialias` is
+``jax.image.resize(..., "bilinear")`` instead (SAM's predictor, CG-Aug), which
+widens the triangle kernel by the downsampling factor. The nearest resize takes its source
 indices from the JAX package's rule (``_nearest_index``, :51), built on the host
 in float64, not from ``F.interpolate``'s float32 scale.
 """
@@ -43,6 +45,19 @@ def resize_bilinear_nchw(x: torch.Tensor, size: Tuple[int, int],
     y = F.interpolate(x.reshape(1, -1, h_in, w_in), size=tuple(size),
                       mode="bilinear", align_corners=align_corners)
     return y.reshape(*lead, *size)
+
+
+def resize_bilinear_antialias(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Resize the trailing ``[H, W]`` axes of an ``[N, C, H, W]`` tensor as
+    ``jax.image.resize(..., "bilinear")`` does: half-pixel centres and, on a
+    downsampling axis, the triangle kernel widened by the factor, its taps
+    renormalised at the edges. ``F.interpolate``'s ``antialias=True`` computes
+    the same weights (held against JAX to f32 rounding in
+    ``tests/test_torch_sam.py``); on an upsampling axis both are the 2-tap rule."""
+    if tuple(x.shape[-2:]) == tuple(size):
+        return x
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False,
+                         antialias=True)
 
 
 def source_rows(in_h: int, out_h: int, rows: Tuple[int, int],

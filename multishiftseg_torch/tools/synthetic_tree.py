@@ -16,6 +16,8 @@ for smoke runs and tests where the real datasets are absent.
 
 Images are smooth blocks of colour with a little noise, so that they compress
 and decode at realistic rates. Returns the roots as ``cfg.data`` names them.
+The arrays are drawn in order from the seed and encoded on worker threads
+(PIL's encoders run outside the interpreter lock): the same files, sooner.
 
 ``write_segments_tree(root, seed, ...)`` writes a Cityscapes tree in the
 layouts of the instance, panoptic and semantic recipes, for ``train`` and
@@ -34,7 +36,10 @@ which the recipes drop.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -62,6 +67,17 @@ def _save(path: Path, arr: np.ndarray, **kw) -> None:
     Image.fromarray(arr).save(path, **kw)
 
 
+@contextlib.contextmanager
+def _saving():
+    """A ``save(path, arr, **kw)`` that encodes on worker threads; on exit,
+    waits for every file and raises the first error."""
+    futures = []
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as pool:
+        yield lambda path, arr, **kw: futures.append(pool.submit(_save, path, arr, **kw))
+    for f in futures:
+        f.result()
+
+
 def write_training_tree(root, seed: int, frames: int = 16, hw: Tuple[int, int] = (1024, 2048),
                         cities: int = 2, variants: int = 1, coco: int = 4,
                         coco_hw: Tuple[int, int] = (480, 640), val: int = 4,
@@ -69,37 +85,39 @@ def write_training_tree(root, seed: int, frames: int = 16, hw: Tuple[int, int] =
     root = Path(root)
     g = np.random.default_rng(seed)
     h, w = hw
-    for i in range(frames):
-        city = f"city{i % cities}"
-        stem = f"{city}_{i:06d}_000019"
-        _save(root / "cityscapes/leftImg8bit/train" / city / f"{stem}_leftImg8bit.png",
-              _image(g, hw))
-        _save(root / "cityscapes/gtFine/train" / city / f"{stem}_gtFine_labelTrainIds.png",
-              _labels(g, hw))
-        for v in range(variants):
-            gstem = f"{stem}_v{v}"
-            _save(root / "generated/leftImg8bit/train" / city / f"{gstem}_leftImg8bit.png",
-                  _image(g, hw))
-            lab = _labels(g, hw)
-            y0, x0 = int(g.integers(0, h // 2)), int(g.integers(0, w // 2))
-            lab[y0:y0 + h // 4, x0:x0 + w // 6] = 254
-            _save(root / "generated/gtFine/train" / city / f"{gstem}_gtFine_labelTrainIds.png", lab)
-    ch, cw = coco_hw
-    for i in range(coco):
-        _save(root / "coco/train2017" / f"{i + 1:012d}.jpg", _image(g, coco_hw), quality=90)
-        mask = np.zeros(coco_hw, np.uint8)
-        y0, x0 = int(g.integers(0, ch // 2)), int(g.integers(0, cw // 2))
-        mask[y0:y0 + ch // 3, x0:x0 + cw // 3] = 254
-        mask[y0:y0 + 4] = 255  # an ignored border, as COCO's crowd edges
-        _save(root / "coco/annotations/oodclass_nocrowd_seg_train2017"
-              / f"mask_{i + 1:012d}.png", mask)
-    vh, vw = val_hw
-    for i in range(val):
-        _save(root / "anomaly_track/images" / f"val{i}.jpg", _image(g, val_hw), quality=90)
-        lab = np.zeros(val_hw, np.uint8)
-        lab[vh // 3:vh // 2, vw // 4:vw // 2] = 1
-        lab[:vh // 16] = 255
-        _save(root / "anomaly_track/labels_masks" / f"val{i}_labels_semantic.png", lab)
+    with _saving() as save:
+        for i in range(frames):
+            city = f"city{i % cities}"
+            stem = f"{city}_{i:06d}_000019"
+            save(root / "cityscapes/leftImg8bit/train" / city / f"{stem}_leftImg8bit.png",
+                 _image(g, hw))
+            save(root / "cityscapes/gtFine/train" / city / f"{stem}_gtFine_labelTrainIds.png",
+                 _labels(g, hw))
+            for v in range(variants):
+                gstem = f"{stem}_v{v}"
+                save(root / "generated/leftImg8bit/train" / city / f"{gstem}_leftImg8bit.png",
+                     _image(g, hw))
+                lab = _labels(g, hw)
+                y0, x0 = int(g.integers(0, h // 2)), int(g.integers(0, w // 2))
+                lab[y0:y0 + h // 4, x0:x0 + w // 6] = 254
+                save(root / "generated/gtFine/train" / city
+                     / f"{gstem}_gtFine_labelTrainIds.png", lab)
+        ch, cw = coco_hw
+        for i in range(coco):
+            save(root / "coco/train2017" / f"{i + 1:012d}.jpg", _image(g, coco_hw), quality=90)
+            mask = np.zeros(coco_hw, np.uint8)
+            y0, x0 = int(g.integers(0, ch // 2)), int(g.integers(0, cw // 2))
+            mask[y0:y0 + ch // 3, x0:x0 + cw // 3] = 254
+            mask[y0:y0 + 4] = 255  # an ignored border, as COCO's crowd edges
+            save(root / "coco/annotations/oodclass_nocrowd_seg_train2017"
+                 / f"mask_{i + 1:012d}.png", mask)
+        vh, vw = val_hw
+        for i in range(val):
+            save(root / "anomaly_track/images" / f"val{i}.jpg", _image(g, val_hw), quality=90)
+            lab = np.zeros(val_hw, np.uint8)
+            lab[vh // 3:vh // 2, vw // 4:vw // 2] = 1
+            lab[:vh // 16] = 255
+            save(root / "anomaly_track/labels_masks" / f"val{i}_labels_semantic.png", lab)
     return {"cityscapes_root": str(root / "cityscapes"),
             "generation_root": str(root / "generated"),
             "coco_root": str(root / "coco"),
@@ -147,32 +165,34 @@ def write_segments_tree(root, seed: int, frames: Dict[str, int] = None,
     root = Path(root) / "cityscapes"
     g = np.random.default_rng(seed)
     h, w = hw
-    for split, n_frames in frames.items():
-        images: list = []
-        annotations: list = []
-        for i in range(n_frames):
-            city = f"city{i % cities}"
-            stem = f"{city}_{i:06d}_000019"
-            gt = root / "gtFine" / split / city
-            _save(root / "leftImg8bit" / split / city / f"{stem}_leftImg8bit.png", _image(g, hw))
-            raw, inst = segments_frame(g, hw, things)
-            _save(gt / f"{stem}_gtFine_labelTrainIds.png", ID_TO_TRAIN_ID[raw])
-            _save(gt / f"{stem}_gtFine_instanceIds.png", inst.astype(np.uint16))
-            # panoptic: segments of the evaluated classes; things by instance,
-            # stuff and crowds by raw id; the rest 0
-            pan = np.where(ID_TO_TRAIN_ID[raw] != 255, inst, 0)
-            ids, areas = np.unique(pan, return_counts=True)
-            segments = [{"id": int(s_id), "category_id": int(s_id // 1000 if s_id >= 1000
-                                                                 else s_id),
-                         "area": int(a), "iscrowd": int(s_id == _CROWD_RAW)}
-                        for s_id, a in zip(ids, areas) if s_id]
-            rgb = np.stack([pan % 256, pan // 256 % 256, pan // 65536], -1).astype(np.uint8)
-            pan_name = f"{stem}_gtFine_panoptic.png"
-            _save(root / "gtFine" / f"cityscapes_panoptic_{split}" / pan_name, rgb)
-            images.append({"id": stem, "file_name": f"{stem}_leftImg8bit.png",
-                           "height": h, "width": w})
-            annotations.append({"image_id": stem, "file_name": pan_name,
-                                "segments_info": segments})
-        with open(root / "gtFine" / f"cityscapes_panoptic_{split}.json", "w") as f:
-            json.dump({"images": images, "annotations": annotations}, f)
+    with _saving() as save:
+        for split, n_frames in frames.items():
+            images: list = []
+            annotations: list = []
+            for i in range(n_frames):
+                city = f"city{i % cities}"
+                stem = f"{city}_{i:06d}_000019"
+                gt = root / "gtFine" / split / city
+                save(root / "leftImg8bit" / split / city / f"{stem}_leftImg8bit.png", _image(g, hw))
+                raw, inst = segments_frame(g, hw, things)
+                save(gt / f"{stem}_gtFine_labelTrainIds.png", ID_TO_TRAIN_ID[raw])
+                save(gt / f"{stem}_gtFine_instanceIds.png", inst.astype(np.uint16))
+                # panoptic: segments of the evaluated classes; things by instance,
+                # stuff and crowds by raw id; the rest 0
+                pan = np.where(ID_TO_TRAIN_ID[raw] != 255, inst, 0)
+                ids, areas = np.unique(pan, return_counts=True)
+                segments = [{"id": int(s_id), "category_id": int(s_id // 1000 if s_id >= 1000
+                                                                     else s_id),
+                             "area": int(a), "iscrowd": int(s_id == _CROWD_RAW)}
+                            for s_id, a in zip(ids, areas) if s_id]
+                rgb = np.stack([pan % 256, pan // 256 % 256, pan // 65536], -1).astype(np.uint8)
+                pan_name = f"{stem}_gtFine_panoptic.png"
+                save(root / "gtFine" / f"cityscapes_panoptic_{split}" / pan_name, rgb)
+                images.append({"id": stem, "file_name": f"{stem}_leftImg8bit.png",
+                               "height": h, "width": w})
+                annotations.append({"image_id": stem, "file_name": pan_name,
+                                    "segments_info": segments})
+            (root / "gtFine").mkdir(parents=True, exist_ok=True)  # the saves may not have run
+            with open(root / "gtFine" / f"cityscapes_panoptic_{split}.json", "w") as f:
+                json.dump({"images": images, "annotations": annotations}, f)
     return {"cityscapes_root": str(root)}
