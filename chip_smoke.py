@@ -103,7 +103,7 @@ exits non-zero and prints no result. Phases, one JSON line each:
    CPU's own optimum on the CPU's costs): losses, the AdamW update, the
    gradients against a float64 step on the card's ReLU branches (each
    replayed unit's input within rounding of 0), the launches (6 + 6
-   deformable, 10 assignments, 20 label points); then
+   deformable, 10 assignments, 10 of each label-point entry); then
    ``instance_inference`` / ``panoptic_inference`` on the card against the
    CPU on the same logits (the model's at 256x512, and confident synthetic
    ones at 512x1024).
@@ -147,7 +147,8 @@ exits non-zero and prints no result. Phases, one JSON line each:
    profiled;
    and the global bottom-k's kernel row (``bottom_k_sum_global``: its route
    at world 1 against its plain version over 8 x 700 x 700 values, timed as
-   the single-process row). (b) Two ranks on the one card over gloo
+   the single-process row, with its all-reduces alone, then its cases with
+   ties, select_num 0 and select_num above n in the same group). (b) Two ranks on the one card over gloo
    (``torch.multiprocessing``; NCCL refuses two ranks on one device): each
    recipe's f32 step of its parity batch (2 pairs or 2 images at 200² /
    256²) split in two through the global reductions (BatchNorm, RCL's
@@ -226,8 +227,10 @@ logit within rounding of 0.
 The ``kernels`` phase also holds the training slice's kernels at its shapes
 (16 images at 704x704): the deformable-attention backward and the bilinear
 forward (a row of its own beside the eval shapes'), the batched
-assignment (and scipy's optimum on the valid rows) and the label points (the
-rows count Swin-L's stage-2 step and ``dp_train``'s M2F step too); and
+assignment (and scipy's optimum on the valid rows) and the label points,
+each entry in a row of its own (the classes entry at the matcher's points,
+the rows entry at the clean candidates; the rows count Swin-L's stage-2 step
+and ``dp_train``'s M2F step too); and
 DeepLab's: the ASPP's dilated conv at the eval shapes (its three rates timed
 together, beside cuDNN's dilated ``conv2d`` in benchmark mode, channels-last
 and NCHW), at DeepV3Plus's eval shapes (2048 input channels, a row of its
@@ -279,13 +282,26 @@ Every row's ``ms`` times single synchronised calls (the wrapper's host time
 before its launch included). The rows of the score tails' forward and of every
 deformable forward at the eval shapes (``bilinear``, ``nearest``, the int8
 quantize and forward, ``nearest_top6``, ``nearest_top6c``, ``shared``), the
-bilinear forward at the training shapes, the label points, the pixel
-selection (``bottom_k_sum``), the assignment and the two binned-metric
-kernels give it as the median of 4 block medians of 25 such calls, with the
-lowest and highest block median as
+bilinear forward at the training shapes, both label-point entries, the pixel
+selection (``bottom_k_sum``, and its global route), the assignment and the
+two binned-metric kernels give it as the median of 4 block medians of 25
+such calls, with the lowest and highest block median as
 ``ms_spread``, and add ``device_ms`` and ``device_ms_spread``, the same over
 calls issued back to back (each call's device time; see ``spread_ms``), and
-``host_ms``, the wrapper's host time a call. The rows of the forward kernel
+``host_ms``, the wrapper's host time a call. The label-point rows at the
+stage-2 shapes and the global route's add ``device_kernels``; every
+label-point row ``gather_floor_ms``, the device time of ``torch.take`` of the
+same code words at the same points (the gather alone, no arithmetic); the
+label maps' pack has a row of its own at each shape; the global route's
+row adds its all-reduces a call, ``collectives_ms`` (the device time of the
+same all-reduces alone at a world of 1), ``device_us_by_kernel`` (from
+``torch.profiler``) beside ``bound_ms_by_kernel`` (each kernel's own bytes),
+``two_rank_ms`` and ``two_rank_collectives_ms`` (the route and its
+all-reduces alone in rank 0 of the two gloo ranks, host clock). With
+``--parent DIR`` the label-point rows and the global route's add
+``parent_device_ms`` and ``ab_device_ms`` (DIR's package and this tree's,
+each run in two processes of its own, parent, change, change, parent) and
+``bit_equal_to_parent``. The rows of the forward kernel
 (``bilinear``, ``nearest``, int8) add ``staged_levels``, the levels it staged
 in shared memory. The assignment's and the selection's rows add
 ``device_kernels``, the device kernels one call runs (the launch calls of a
@@ -422,7 +438,8 @@ def median_ms(torch, fn, reps):
     return statistics.median(times)
 
 
-def spread_ms(torch, fn, back_to_back=False, blocks=4, reps=25):
+def spread_ms(torch, fn, back_to_back=False, blocks=4, reps=25,
+              ahead_cycles=QUEUE_AHEAD_CYCLES):
     """(median, [lowest, highest]) of ``blocks`` block medians of ``reps``
     calls of ``fn`` each: the spread tells a small change from noise within
     one run. By default each call is timed as ``median_ms`` times it: alone
@@ -430,7 +447,7 @@ def spread_ms(torch, fn, back_to_back=False, blocks=4, reps=25):
     ``back_to_back``: a block queues its calls behind a sleep kernel, with an
     event between consecutive ones and no host sync, so the card runs them in
     a row whatever the host's pace and each interval is one call's device
-    time."""
+    time (``ahead_cycles`` long enough for the host to queue them)."""
     fn()
     torch.cuda.synchronize()
     meds = []
@@ -439,7 +456,7 @@ def spread_ms(torch, fn, back_to_back=False, blocks=4, reps=25):
             meds.append(median_ms(torch, fn, reps))
             continue
         events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
+        torch.cuda._sleep(ahead_cycles)
         events[0].record()
         for i in range(reps):
             fn()
@@ -494,13 +511,208 @@ def device_kernels(torch, fn, calls=10, pause_s=0.25):
     return launch_calls(prof) / calls
 
 
+def device_us_by_kernel(torch, fn, calls=20, pause_s=0.25):
+    """Device microseconds a launch by kernel name over ``calls`` warm calls of
+    ``fn`` (``torch.profiler``'s device events, each kernel's total over its
+    own count: the profiler was seen to drop some calls' device events), or
+    {} where it saw none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(pause_s)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(pause_s)
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        if us and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.key[:80]] = us / max(e.count, 1)
+    return out
+
+
 def time_redesigned(torch, row, fn):
     """A redesigned kernel's timings: ``ms`` over single synchronised calls,
     as in every row, and ``device_ms`` over calls back to back, each with its
     spread; and ``host_ms``, the wrapper's host time a call."""
     row["ms"], row["ms_spread"] = spread_ms(torch, fn)
-    row["device_ms"], row["device_ms_spread"] = spread_ms(torch, fn, back_to_back=True)
     row["host_ms"] = host_ms(torch, fn)
+    # the sleep covers 25 calls' host time twice over (about 2e6 cycles a ms)
+    ahead = max(QUEUE_AHEAD_CYCLES, int(row["host_ms"] * 25 * 2 * 2e6))
+    row["device_ms"], row["device_ms_spread"] = spread_ms(torch, fn, back_to_back=True,
+                                                          ahead_cycles=ahead)
+
+
+# --parent DIR: the checkout whose label-point entries and global bottom-k
+# route the rows of those kernels time beside this tree's (ab_trees), each
+# tree's package in processes of its own in this order
+AB_ORDER = ("parent", "change", "change", "parent")
+# the sleep a block of the global route's calls queues behind: its host time
+# a call (its all-reduces') can pass 1 ms, so 25 calls need about 50 ms of it
+GLOBAL_AHEAD_CYCLES = 200_000_000
+
+
+def output_digest(out):
+    """sha256 of a call's outputs' bytes: equal digests are equal outputs."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for o in out if isinstance(out, tuple) else (out,):
+        h.update(o.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_ab(torch):
+    """``--ab``: the device time (back to back, :func:`spread_ms`) and an
+    output digest of the public label-point entries and global bottom-k
+    route of the package on ``sys.path``, on the inputs of their rows
+    (:func:`lp_train_inputs`, :func:`lp_vanilla_inputs`,
+    :func:`dp_bottom_k_inputs`); the global route in a process group of one
+    rank over NCCL. A package that packs its label maps
+    (``criterion.label_quads``) gets them packed once, before, as its
+    criterion does."""
+    from multishiftseg_torch.core.mesh import initialize_distributed, shutdown_distributed
+    from multishiftseg_torch.losses import criterion, rcl
+
+    dev = torch.device("cuda")
+    cases = {}
+    sets = [("", lp_train_inputs(torch, dev))]
+    for shapes, (crop, t, _) in INST_SHAPES.items():
+        rs = np.random.RandomState(SEED + 80)
+        sets.append((f"_{shapes}_shapes", lp_vanilla_inputs(torch, dev, rs, crop, t)))
+    for shapes, (labels, coords, k, rcoords, ids, per_map, first) in sets:
+        kw = {"quads": criterion.label_quads(labels)} if hasattr(criterion, "label_quads") else {}
+        cases[f"label_points{shapes}"] = ab_case(
+            torch, lambda: criterion.sample_target_points(labels, coords, k, **kw))
+        cases[f"label_points_rows{shapes}"] = ab_case(
+            torch, lambda: criterion.sample_class_points(labels, rcoords, ids, per_map, first,
+                                                         **kw))
+    initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{free_port()}",
+                           world_size=1, rank=0, local_rank=0)
+    try:
+        vals, keyed, sn = dp_bottom_k_inputs(torch, DP_BOTTOM_K_N, SEED + 118)
+        cases["bottom_k_sum_global"] = ab_case(
+            torch, lambda: rcl.bottom_k_sum_global_cuda(vals, keyed, sn), GLOBAL_AHEAD_CYCLES)
+    finally:
+        shutdown_distributed()
+    return {"phase": "ab", "cases": cases, "ok": True}
+
+
+def ab_case(torch, fn, ahead_cycles=QUEUE_AHEAD_CYCLES):
+    """:func:`phase_ab`'s record of one call: its output digest and its
+    device time back to back with the spread."""
+    digest = output_digest(fn())
+    ms, spread = spread_ms(torch, fn, back_to_back=True, ahead_cycles=ahead_cycles)
+    return {"digest": digest, "device_ms": ms, "device_ms_spread": spread}
+
+
+def ab_trees(parent, change, rows):
+    """With --parent: :func:`phase_ab` of the parent's package and of this
+    tree's, each in a process of its own in :data:`AB_ORDER`, added to the
+    rows of the same names: ``parent_device_ms`` and ``ab_device_ms`` (this
+    tree's in the same sequence), each the median of its processes' with
+    their lowest and highest block, and whether this tree's outputs equal
+    the parent's bit for bit. Returns whether every process ran."""
+    roots = {"parent": parent, "change": change}
+    got = {"parent": [], "change": []}
+    for side in AB_ORDER:
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--ab",
+                               "--root", roots[side]], capture_output=True, text=True,
+                              timeout=600)
+        line = next((ln for ln in proc.stdout.splitlines() if ln.startswith('{"phase": "ab"')),
+                    None)
+        if proc.returncode or line is None:
+            print(f"chip_smoke: --ab on {roots[side]} failed:\n{proc.stderr[-4000:]}",
+                  file=sys.stderr)
+            return False
+        got[side].append(json.loads(line)["cases"])
+    for name, row in rows.items():
+        if name not in got["change"][0]:
+            continue
+        for side, key in (("parent", "parent_device_ms"), ("change", "ab_device_ms")):
+            runs = [c[name] for c in got[side]]
+            row[key] = statistics.median(r["device_ms"] for r in runs)
+            row[f"{key}_spread"] = [min(r["device_ms_spread"][0] for r in runs),
+                                    max(r["device_ms_spread"][1] for r in runs)]
+        row["bit_equal_to_parent"] = len({c[name]["digest"] for c in
+                                          got["parent"] + got["change"]}) == 1
+    return True
+
+
+def code_gather_floor_ms(torch, labels, quads, coords, maps):
+    """Device ms of ``torch.take`` of the code words these points read (their
+    flat indices made beforehand): an 8-byte index read, one 4-byte gather
+    and a 4-byte write a point, the entries' gather (8-byte coordinates, one
+    code word, a sample a class) without their arithmetic."""
+    idx = code_word_index(labels, quads, coords, maps)[0].reshape(-1)
+    return spread_ms(torch, lambda: torch.take(quads, idx), back_to_back=True)[0]
+
+
+def label_point_rows(torch, rows, check, checks, shapes, labels, coords, k, rcoords, ids,
+                     per_map, first, paths):
+    """The label points at one set of shapes: the pack of the label maps
+    (``label_quads{shapes}``, bit for bit against its plain version; bound:
+    the maps read and the codes written), the classes entry (every class
+    0..k-1 at the matcher's ``coords``) in row ``label_points{shapes}`` and the
+    rows entry (``ids`` a row at ``rcoords``, ``per_map`` rows a map from map
+    ``first``) in row ``label_points_rows{shapes}``, the two sampling the codes
+    packed once, as the criterion does, each row counting its own entry's
+    launches. The entries against the plain versions within 1e-6 (at most
+    four corner weights summed in f32, in another order); their bound: the
+    32-byte sectors of the codes the points read (:func:`code_sector_bytes`),
+    the coordinates and the samples, and 4 compares and 4 adds a sample;
+    beside it ``gather_floor_ms`` (:func:`code_gather_floor_ms`)."""
+    from multishiftseg_torch.losses import criterion
+
+    dev = labels.device
+    b = labels.shape[0]
+    quads = criterion.label_quads(labels)
+    name = f"label_quads{shapes}"
+    same = bool(torch.equal(quads, criterion.label_quads_plain(labels)))
+    checks.append({"check": f"label_quads{shapes or '_main'}_shapes", "equal_to_plain": same,
+                   "ok": same})
+    b_ms, b_by = bound(nbytes(labels, quads), 0)
+    pack = lambda: criterion.label_quads(labels)
+    rows[name] = {
+        "name": name, "route": "cuda", "source": "multishiftseg_torch/csrc/label_points.cu",
+        "replaces": "multishiftseg_tpu/losses/criterion.py:66", "counter": "label_quads",
+        "paths": paths, "max_abs_err": 0.0 if same else float("nan"),
+        "plain_ms": median_ms(torch, lambda: criterion.label_quads_plain(labels), 5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    time_redesigned(torch, rows[name], pack)
+    if not shapes:  # the device kernels a call once, at the stage-2 shapes
+        rows[name]["device_kernels"] = device_kernels(torch, pack)
+    entries = {
+        "classes": (lambda: criterion.sample_target_points(labels, coords, k, quads),
+                    lambda: criterion.sample_target_points_plain(labels, coords, k),
+                    coords, torch.arange(b, device=dev), k),
+        "rows": (lambda: criterion.sample_class_points(labels, rcoords, ids, per_map, first,
+                                                       quads),
+                 lambda: criterion.sample_class_points_plain(labels, rcoords, ids, per_map,
+                                                             first),
+                 rcoords, first + torch.arange(rcoords.shape[0], device=dev) // per_map, 1)}
+    for entry, (run, plain, xy, maps, per_point) in entries.items():
+        name = f"label_points{'_rows' if entry == 'rows' else ''}{shapes}"
+        out = run()
+        err = check(f"label_points_{entry}{shapes or '_main'}_shapes", out, plain(), 1e-6, 0.0)
+        b_ms, b_by = bound(code_sector_bytes(torch, labels, quads, xy, maps) + nbytes(xy, out),
+                           xy.shape[0] * xy.shape[1] * per_point * 8)
+        rows[name] = {
+            "name": name, "route": "cuda", "source": "multishiftseg_torch/csrc/label_points.cu",
+            "replaces": "multishiftseg_tpu/losses/criterion.py:66",
+            "counter": f"label_points_{entry}", "paths": paths, "max_abs_err": err,
+            "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
+            # the one-call equivalent, grid_sample of [B, K, H, W] one-hot
+            # masks, takes other inputs (the masks, not the label map)
+            "library_ms": None}
+        time_redesigned(torch, rows[name], run)
+        if not shapes:
+            rows[name]["device_kernels"] = device_kernels(torch, run)
+        rows[name]["gather_floor_ms"] = code_gather_floor_ms(torch, labels, quads, xy, maps)
+        del out
 
 
 def bound(nbytes, ops, ops_per_s=F32_OPS_PER_S):
@@ -565,22 +777,26 @@ def msda_ops(torch, loc, levels, mode, backward=False):
     return (2 * corners + 2 * points) * HEAD_DIM
 
 
-def label_sector_bytes(torch, labels, coords, maps):
-    """Bytes of the 32-byte label-map sectors that hold the in-map corners of
-    these points, each sector counted once. labels [B, H, W]; coords [R, P, 2];
-    maps [R], the label map of each coordinate row."""
+def code_word_index(labels, quads, coords, maps):
+    """The flat index into ``quads`` [B, H + 1, WQ] of the code word each point
+    reads (its 2x2 block's, at row y0 + 1 and column x0 + 1 of its map), and
+    whether it reads one (some corner on the map). labels [B, H, W]; coords
+    [R, P, 2]; maps [R], the label map of each coordinate row."""
     _, h, w = labels.shape
-    x0 = torch.floor(coords[..., 0] * w - 0.5).long()
-    y0 = torch.floor(coords[..., 1] * h - 0.5).long()
-    per_sector = 32 // labels.element_size()
-    sectors = []
-    for dx in (0, 1):
-        for dy in (0, 1):
-            ix, iy = x0 + dx, y0 + dy
-            valid = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
-            flat = (maps[:, None] * h + iy) * w + ix
-            sectors.append(flat[valid] // per_sector)
-    return int(torch.unique(torch.cat(sectors)).numel()) * 32
+    wq = quads.shape[-1]
+    x0 = (coords[..., 0] * w - 0.5).floor().long()
+    y0 = (coords[..., 1] * h - 0.5).floor().long()
+    reads = (x0 >= -1) & (x0 < w) & (y0 >= -1) & (y0 < h)
+    idx = (maps[:, None] * (h + 1) + y0.clamp(-1, h - 1) + 1) * wq + x0.clamp(-1, w - 1) + 1
+    return idx, reads
+
+
+def code_sector_bytes(torch, labels, quads, coords, maps):
+    """Bytes of the 32-byte sectors of the packed codes that these points
+    read, each sector counted once (:func:`code_word_index`; the points'
+    classes lie in [0, 254], so no label is read)."""
+    idx, reads = code_word_index(labels, quads, coords, maps)
+    return int(torch.unique(idx[reads] // (32 // quads.element_size())).numel()) * 32
 
 
 def phase_build():
@@ -1149,7 +1365,7 @@ def train_kernel_rows(torch, dev, rows, check, checks):
     (``PIPELINE_PATHS``, ``pipeline_parallel = 2``), the assignment and the
     label points over the 16 (both)."""
     from multishiftseg_torch.core.pipeline import auto_microbatches
-    from multishiftseg_torch.losses import criterion, matcher
+    from multishiftseg_torch.losses import matcher
 
     pairs, paths = TRAIN_PAIRS, TRAIN_PATHS + PIPELINE_PATHS
     b = 2 * pairs
@@ -1203,41 +1419,40 @@ def train_kernel_rows(torch, dev, rows, check, checks):
     row["max_steps"] = max(steps)
     row["device_ns_per_step"] = row["device_ms"] * 1e6 / max(steps)
 
-    # label points on the label maps at 704x704: every class at the matcher's
-    # points, and one class per row at the augmented half's clean candidates
+    label_point_rows(torch, rows, check, checks, "", *lp_train_inputs(torch, dev), paths)
+
+
+def lp_train_inputs(torch, dev):
+    """The label points' inputs at the stage-2 shapes, for
+    :func:`label_point_rows`: 16 label maps of 704x704 (a padded void strip),
+    every class at the matcher's points, and one class a row at the
+    augmented half's clean candidates (1.25 P a row on the 8 augmented maps;
+    the step's other two row launches take P)."""
+    rs = np.random.RandomState(SEED + 10)
+    b = 2 * TRAIN_PAIRS
     labels_np = rs.randint(0, CLASSES + 3, (b, *TRAIN_HW)).astype(np.int32)
     labels_np[:, :, CROP[1]:] = 255
     labels = torch.from_numpy(labels_np).to(dev)
     coords = torch.from_numpy(rs.rand(b, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
-    run = lambda: criterion.sample_target_points(labels, coords, CLASSES)
-    plain = lambda: criterion.sample_target_points_plain(labels, coords, CLASSES)
-    out = run()
-    # at most four corner weights summed in f32, in another order
-    err = check("label_points_classes_main_shapes", out, plain(), 1e-6, 0.0)
-    n_rows = pairs * CLASSES
-    rcoords = torch.from_numpy(rs.rand(n_rows, int(TRAIN_POINTS * 1.25), 2).astype(
-        np.float32)).to(dev)
-    ids = torch.arange(CLASSES, device=dev).repeat(pairs)
-    err = max(err, check("label_points_rows_main_shapes",
-                         criterion.sample_class_points(labels, rcoords, ids, CLASSES, pairs),
-                         criterion.sample_class_points_plain(labels, rcoords, ids, CLASSES,
-                                                             pairs), 1e-6, 0.0))
-    # bytes: the label sectors the corners touch, the coordinates, the samples;
-    # operations: 4 compares and 4 adds per point and class
-    label_bytes = label_sector_bytes(torch, labels, coords, torch.arange(b, device=dev))
-    b_ms, b_by = bound(label_bytes + nbytes(coords, out), b * TRAIN_POINTS * CLASSES * 8)
-    name = "label_points"
-    rows[name] = {
-        "name": name, "route": "cuda",
-        "source": "multishiftseg_torch/csrc/label_points.cu",
-        "replaces": "multishiftseg_tpu/losses/criterion.py:66",
-        "counter": "label_points", "paths": paths,
-        "max_abs_err": err, "ms": median_ms(torch, run, 20),
-        "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms, "bound_by": b_by,
-        # the one-call equivalent, grid_sample of [B, K, H, W] one-hot masks,
-        # takes other inputs (the masks, not the label map)
-        "library_ms": None}
-    time_redesigned(torch, rows[name], run)
+    rcoords = torch.from_numpy(rs.rand(TRAIN_PAIRS * CLASSES, int(TRAIN_POINTS * 1.25), 2)
+                               .astype(np.float32)).to(dev)
+    ids = torch.arange(CLASSES, device=dev, dtype=torch.int32).repeat(TRAIN_PAIRS)
+    return labels, coords, CLASSES, rcoords, ids, CLASSES, TRAIN_PAIRS
+
+
+def lp_vanilla_inputs(torch, dev, rs, crop, t):
+    """The label points' inputs at a vanilla recipe's shapes, drawn from
+    ``rs``: 8 segment id maps of ``crop`` in 16-px blocks with -1 pixels,
+    every slot 0..t-1 at the matcher's points, and the mask loss's rows (t a
+    map, P points each)."""
+    b = INST_BATCH
+    blocks = (b, -(-crop[0] // 16), -(-crop[1] // 16))
+    ids_np = np.repeat(np.repeat(rs.randint(-1, t, blocks), 16, 1), 16, 2)[:, :crop[0], :crop[1]]
+    ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
+    coords = torch.from_numpy(rs.rand(b, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
+    rcoords = torch.from_numpy(rs.rand(b * t, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
+    slots = torch.arange(t, device=dev, dtype=torch.int32).repeat(b)
+    return ids, coords, t, rcoords, slots, t, 0
 
 
 def in_map_taps(n, hw, rate):
@@ -1682,39 +1897,15 @@ def instance_kernel_rows(torch, dev, rows, check, checks):
     corner weights summed in f32), the assignment exactly, the score tail
     within 1e-5 (f32 sums in another order). Each row counts the launches of
     the training paths at its shapes, the alternates' included."""
-    from multishiftseg_torch.losses import criterion, matcher
+    from multishiftseg_torch.losses import matcher
     from multishiftseg_torch.ops import scores
 
     for shapes, (crop, t, paths) in INST_SHAPES.items():
         b = INST_BATCH
         msda_train_rows(torch, dev, rows, check, pyramid(crop), b, SEED + 82, shapes, paths)
         rs = np.random.RandomState(SEED + 80)
-        blocks = (b, -(-crop[0] // 16), -(-crop[1] // 16))
-        ids_np = np.repeat(np.repeat(rs.randint(-1, t, blocks), 16, 1), 16, 2)[
-            :, :crop[0], :crop[1]]
-        ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
-        coords = torch.from_numpy(rs.rand(b, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
-        run = lambda: criterion.sample_target_points(ids, coords, t)
-        plain = lambda: criterion.sample_target_points_plain(ids, coords, t)
-        out = run()
-        err = check(f"label_points_classes_{shapes}_shapes", out, plain(), 1e-6, 0.0)
-        rcoords = torch.from_numpy(rs.rand(b * t, TRAIN_POINTS, 2).astype(np.float32)).to(dev)
-        slots = torch.arange(t, device=dev).repeat(b)
-        err = max(err, check(f"label_points_rows_{shapes}_shapes",
-                             criterion.sample_class_points(ids, rcoords, slots, t),
-                             criterion.sample_class_points_plain(ids, rcoords, slots, t),
-                             1e-6, 0.0))
-        label_bytes = label_sector_bytes(torch, ids, coords, torch.arange(b, device=dev))
-        b_ms, b_by = bound(label_bytes + nbytes(coords, out), b * TRAIN_POINTS * t * 8)
-        name = f"label_points_{shapes}_shapes"
-        rows[name] = {
-            "name": name, "route": "cuda", "source": "multishiftseg_torch/csrc/label_points.cu",
-            "replaces": "multishiftseg_tpu/losses/criterion.py:66",
-            "counter": "label_points", "paths": paths,
-            "max_abs_err": err, "plain_ms": median_ms(torch, plain, 5), "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
-        time_redesigned(torch, rows[name], run)
-        del ids, coords, rcoords, out
+        label_point_rows(torch, rows, check, checks, f"_{shapes}_shapes",
+                         *lp_vanilla_inputs(torch, dev, rs, crop, t), paths)
 
         k = INST_CLASSES if shapes == "instance" else CLASSES
         if shapes == "instance":
@@ -2502,7 +2693,9 @@ def phase_train_parity(torch, seed, pairs=2, crop=(256, 256), card="cuda"):
         **checks, "assignment_equal": res["assignment_equal"],
         "launches_ok": (counts["ms_deform_attn_bilinear"] == 6
                         and counts["ms_deform_attn_bilinear_backward"] == 6
-                        and counts["linear_sum_assignment"] >= 1 and counts["label_points"] >= 4)}
+                        and counts["linear_sum_assignment"] >= 1 and counts["label_quads"] == 1
+                        and counts["label_points_classes"] >= 1
+                        and counts["label_points_rows"] >= 3)}
     res["ok"] = bool(all(res["checks"].values()))
     return res
 
@@ -2556,7 +2749,9 @@ def phase_train(torch, pairs=TRAIN_PAIRS, warmup=2, timed=3):
     launches_ok = (counts["ms_deform_attn_bilinear"] == 6 * timed
                    and counts["ms_deform_attn_bilinear_backward"] == 6 * timed
                    and counts["linear_sum_assignment"] >= timed
-                   and counts["label_points"] >= 4 * timed
+                   and counts["label_quads"] == timed
+                   and counts["label_points_classes"] >= timed
+                   and counts["label_points_rows"] >= 3 * timed
                    and counts["ms_deform_attn_nearest"] == 0
                    and counts["mask_scores_anomaly"] + counts["mask_scores_semantic"]
                    + counts["mask_scores_semantic_classes"] == 0)
@@ -3358,8 +3553,8 @@ def evaluate_approximate(torch, device, tmp, root, cfg_path, weights, bilinear):
 
 # the kernels each trainer's epoch loop must launch (steps and validation)
 LOOP_KERNELS = {
-    "m2f": ("ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward", "label_points",
-            "linear_sum_assignment", "mask_scores_anomaly", "mask_scores_backward",
+    "m2f": ("ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward", "label_quads",
+            "label_points_classes", "label_points_rows", "linear_sum_assignment", "mask_scores_anomaly", "mask_scores_backward",
             "mask_scores_semantic_classes", "ood_range_hist"),
     "deeplab": ("dilated_conv3x3", "dilated_conv3x3_wgrad", "bottom_k_sum", "ood_range_hist")}
 
@@ -3738,7 +3933,9 @@ def phase_instance_parity(torch, seed=SEED + 90, batch=2, crop=(200, 200), card=
         res["checks"]["launches_ok"] = (
             counts["ms_deform_attn_bilinear"] == 6
             and counts["ms_deform_attn_bilinear_backward"] == 6
-            and counts["linear_sum_assignment"] == n_out and counts["label_points"] == 2 * n_out)
+            and counts["linear_sum_assignment"] == n_out
+            and counts["label_quads"] == 1 and counts["label_points_classes"] == n_out
+            and counts["label_points_rows"] == n_out)
         model = trainers["card"].model
         x = torch.from_numpy(np.random.RandomState(seed + 2).randn(1, 256, 512, 3).astype(
             np.float32)).cuda()
@@ -3763,7 +3960,8 @@ def phase_instance_parity(torch, seed=SEED + 90, batch=2, crop=(200, 200), card=
 
 # the kernels the vanilla recipes' steps and evaluations must launch
 INSTANCE_TRAIN_KERNELS = ("ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward",
-                          "label_points", "linear_sum_assignment")
+                          "label_quads", "label_points_classes", "label_points_rows",
+                          "linear_sum_assignment")
 INSTANCE_RECIPES = ("instance", "panoptic", "semantic")
 INSTANCE_FRAMES = {"train": 24, "val": 2}
 
@@ -4098,7 +4296,8 @@ def phase_alt_train(torch):
         torch.cuda.empty_cache()
         r["training_kernels_ok"] = all(counts.get(k, 0) > 0 for k in (
             "ms_deform_attn_bilinear", "ms_deform_attn_bilinear_backward",
-            "linear_sum_assignment", "label_points"))
+            "linear_sum_assignment", "label_quads", "label_points_classes",
+            "label_points_rows"))
         r["ok"] = bool(r.get("finite") and r["training_kernels_ok"])
         res["recipes"][name] = r
         counts_by_path[f"alt_train_{name}"] = counts
@@ -4231,9 +4430,10 @@ def dp_bottom_k_inputs(torch, n, seed):
 
 def dp_bottom_k_check(torch, seed=SEED + 117):
     """The global bottom-k's kernels against its plain version on this rank's
-    share of the global inputs (main-path size, then ties and select_num 0 at
-    5003 elements): the sum within f32 rounding, the threshold the k-th
-    smallest key of all ranks', the gradient weights exactly."""
+    share of the global inputs (main-path size, then ties, select_num 0 and
+    select_num above n at 5004 elements): the sum within f32 rounding, the
+    threshold the k-th smallest key of all ranks' (0 and 0xFFFFFFFF at the
+    ends), the gradient weights exactly."""
     from multishiftseg_torch.core.mesh import local_batch_slice
     from multishiftseg_torch.losses import rcl
 
@@ -4244,7 +4444,9 @@ def dp_bottom_k_check(torch, seed=SEED + 117):
     ok_ = torch.rand(5004, generator=gen, device="cuda") > 0.25
     kq = torch.where(ok_, q, torch.full_like(q, float("inf")))
     cases += [("ties", q, kq, (0.8 * ok_.sum()).to(torch.int32)),
-              ("select_num_0", q, kq, torch.zeros((), dtype=torch.int32, device="cuda"))]
+              ("select_num_0", q, kq, torch.zeros((), dtype=torch.int32, device="cuda")),
+              ("select_num_above_n", q, kq, torch.full((), q.numel() + 3, dtype=torch.int32,
+                                                       device="cuda"))]
     for case, vals, keyed, sn in cases:
         part = local_batch_slice(vals.numel())
         res = []
@@ -4256,7 +4458,8 @@ def dp_bottom_k_check(torch, seed=SEED + 117):
             res.append((float(s), v.grad))
         _, threshold, _ = rcl.bottom_k_sum_global_cuda(vals[part], keyed[part].contiguous(), sn)
         bits = keyed.view(torch.int32).long() & 0xFFFFFFFF
-        kth = int(torch.sort(bits).values[int(sn) - 1]) if int(sn) > 0 else 0
+        kth = (0 if int(sn) <= 0 else 0xFFFFFFFF if int(sn) > bits.numel()
+               else int(torch.sort(bits).values[int(sn) - 1]))
         err = abs(res[0][0] - res[1][0])
         out[case] = {"sum": res[0][0], "plain_sum": res[1][0], "max_abs_err": err,
                      "threshold_equal_kth_key": (int(threshold) & 0xFFFFFFFF) == kth,
@@ -4264,6 +4467,51 @@ def dp_bottom_k_check(torch, seed=SEED + 117):
                      "ok": bool(err <= 1e-6 * max(abs(res[1][0]), 1.0)
                                 and torch.equal(res[0][1], res[1][1])
                                 and (int(threshold) & 0xFFFFFFFF) == kth)}
+    return out
+
+
+def global_bottom_k_collectives(torch):
+    """The global route's all-reduces alone, on tensors of their sizes (the
+    rounds' int32 histograms, the fold's f64), as one callable."""
+    import torch.distributed as dist
+
+    from multishiftseg_torch.losses import rcl
+
+    lay = rcl._kernel(torch.device("cuda", torch.cuda.current_device())).global_layout
+    parts = [torch.zeros(lay.bins0, dtype=torch.int32, device="cuda"),
+             torch.zeros(lay.bins1, dtype=torch.int32, device="cuda"),
+             torch.zeros(lay.fold_len, dtype=torch.float64, device="cuda")]
+
+    def run():
+        for t in parts:
+            dist.all_reduce(t)
+    return run, len(parts)
+
+
+def dp_bottom_k_ms(torch, calls=20):
+    """Host ms (median of ``calls``, each synchronised) of a global bottom-k
+    call on this rank's half of the main-path inputs, and of its all-reduces
+    alone: over gloo the collectives run on the host, so its clock is the
+    measure."""
+    from multishiftseg_torch.core.mesh import local_batch_slice
+    from multishiftseg_torch.losses import rcl
+
+    vals, keyed, sn = dp_bottom_k_inputs(torch, DP_BOTTOM_K_N, SEED + 118)
+    part = local_batch_slice(vals.numel())
+    v, k = vals[part].contiguous(), keyed[part].contiguous()
+    collectives, _ = global_bottom_k_collectives(torch)
+    out = {}
+    for name, fn in (("route_ms", lambda: rcl.bottom_k_sum_global_cuda(v, k, sn)),
+                     ("collectives_ms", collectives)):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = statistics.median(times)
     return out
 
 
@@ -4296,7 +4544,8 @@ def dp_rank(rank, root, port, out_dir):
     from multishiftseg_torch.ops import launch_counts, reset_launch_counts
 
     try:
-        out = {"bottom_k": dp_bottom_k_check(torch), "recipes": {}}
+        out = {"bottom_k": dp_bottom_k_check(torch), "bottom_k_ms": dp_bottom_k_ms(torch),
+               "recipes": {}}
         for name in DP_RECIPES:
             tr, step = dp_setup(torch, name, False)
             reset_launch_counts()
@@ -4314,9 +4563,14 @@ def dp_rank(rank, root, port, out_dir):
 def dp_kernel_row(torch):
     """The global bottom-k's row of the kernels line, inside the world-1 NCCL
     group: its kernels against its plain version at the main-path size (every
-    all-reduce a single rank's), timed as the single-process row. Its
-    launches are those of the two-rank DeepLab steps (a world of 1 takes the
-    single-process route)."""
+    all-reduce a single rank's), timed as the single-process row, with its
+    device kernels and all-reduces a call and, as a floor no kernel design
+    removes, the device time of the same all-reduces alone
+    (``collectives_ms``); then :func:`dp_bottom_k_check`'s cases in this
+    group. Its launches are those of the two-rank DeepLab steps (a world of
+    1 takes the single-process route)."""
+    import torch.distributed as dist
+
     from multishiftseg_torch.losses import rcl
 
     vals, keyed, sn = dp_bottom_k_inputs(torch, DP_BOTTOM_K_N, SEED + 118)
@@ -4339,7 +4593,29 @@ def dp_kernel_row(torch):
     time_redesigned(torch, row, run)
     with torch.no_grad():
         row["device_kernels"] = device_kernels(torch, run)
-    return row, err <= 1e-6 * max(float(want.abs()), 1.0)
+    reduce_calls = []
+    all_reduce = dist.all_reduce
+    dist.all_reduce = lambda *a, **kw: (reduce_calls.append(1), all_reduce(*a, **kw))[1]
+    try:
+        run()
+    finally:
+        dist.all_reduce = all_reduce
+    collectives, _ = global_bottom_k_collectives(torch)
+    row["all_reduces_a_call"] = len(reduce_calls)
+    row["collectives_ms"], row["collectives_ms_spread"] = spread_ms(
+        torch, collectives, back_to_back=True, ahead_cycles=GLOBAL_AHEAD_CYCLES)
+    with torch.no_grad():
+        row["device_us_by_kernel"] = device_us_by_kernel(torch, run)
+    # each kernel's own share of the bytes: each round reads the keys, the
+    # fold the keys and the values, the result only the all-reduced fold
+    row["bound_ms_by_kernel"] = {
+        "round0": bound(nbytes(keyed), 0)[0], "round1": bound(nbytes(keyed), 0)[0],
+        "fold": bound(nbytes(keyed, vals), 0)[0]}
+    cases = dp_bottom_k_check(torch)
+    row["world_1_cases"] = cases
+    ok = (err <= 1e-6 * max(float(want.abs()), 1.0) and all(c["ok"] for c in cases.values())
+          and row["device_kernels"] <= 4 and row["all_reduces_a_call"] <= 3)
+    return row, ok
 
 
 def dp_batch_norm_routes(torch, step):
@@ -4487,6 +4763,9 @@ def phase_dp_train(torch):
             cmp["ok"] = bool(cmp["ok"] and cmp["rank_param_diff"] == 0.0)
             res["two_ranks"][name] = cmp
         res["two_ranks"]["bottom_k"] = {f"rank{i}": r["bottom_k"] for i, r in enumerate(ranks)}
+        # rank 0's host times of the route and of its all-reduces alone over gloo
+        row["two_rank_ms"] = ranks[0]["bottom_k_ms"]["route_ms"]
+        row["two_rank_collectives_ms"] = ranks[0]["bottom_k_ms"]["collectives_ms"]
         # rank 0's steps, each with the counts set to 0 just before it
         two = {}
         for name in DP_RECIPES:
@@ -4840,7 +5119,9 @@ def phase_pipeline(torch):
     n_micro = runs[2]["n_micro"]
     launches_ok = (counts["ms_deform_attn_bilinear"] == 6 * n_micro * 3
                    and counts["ms_deform_attn_bilinear_backward"] == 6 * n_micro * 3
-                   and counts["linear_sum_assignment"] >= 3 and counts["label_points"] >= 12)
+                   and counts["linear_sum_assignment"] >= 3
+                   and counts["label_quads"] >= 3 and counts["label_points_classes"] >= 3
+                   and counts["label_points_rows"] >= 9)
     cmp.update(sequential_step_ms=runs[1]["step_ms"], pipelined_step_ms=runs[2]["step_ms"],
                sequential_peak_mem_gib=runs[1]["peak_mem_gib"],
                pipelined_peak_mem_gib=runs[2]["peak_mem_gib"],
@@ -4913,7 +5194,9 @@ def phase_tensor_parallel(torch):
             c["dilated_conv3x3"] == 9 and c["dilated_conv3x3_wgrad"] == 9
             and c["bottom_k_sum"] == 3 if name == "deeplab" else
             c["ms_deform_attn_bilinear"] == 18 and c["ms_deform_attn_bilinear_backward"] == 18
-            and c["linear_sum_assignment"] >= 3 and c["label_points"] >= 12)
+            and c["linear_sum_assignment"] >= 3
+            and c["label_quads"] >= 3 and c["label_points_classes"] >= 3
+            and c["label_points_rows"] >= 9)
         ok = ok and out["f32"]["ok"] and out["launches_ok"]
         res[name] = out
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5497,7 +5780,10 @@ def parse_args(argv):
     runs the build and those phases only (for A/B timing) and ends with
     ``{"ok": ..., "phases": [...]}`` instead of the device line; ``--root DIR``
     imports ``multishiftseg_torch`` from DIR instead of this script's
-    checkout (another tree under the same harness)."""
+    checkout (another tree under the same harness); ``--parent DIR`` adds to
+    the label-point and global bottom-k rows DIR's package's device time
+    beside this tree's (:func:`ab_trees`); ``--ab`` prints
+    :func:`phase_ab`'s line for the package of ``--root`` and nothing else."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -5505,6 +5791,11 @@ def parse_args(argv):
                     help=f"comma-separated subset of {','.join(PHASES)}")
     ap.add_argument("--root", default=str(Path(__file__).resolve().parent),
                     help="the checkout whose multishiftseg_torch to run")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout whose label-point entries and global bottom-k route "
+                         "the rows of those kernels time beside this tree's")
+    ap.add_argument("--ab", action="store_true",
+                    help="print the A/B times of --root's package only (what --parent runs)")
     args = ap.parse_args(argv)
     args.phases = [p for p in args.phases.split(",") if p]
     unknown = set(args.phases) - set(PHASES)
@@ -5530,6 +5821,9 @@ def main(argv=None):
     except ImportError as e:
         print(f"chip_smoke: run from a checkout of the repository ({e})", file=sys.stderr)
         return 2
+    if args.ab:
+        emit(phase_ab(torch))
+        return 0
 
     phases = []
 
@@ -5602,8 +5896,10 @@ def main(argv=None):
     for name, row in rows.items():
         row["launches"] = sum(paths[p].get(row.get("counter", name), 0)
                               for p in row.get("paths", paths))
+    ab_ok = not (args.parent and rows) or ab_trees(str(Path(args.parent).resolve()),
+                                                   str(Path(args.root).resolve()), rows)
     everything = set(args.phases) == set(PHASES)
-    ok = all(p["ok"] for p in phases) and (
+    ok = ab_ok and all(p["ok"] for p in phases) and (
         not everything or all(r["launches"] > 0 for r in rows.values()
                               if r.get("paths", paths)))
     key_order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
@@ -5614,7 +5910,11 @@ def main(argv=None):
     # longest search and the selection's staged share of keys; a row with no
     # main path, its empty "paths")
     extra = ("ms_spread", "device_ms", "device_ms_spread", "host_ms", "staged_levels",
-             "device_kernels", "max_steps", "device_ns_per_step", "staged_fraction", "paths")
+             "device_kernels", "max_steps", "device_ns_per_step", "staged_fraction",
+             "gather_floor_ms", "all_reduces_a_call", "collectives_ms", "collectives_ms_spread",
+             "device_us_by_kernel", "bound_ms_by_kernel", "two_rank_ms",
+             "two_rank_collectives_ms", "parent_device_ms", "parent_device_ms_spread",
+             "ab_device_ms", "ab_device_ms_spread", "bit_equal_to_parent", "paths")
     if rows:
         emit({"kernels": [{k: r[k] for k in key_order + extra if k in r}
                           for r in rows.values()]})

@@ -11,8 +11,10 @@ target slots are the K train ids with a presence mask; in
 :func:`set_criterion_instance` the slots are T segments of an id map, each with
 its class (duplicates allowed, -1 for padding).
 Target masks are never materialised: they are sampled at points from the label
-map, by the CUDA kernel ``csrc/label_points.cu`` for CUDA tensors and by the
-plain 4-corner gather for CPU tensors.
+map, by the CUDA kernels of ``csrc/label_points.cu`` for CUDA tensors (the maps
+packed once a call into each 2x2 block's corner codes, :func:`label_quads`,
+which every sampling call of the call shares) and by the plain 4-corner gather
+for CPU tensors.
 
 Random numbers are an input. :func:`criterion_draws` makes every draw of one
 ``set_criterion`` call from a ``torch.Generator``; the losses take them as
@@ -43,11 +45,13 @@ from ..core.mesh import all_sum, global_sum
 from ..ops.resize import resize_bilinear
 from ..ops.sampling import point_sample_nchw
 from ..ops.scores import mask2former_semantic_logits
-from .matcher import match
+from .matcher import launch_device, match
 from .rcl import RCLParams, rel_contrastive_loss
 
-# Kernel launches per entry point (see ``ops.launch_counts``).
-LAUNCHES = {"label_points": 0}
+# Kernel launches per entry point (see ``ops.launch_counts``): the classes
+# entry (every class at the matcher's points), the rows entry and the pack of
+# the label maps they read.
+LAUNCHES = {"label_points_classes": 0, "label_points_rows": 0, "label_quads": 0}
 
 
 @dataclass(frozen=True)
@@ -77,29 +81,71 @@ class CriterionConfig:
 # label points: kernel wrappers and plain versions
 
 
+def label_quads(labels: torch.Tensor) -> Optional[torch.Tensor]:
+    """The packed corner codes of ``labels`` [B, H, W] for the card's sampler
+    (``csrc/label_points.cu``, one launch): [B, H + 1, WQ] int32, word (qy, qx)
+    the four corners' codes of the 2x2 block at pixel (qx - 1, qy - 1), a
+    label in [0, 254] its own code, anything else 255. The criterion makes
+    them once a call and hands them to its sampling calls; None for CPU
+    labels, which the plain versions read themselves."""
+    if labels.device.type == "cpu":
+        return None
+    labels = _int32_labels(labels)
+    b, h, w = labels.shape
+    fn = _lp_entry("label_quads")
+    quads = torch.empty((b, h + 1, _quads_width(w)), dtype=torch.int32, device=labels.device)
+    with launch_device(labels.device):
+        rc = fn(labels.data_ptr(), quads.data_ptr(), b, h, w,
+                torch._C._cuda_getCurrentRawStream(labels.device.index))
+    if rc != 0:
+        raise RuntimeError(f"label_quads failed: cudaError {rc}")
+    LAUNCHES["label_quads"] += 1
+    return quads
+
+
+def label_quads_plain(labels: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`label_quads` (the same words, on any device)."""
+    b, h, w = labels.shape
+    wq = _quads_width(w)
+    code = torch.where((labels >= 0) & (labels < 255), labels.long(), 255)
+    padded = torch.full((b, h + 2, wq + 1), 255, dtype=torch.int64, device=labels.device)
+    padded[:, 1:h + 1, 1:w + 1] = code
+    word = (padded[:, :h + 1, :wq] | padded[:, :h + 1, 1:] << 8
+            | padded[:, 1:, :wq] << 16 | padded[:, 1:, 1:] << 24)
+    return torch.where(word >= 2 ** 31, word - 2 ** 32, word).to(torch.int32)
+
+
+def _quads_width(w: int) -> int:
+    return (w + 1 + 3) // 4 * 4
+
+
 def sample_target_points(labels: torch.Tensor, coords: torch.Tensor,
-                         num_classes: int) -> torch.Tensor:
+                         num_classes: int, quads: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bilinear samples of the one-hot masks of classes 0..K-1.
 
     labels [B, H, W] int; coords [B, P, 2] (x, y) in [0, 1] -> [B, K, P] f32.
+    ``quads``: :func:`label_quads` of ``labels`` (made here on the card when
+    not given).
     """
     if labels.device.type == "cpu":
         return sample_target_points_plain(labels, coords, num_classes)
-    return _label_points_cuda(labels, coords, None, num_classes, 1, 0)
+    return _label_points_cuda(labels, quads, coords, None, num_classes, 1, 0)
 
 
 def sample_class_points(labels: torch.Tensor, coords: torch.Tensor,
                         class_ids: torch.Tensor, rows_per_map: int = 1,
-                        map_offset: int = 0) -> torch.Tensor:
+                        map_offset: int = 0, quads: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Bilinear samples of one class's one-hot mask per row.
 
     labels [B, H, W] int; coords [R, P, 2]; class_ids [R] -> [R, P] f32. Row r
     reads label map ``map_offset + r // rows_per_map``: the JAX package's
-    ``jnp.repeat`` of the label maps, without the copy.
+    ``jnp.repeat`` of the label maps, without the copy. ``quads`` as for
+    :func:`sample_target_points`.
     """
     if labels.device.type == "cpu":
         return sample_class_points_plain(labels, coords, class_ids, rows_per_map, map_offset)
-    return _label_points_cuda(labels, coords, class_ids, rows_per_map, rows_per_map,
+    return _label_points_cuda(labels, quads, coords, class_ids, rows_per_map, rows_per_map,
                               map_offset)
 
 
@@ -145,48 +191,70 @@ def sample_class_points_plain(labels, coords, class_ids, rows_per_map=1, map_off
     return (cw * hit).sum(-1)
 
 
-def _label_points_cuda(labels, coords, class_ids, k_or_rows, rows_per_map, map_offset):
-    if labels.dim() != 3 or coords.dim() != 3 or coords.shape[-1] != 2:
-        raise ValueError(f"expected labels [B, H, W] and coords [R, P, 2], got "
-                         f"{tuple(labels.shape)} and {tuple(coords.shape)}")
+_LP_ENTRIES: Dict[str, object] = {}
+
+
+def _lp_entry(name: str):
+    """``csrc/label_points.cu``'s entry ``name``, resolved once."""
+    fn = _LP_ENTRIES.get(name)
+    if fn is None:
+        from .._build import function
+
+        pointers, ints = {"label_quads": (2, 3), "label_points_classes": (4, 5),
+                          "label_points_rows": (5, 6)}[name]
+        fn = _LP_ENTRIES[name] = function("label_points", name, [ctypes.c_void_p] * pointers
+                                          + [ctypes.c_int] * ints + [ctypes.c_void_p])
+    return fn
+
+
+def _int32_labels(labels: torch.Tensor) -> torch.Tensor:
+    if labels.dim() != 3:
+        raise ValueError(f"expected labels [B, H, W], got {tuple(labels.shape)}")
+    return labels.to(torch.int32).contiguous()
+
+
+def _label_points_cuda(labels, quads, coords, class_ids, k_or_rows, rows_per_map, map_offset):
+    if coords.dim() != 3 or coords.shape[-1] != 2:
+        raise ValueError(f"expected coords [R, P, 2], got {tuple(coords.shape)}")
     if coords.dtype != torch.float32:
         raise TypeError(f"coords must be float32, got {coords.dtype}")
-    labels = labels.to(torch.int32).contiguous()
+    labels = _int32_labels(labels)
     coords = coords.contiguous()
     b, h, w = labels.shape
     r, p = coords.shape[:2]
-    if coords.device != labels.device:
-        raise ValueError(f"coords on {coords.device}, labels on {labels.device}")
-    from .._build import load
-
-    lib = load("label_points")
+    dev = labels.device
+    if coords.device != dev:
+        raise ValueError(f"coords on {coords.device}, labels on {dev}")
+    if quads is None:
+        quads = label_quads(labels)
+    elif (tuple(quads.shape) != (b, h + 1, _quads_width(w)) or quads.dtype != torch.int32
+          or quads.device != dev or not quads.is_contiguous()):
+        raise ValueError(f"quads {tuple(quads.shape)} {quads.dtype} on {quads.device} are not "
+                         f"label_quads of labels {tuple(labels.shape)} on {dev}")
     if class_ids is None:
         if r != b:
             raise ValueError(f"coords cover {r} maps, labels hold {b}")
-        fn = lib.label_points_classes
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        out = torch.empty((b, k_or_rows, p), dtype=torch.float32, device=labels.device)
-        args = (labels.data_ptr(), coords.data_ptr(), out.data_ptr(), b, h, w, p, k_or_rows)
+        entry = "label_points_classes"
+        out = torch.empty((b, k_or_rows, p), dtype=torch.float32, device=dev)
+        args = (labels.data_ptr(), quads.data_ptr(), coords.data_ptr(), out.data_ptr(), b, h, w,
+                p, k_or_rows)
     else:
-        class_ids = class_ids.to(device=labels.device, dtype=torch.int32).contiguous()
+        class_ids = class_ids.to(device=dev, dtype=torch.int32).contiguous()
         if tuple(class_ids.shape) != (r,):
             raise ValueError(f"class_ids {tuple(class_ids.shape)}, expected ({r},)")
         if map_offset < 0 or map_offset + (r - 1) // rows_per_map >= b:
             raise ValueError(f"rows {r} at {rows_per_map} per map from map {map_offset} "
                              f"overrun {b} label maps")
-        fn = lib.label_points_rows
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        out = torch.empty((r, p), dtype=torch.float32, device=labels.device)
-        args = (labels.data_ptr(), coords.data_ptr(), class_ids.data_ptr(), out.data_ptr(),
-                r, h, w, p, rows_per_map, map_offset)
-    with torch.cuda.device(labels.device):
-        stream = torch.cuda.current_stream(labels.device).cuda_stream
-        rc = fn(*args, stream)
+        entry = "label_points_rows"
+        out = torch.empty((r, p), dtype=torch.float32, device=dev)
+        args = (labels.data_ptr(), quads.data_ptr(), coords.data_ptr(), class_ids.data_ptr(),
+                out.data_ptr(), r, h, w, p, rows_per_map, map_offset)
+    fn = _lp_entry(entry)
+    with launch_device(dev):
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
-        raise RuntimeError(f"label_points failed: cudaError {rc}")
-    LAUNCHES["label_points"] += 1
+        raise RuntimeError(f"{entry} failed: cudaError {rc}")
+    LAUNCHES[entry] += 1
     return out
 
 
@@ -274,17 +342,19 @@ def _check_exact_topk(cfg: CriterionConfig) -> None:
 @torch.no_grad()
 def clean_point_coords(pred_masks: torch.Tensor, labels: torch.Tensor,
                        class_ids: torch.Tensor, coords: torch.Tensor, rand: torch.Tensor,
-                       cfg: CriterionConfig, rows_per_map: int, map_offset: int) -> torch.Tensor:
+                       cfg: CriterionConfig, rows_per_map: int, map_offset: int,
+                       quads: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Lowest-BCE ("clean") points of each matched mask of the augmented half
     (``criterion.py:144-167``), all rows at once.
 
     pred_masks [R, Hs, Ws] logits; labels [B, H, W]; class_ids [R]; coords
-    [R, 1.25 P, 2] and rand [R, P - 0.95 P, 2] are the draws -> [R, P, 2].
+    [R, 1.25 P, 2] and rand [R, P - 0.95 P, 2] are the draws -> [R, P, 2];
+    quads: :func:`label_quads` of ``labels``.
     """
     _check_exact_topk(cfg)
     num_clean = int(cfg.clean_importance_ratio * cfg.num_points)
     logits = point_sample_nchw(pred_masks[:, None], coords)[:, 0]
-    tgt = sample_class_points(labels, coords, class_ids, rows_per_map, map_offset)
+    tgt = sample_class_points(labels, coords, class_ids, rows_per_map, map_offset, quads)
     bce = F.relu(logits) - logits * tgt + F.softplus(-logits.abs())
     idx = torch.topk(-bce, num_clean, dim=-1).indices
     clean = coords.gather(1, idx[..., None].expand(-1, -1, 2))
@@ -305,16 +375,16 @@ def uncertain_point_coords(pred_masks: torch.Tensor, coords: torch.Tensor,
     return torch.cat([out, rand], dim=1) if rand.shape[1] > 0 else out
 
 
-def _plain_mask_losses(draws, matched_masks, sem_seg, w_valid, num_masks, cfg):
+def _plain_mask_losses(draws, matched_masks, sem_seg, w_valid, num_masks, cfg, quads=None):
     """The plain uncertainty-sampled ``loss_masks`` over all matched masks
     (``criterion.py:197-223``). matched_masks [B, K, Hs, Ws]."""
     b, t = matched_masks.shape[:2]
     mm = matched_masks.reshape(b * t, *matched_masks.shape[2:])
-    class_ids = torch.arange(t, device=mm.device).repeat(b)
+    class_ids = torch.arange(t, device=mm.device, dtype=torch.int32).repeat(b)
     coords = uncertain_point_coords(mm.detach(), draws["uncertain_coords"],
                                     draws["uncertain_rand"], cfg)
     logits = point_sample_nchw(mm[:, None], coords)[:, 0]
-    tgts = sample_class_points(sem_seg, coords, class_ids, rows_per_map=t)
+    tgts = sample_class_points(sem_seg, coords, class_ids, rows_per_map=t, quads=quads)
     w = w_valid.reshape(-1)
     return {"loss_mask": all_sum(_sigmoid_ce(logits, tgts, w)) / num_masks * cfg.mask_weight,
             "loss_dice": all_sum(_dice(logits, tgts, w)) / num_masks * cfg.dice_weight}
@@ -335,8 +405,9 @@ def set_criterion(outputs: Dict[str, object], sem_seg: torch.Tensor, draws: Dict
     """
     dev = sem_seg.device.type
     with torch.autocast(dev, enabled=False):
+        quads = label_quads(sem_seg)  # shared by every output's sampling
         total, losses, assignment = _single_output_losses(outputs, sem_seg, draws, cfg,
-                                                          rcl_params, crop_hw)
+                                                          rcl_params, crop_hw, quads)
         assignments = [assignment]
         if cfg.deep_supervision:
             aux_draws: List[dict] = draws["aux"]
@@ -346,7 +417,8 @@ def set_criterion(outputs: Dict[str, object], sem_seg: torch.Tensor, draws: Dict
                     dataclasses.replace(cfg, ood_loss="margin"))
                 t_i, l_i, a_i = _single_output_losses(
                     aux, sem_seg, aux_draws[i], aux_cfg,
-                    rcl_params if has_ood or aux_cfg.ood_loss != "RCL" else None, crop_hw)
+                    rcl_params if has_ood or aux_cfg.ood_loss != "RCL" else None, crop_hw,
+                    quads)
                 total = total + t_i
                 losses.update({f"{k}_{i}": v for k, v in l_i.items()})
                 assignments.append(a_i)
@@ -369,20 +441,21 @@ def set_criterion_instance(outputs: Dict[str, object], id_map: torch.Tensor,
     first).
     """
     with torch.autocast(id_map.device.type, enabled=False):
+        quads = label_quads(id_map)  # shared by every output's sampling
         total, losses, assignment = _instance_output_losses(outputs, id_map, tgt_classes,
-                                                            draws, cfg)
+                                                            draws, cfg, quads)
         assignments = [assignment]
         if cfg.deep_supervision:
             for i, aux in enumerate(outputs.get("aux_outputs", [])):
                 t_i, l_i, a_i = _instance_output_losses(aux, id_map, tgt_classes,
-                                                        draws["aux"][i], cfg)
+                                                        draws["aux"][i], cfg, quads)
                 total = total + t_i
                 losses.update({f"{k}_{i}": v for k, v in l_i.items()})
                 assignments.append(a_i)
     return total, losses, assignments
 
 
-def _instance_output_losses(outputs, id_map, tgt_classes, draws, cfg):
+def _instance_output_losses(outputs, id_map, tgt_classes, draws, cfg, quads=None):
     b, t = tgt_classes.shape
     K = cfg.num_classes
     dev = id_map.device
@@ -397,7 +470,7 @@ def _instance_output_losses(outputs, id_map, tgt_classes, draws, cfg):
     # slot indices for classes
     match_coords = draws["match_coords"]
     out_pts = point_sample_nchw(pred_masks.detach(), match_coords)  # [B, Q, P]
-    tgt_pts = sample_target_points(id_map, match_coords, t)  # [B, T, P]
+    tgt_pts = sample_target_points(id_map, match_coords, t, quads)  # [B, T, P]
     assignment = match(pred_logits.detach(), out_pts, tgt_pts, valid,
                        cost_class_w=cfg.class_weight, cost_mask_w=cfg.mask_weight,
                        cost_dice_w=cfg.dice_weight, tgt_classes=tgt_classes)  # [B, T]
@@ -415,11 +488,12 @@ def _instance_output_losses(outputs, id_map, tgt_classes, draws, cfg):
     matched_masks = pred_masks[torch.arange(b, device=dev)[:, None], assignment]  # [B, T, ...]
     losses = {"loss_ce": loss_ce * cfg.class_weight,
               **_plain_mask_losses(draws, matched_masks, id_map, valid.float(), num_masks,
-                                   cfg)}
+                                   cfg, quads)}
     return sum(losses.values()), losses, assignment
 
 
-def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw=None):
+def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw=None,
+                          quads=None):
     b = sem_seg.shape[0]
     half = b // 2
     K = cfg.num_classes
@@ -437,7 +511,7 @@ def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw
     # matching on shared random points per image
     match_coords = draws["match_coords"]
     out_pts = point_sample_nchw(pred_masks.detach(), match_coords)  # [B, Q, P]
-    tgt_pts = sample_target_points(sem_seg, match_coords, K)  # [B, K, P]
+    tgt_pts = sample_target_points(sem_seg, match_coords, K, quads)  # [B, K, P]
     assignment = match(pred_logits.detach(), out_pts, tgt_pts, valid,
                        cost_class_w=cfg.class_weight, cost_mask_w=cfg.mask_weight,
                        cost_dice_w=cfg.dice_weight)  # [B, K] query per class slot
@@ -457,17 +531,18 @@ def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw
 
     if not cfg.mask_loss_with_pixel_selection:
         losses = {"loss_ce": loss_ce * cfg.class_weight,
-                  **_plain_mask_losses(draws, matched_masks, sem_seg, w_valid, num_masks, cfg)}
+                  **_plain_mask_losses(draws, matched_masks, sem_seg, w_valid, num_masks, cfg,
+                                       quads)}
         return (*_finish_ood_loss(outputs, sem_seg, draws, cfg, rcl_params, crop_hw,
                                   pred_logits, pred_masks, losses), assignment)
 
     # loss_masks_aug, clean half: fresh uniform points per mask, weighted 2x
     hs, ws = matched_masks.shape[2:]
-    class_ids = torch.arange(K, device=dev).repeat(half)
+    class_ids = torch.arange(K, device=dev, dtype=torch.int32).repeat(half)
     om = matched_masks[:half].reshape(half * K, hs, ws)
     oc = draws["orig_coords"].reshape(half * K, cfg.num_points, 2)
     orig_logits = point_sample_nchw(om[:, None], oc)[:, 0]
-    orig_tgts = sample_class_points(sem_seg, oc, class_ids, rows_per_map=K)
+    orig_tgts = sample_class_points(sem_seg, oc, class_ids, rows_per_map=K, quads=quads)
     w_orig = w_valid[:half].reshape(-1)
     loss_orig_mask = 2.0 * all_sum(_sigmoid_ce(orig_logits, orig_tgts, w_orig)) / num_masks
     loss_orig_dice = 2.0 * all_sum(_dice(orig_logits, orig_tgts, w_orig)) / num_masks
@@ -475,10 +550,11 @@ def _single_output_losses(outputs, sem_seg, draws, cfg, rcl_params=None, crop_hw
     # augmented half: the lowest-BCE "clean" points of each mask
     am = matched_masks[half:].reshape(half * K, hs, ws)
     coords = clean_point_coords(am.detach(), sem_seg, class_ids, draws["clean_coords"],
-                                draws["clean_rand"], cfg, rows_per_map=K, map_offset=half)
+                                draws["clean_rand"], cfg, rows_per_map=K, map_offset=half,
+                                quads=quads)
     aug_logits = point_sample_nchw(am[:, None], coords)[:, 0]
     aug_tgts = sample_class_points(sem_seg, coords, class_ids, rows_per_map=K,
-                                   map_offset=half)
+                                   map_offset=half, quads=quads)
     w_aug = w_valid[half:].reshape(-1)
     loss_aug_mask = all_sum(_sigmoid_ce(aug_logits, aug_tgts, w_aug)) / num_masks
     loss_aug_dice = all_sum(_dice(aug_logits, aug_tgts, w_aug)) / num_masks

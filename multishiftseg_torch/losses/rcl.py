@@ -15,9 +15,9 @@ the lower index as ``jax.lax.top_k`` does, by a stable descending sort.
 The pixel selection of the augmented half's CE (``_bottom_k_sum``) runs as a CUDA
 kernel for CUDA tensors (``csrc/bottom_k.cu``), as its plain version on the CPU.
 Inside a process group it selects over the global batch's pixels
-(:func:`bottom_k_sum_global`): radix rounds whose digit histograms are
-all-reduced between rounds, then local sums at the global threshold,
-all-reduced.
+(:func:`bottom_k_sum_global`): two radix rounds whose digit histograms are
+all-reduced between them, then a fold of the last digit's counts and sums
+with the sums below, all-reduced, from which one block forms the result.
 """
 
 from __future__ import annotations
@@ -209,13 +209,29 @@ class _Kernel:
 
     forward: object
     backward: object
-    global_hist: object
-    global_sums: object
+    global_round: object
+    global_fold: object
     global_result: object
     max_blocks: int
     stage_words: int
     scratch_words: int
-    global_scratch_words: int
+    global_blocks: int
+    global_layout: "GlobalLayout"
+
+
+@dataclass(frozen=True)
+class GlobalLayout:
+    """The global route's scratch (``bottom_k_global_layout``, int32 words):
+    the two rounds' histograms, the fold that is all-reduced (f64 from
+    ``fold``, ``fold_len`` entries), and the words in all."""
+
+    h0: int
+    bins0: int
+    h1: int
+    bins1: int
+    fold: int
+    fold_len: int
+    words: int
 
 
 _KERNELS: Dict[Optional[int], _Kernel] = {}
@@ -232,29 +248,36 @@ def _kernel(dev: torch.device) -> _Kernel:
             rc = cfg(ctypes.addressof(blocks), ctypes.addressof(stage))
         if rc != 0:
             raise RuntimeError(f"bottom_k_config failed: cudaError {rc}")
+        gcfg = _build.function("bottom_k", "bottom_k_global_config", [ctypes.c_void_p])
+        gblocks = ctypes.c_int()
+        with torch.cuda.device(dev):
+            rc = gcfg(ctypes.addressof(gblocks))
+        if rc != 0:
+            raise RuntimeError(f"bottom_k_global_config failed: cudaError {rc}")
         words = _build.function("bottom_k", "bottom_k_scratch_words", [ctypes.c_int])
         words.restype = ctypes.c_longlong
-        global_words = _build.function("bottom_k", "bottom_k_global_scratch_words",
-                                       [ctypes.c_int])
-        global_words.restype = ctypes.c_longlong
+        layout = (ctypes.c_longlong * 7)()
+        rc = _build.function("bottom_k", "bottom_k_global_layout",
+                             [ctypes.c_int, ctypes.c_void_p])(gblocks.value, layout)
+        if rc != 0:
+            raise RuntimeError(f"bottom_k_global_layout failed: cudaError {rc}")
         f = _build.function
         kern = _KERNELS[dev.index] = _Kernel(
-            forward=_build.function("bottom_k", "bottom_k_forward",
-                                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
-                                    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-                                    + [ctypes.c_void_p]),
-            backward=_build.function("bottom_k", "bottom_k_backward",
-                                     [ctypes.c_void_p, ctypes.c_longlong]
-                                     + [ctypes.c_void_p] * 4),
-            global_hist=f("bottom_k", "bottom_k_global_hist",
-                          [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
-                          + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
-            global_sums=f("bottom_k", "bottom_k_global_sums",
+            forward=f("bottom_k", "bottom_k_forward",
+                      [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong]
+                      + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+            backward=f("bottom_k", "bottom_k_backward",
+                       [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 4),
+            global_round=f("bottom_k", "bottom_k_global_round",
+                           [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2
+                           + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+            global_fold=f("bottom_k", "bottom_k_global_fold",
                           [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
                           + [ctypes.c_int, ctypes.c_void_p]),
             global_result=f("bottom_k", "bottom_k_global_result", [ctypes.c_void_p] * 3),
             max_blocks=blocks.value, stage_words=stage.value,
-            scratch_words=words(blocks.value), global_scratch_words=global_words(blocks.value))
+            scratch_words=words(blocks.value), global_blocks=gblocks.value,
+            global_layout=GlobalLayout(*layout))
     return kern
 
 
@@ -296,10 +319,10 @@ def _bottom_k_forward(values: torch.Tensor, keyed: torch.Tensor, select_num: tor
 
 
 class _GlobalBottomKSum(torch.autograd.Function):
-    """The global selection on the card: three histogram kernels, each
-    all-reduced, the sums kernel and its block reduction, their sums
-    all-reduced, then the result kernel; backward, the incoming gradient
-    all-reduced, then the single-process route's elementwise weights."""
+    """The global selection on the card: two round kernels, each all-reduced,
+    the fold kernel, all-reduced, then the result kernel; backward, the
+    incoming gradient all-reduced, then the single-process route's
+    elementwise weights."""
 
     @staticmethod
     def forward(ctx, values, keyed, select_num):
@@ -324,10 +347,9 @@ class _GlobalBottomKSum(torch.autograd.Function):
         return dvalues.view(ctx.shape), None, None
 
 
-# the global route's scratch (csrc/bottom_k.cu): the rounds' histograms
-# (int32 words from HIST_WORD, 2048 a round), then the four partial sums (f64
-# from PART_WORD: sum below, sum at, count below, count at)
-HIST_WORD, HIST_BINS, PART_WORD = 8, 2048, 8 + 3 * 2048
+def _check(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} failed: cudaError {rc}")
 
 
 def _bottom_k_global_forward(values: torch.Tensor, keyed: torch.Tensor,
@@ -345,27 +367,25 @@ def _bottom_k_global_forward(values: torch.Tensor, keyed: torch.Tensor,
         raise ValueError("values, keys and select_num must be on one device")
     keys, vals = keyed.contiguous(), values.contiguous()
     kern = _kernel(dev)
+    lay = kern.global_layout
     # one a call, as the single-process route's: the backward reads the
-    # threshold and the tie weight from it
-    scratch = torch.empty(kern.global_scratch_words, dtype=torch.int32, device=dev)
+    # threshold and the tie weight from it; round 0 zeroes what the route
+    # adds into
+    scratch = torch.empty(lay.words, dtype=torch.int32, device=dev)
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    for p in range(len(RADIX_DIGITS)):
-        with launch_device(dev):
-            rc = kern.global_hist(keys.data_ptr(), keys.numel(), select_num.data_ptr(),
-                         scratch.data_ptr(), p, kern.max_blocks, stream)
-        if rc != 0:
-            raise RuntimeError(f"bottom_k_global_hist failed: cudaError {rc}")
-        dist.all_reduce(scratch[HIST_WORD + p * HIST_BINS:HIST_WORD + (p + 1) * HIST_BINS])
+    args = (keys.data_ptr(), keys.numel(), select_num.data_ptr(), scratch.data_ptr())
     with launch_device(dev):
-        rc = kern.global_sums(keys.data_ptr(), vals.data_ptr(), keys.numel(), select_num.data_ptr(),
-                     scratch.data_ptr(), kern.max_blocks, stream)
-    if rc != 0:
-        raise RuntimeError(f"bottom_k_global_sums failed: cudaError {rc}")
-    dist.all_reduce(scratch[PART_WORD:PART_WORD + 8].view(torch.float64))
-    with launch_device(dev):
-        rc = kern.global_result(select_num.data_ptr(), scratch.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"bottom_k_global_result failed: cudaError {rc}")
+        for r, (first, bins) in enumerate(((lay.h0, lay.bins0), (lay.h1, lay.bins1))):
+            _check("bottom_k_global_round", kern.global_round(*args, r, kern.global_blocks,
+                                                              stream))
+            dist.all_reduce(scratch[first:first + bins])
+        _check("bottom_k_global_fold",
+               kern.global_fold(keys.data_ptr(), vals.data_ptr(), keys.numel(),
+                                select_num.data_ptr(), scratch.data_ptr(), kern.global_blocks,
+                                stream))
+        dist.all_reduce(scratch[lay.fold:lay.fold + 2 * lay.fold_len].view(torch.float64))
+        _check("bottom_k_global_result",
+               kern.global_result(select_num.data_ptr(), scratch.data_ptr(), stream))
     LAUNCHES["bottom_k_sum_global"] += 1
     result = scratch[SCRATCH_RESULT:SCRATCH_RESULT + 4].view(torch.float32)
     return result[0], keys, scratch

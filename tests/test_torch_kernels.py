@@ -573,6 +573,92 @@ def test_label_points_kernel_matches_plain(cuda):
     torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-6)
 
 
+def _misaligned(x):
+    """A contiguous copy of ``x`` that starts 8 bytes into a 16-byte word."""
+    buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    out = buf[2:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
+# P below a block's 256 points (1, 7) or past it (302, 304: a block's points
+# span rows and maps); coordinates 16-byte aligned or not
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("p", [1, 7, 302, 304])
+def test_label_points_edges_match_plain(cuda, p, aligned):
+    """Both entries at coordinates exactly 0 and 1, on pixel centres and edges
+    and off the map, on maps with -1 and 255 labels (a class no row asks
+    for), against the plain versions; the rows entry's points run across
+    rows and maps in one thread."""
+    rng = np.random.RandomState(p + 10 * aligned)
+    k, b, h, w = 7, 3, 11, 13
+    labels = rng.randint(-1, k + 1, (b, h, w)).astype(np.int32)
+    labels[:, :, :2] = 255
+    labels[:, 0] = -1
+    lab = torch.from_numpy(labels).to(cuda)
+    edges = np.array([0.0, 1.0, -0.25, 1.25, 0.5 / w, 1 - 0.5 / w, 2.0 / w, 0.5], np.float32)
+
+    def coords(rows):
+        c = (rng.rand(rows * p, 2) * 1.4 - 0.2).astype(np.float32)
+        grid = np.stack(np.meshgrid(edges, edges), -1).reshape(-1, 2)[:len(c)]
+        c[:len(grid)] = grid
+        t = torch.from_numpy(c.reshape(rows, p, 2)).to(cuda)
+        return t if aligned else _misaligned(t)
+
+    xy = coords(b)
+    got = criterion.sample_target_points(lab, xy, k)
+    want = criterion.sample_target_points_plain(lab, xy, k)
+    rows = coords(2 * k)
+    ids = torch.arange(k, device=cuda).repeat(2)
+    got_r = criterion.sample_class_points(lab, rows, ids, rows_per_map=k, map_offset=1)
+    want_r = criterion.sample_class_points_plain(lab, rows, ids, rows_per_map=k, map_offset=1)
+    torch.cuda.synchronize()
+    # a sum of at most four corner weights in f32, in another order
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_label_points_outside_the_codes_match_plain(cuda):
+    """Classes the packed codes cannot hold (255 and above, below 0) read the
+    labels themselves: the classes entry with 260 classes, the rows entry
+    with class ids -1, 255 and 300, on maps that hold those labels."""
+    rng = np.random.RandomState(12)
+    labels = rng.choice([-1, 0, 3, 254, 255, 259, 300], (2, 9, 14)).astype(np.int32)
+    lab = torch.from_numpy(labels).to(cuda)
+    xy = torch.from_numpy((rng.rand(2, 64, 2) * 1.2 - 0.1).astype(np.float32)).to(cuda)
+    got = criterion.sample_target_points(lab, xy, 260)
+    want = criterion.sample_target_points_plain(lab, xy, 260)
+    ids = torch.tensor([-1, 255, 300, 3, 254, 259], device=cuda)
+    rows = torch.from_numpy((rng.rand(6, 64, 2) * 1.2 - 0.1).astype(np.float32)).to(cuda)
+    got_r = criterion.sample_class_points(lab, rows, ids, rows_per_map=3)
+    want_r = criterion.sample_class_points_plain(lab, rows, ids, rows_per_map=3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+    torch.testing.assert_close(got_r, want_r, rtol=0, atol=1e-6)
+    assert float(want[:, 259].max()) > 0.5
+    assert all(float(want_r[i].max()) > 0.5 for i in range(6))
+
+
+# (maps, height, width): odd widths (rows of codes padded to a multiple of 4),
+# a one-row map, the stage-2 maps
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 11, 13), (2, 1, 7), (1, 5, 1), (16, 704, 704)])
+def test_label_quads_match_plain(cuda, shape):
+    """The pack writes the plain version's words bit for bit: every label in
+    [0, 254] its own code, -1, 255 and above 255, and corners off the map,
+    255."""
+    rng = np.random.RandomState(13)
+    labels = rng.choice([-1, 0, 1, 18, 200, 254, 255, 999], shape).astype(np.int32)
+    lab = torch.from_numpy(labels).to(cuda)
+    got = criterion.label_quads(lab)
+    want = criterion.label_quads_plain(lab)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_label_points_instance_slots_match_plain(cuda):
     """The instance criterion's shapes: segment id maps of 8 unpadded 700x700
@@ -762,6 +848,82 @@ def test_bottom_k_replays_in_a_cuda_graph(cuda):
         torch.cuda.synchronize()
         assert int(threshold) & 0xFFFFFFFF == int(kth)
         np.testing.assert_allclose(float(out), float(want), rtol=1e-6, atol=1e-6)
+
+
+@pytest.fixture
+def nccl_world_1(cuda):
+    """A process group of one rank over NCCL on the card, torn down after."""
+    import socket
+
+    from multishiftseg_torch.core import mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mesh.initialize_distributed(backend="nccl", init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0, local_rank=torch.cuda.current_device())
+    yield cuda
+    mesh.shutdown_distributed()
+
+
+# "main": the main path's size (8 x 700 x 700); the rest 5003 values with
+# many ties, "above_n": k > n (threshold 0xFFFFFFFF)
+GLOBAL_BOTTOM_K_CASES = ["main", "ties", "zero", "one", "above_n"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GLOBAL_BOTTOM_K_CASES)
+def test_global_bottom_k_matches_plain(nccl_world_1, case):
+    """The global route in a group of one rank: the threshold is the k-th
+    smallest key (0 for k = 0, 0xFFFFFFFF for k > n), the sum within 1e-6
+    of the plain version's, the gradient weights bit for bit."""
+    cuda = nccl_world_1
+    rng = np.random.RandomState(11)
+    n = 8 * 700 * 700 if case == "main" else 5003
+    vals = (rng.gamma(1.0, 2.0, n) if case == "main"
+            else np.floor(rng.rand(n) * 64) / 16).astype(np.float32)
+    valid = rng.rand(n) > 0.2
+    keyed = np.where(valid, vals, np.inf).astype(np.float32)
+    count = int(valid.sum())
+    k = {"main": int(0.8 * count), "ties": int(0.8 * count), "zero": 0, "one": 1,
+         "above_n": n + 3}[case]
+    sn = torch.tensor(k, dtype=torch.int32, device=cuda)
+    kt = torch.from_numpy(keyed).to(cuda)
+    sums, grads = [], []
+    for fn in (rcl.bottom_k_sum_global, rcl.bottom_k_sum_global_plain):
+        v = torch.from_numpy(vals).to(cuda).requires_grad_()
+        out = fn(v, kt, sn)
+        out.backward(torch.tensor(1.5, device=cuda))
+        sums.append(float(out.detach()))
+        grads.append(v.grad)
+    _, threshold, result = rcl.bottom_k_sum_global_cuda(torch.from_numpy(vals).to(cuda), kt, sn)
+    torch.cuda.synchronize()
+    bits = np.sort(keyed.view(np.uint32))
+    want_t = 0 if k <= 0 else (0xFFFFFFFF if k > n else int(bits[k - 1]))
+    assert int(threshold.item()) & 0xFFFFFFFF == want_t
+    assert float(result[0]) == sums[0]
+    assert abs(sums[0] - sums[1]) <= 1e-6 * max(abs(sums[1]), 1.0)
+    assert torch.equal(grads[0], grads[1])
+
+
+@pytest.mark.cuda
+def test_global_bottom_k_is_four_kernels_and_three_all_reduces(nccl_world_1, monkeypatch):
+    """A call of the global route at the main-path size runs at most four
+    device kernels (no fill, no copy) between its three all-reduces."""
+    cuda = nccl_world_1
+    g = torch.Generator(device=cuda).manual_seed(44)
+    n = 8 * 700 * 700
+    vals = -torch.rand(n, generator=g, device=cuda).log() * 2
+    keyed = torch.where(torch.rand(n, generator=g, device=cuda) > 0.2, vals,
+                        torch.full_like(vals, float("inf")))
+    sn = (0.8 * torch.isfinite(keyed).sum()).to(torch.int32)
+    reduced = []
+    all_reduce = torch.distributed.all_reduce
+    monkeypatch.setattr(torch.distributed, "all_reduce",
+                        lambda t, *a, **kw: (reduced.append(t.dtype), all_reduce(t, *a, **kw))[1])
+    launches, kernels = _launches(lambda: rcl.bottom_k_sum_global_cuda(vals, keyed, sn))
+    assert launches <= 40 and not any("memset" in k.lower() for k in kernels), (launches, kernels)
+    assert reduced == [torch.int32, torch.int32, torch.float64] * 11
 
 
 @pytest.mark.cuda
@@ -1598,6 +1760,15 @@ def test_new_kernels_take_the_card_route_off_the_cpu(monkeypatch):
     with pytest.raises(_Sentinel, match="bottom_k"):
         rcl._bottom_k_sum(v, torch.zeros(16, device="meta"),
                           torch.zeros((), dtype=torch.int32, device="meta"))
+    with pytest.raises(_Sentinel, match="bottom_k"):
+        rcl.bottom_k_sum_global(v, torch.zeros(16, device="meta"),
+                                torch.zeros((), dtype=torch.int32, device="meta"))
+    criterion._LP_ENTRIES.clear()
+    lab, xy = torch.zeros(2, 5, 6, device="meta"), torch.zeros(2, 8, 2, device="meta")
+    with pytest.raises(_Sentinel, match="label_points"):
+        criterion.sample_target_points(lab, xy, 3)
+    with pytest.raises(_Sentinel, match="label_points"):
+        criterion.sample_class_points(lab, xy, torch.zeros(2, device="meta"))
     masks, probs = torch.zeros(1, 4, 3, 5, device="meta"), torch.zeros(1, 4, 6, device="meta")
     with _CardRoute(), pytest.raises(_Sentinel, match="mask_scores"):
         scores.mask_scores_backward(masks, probs, torch.zeros(1, 6, 10, device="meta"),
@@ -1612,6 +1783,85 @@ def test_new_kernels_take_the_card_route_off_the_cpu(monkeypatch):
         ood_metrics.range_histograms(s_, l_, 8)
     with pytest.raises(_Sentinel, match="ood_hist"):
         ood_metrics.BinnedOODMeter(num_bins=8).update(s_, l_)
+
+
+def test_label_quads_plain_holds_the_corner_labels():
+    """The plain pack's word (qy, qx) holds the codes of the 2x2 block at
+    pixel (qx - 1, qy - 1), in JAX's corner order: a label in [0, 254] as
+    itself, anything else and a corner off the map as 255; rows padded to a
+    multiple of 4 words."""
+    rng = np.random.RandomState(14)
+    labels = rng.choice([-1, 0, 7, 254, 255, 256], (2, 6, 9)).astype(np.int32)
+    quads = criterion.label_quads_plain(torch.from_numpy(labels)).numpy().view(np.uint32)
+    assert quads.shape == (2, 7, 12)
+
+    def code(b, x, y):
+        if not (0 <= x < 9 and 0 <= y < 6):
+            return 255
+        lab = labels[b, y, x]
+        return int(lab) if 0 <= lab < 255 else 255
+
+    for b in range(2):
+        for qy in range(7):
+            for qx in range(12):
+                x0, y0 = qx - 1, qy - 1
+                want = [code(b, x0, y0), code(b, x0 + 1, y0), code(b, x0, y0 + 1),
+                        code(b, x0 + 1, y0 + 1)]
+                word = int(quads[b, qy, qx])
+                assert [(word >> (8 * q)) & 255 for q in range(4)] == want, (b, qy, qx)
+
+
+def test_label_point_bound_counts_the_code_words_read():
+    """``chip_smoke.code_word_index`` finds the word that holds each point's
+    four corners (their codes, 255 off the map) wherever a corner is on the
+    map, and ``code_sector_bytes`` counts each 32-byte sector of those words
+    once."""
+    rng = np.random.RandomState(15)
+    labels = torch.from_numpy(rng.randint(-1, 5, (3, 10, 21)).astype(np.int32))
+    quads = criterion.label_quads_plain(labels)
+    coords = torch.from_numpy((rng.rand(6, 80, 2) * 1.4 - 0.2).astype(np.float32))
+    maps = torch.tensor([0, 0, 1, 2, 2, 2])
+    idx, reads = chip_smoke.code_word_index(labels, quads, coords, maps)
+    cl, _ = criterion._corner_gather_labels(labels[maps], coords)
+    codes = torch.where((cl >= 0) & (cl < 255), cl, torch.full_like(cl, 255))
+    words = torch.take(quads, idx).view(-1)
+    got = torch.stack([(words >> (8 * q)) & 255 for q in range(4)], -1).view(codes.shape)
+    assert bool(reads.any()) and not bool(reads.all())
+    assert torch.equal(got[reads], codes[reads])
+    assert bool((codes[~reads] == 255).all())
+    sectors = {int(i) // 8 for i in idx[reads]}
+    assert chip_smoke.code_sector_bytes(torch, labels, quads, coords, maps) == 32 * len(sectors)
+
+
+def test_global_bottom_k_route_is_four_launches_and_three_all_reduces(monkeypatch):
+    """The global route's host sequence (its entries stubbed, meta tensors):
+    round 0, its histogram all-reduced, round 1, its histogram all-reduced,
+    the fold, its f64 sums and counts all-reduced, the result; one launch
+    counted."""
+    import contextlib
+
+    calls = []
+
+    def entry(name):
+        return lambda *a: (calls.append((name, a[4] if name == "round" else None)), 0)[1]
+
+    lay = rcl.GlobalLayout(h0=8, bins0=4096, h1=4104, bins1=4096, fold=8200, fold_len=514,
+                           words=8200 + 2 * 514 * 3)
+    kern = rcl._Kernel(forward=None, backward=None, global_round=entry("round"),
+                       global_fold=entry("fold"), global_result=entry("result"), max_blocks=132,
+                       stage_words=0, scratch_words=0, global_blocks=16, global_layout=lay)
+    monkeypatch.setattr(rcl, "_kernel", lambda dev: kern)
+    monkeypatch.setattr(rcl, "launch_device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda i: 0, raising=False)
+    monkeypatch.setattr(rcl.dist, "all_reduce",
+                        lambda t: calls.append(("all_reduce", (t.numel(), t.dtype))))
+    before = rcl.LAUNCHES["bottom_k_sum_global"]
+    v = torch.zeros(100, device="meta")
+    rcl.bottom_k_sum_global_cuda(v, v, torch.zeros((), dtype=torch.int32, device="meta"))
+    assert calls == [("round", 0), ("all_reduce", (4096, torch.int32)), ("round", 1),
+                     ("all_reduce", (4096, torch.int32)), ("fold", None),
+                     ("all_reduce", (514, torch.float64)), ("result", None)]
+    assert rcl.LAUNCHES["bottom_k_sum_global"] == before + 1
 
 
 def test_new_kernels_stay_off_the_cpu(monkeypatch):

@@ -292,24 +292,62 @@ def test_point_sample_matches_jax(rng):
     np.testing.assert_allclose(nchw, ref.transpose(0, 2, 1), rtol=1e-5, atol=1e-6)
 
 
-def test_label_points_match_jax(rng):
-    """Both entries on label maps with ignored ids, void and points off the map;
-    the row entry indexes maps by row // K from an offset instead of repeating
-    them."""
+def _samples_from_codes(labels, coords, k):
+    """The card's sampling from the packed corner codes, in numpy: each
+    point's block word of ``label_quads`` (all 255 where no corner is on the
+    map), its four codes against each class, the bilinear weights summed in
+    JAX's corner order in f32. labels [B, H, W]; coords [B, P, 2] -> [B, K, P]."""
+    quads = criterion.label_quads_plain(torch.from_numpy(labels)).numpy().view(np.uint32)
+    b, h, w = labels.shape
+    x = coords[..., 0] * np.float32(w) - np.float32(0.5)
+    y = coords[..., 1] * np.float32(h) - np.float32(0.5)
+    x0, y0 = np.floor(x), np.floor(y)
+    wx, wy = x - x0, y - y0
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    one = np.float32(1)
+    weights = [(one - wx) * (one - wy), wx * (one - wy), (one - wx) * wy, wx * wy]
+    inside = (x0 >= -1) & (x0 < w) & (y0 >= -1) & (y0 < h)
+    word = np.where(inside, quads[np.arange(b)[:, None], (y0 + 1).clip(0, h),
+                                  (x0 + 1).clip(0, w)], np.uint32(0xFFFFFFFF))
+    out = np.zeros((b, k, coords.shape[1]), np.float32)
+    for q, (dx, dy) in enumerate(((0, 0), (1, 0), (0, 1), (1, 1))):
+        on = (x0 + dx >= 0) & (x0 + dx < w) & (y0 + dy >= 0) & (y0 + dy < h)
+        wq = np.where(on, weights[q], np.float32(0))
+        codes = (word >> np.uint32(8 * q)) & np.uint32(255)
+        out += np.where(codes[:, None, :] == np.arange(k)[None, :, None], wq[:, None, :],
+                        np.float32(0))
+    return out
+
+
+@pytest.mark.parametrize("entry", ["classes", "rows", "packed_codes"])
+def test_label_points_match_jax(rng, entry):
+    """Both entries on label maps with ignored ids, void and points off the map:
+    every class at each map's points, and one class a row, the rows entry indexing maps by row // K from an
+    offset instead of repeating them; and the samples the card takes from
+    the packed corner codes (``label_quads``), emulated here."""
     k = 5
     labels = rng.randint(0, 7, (4, 9, 13)).astype(np.int32)
     labels[:, 0] = 255
     coords = (rng.rand(4, 30, 2) * 1.2 - 0.1).astype(np.float32)
-    ours = criterion.sample_target_points(torch.from_numpy(labels), torch.from_numpy(coords), k)
-    ref = jax_criterion.sample_target_points(jnp.asarray(labels), jnp.asarray(coords), k)
-    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
-    half = 2
-    rows = (rng.rand(half * k, 30, 2) * 1.2 - 0.1).astype(np.float32)
-    ids = np.tile(np.arange(k), half).astype(np.int32)
-    ours = criterion.sample_class_points(torch.from_numpy(labels), torch.from_numpy(rows),
-                                         torch.from_numpy(ids), rows_per_map=k, map_offset=2)
-    ref = jax_criterion.sample_class_points(jnp.repeat(jnp.asarray(labels[2:]), k, axis=0),
-                                            jnp.asarray(rows), jnp.asarray(ids))
+    if entry == "classes":
+        ours = criterion.sample_target_points(torch.from_numpy(labels),
+                                              torch.from_numpy(coords), k)
+        ref = jax_criterion.sample_target_points(jnp.asarray(labels), jnp.asarray(coords), k)
+    elif entry == "packed_codes":
+        labels[1, 2:4] = -1  # ignored pixels, as the instance recipes' id maps hold
+        ours = _samples_from_codes(labels, coords, k)
+        ref = jax_criterion.sample_target_points(jnp.asarray(labels), jnp.asarray(coords), k)
+        np.testing.assert_allclose(ours, np.asarray(ref), rtol=0, atol=1e-6)
+        return
+    else:
+        half = 2
+        rows = (rng.rand(half * k, 30, 2) * 1.2 - 0.1).astype(np.float32)
+        ids = np.tile(np.arange(k), half).astype(np.int32)
+        ours = criterion.sample_class_points(torch.from_numpy(labels), torch.from_numpy(rows),
+                                             torch.from_numpy(ids), rows_per_map=k,
+                                             map_offset=2)
+        ref = jax_criterion.sample_class_points(jnp.repeat(jnp.asarray(labels[2:]), k, axis=0),
+                                                jnp.asarray(rows), jnp.asarray(ids))
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=0, atol=1e-6)
     assert np.asarray(ref).max() > 0.5
 
